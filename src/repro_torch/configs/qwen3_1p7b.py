@@ -1,0 +1,19 @@
+"""qwen3-1.7b [dense] — qk_norm, GQA [hf:Qwen/Qwen3 family]."""
+from repro_torch.configs.base import ModelConfig
+
+
+def get_config() -> ModelConfig:
+    return ModelConfig(
+        name="qwen3-1.7b",
+        family="dense",
+        num_layers=28,
+        d_model=2048,
+        num_heads=16,
+        num_kv_heads=8,
+        head_dim=128,
+        d_ff=6144,
+        vocab_size=151936,
+        qk_norm=True,
+        rope_theta=1e6,
+        tie_embeddings=True,
+    )

@@ -1,0 +1,103 @@
+"""The continuous-batching engine's steps: one decode tick over the whole
+slot batch and the grouped admission prefill, over the dense or the
+paged KV layout. The reference jits these factories; here they are
+plain calls that queue the device work (the engine synchronizes once
+per step when it reads the tokens back).
+"""
+from __future__ import annotations
+
+import torch
+
+
+class StepCache:
+    """The engine's steps, built once per (kind, paged) for one model, so
+    engines serving the same model share them."""
+
+    def __init__(self, model):
+        self.model = model
+        self._fns = {}
+
+    def get(self, kind: str, *, paged: bool = False):
+        key = (kind, bool(paged))
+        fn = self._fns.get(key)
+        if fn is None:
+            if kind == "tick":
+                fn = make_engine_tick(self.model, paged=paged)
+            elif kind == "prefill":
+                fn = make_engine_prefill(self.model, paged=paged)
+            elif kind == "page_copy":
+                from repro_torch.serve.kv_cache import make_page_copy
+                fn = make_page_copy()
+            else:
+                raise ValueError(f"unknown step kind {kind!r}")
+            self._fns[key] = fn
+        return fn
+
+
+def make_engine_tick(model, *, paged: bool = False):
+    """One decode tick over the whole slot batch.
+
+    Dense layout: idle slots freeze token AND write index, so every tick
+    rewrites the same K/V site with the same value — the serving-tier
+    dead/silent store the detectors trap on. Paged layout: idle slots'
+    write positions drop to a sentinel (-2) below the page-table extent,
+    so their store is dropped — the detected waste, eliminated."""
+
+    def tick(params, cache, tokens, active):
+        idx0 = model.cache_index(cache)            # (B,)
+        stepped = cache
+        if paged:
+            stepped = model.with_cache_index(
+                cache, torch.where(active, idx0, -2))
+        logits, new_cache = model.decode_step(params, stepped, tokens)
+        nxt = logits[:, -1].argmax(dim=-1).to(torch.int32)
+        nxt = torch.where(active[:, None], nxt[:, None], tokens)
+        new_cache = model.with_cache_index(
+            new_cache, torch.where(active, idx0 + 1, idx0))
+        return nxt, new_cache
+    return tick
+
+
+def make_engine_prefill(model, *, paged: bool = False):
+    """Grouped admission prefill.
+
+    toks: (B,P) right-padded prompts — full prompts in dense mode, the
+    uncached suffixes (prompt minus the reused prefix) in paged mode;
+    admit: (B,) bool; start: (B,) cached-prefix lengths (all zero in
+    dense mode); lengths: (B,) full prompt lengths; prev_tokens: (B,1)
+    tokens of non-admitted rows, passed through untouched.
+
+    Dense: every row's cache is refilled from position 0 and the rows of
+    non-admitted slots are restored afterwards (the reference merges the
+    refilled cache back under the admit mask). Paged: non-admitted rows
+    get the sentinel index -(P+1), so their stores all drop; only the
+    write indices are restored."""
+
+    def prefill(params, cache, toks, admit, start, lengths, prev_tokens):
+        B, P = toks.shape
+        idx0 = model.cache_index(cache)
+        saved = None
+        if paged:
+            fresh = model.with_cache_index(
+                cache, torch.where(admit, start, -(P + 1)))
+        else:
+            fresh = model.with_cache_index(
+                cache, torch.zeros((B,), dtype=torch.int32,
+                                   device=toks.device))
+            saved = {name: {key: sub[key].clone() for key in ("k", "v")}
+                     for name, sub in cache["main"].items()}
+        logits, filled = model.prefill(params, fresh, toks)
+        if saved is not None:
+            keep = admit.view(1, -1, 1, 1, 1)
+            for name, sub in filled["main"].items():
+                for key in ("k", "v"):
+                    sub[key].copy_(torch.where(keep, sub[key],
+                                               saved[name][key]))
+        merged = model.with_cache_index(
+            filled, torch.where(admit, lengths, idx0))
+        sel_pos = (lengths - start - 1).clamp(0, P - 1).long()
+        rows = torch.arange(B, device=toks.device)
+        first = logits[rows, sel_pos].argmax(dim=-1).to(torch.int32)
+        toks_out = torch.where(admit[:, None], first[:, None], prev_tokens)
+        return toks_out, merged
+    return prefill

@@ -19,5 +19,8 @@ def pytest_addoption(parser):
 
 
 def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU and nvcc (the PyTorch port's "
+        "hand-written kernels); skips without them")
     if config.getoption("--pallas-interpret"):
         os.environ["REPRO_USE_PALLAS"] = "1"

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch port (``src/repro_torch``) on one
-NVIDIA GPU:
+NVIDIA GPU: the serving path and the training path.
 
     python3 chip_smoke.py
 
@@ -28,7 +28,28 @@ NVIDIA GPU:
    config in float32, the same greedy tokens and store counts from the
    kernels on the card as from the plain versions on the CPU; and traces
    one admission step and one decode tick at full width with
-   torch.profiler (device time by kernel kind, device busy share).
+   torch.profiler (device time by kernel kind, device busy share);
+4. holds the training kernels against their plain versions on the card:
+   flash attention forward and backward at the training path's shapes
+   (B 4, S 1024, Hq 16, Hkv 8, D 128) in bfloat16 and float32, and at a
+   ragged length, Sq != Skv and without the causal mask (out and lse
+   within 1e-4 / 2e-2, dq, dk, dv within 2e-4 / 3e-2 of the plain
+   gradient's largest magnitude, at float32 / bfloat16); the silent
+   compare on a bfloat16 tensor the size of the embedding leaf, on an
+   f32 leaf and on edge cases (counts equal exactly); and times them as
+   in 2 (the library yardsticks: SDPA forward, SDPA forward + backward
+   through autograd; none for the silent compare);
+5. runs the training path at full width: ``repro_torch.launch.train.run``
+   for qwen3-1.7b, 4 steps of batch 4 x 1024 tokens with the training
+   detectors on (random weights from seed 0, 28 layers), with the
+   kernels' launch counts set to 0 just before and read just after, and
+   checks the launches (28 forward and 28 backward flash launches per
+   step, one silent compare per checked parameter store), finite losses
+   starting near ln(vocab) and a tier-3 training profile; then times
+   train steps with the detectors on (tokens/s) and traces one with
+   torch.profiler; and, on the smoke config in float32, checks that 4
+   train steps with the kernels on the card give the losses, grad norms
+   and detector findings of the plain versions on the CPU.
 
 The line before the last lists the card; the last line is the JSON
 result. Any failure exits non-zero; without CUDA, or without the rest of
@@ -44,6 +65,8 @@ NEG_INF = -1e30
 HBM_BYTES_S = 3.35e12          # H100 SXM device memory rate
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}   # dense, no tensor-core TF32
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+# flash attention: (out and lse, gradients relative to their largest value)
+FLASH_TOL = {"float32": (1e-4, 2e-4), "bfloat16": (2e-2, 3e-2)}
 
 
 def smi_line() -> str:
@@ -304,6 +327,346 @@ def time_library(torch, timer, q, kn, vn, pool_k, pool_v, pt, idx, S):
 
 
 # ----------------------------------------------------------------------
+# phase 4: the training kernels against their plain versions
+# ----------------------------------------------------------------------
+TB, TSEQ = 4, 1024                        # the training path's batch
+
+
+def flash_case(torch, dtype, sq, skv, causal, seed):
+    """Forward and backward kernels against their plain versions on one
+    set of inputs (the backward versions both get the kernel's out and
+    lse). Returns (out/lse error, relative gradient error, inputs)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_backward, flash_attention_forward)
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device="cuda").to(dt)
+    q, k, v = (randn(TB, sq, HQ, D), randn(TB, skv, HKV, D),
+               randn(TB, skv, HKV, D))
+    dout = randn(TB, sq, HQ, D)
+    out, lse = flash_attention_forward(q, k, v, causal)
+    grads = flash_attention_backward(q, k, v, out, lse, dout, causal)
+    want_out, want_lse = ref.flash_attention_ref(q, k, v, causal)
+    want = ref.flash_attention_bwd_ref(q, k, v, out, lse, dout, causal)
+    torch.cuda.synchronize()
+    err = max(float((out.float() - want_out.float()).abs().max()),
+              float((lse - want_lse).abs().max()))
+    err_g = max(float((a.float() - b.float()).abs().max())
+                / max(float(b.float().abs().max()), 1e-30)
+                for a, b in zip(grads, want))
+    tol, tol_g = FLASH_TOL[dtype]
+    print(f"[kernels] flash attention {dtype:8s} Sq {sq:4d} Skv {skv:4d} "
+          f"causal {causal!s:5s} | out/lse max |err| {err:.3e} (tol {tol}) "
+          f"| dq/dk/dv max rel err {err_g:.3e} (tol {tol_g})", flush=True)
+    if not (err <= tol and err_g <= tol_g):
+        raise AssertionError(f"flash attention ({dtype}, {sq}x{skv}, "
+                             f"causal {causal}) disagrees with its plain "
+                             f"version")
+    return err, err_g, (q, k, v, out, lse, dout)
+
+
+def flash_bytes_flops(sq, skv, isz, causal, backward):
+    """Least bytes and flops of one call: inputs read once, outputs
+    written once; 4 D flops per visible (query, key) pair forward (two
+    products), 10 D backward (the scores again, dP, dV, dK, dQ)."""
+    pairs = TB * HQ * (sum(min(r + 1, skv) for r in range(sq)) if causal
+                       else sq * skv)
+    qo = TB * sq * HQ * D * isz
+    kv = TB * skv * HKV * D * isz
+    lse = TB * HQ * sq * 4
+    if backward:       # q k v out dout lse in; dq dk dv out
+        return 3 * qo + 2 * kv + lse + qo + 2 * kv, 10 * D * pairs
+    return 2 * qo + 2 * kv + lse, 4 * D * pairs
+
+
+def bound(nbytes, flops, peak):
+    t_bytes = nbytes / HBM_BYTES_S * 1e3
+    t_ops = flops / peak * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
+def check_flash(torch, timer):
+    """Phase 4a. The training shapes in both dtypes, then ragged, unequal
+    and non-causal cases; timed at the training path's own inputs
+    (bfloat16, causal). Returns the forward and backward JSON entries."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_backward, flash_attention_forward)
+    for dtype in ("float32", "bfloat16"):
+        for sq, skv, causal in ((TSEQ, TSEQ, True), (1000, 1000, True),
+                                (1000, TSEQ, True), (TSEQ, 1000, True),
+                                (1000, TSEQ, False)):
+            flash_case(torch, dtype, sq, skv, causal, seed=sq + skv)
+    err, err_g, (q, k, v, out, lse, dout) = flash_case(
+        torch, "bfloat16", TSEQ, TSEQ, True, seed=1)
+    fwd_ms = timer(lambda: flash_attention_forward(q, k, v, True))
+    bwd_ms = timer(lambda: flash_attention_backward(q, k, v, out, lse, dout,
+                                                    True))
+    fwd_plain = timer(lambda: ref.flash_attention_ref(q, k, v, True))
+    bwd_plain = timer(lambda: ref.flash_attention_bwd_ref(q, k, v, out, lse,
+                                                          dout, True))
+    # SDPA on the (B, H, S, D) layout, transposed outside the timed call
+    qt, kt, vt, dt_ = (x.transpose(1, 2).contiguous()
+                       for x in (q, k, v, dout))
+
+    def sdpa(a, b, c):
+        return F.scaled_dot_product_attention(a, b, c, is_causal=True,
+                                              enable_gqa=True)
+    fwd_lib = timer(lambda: sdpa(qt, kt, vt))
+    leaves = [x.detach().requires_grad_(True) for x in (qt, kt, vt)]
+    bwd_lib = timer(lambda: torch.autograd.backward(sdpa(*leaves), dt_))
+    isz = q.element_size()
+    entries = {}
+    for key, ms, plain_ms, lib_ms, e, back in (
+            ("flash_attention_fwd", fwd_ms, fwd_plain, fwd_lib, err, False),
+            ("flash_attention_bwd", bwd_ms, bwd_plain, bwd_lib, err_g, True)):
+        nbytes, flops = flash_bytes_flops(TSEQ, TSEQ, isz, True, back)
+        b_ms, by = bound(nbytes, flops, PEAK_FLOPS["bfloat16"])
+        entries[key] = {
+            "name": key, "route": "cuda",
+            "source": "src/repro_torch/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:93",
+            "max_abs_err": e, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": by, "library_ms": lib_ms}
+        print(f"[kernels] {key} on the training inputs (B {TB}, S {TSEQ}, "
+              f"Hq {HQ}, Hkv {HKV}, D {D}, bf16, causal): kernel "
+              f"{ms:.4f} ms | plain {plain_ms:.4f} ms | "
+              f"{'SDPA fwd+bwd' if back else 'SDPA fwd'} {lib_ms:.4f} ms | "
+              f"bound {b_ms:.4f} ms ({by}: {nbytes / 1e6:.2f} MB, "
+              f"{flops / 1e9:.3f} GFLOP)", flush=True)
+    return entries
+
+
+def check_silent(torch, timer):
+    """Phase 4b. Counts equal exactly on the embedding leaf's size in
+    bfloat16, an f32 leaf, and edge cases; timed on the embedding leaf at
+    the detectors' tolerance. Returns the JSON entry."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.silent_compare import silent_compare
+    g = torch.Generator(device="cuda").manual_seed(7)
+
+    def pair(shape, dtype):
+        """A leaf before and after a step that moves a third of the
+        elements by ~1e-3 relative and redraws a seventh."""
+        a = torch.randn(shape, generator=g, device="cuda") * 0.02
+        b = a.clone().reshape(-1)
+        b[::3] *= 1 + 1e-2 * torch.randn(b[::3].shape, generator=g,
+                                         device="cuda")
+        b[::7] = 0.02 * torch.randn(b[::7].shape, generator=g, device="cuda")
+        return a.to(dtype), b.reshape(shape).to(dtype)
+    special = torch.tensor([float("nan"), 0.0, -0.0, float("inf"),
+                            -float("inf"), 1e-40, -1e-40, 3e-39, 1.0],
+                           device="cuda")
+    ea = torch.randn(4096 * 5 + 77, generator=g, device="cuda")
+    eb = ea.clone()
+    n = special.numel()
+    ea[:n], eb[:n] = special, special.flip(0)
+    ea[n:2 * n], eb[n:2 * n] = special, special
+    ea[-n:], eb[-n:] = special, special * (1 + 1e-3)
+    cases = [("embedding leaf bf16", *pair((152064, 2048), torch.bfloat16)),
+             ("f32 leaf", *pair((28, 2048, 2048), torch.float32)),
+             ("edge cases f32", ea, eb),
+             ("edge cases bf16", ea.to(torch.bfloat16), eb.to(torch.bfloat16))]
+    for name, a, b in cases:
+        for tol in (0.0, 0.01):
+            got = int(silent_compare(a, b, tol))
+            want = int(ref.silent_compare_ref(a, b, tol))
+            torch.cuda.synchronize()
+            print(f"[kernels] silent_compare {name:20s} n {a.numel():10d} "
+                  f"tol {tol}: kernel {got} plain {want}", flush=True)
+            if got != want:
+                raise AssertionError(f"silent_compare {name} tol {tol}: "
+                                     f"{got} != {want}")
+    _, a, b = cases[0]
+    ms = timer(lambda: silent_compare(a, b, 0.01))
+    plain_ms = timer(lambda: ref.silent_compare_ref(a, b, 0.01))
+    nbytes = 2 * a.numel() * a.element_size()
+    b_ms, by = bound(nbytes, 0, PEAK_FLOPS["bfloat16"])
+    print(f"[kernels] silent_compare on the embedding leaf (152064 x 2048 "
+          f"bf16, tol 0.01): kernel {ms:.4f} ms | plain {plain_ms:.4f} ms | "
+          f"no single PyTorch call computes this predicate (isclose has "
+          f"another tolerance rule) | bound {b_ms:.4f} ms ({by}: "
+          f"{nbytes / 1e6:.2f} MB)", flush=True)
+    return {"name": "silent_compare", "route": "triton",
+            "source": "src/repro_torch/kernels/silent_compare.py",
+            "replaces": "src/repro/kernels/silent_compare.py:38",
+            "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": by, "library_ms": None}
+
+
+# ----------------------------------------------------------------------
+# phase 5: the training path
+# ----------------------------------------------------------------------
+TRAIN_STEPS = 4
+
+
+def train_path(torch, np):
+    """``launch.train.run`` at full width with the detectors on; the
+    training kernels' launch counts are set to 0 just before and read
+    just after. Returns the launches."""
+    import math
+    import repro_torch.kernels.flash_attention as fa
+    import repro_torch.kernels.silent_compare as sc
+    from repro_torch.configs import registry
+    from repro_torch.launch.train import run
+
+    cfg = registry.get_config("qwen3-1.7b")
+    counters = (fa.flash_attention_forward, fa.flash_attention_backward,
+                sc.silent_compare)
+    for c in counters:
+        c.launches = 0
+    t0 = time.perf_counter()
+    losses, merged = run("qwen3-1.7b", smoke=False, steps=TRAIN_STEPS,
+                         batch=TB, seq=TSEQ, profile=True, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"flash_attention_fwd": fa.flash_attention_forward.launches,
+                "flash_attention_bwd": fa.flash_attention_backward.launches,
+                "silent_compare": sc.silent_compare.launches}
+    checked = merged.checked.get("silent_param_store", 0)
+    print(f"[train] qwen3-1.7b full width, {TRAIN_STEPS} steps of {TB} x "
+          f"{TSEQ} tokens, detectors on: {wall:.1f} s including set-up; "
+          f"launches {launches}; losses {losses}; profile tiers "
+          f"{merged.tiers}, checked {dict(sorted(merged.checked.items()))}, "
+          f"flagged {dict(sorted(merged.flagged.items()))}; peak device "
+          f"memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB",
+          flush=True)
+    layers = cfg.num_layers
+    assert launches["flash_attention_fwd"] == layers * TRAIN_STEPS, launches
+    assert launches["flash_attention_bwd"] == layers * TRAIN_STEPS, launches
+    assert launches["silent_compare"] == checked > 0, (launches, checked)
+    assert all(math.isfinite(x) for x in losses), losses
+    assert abs(losses[0] - math.log(cfg.padded_vocab)) < 3.0, losses
+    assert merged.tiers == [3], merged.tiers
+    assert merged.checked.get("silent_data_load") == 2 * TRAIN_STEPS
+    return launches
+
+
+def _train_loop(torch, state, step_fn, det, batches, dev):
+    """One driver step, as ``launch.train.run`` takes it: host batch to
+    the detectors, batch to the device, the step, the detectors on the
+    params before and after. Returns (state, metrics)."""
+    import itertools
+    for step in itertools.count():
+        b = next(batches)
+        det.on_batch(step, b)
+        before = state.params
+        state, metrics = step_fn(
+            state, {k: torch.from_numpy(v).to(dev) for k, v in b.items()})
+        det.on_step(step, before, state.params)
+        del before
+        yield state, metrics
+
+
+def train_timing_and_trace(torch, np):
+    """Train tokens/s with the detectors on, full width: a first step
+    (warm-up, untimed), then steps timed on the host clock, each ending
+    in a device synchronization; then one step under torch.profiler
+    (device time by kernel kind, device busy share)."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import ProfilerConfig, TrainConfig
+    from repro_torch.core.detectors import TrainingDetectors
+    from repro_torch.data.synthetic import stream
+    from repro_torch.models.zoo import build_model
+    from repro_torch.train import state as TS
+    from repro_torch.train.step import make_train_step
+
+    cfg = registry.get_config("qwen3-1.7b")
+    model = build_model(cfg)
+    tc = TrainConfig(learning_rate=3e-4, total_steps=8, warmup_steps=1,
+                     remat="none")
+    state = TS.create(model, 0, device="cuda")
+    det = TrainingDetectors(ProfilerConfig(enabled=True))
+    loop = _train_loop(torch, state, make_train_step(model, tc), det,
+                       stream(cfg, TB, TSEQ, seed=0), "cuda")
+    state, m = next(loop)
+    float(m["loss"])
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = next(loop)
+        float(m["loss"])
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    tok = TB * TSEQ
+    print(f"[train] timed steps (detectors on): "
+          f"{', '.join(f'{t * 1e3:.1f}' for t in times)} ms = "
+          f"{', '.join(f'{tok / t:.1f}' for t in times)} tok/s", flush=True)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, m = next(loop)
+        float(m["loss"])
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    report_trace(torch, prof, "train step", wall_ms)
+    del loop, state, m
+    torch.cuda.empty_cache()
+    return times
+
+
+def train_smoke_check(torch, np):
+    """The smoke config in float32: 4 train steps with the detectors on,
+    kernels on the card against plain versions on the CPU, from the same
+    state and batches. Losses and grad norms within 1e-4 relative (the
+    same f32 arithmetic in other summation orders, moved through 4 Adam
+    steps), detector findings and counters equal."""
+    import dataclasses
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import ProfilerConfig, TrainConfig
+    from repro_torch.core.detectors import TrainingDetectors
+    from repro_torch.data.synthetic import stream
+    from repro_torch.models.params import tree_map
+    from repro_torch.models.zoo import build_model
+    from repro_torch.optim.adamw import AdamWState
+    from repro_torch.train import state as TS
+    from repro_torch.train.step import make_train_step
+
+    cfg = dataclasses.replace(registry.get_config("qwen3-1.7b").smoke(),
+                              dtype="float32")
+    model = build_model(cfg)
+    tc = TrainConfig(learning_rate=3e-4, total_steps=TRAIN_STEPS,
+                     warmup_steps=1, remat="none")
+    s0 = TS.create(model, 0, compute_dtype=torch.float32, device="cpu")
+    results = {}
+    for dev in ("cpu", "cuda"):
+        def move(tree):
+            return tree_map(lambda t: t.to(dev, copy=True), tree)
+        state = TS.TrainState(params=move(s0.params), master=move(s0.master),
+                              opt=AdamWState(m=move(s0.opt.m),
+                                             v=move(s0.opt.v)),
+                              step=s0.step.to(dev))
+        det = TrainingDetectors(ProfilerConfig(enabled=True))
+        loop = _train_loop(torch, state, make_train_step(model, tc), det,
+                           stream(cfg, 4, 64, seed=0), dev)
+        rows = []
+        for _ in range(TRAIN_STEPS):
+            state, m = next(loop)
+            rows.append((float(m["loss"]), float(m["grad_norm"])))
+        rep = det.report
+        results[dev] = (np.array(rows),
+                        sorted((f.kind, f.c1, f.step) for f in rep.findings),
+                        dict(rep.checked), dict(rep.flagged))
+    (rc, fc, cc, gc), (rg, fg, cg, gg) = results["cpu"], results["cuda"]
+    rel = float(np.max(np.abs(rg - rc) / np.abs(rc)))
+    same = (fc, cc, gc) == (fg, cg, gg)
+    print(f"[check] smoke f32 training, kernels on the card vs plain on the "
+          f"CPU: losses {rg[:, 0].tolist()} vs {rc[:, 0].tolist()}, max "
+          f"relative difference of loss and grad norm {rel:.3e} (tol 1e-4); "
+          f"detector findings and counters equal {same} (checked {cg})",
+          flush=True)
+    assert rel <= 1e-4 and same, results
+
+
+# ----------------------------------------------------------------------
 # phase 3: the main path
 # ----------------------------------------------------------------------
 def dup_prefix_requests(np, vocab, Request, *, n, shared_len, tails,
@@ -402,6 +765,12 @@ def _kernel_kind(name: str) -> str:
         return "paged_decode"
     if "window_attn_kernel" in name or "window_store_kernel" in name:
         return "paged_window"
+    if "flash_fwd_kernel" in name:
+        return "flash_attention_fwd"
+    if "flash_bwd_" in name or "flash_delta_kernel" in name:
+        return "flash_attention_bwd"
+    if "silent_count_kernel" in name:
+        return "silent_compare"
     if any(s in name for s in ("gemm", "nvjet", "cutlass", "xmma")):
         return "matmul"
     if "copy" in name:
@@ -427,22 +796,34 @@ def trace_steps(torch, np, eng, vocab, Request):
             eng.step()
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
-        kinds, n = {}, 0
-        for e in prof.events():
-            if e.device_type == torch.autograd.DeviceType.CUDA:
-                n += 1
-                k = _kernel_kind(e.name)
-                kinds[k] = kinds.get(k, 0.0) + e.time_range.elapsed_us() / 1e3
-        if not n:
-            print(f"[trace] {label}: the profiler saw no device kernels; "
-                  f"device time not measured (wall {wall_ms:.2f} ms)")
-            continue
-        busy = sum(kinds.values())
-        parts = ", ".join(f"{k} {v:.3f} ms" for k, v in
-                          sorted(kinds.items(), key=lambda kv: -kv[1]))
-        print(f"[trace] {label}: wall {wall_ms:.2f} ms (profiled), {n} "
-              f"kernels, device busy {busy:.3f} ms = "
-              f"{busy / wall_ms:.3f} of wall; {parts}", flush=True)
+        report_trace(torch, prof, label, wall_ms)
+
+
+def report_trace(torch, prof, label, wall_ms):
+    """Device time by kernel kind, kernel count and the device's busy
+    share of a profiled step's wall time."""
+    kinds, others, n = {}, {}, 0
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            n += 1
+            k = _kernel_kind(e.name)
+            ms = e.time_range.elapsed_us() / 1e3
+            kinds[k] = kinds.get(k, 0.0) + ms
+            if k == "other":
+                others[e.name[:70]] = others.get(e.name[:70], 0.0) + ms
+    if not n:
+        print(f"[trace] {label}: the profiler saw no device kernels; "
+              f"device time not measured (wall {wall_ms:.2f} ms)")
+        return
+    busy = sum(kinds.values())
+    parts = ", ".join(f"{k} {v:.3f} ms" for k, v in
+                      sorted(kinds.items(), key=lambda kv: -kv[1]))
+    print(f"[trace] {label}: wall {wall_ms:.2f} ms (profiled), {n} "
+          f"kernels, device busy {busy:.3f} ms = "
+          f"{busy / wall_ms:.3f} of wall; {parts}", flush=True)
+    top = sorted(others.items(), key=lambda kv: -kv[1])[:5]
+    print(f"[trace] {label}: largest kernels of 'other': "
+          + "; ".join(f"{name} {ms:.3f} ms" for name, ms in top), flush=True)
 
 
 def small_reference_check(torch, np):
@@ -516,13 +897,21 @@ def main() -> int:
 
     timer = Timer(torch)
     entries = check_kernels(torch, np, timer)
+    entries.update(check_flash(torch, timer))
+    entries["silent_compare"] = check_silent(torch, timer)
     launches, stats = main_path(torch, np)
     small_reference_check(torch, np)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    launches.update(train_path(torch, np))
+    train_timing_and_trace(torch, np)
+    train_smoke_check(torch, np)
 
     for key, e in entries.items():
         e["launches"] = launches[key]
-    print(json.dumps({"kernels": [entries["paged_decode"],
-                                  entries["paged_window"]]}))
+    print(json.dumps({"kernels": [entries[k] for k in (
+        "paged_decode", "paged_window", "flash_attention_fwd",
+        "flash_attention_bwd", "silent_compare")]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

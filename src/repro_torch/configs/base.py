@@ -175,6 +175,27 @@ SHAPES: Tuple[ShapeConfig, ...] = (
 
 
 @dataclass(frozen=True)
+class TrainConfig:
+    learning_rate: float = 3e-4
+    warmup_steps: int = 100
+    total_steps: int = 1000
+    weight_decay: float = 0.1
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    grad_clip: float = 1.0
+    # microbatches for gradient accumulation (1 = no accumulation)
+    microbatches: int = 1
+    # activation checkpointing policy: none | dots | full (the port runs
+    # "none" only; train.step raises on the others)
+    remat: str = "dots"
+    seed: int = 0
+    # gradient compression for cross-pod ("pod" axis) reduction
+    grad_compression: str = "none"   # none | int8_ef
+    z_loss: float = 0.0
+
+
+@dataclass(frozen=True)
 class ProfilerConfig:
     """JXPerf-JAX configuration (the paper's knobs)."""
     enabled: bool = False

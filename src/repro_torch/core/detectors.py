@@ -1,8 +1,24 @@
-"""Serving-tier waste detectors (DESIGN.md §2): tier 3 on the KV heap,
-plus the tier-4 kernel counters.
+"""Tier-3 waste detectors (DESIGN.md §2) of the training and serving
+loops, plus the tier-4 kernel counters of the serving kernels.
 
-The serving engine's fixed-size decode batch keeps writing the KV cache
-whether or not a slot serves a live request:
+Training loop (``TrainingDetectors``, port of the reference's
+``detectors.py:95-186``):
+
+  silent parameter stores — a parameter leaf whose post-optimizer value
+      equals its pre-step value within tolerance (frozen/dead subnetwork,
+      zero grads): the optimizer "stored the same value" (Def. 2);
+  dead gradient stores    — gradient leaves that are (near-)all-zero: the
+      backward pass produced bytes nobody needed (Def. 1 flavour);
+  silent data loads       — repeated identical batches from the pipeline
+      (MemEvent content digest), Def. 3 at the input boundary.
+
+The leaf comparison is ``ops.silent_fraction``: on CUDA leaves the
+silent-compare kernel (2 reads per element), on CPU leaves its plain
+version.
+
+Serving loop (``ServingDetectors``): the serving engine's fixed-size
+decode batch keeps writing the KV cache whether or not a slot serves a
+live request:
 
   dead KV stores     — K/V rows written for slots past a request's end
       (idle/finished slots still written every step, or a finished
@@ -22,13 +38,15 @@ and the engine feeds the per-layer counts here.
 """
 from __future__ import annotations
 
+import zlib
 from collections import OrderedDict
 from typing import Any, Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from repro_torch.configs.base import ProfilerConfig
-from repro_torch.core.events import LOAD, MemEvent
+from repro_torch.core.events import LOAD, STORE, MemEvent
 from repro_torch.core.findings import Finding, WasteProfile
 from repro_torch.core.reservoir import ReservoirWatchpoints, Watchpoint
 from repro_torch.kernels import ops
@@ -37,6 +55,123 @@ from repro_torch.kernels import ops
 # detector and the paged prefix cache (serve.kv_cache) — one ladder, so
 # what the detector calls a duplicate is exactly what the cache can reuse
 PREFIX_POW2 = (8, 16, 32, 64, 128, 256, 512, 1024)
+
+
+def _leaf_paths(tree, prefix: str = "") -> List[Tuple[str, Any]]:
+    """(path, leaf) of a nested-dict tree in the reference's order: keys
+    sorted at every level and paths spelled as ``jax.tree_util.keystr``
+    spells them (``['main']['b0_dense']['attn']['wq']['w']``), so the
+    seeded leaf draws pick the same leaves as the reference's."""
+    if isinstance(tree, dict):
+        return [pl for key in sorted(tree)
+                for pl in _leaf_paths(tree[key], f"{prefix}[{key!r}]")]
+    return [(prefix, tree)]
+
+
+def _leaf_event(path: str, leaf) -> MemEvent:
+    # metadata from the tensor or array; the leaf is held by reference.
+    # crc32, not hash(): Python string hashing is salted per process,
+    # so hash()-derived addresses would change trap/disarm behavior
+    # from run to run
+    itemsize = (leaf.element_size() if torch.is_tensor(leaf)
+                else leaf.dtype.itemsize)
+    return MemEvent(kind=STORE, address=zlib.crc32(path.encode()) & 0x7FFFFFFF,
+                    nelems=int(np.prod(leaf.shape)), itemsize=int(itemsize),
+                    values=leaf, ctx=(path,))
+
+
+class TrainingDetectors:
+    """Attach to a training loop; call ``on_batch`` with each host batch
+    and ``on_step`` with the params before and after each step."""
+
+    def __init__(self, cfg: Optional[ProfilerConfig] = None,
+                 leaves_per_step: int = 4):
+        self.cfg = cfg or ProfilerConfig(enabled=True)
+        self.tol = self.cfg.fp_tolerance
+        self.leaves_per_step = leaves_per_step
+        self.wp = ReservoirWatchpoints(self.cfg.num_watchpoints,
+                                       self.cfg.seed)
+        self.rng = np.random.RandomState(self.cfg.seed)
+        self.report = WasteProfile(tier=3)
+        # bounded LRU of batch-content digests: a long run must not grow
+        # memory without limit (window from ProfilerConfig)
+        self._batch_hashes: "OrderedDict[str, int]" = OrderedDict()
+        self._hash_window = max(1, self.cfg.batch_hash_window)
+
+    def _found(self, step: int, kind: str, path: str,
+               frac: float, nbytes: float) -> Finding:
+        f = Finding(kind=kind, tier=3, c1=(path,), fraction=frac,
+                    step=step, bytes=nbytes, meta={"path": path})
+        self.report.add(f)
+        return f
+
+    # ------------------------------------------------------------------
+    def on_step(self, step: int, params_before, params_after,
+                grads=None) -> List[Finding]:
+        """Sample leaves; compare watched leaves before/after (Def. 2).
+        ``params_before`` must be other tensors than ``params_after``
+        (the train step makes fresh compute params)."""
+        out: List[Finding] = []
+        before = dict(_leaf_paths(params_before))
+        after = dict(_leaf_paths(params_after))
+
+        # traps: previously armed watchpoints observe this step's store
+        for wp in list(self.wp.armed()):
+            path = wp.meta
+            if path in after:
+                frac = ops.silent_fraction(before[path], after[path],
+                                           tol=self.tol)
+                silent = frac > 0.99
+                self.report.observe("silent_param_store", silent)
+                if silent:
+                    ev = _leaf_event(path, after[path])
+                    out.append(self._found(step, "silent_param_store",
+                                           path, frac, ev.nbytes))
+            self.wp.disarm(wp)
+
+        # arm new watchpoints on sampled leaf-store events (reservoir
+        # discipline over the substrate's event type)
+        paths = list(after)
+        for _ in range(min(self.leaves_per_step, len(paths))):
+            p = paths[self.rng.randint(len(paths))]
+            ev = _leaf_event(p, after[p])
+            self.wp.on_sample(Watchpoint(
+                address=ev.address, offset=0, size=ev.itemsize,
+                value=None, context=ev.ctx, trap_type="W_TRAP", meta=p))
+
+        # dead gradient stores (value-agnostic: all-zero grad leaves)
+        if grads is not None:
+            gleaves = _leaf_paths(grads)
+            for _ in range(min(self.leaves_per_step, len(gleaves))):
+                p, g = gleaves[self.rng.randint(len(gleaves))]
+                zero_frac = ops.silent_fraction(g, torch.zeros_like(g),
+                                                tol=0.0)
+                dead = zero_frac > 0.99
+                self.report.observe("dead_grad_store", dead)
+                if dead:
+                    ev = _leaf_event(p, g)
+                    out.append(self._found(step, "dead_grad_store", p,
+                                           zero_frac, ev.nbytes))
+        return out
+
+    # ------------------------------------------------------------------
+    def on_batch(self, step: int, batch) -> List[Finding]:
+        """Silent data loads: identical batch content re-delivered.
+        ``batch`` is the host (numpy) batch, as the reference digests it."""
+        out: List[Finding] = []
+        for path, leaf in _leaf_paths(batch):
+            ev = _leaf_event(path, leaf)
+            key = f"{path}:{ev.digest()}"
+            dup = key in self._batch_hashes
+            self.report.observe("silent_data_load", dup)
+            if dup:
+                out.append(self._found(step, "silent_data_load", path,
+                                       1.0, ev.nbytes))
+                self._batch_hashes.move_to_end(key)
+            self._batch_hashes[key] = step
+            while len(self._batch_hashes) > self._hash_window:
+                self._batch_hashes.popitem(last=False)
+        return out
 
 
 class SlotWrite:

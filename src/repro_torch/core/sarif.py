@@ -1,9 +1,9 @@
 """SARIF v2.1.0 export for any :class:`WasteProfile` (DESIGN.md § Static
 tier, "SARIF contract").
 
-Findings of the serving tiers — detectors (3), kernel counters (4), the
-prefill padding accounting — render as code-scanning annotations: each
-waste kind becomes a SARIF *rule* carrying its paper definition as help
+Findings of the serving and training tiers — detectors (3), kernel
+counters (4), the prefill padding accounting — render as code-scanning
+annotations: each waste kind becomes a SARIF *rule* carrying its paper definition as help
 text, each finding becomes a *result* at a logical location built from
 its ⟨C1,C2⟩ contexts. (The reference's tier-0 lint findings carry a
 source ``file:line``; that tier is bound to JAX and not ported.)
@@ -51,6 +51,23 @@ _RULES: Dict[str, Dict[str, str]] = {
         "help": "Paper Def. 3: two successive loads L1, L2 from location "
                 "M are silent iff they observe the same value with no "
                 "intervening store changing it.",
+    },
+    "silent_param_store": {
+        "short": "Silent parameter update: optimizer wrote back unchanged "
+                 "weights",
+        "help": "Paper Def. 2 applied per parameter leaf: the train step "
+                "stored a parameter tensor bit-equal (within tolerance) "
+                "to its previous value.",
+    },
+    "dead_grad_store": {
+        "short": "Dead gradient store: gradient written then overwritten "
+                 "unread",
+        "help": "Paper Def. 1 applied to gradient accumulation buffers.",
+    },
+    "silent_data_load": {
+        "short": "Silent data load: an input batch re-read unchanged",
+        "help": "Paper Def. 3 applied to input pipelines: the same batch "
+                "content loaded repeatedly (duplicate epochs/shards).",
     },
     "prefill_padding": {
         "short": "Prefill padding burn: tokens computed then masked away",

@@ -6,7 +6,7 @@ The token stream is a mixture of Zipfian unigrams and short copied motifs.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Iterator
 
 import numpy as np
 
@@ -41,3 +41,14 @@ def batch_at(cfg: ModelConfig, batch: int, seq: int, *, seed: int,
         out["frames"] = rng.standard_normal(
             (local, min(seq, cfg.encoder_frames), cfg.d_model)).astype(np.float32)
     return out
+
+
+def stream(cfg: ModelConfig, batch: int, seq: int, *, seed: int = 0,
+           start_step: int = 0, host: int = 0,
+           num_hosts: int = 1) -> Iterator[Dict[str, np.ndarray]]:
+    """``batch_at`` for steps start_step, start_step + 1, ... (endless)."""
+    step = start_step
+    while True:
+        yield batch_at(cfg, batch, seq, seed=seed, step=step, host=host,
+                       num_hosts=num_hosts)
+        step += 1

@@ -1,11 +1,12 @@
 """Model-facing kernel entry points, dispatched by the tensors' device.
 
-A CUDA tensor reaching ``paged_decode`` or ``paged_window`` launches the
-hand-written Hopper kernel (``csrc/*.cu``) or raises; a CPU tensor takes
-the kernel's plain version from ``ref.py``. There is no switch and no
-fallback. The paged scatter/gather and the masked attention of the dense
-per-slot cache are plain PyTorch on every device, as the reference left
-them to XLA.
+A CUDA tensor reaching ``paged_decode``, ``paged_window``, the cache-free
+``attention``, ``silent_fraction`` or ``silent_count`` launches the
+hand-written Hopper kernel (``csrc/*.cu``, or Triton for the silent
+compare) or raises; a CPU tensor takes the kernel's plain version from
+``ref.py``. There is no switch and no fallback. The paged scatter/gather
+and the masked attention of the dense per-slot cache are plain PyTorch on
+every device, as the reference left them to XLA.
 """
 from __future__ import annotations
 
@@ -15,8 +16,10 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import ref as _ref
+from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.flash_prefill import paged_window_attention
 from repro_torch.kernels.paged_attention import paged_decode_attention
+from repro_torch.kernels.silent_compare import silent_compare
 
 # store-site waste-counter tolerance (kernel tier): exact equality, the
 # paper's Def.-2 silent-store semantics for same-dtype overwrites
@@ -30,15 +33,13 @@ paged_store_counts = _ref.paged_store_counts
 def attention(q, k, v, *, causal: bool = True, q_offset=0,
               kv_len: Optional[torch.Tensor] = None,
               kv_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Masked GQA attention over a cache (``kv_len``/offsets given): the
-    plain composition on every device, as in the reference. The
-    cache-free causal case is the flash kernel's, which is not ported
-    yet, so it raises on CUDA."""
-    if (q.device.type == "cuda" and kv_len is None and kv_valid is None
-            and isinstance(q_offset, int) and q_offset == 0):
-        raise NotImplementedError(
-            "cache-free attention on CUDA needs the flash attention "
-            "kernel, which is not ported yet")
+    """GQA attention, differentiable. The cache-free case (no
+    ``kv_len``/``kv_valid``, offset 0: the training forward) is the flash
+    kernel's whatever Sq is; masked attention over a cache is the plain
+    composition on every device, as in the reference."""
+    if (kv_len is None and kv_valid is None and isinstance(q_offset, int)
+            and q_offset == 0):
+        return flash_attention(q, k, v, causal=causal)
     return _ref.attention_ref(q, k, v, causal=causal, q_offset=q_offset,
                               kv_len=kv_len, kv_valid=kv_valid)
 
@@ -68,10 +69,17 @@ def paged_window(q, k_win, v_win, pool_k, pool_v, pt, idx, *,
     return out, ck, cv, (cnt if counters else None)
 
 
+def silent_count(a, b, tol: float = 0.01) -> torch.Tensor:
+    """Count of silent (unchanged within tol) elements between a and b, a
+    0-d int32 tensor: the silent-compare kernel on CUDA tensors, its
+    plain version on CPU tensors and numpy arrays."""
+    a = a if torch.is_tensor(a) else torch.as_tensor(np.asarray(a))
+    b = b if torch.is_tensor(b) else torch.as_tensor(np.asarray(b))
+    return silent_compare(a, b, tol)
+
+
 def silent_fraction(a, b, tol: float = 0.01) -> float:
     """Fraction of silent (unchanged within tol) elements between a and b,
     computed as the reference computes it (an f32 count over f32 size)."""
-    a = torch.as_tensor(np.asarray(a) if not torch.is_tensor(a) else a)
-    b = torch.as_tensor(np.asarray(b) if not torch.is_tensor(b) else b)
-    cnt = _ref.silent_compare_ref(a, b, tol)
-    return float(cnt.to(torch.float32) / max(a.numel(), 1))
+    n = max(int(np.prod(np.shape(a))), 1)
+    return float(silent_count(a, b, tol).to(torch.float32) / n)

@@ -1,9 +1,10 @@
-"""Plain PyTorch versions of the serving kernels' functions.
+"""Plain PyTorch versions of the kernels' functions.
 
-Torch twins of the reference's jnp oracles, held to them by the CPU
+Torch twins of the reference's jnp oracles (and, for the flash
+attention backward, of its hand-written VJP), held to them by the CPU
 parity tests. They are the compute path for CPU tensors, and
-``chip_smoke.py`` holds each hand-written CUDA kernel against them on
-the card.
+``chip_smoke.py`` holds each hand-written kernel against them on the
+card.
 
 Unlike the functional reference, the paged store (``paged_update``)
 writes the pool IN PLACE and returns the same tensors: the engine keeps
@@ -77,6 +78,68 @@ def attention_ref(q, k, v, *, causal: bool = True, q_offset=0,
     ``kv_valid`` is an optional (B,Skv) gather-validity mask."""
     return attention_lse(q, k, v, causal=causal, q_offset=q_offset,
                          kv_len=kv_len, kv_valid=kv_valid)[0]
+
+
+# ----------------------------------------------------------------------
+# Cache-free flash attention (the training forward) and its backward
+# ----------------------------------------------------------------------
+def _flash_scores(q, k, causal: bool):
+    """Masked scaled f32 scores (B, Hkv, G, Sq, Skv) of the flash kernel:
+    key kpos is visible to query qpos when kpos <= qpos (top-left
+    aligned, both counted from 0) or always when not causal; masked
+    entries are -inf."""
+    B, Sq, Hq, D = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    qg = q.reshape(B, Sq, Hkv, Hq // Hkv, D).float()
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float())
+    s = s * (1.0 / float(D) ** 0.5)
+    if causal:
+        vis = (torch.arange(Sq, device=q.device)[:, None]
+               >= torch.arange(Skv, device=q.device)[None, :])
+        s = torch.where(vis, s, -torch.inf)
+    return s
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool = True):
+    """The flash kernel's function: ``(out, lse)``. out (B, Sq, Hq, D) in
+    q's dtype, from f32 probabilities and an f32 accumulator (the
+    Pallas kernel's ``_flash_kernel``); lse (B, Hq, Sq) f32, NEG_INF and
+    out 0 on a row that sees no key."""
+    B, Sq, Hq, D = q.shape
+    Hkv = k.shape[2]
+    s = _flash_scores(q, k, causal)
+    lse = torch.logsumexp(s, dim=-1)                       # (B,Hkv,G,Sq)
+    seen = torch.isfinite(lse)
+    p = torch.exp(s - torch.where(seen, lse, 0.0)[..., None])
+    out = torch.einsum("bhgqk,bkhd->bqhgd", p, v.float())
+    out = out.reshape(B, Sq, Hq, D).to(q.dtype)
+    return out, torch.where(seen, lse, NEG_INF).reshape(B, Hq, Sq)
+
+
+def flash_attention_bwd_ref(q, k, v, out, lse, dout, causal: bool = True):
+    """The flash backward's function, the formulas of the reference's
+    hand-written VJP (``flash_xla._bwd_rule``): p = exp(s - lse),
+    delta = rowsum(dO * O), dS = p (dP - delta) scale; dq = dS k,
+    dk = dS^T q and dv = p^T dO summed over each kv head's G query
+    heads. All in f32; returns ``(dq, dk, dv)`` in the inputs' dtypes."""
+    B, Sq, Hq, D = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    scale = 1.0 / float(D) ** 0.5
+    s = _flash_scores(q, k, causal)
+    lse_g = lse.reshape(B, Hkv, G, Sq)
+    p = torch.where(s == -torch.inf, 0.0, torch.exp(s - lse_g[..., None]))
+    dog = dout.reshape(B, Sq, Hkv, G, D).float()
+    delta = (dog * out.reshape(B, Sq, Hkv, G, D).float()).sum(-1)
+    dp = torch.einsum("bqhgd,bkhd->bhgqk", dog, v.float())
+    ds = p * (dp - delta.permute(0, 2, 3, 1)[..., None]) * scale
+    qg = q.reshape(B, Sq, Hkv, G, D).float()
+    dq = torch.einsum("bhgqk,bkhd->bqhgd", ds, k.float())
+    dk = torch.einsum("bhgqk,bqhgd->bkhd", ds, qg)
+    dv = torch.einsum("bhgqk,bqhgd->bkhd", p, dog)
+    return (dq.reshape(B, Sq, Hq, D).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
 
 
 # ----------------------------------------------------------------------

@@ -1,7 +1,8 @@
-"""Core transformer layers: norms, RoPE, GQA attention (qk-norm, per-slot
-dense or paged KV cache), gated/plain MLP. Functional style: ``decl_*``
-builds the parameter declaration tree, ``apply_*`` consumes the
-materialized parameters (nested dicts of tensors).
+"""Core transformer layers: norms, RoPE, GQA attention (qk-norm;
+cache-free, or a per-slot dense or paged KV cache), gated/plain MLP, the
+LM head. Functional style: ``decl_*`` builds the parameter declaration
+tree, ``apply_*`` consumes the materialized parameters (nested dicts of
+tensors).
 
 Every weight is cast to the activation dtype at its use, as in the
 reference.
@@ -70,10 +71,13 @@ def decl_attention(cfg: ModelConfig) -> Dict[str, Any]:
 
 
 def apply_attention(p, cfg: ModelConfig, x: torch.Tensor, *,
-                    cache: Dict[str, torch.Tensor]
-                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Self-attention of S new tokens against a KV cache.
+                    cache: Optional[Dict[str, torch.Tensor]] = None
+                    ) -> Tuple[torch.Tensor, Optional[Dict[str, Any]]]:
+    """Self-attention of S tokens: cache-free (the training forward) or
+    against a KV cache.
 
+    cache None: RoPE at positions 0..S-1 and causal attention over the S
+      tokens themselves (the flash kernel); returns (out, None).
     cache (one layer's views of the stacked cache), one of:
       paged — {"k","v": (P,page,Hkv,D) pool, "pt": (B,M) page table,
                "idx": (B,) write positions[, "kcnt": (B,3) counters]}:
@@ -97,6 +101,13 @@ def apply_attention(p, cfg: ModelConfig, x: torch.Tensor, *,
     if cfg.qk_norm:
         q = apply_rmsnorm(p["q_norm"], q, cfg.norm_eps)
         k = apply_rmsnorm(p["k_norm"], k, cfg.norm_eps)
+
+    if cache is None:
+        pos = torch.arange(S, device=x.device)
+        q = apply_rope(q, pos, cfg.rope_theta)
+        k = apply_rope(k, pos, cfg.rope_theta)
+        out = ops.attention(q, k, v, causal=True)
+        return out.reshape(B, S, H * D) @ p["wo"]["w"].to(dt), None
 
     idx = cache["idx"]
     ar = torch.arange(S, device=x.device, dtype=idx.dtype)
@@ -167,10 +178,17 @@ def decl_dense_block(cfg: ModelConfig) -> Dict[str, Any]:
     }
 
 
-def apply_dense_block(p, cfg: ModelConfig, x: torch.Tensor, *, cache):
+def apply_dense_block(p, cfg: ModelConfig, x: torch.Tensor, *, cache=None):
     h, new_cache = apply_attention(
         p["attn"], cfg, apply_rmsnorm(p["ln1"], x, cfg.norm_eps),
         cache=cache)
     x = x + h
     x = x + apply_mlp(p["mlp"], cfg, apply_rmsnorm(p["ln2"], x, cfg.norm_eps))
     return x, new_cache
+
+
+# ----------------------------------------------------------------------
+# LM head: x (B,S,d) against the vocab-major (V,d) weight -> (B,S,V)
+# ----------------------------------------------------------------------
+def lm_head(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    return x @ w.T

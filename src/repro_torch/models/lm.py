@@ -1,13 +1,16 @@
 """Decoder LM assembly, dense family: parameter declaration and init,
-per-slot dense and paged KV caches, and the cached decode step that the
-serving engine's prefill and tick run.
+the cache-free training forward and loss, per-slot dense and paged KV
+caches, and the cached decode step that the serving engine's prefill and
+tick run.
 
 Parameters and caches keep the reference's stacked per-layer storage,
 ``(n_layers, ...)`` under ``"main"``, so reference trees load 1:1; a
 Python loop over the layers takes the place of the reference's
 ``lax.scan``. Each layer works on views of the stacked cache and writes
 its K/V (dense rows or paged pool) in place — the reference's functional
-update would cost a cache copy per call.
+update would cost a cache copy per call. The training forward takes each
+stacked leaf apart once with ``unbind``, so autograd assembles a stacked
+leaf's gradient from its layers in one stack.
 """
 from __future__ import annotations
 
@@ -46,7 +49,8 @@ def make_schedule(cfg: ModelConfig) -> Schedule:
     if cfg.family == "dense":
         return Schedule(("dense",), cfg.num_layers)
     raise NotImplementedError(
-        f"family {cfg.family!r} is not ported yet (dense only)")
+        f"family {cfg.family!r} is not ported yet (dense only; the other "
+        f"block types are ROADMAP A7)")
 
 
 def _layer(tree, li: int):
@@ -93,6 +97,40 @@ class LM:
         """(V_padded, d) vocab-major head weight (embedding when tied)."""
         return (params["embed"] if self.cfg.tie_embeddings
                 else params["head"])
+
+    # ----------------------------- forward ---------------------------
+    def backbone(self, params, tokens: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Everything up to (and incl.) the final norm, cache-free:
+        (hidden (B,S,d), moe_aux f32 scalar, 0 for the dense family)."""
+        cfg, sch = self.cfg, self.sched
+        dt = torch_dtype(cfg.dtype)
+        x = params["embed"][tokens.long()].to(dt)
+        layers = P.tree_map(lambda t: t.unbind(0), params["main"])
+        for li in range(sch.n_super):
+            p_l = P.tree_map(lambda ts: ts[li], layers)
+            for i, typ in enumerate(sch.pattern):
+                x, _ = L.apply_dense_block(p_l[f"b{i}_{typ}"], cfg, x)
+        x = L.apply_rmsnorm(params["final_norm"], x, cfg.norm_eps)
+        return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+    def forward(self, params, tokens: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Train/prefill forward: (logits (B,S,V_padded) with the padded
+        vocab masked, moe_aux)."""
+        x, aux = self.backbone(params, tokens)
+        logits = L.lm_head(x, self.head_weight(params).to(x.dtype))
+        return _mask_pad_vocab(logits, self.cfg), aux
+
+    def loss(self, params, batch: Dict[str, torch.Tensor], *,
+             z_loss: float = 0.0) -> Tuple[torch.Tensor, Dict[str, Any]]:
+        """LM loss of a batch {"tokens", "labels"} (B,S) int tensors:
+        (nll + moe_aux, {"nll", "moe_aux"})."""
+        from repro_torch.train.fused_xent import lm_loss
+        x, aux = self.backbone(params, batch["tokens"])
+        w = self.head_weight(params)
+        nll = lm_loss(x, w.to(x.dtype), batch["labels"], z_loss=z_loss)
+        return nll + aux, {"nll": nll, "moe_aux": aux}
 
     # ------------------------------ caches ---------------------------
     def init_cache(self, params, batch: int, max_len: int, *,
@@ -227,5 +265,5 @@ class LM:
                 new_main[name]["kcnt"] = torch.stack(cnts[name])
 
         x = L.apply_rmsnorm(params["final_norm"], x, cfg.norm_eps)
-        logits = x @ self.head_weight(params).to(dt).T
+        logits = L.lm_head(x, self.head_weight(params).to(dt))
         return _mask_pad_vocab(logits, cfg), {"main": new_main}

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch port (``src/repro_torch``) on one
-NVIDIA GPU: the serving path and the training path.
+NVIDIA GPU: the serving path, the speculative-verify serving path and
+the training path.
 
     python3 chip_smoke.py
 
@@ -11,24 +12,44 @@ NVIDIA GPU: the serving path and the training path.
    version on the card, at the main path's shapes (qwen3-1.7b: Hq 16,
    Hkv 8, D 128, page 16, 8 slots, windows of 16 and 128) on a hostile
    page table (out-of-order pages, partial last pages, unmapped holes
-   and tails, an idle slot, a write past the table), for float32 and
+   and tails, an idle slot, a write past the table; verify windows of 5
+   that cross page boundaries or run past the mapped extent), for
+   float32 and
    bfloat16 pools: pools and counters must be equal, outputs and lse
    within 1e-4 (float32 activations) or 2e-2 (bfloat16) on rows that
    attend something; and times kernel, plain version and a PyTorch
    library call (SDPA over the gathered view, a yardstick the port never
-   calls) with CUDA events, L2 flushed before every launch;
+   calls) with CUDA events, L2 flushed before every launch; then the
+   RMSNorm forward and backward (Triton) against their plain versions at
+   every norm shape of the three paths, in each x/scale dtype pair, with
+   rows read by stride (out within 1e-5 relative at float32 and 2e-2 at
+   bfloat16; dx and dscale within 2e-4 / 3e-2 of the plain gradient's
+   largest magnitude), timed at the training norms beside
+   ``torch.nn.functional.rms_norm`` (the library yardstick) by device
+   time from CUPTI, CUDA-event times printed beside it;
 3. runs the main path at full width: ``repro_torch.launch.serve.run``
    for qwen3-1.7b with the paged KV heap and the profiler on (random
    weights from seed 0, 28 layers), with the kernels' launch counts set
    to 0 just before and read just after; then one engine with kernel
    counters on duplicated-prefix traffic (prefix hits, copy-on-write,
    slot recycling, history in the window kernel); and checks the
-   results: launches per layer and step, finite tokens in range, a
-   merged profile with tier-3 and tier-4 entries, and, on the smoke
-   config in float32, the same greedy tokens and store counts from the
-   kernels on the card as from the plain versions on the CPU; and traces
-   one admission step and one decode tick at full width with
-   torch.profiler (device time by kernel kind, device busy share);
+   results: launches per layer and step (RMSNorm: 113 a forward),
+   finite tokens in range, a merged profile with tier-3 and tier-4
+   entries, and, on the smoke config in float32, the same greedy tokens
+   and store counts from the kernels on the card as from the plain
+   versions on the CPU; and traces one admission step and one decode
+   tick at full width with torch.profiler (device time by kernel kind,
+   device busy share);
+3b. runs the speculative-verify path at full width:
+   ``repro_torch.launch.serve.run`` with ``spec=True, spec_k=4,
+   draft="ngram"``, once with rollback and once without, launch counts
+   set to 0 before each: 28 window-kernel and 113 RMSNorm launches per
+   verify tick, ``kernel_rejected_draft_store`` flagged 0 under rollback
+   and equal to the rejected drafts under overwrite; traces one verify
+   tick; and, on the smoke config in float32, checks that the replayed
+   plain continuations (``--draft oracle``) give plain decode's tokens on
+   the card, in every mode, and that the n-gram runs give the CPU's
+   tokens and spec counters;
 4. holds the training kernels against their plain versions on the card:
    flash attention forward and backward at the training path's shapes
    (B 4, S 1024, Hq 16, Hkv 8, D 128) in bfloat16 and float32, and at a
@@ -43,8 +64,9 @@ NVIDIA GPU: the serving path and the training path.
    for qwen3-1.7b, 4 steps of batch 4 x 1024 tokens with the training
    detectors on (random weights from seed 0, 28 layers), with the
    kernels' launch counts set to 0 just before and read just after, and
-   checks the launches (28 forward and 28 backward flash launches per
-   step, one silent compare per checked parameter store), finite losses
+   checks the launches (28 forward and 28 backward flash launches, 113
+   forward and 113 backward RMSNorm launches per step, one silent
+   compare per checked parameter store), finite losses
    starting near ln(vocab) and a tier-3 training profile; then times
    train steps with the detectors on (tokens/s) and traces one with
    torch.profiler; and, on the smoke config in float32, checks that 4
@@ -105,6 +127,35 @@ class Timer:
         torch.cuda.synchronize()
         return sum(s.elapsed_time(e) for s, e in pairs) / iters
 
+    def device(self, fn, iters: int = 20, warmup: int = 3) -> float:
+        """Mean device time of one call in ms: the summed durations of the
+        kernels and memsets the call launches, read from CUPTI through
+        torch.profiler, L2 flushed before every call (the flush's own
+        kernels left out). Unlike ``__call__`` it leaves out the host's
+        launch path, which for a Triton kernel (tens of microseconds)
+        exceeds a norm's device time."""
+        from torch.profiler import ProfilerActivity, profile
+        torch = self.torch
+        cuda = torch.autograd.DeviceType.CUDA
+
+        def kernels(prof):
+            return [e for e in prof.events() if e.device_type == cuda]
+        acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+        with profile(activities=acts) as prof:
+            self.flush.zero_()
+            torch.cuda.synchronize()
+        flush_names = {e.name for e in kernels(prof)}
+        for _ in range(warmup):
+            fn()
+        torch.cuda.synchronize()
+        with profile(activities=acts) as prof:
+            for _ in range(iters):
+                self.flush.zero_()
+                fn()
+            torch.cuda.synchronize()
+        return sum(e.time_range.elapsed_us() for e in kernels(prof)
+                   if e.name not in flush_names) / iters / 1e3
+
 
 # ----------------------------------------------------------------------
 # phase 2: kernels against their plain versions
@@ -139,6 +190,12 @@ def kernel_cases(np):
     # windows: a fresh prefill (idx 0), prefix hits (history), an idle
     # slot (sentinel -(S+1))
     cases = [("decode", 1, dec, True)]
+    # verify windows of W = 5 (spec_k 4) through the verify wrapper: page
+    # crossings (14, 45), the window's end unmapped (slot 2 at 30), the
+    # cache's end (156), an idle slot at -(W+1)
+    w5 = np.array([0, 72, 30, 14, 156, 45, 9, -6], np.int32)
+    cases += [("verify W=5 overwrite", 5, w5, True),
+              ("verify W=5 defer", 5, w5, False)]
     for S in (16, 128):
         w = np.array([0, 72, 32, 0, 17, 0, 9, -(S + 1)], np.int32)
         w = np.minimum(w, MAX_LEN - S)
@@ -188,6 +245,7 @@ def run_case(torch, act, pool_dt, name, S, idx_np, pt_np, store, seed):
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_prefill import paged_window_attention
     from repro_torch.kernels.paged_attention import paged_decode_attention
+    from repro_torch.kernels.paged_verify import paged_verify_attention
 
     adt, pdt = getattr(torch, act), getattr(torch, pool_dt)
     g = torch.Generator(device="cuda").manual_seed(seed)
@@ -214,6 +272,17 @@ def run_case(torch, act, pool_dt, name, S, idx_np, pt_np, store, seed):
 
         def plain(pk, pv):
             out, lse, _, _, cnt = ref.paged_decode_ref(*args, pk, pv, pt, idx)
+            return out, lse, cnt
+    elif name.startswith("verify"):
+        def kernel(pk, pv):
+            out, lse, cnt, _, _ = paged_verify_attention(
+                *args, pk, pv, pt, idx,
+                mode="overwrite" if store else "defer")
+            return out, lse, cnt
+
+        def plain(pk, pv):
+            out, lse, _, _, cnt = ref.paged_window_ref(
+                *args, pk, pv, pt, idx, store=store)
             return out, lse, cnt
     else:
         def kernel(pk, pv):
@@ -242,7 +311,7 @@ def run_case(torch, act, pool_dt, name, S, idx_np, pt_np, store, seed):
                    == 0) and bool((lse_k[~live] == NEG_INF).all())
     same = (torch.equal(kk, pk_) and torch.equal(kv, pv_)
             and torch.equal(c_k, c_p))
-    print(f"[kernels] {name:20s} act {act:8s} pool {pool_dt:8s} "
+    print(f"[kernels] {name:21s} act {act:8s} pool {pool_dt:8s} "
           f"pools+counters equal {same} | max |err| {err:.3e} "
           f"(tol {TOL[act]}) | idle rows 0 {dead_ok} | counters "
           f"{c_k.sum(0).tolist()}", flush=True)
@@ -255,8 +324,9 @@ def run_case(torch, act, pool_dt, name, S, idx_np, pt_np, store, seed):
 def check_kernels(torch, np, timer):
     """Phase 2. Hostile tables in every dtype pair, then the main path's
     own inputs (bf16 activations, f32 pool; decode with every slot at
-    position 144, prefill of 128 tokens at 0), timed. Returns the
-    kernels' JSON entries (all but launches)."""
+    position 144, prefill of 128 tokens at 0, verify windows of 5 at 144
+    in both modes), timed. Returns the kernels' JSON entries (all but
+    launches)."""
     rng = np.random.default_rng(0)
     seed = 0
     for act, pool_dt in (("bfloat16", "float32"), ("bfloat16", "bfloat16"),
@@ -268,11 +338,15 @@ def check_kernels(torch, np, timer):
 
     entries = {}
     for key, name, S, pos in (("paged_decode", "decode", 1, 144),
-                              ("paged_window", "window S=128 store", 128, 0)):
+                              ("paged_window", "window S=128 store", 128, 0),
+                              ("paged_verify", "verify W=5 defer", 5, 144),
+                              ("paged_verify", "verify W=5 overwrite", 5,
+                               144)):
         idx_np = np.full(B, pos, np.int32)
         pt_np = main_path_table(np, rng)
+        store = not name.endswith("defer")
         err, kernel, plain, inputs = run_case(
-            torch, "bfloat16", "float32", name, S, idx_np, pt_np, True,
+            torch, "bfloat16", "float32", name, S, idx_np, pt_np, store,
             seed=100 + S)
         q, kn, vn, pool_k, pool_v, pt, idx = inputs
         # store mode rewrites the same rows on every call
@@ -282,10 +356,17 @@ def check_kernels(torch, np, timer):
         plain_ms = timer(lambda: plain(pk_, pv_))
         library_ms = time_library(torch, timer, q, kn, vn, pool_k, pool_v,
                                   pt, idx, S)
-        nbytes, flops = bytes_flops(np, name, S, idx_np, pt_np, True,
+        nbytes, flops = bytes_flops(np, name, S, idx_np, pt_np, store,
                                     q.element_size(), pool_k.element_size())
         t_bytes = nbytes / HBM_BYTES_S * 1e3
         t_ops = flops / PEAK_FLOPS["bfloat16"] * 1e3
+        print(f"[kernels] {key} on the main path's inputs ({name}, B {B}, "
+              f"position {pos}, bf16 act, f32 pool): kernel {ms:.4f} ms | "
+              f"plain {plain_ms:.4f} ms | SDPA over the gathered view "
+              f"{library_ms:.4f} ms | bound {max(t_bytes, t_ops):.4f} ms "
+              f"({nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP)", flush=True)
+        if key == "paged_verify":
+            continue          # a mode of paged_window, printed only
         entries[key] = {
             "name": key, "route": "cuda",
             "source": f"src/repro_torch/csrc/{key}.cu",
@@ -296,11 +377,6 @@ def check_kernels(torch, np, timer):
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": library_ms}
-        print(f"[kernels] {key} on the main path's inputs ({name}, B {B}, "
-              f"position {pos}, bf16 act, f32 pool): kernel {ms:.4f} ms | "
-              f"plain {plain_ms:.4f} ms | SDPA over the gathered view "
-              f"{library_ms:.4f} ms | bound {max(t_bytes, t_ops):.4f} ms "
-              f"({nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP)", flush=True)
     return entries
 
 
@@ -324,6 +400,132 @@ def time_library(torch, timer, q, kn, vn, pool_k, pool_v, pt, idx, S):
     qt = q.transpose(1, 2).contiguous()
     return timer(lambda: F.scaled_dot_product_attention(qt, k, v,
                                                         attn_mask=mask))
+
+
+# ----------------------------------------------------------------------
+# phase 2b: RMSNorm forward and backward against their plain versions
+# ----------------------------------------------------------------------
+RMS_TOL = {"float32": (1e-5, 2e-4), "bfloat16": (2e-2, 3e-2)}
+RMS_EPS = 1e-6                            # qwen3's norm_eps
+NORMS_PER_FORWARD = 4                     # per layer: ln1, ln2, q, k
+
+
+def rmsnorm_case(torch, rows, width, x_dtype, s_dtype, strided, seed):
+    """Forward (with rstd) and backward kernels against their plain
+    versions on one set of inputs. Returns (max |err| of y, max |err| of
+    dx and dscale, relative errors, inputs)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.rmsnorm import rmsnorm_backward, rmsnorm_forward
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    xdt, sdt = getattr(torch, x_dtype), getattr(torch, s_dtype)
+    if strided:       # rows of a wider buffer: read by stride, no copy
+        x = (3 * torch.randn((rows, 3 * width), generator=g,
+                             device="cuda")).to(xdt)[:, width:2 * width]
+    else:
+        x = (3 * torch.randn((rows, width), generator=g,
+                             device="cuda")).to(xdt)
+    scale = torch.randn(width, generator=g, device="cuda").to(sdt)
+    dy = torch.randn((rows, width), generator=g, device="cuda").to(xdt)
+    y, rstd = rmsnorm_forward(x, scale, RMS_EPS, want_rstd=True)
+    dx, ds = rmsnorm_backward(x, scale, rstd, dy, RMS_EPS)
+    want = ref.rmsnorm_ref(x, scale, RMS_EPS)
+    want_dx, want_ds = ref.rmsnorm_bwd_ref(x, scale, dy, RMS_EPS)
+    torch.cuda.synchronize()
+    err = float((y.float() - want.float()).abs().max())
+    rel = float(((y.float() - want.float()).abs()
+                 / want.float().abs().clamp_min(1e-3)).max())
+    err_g = max(float((a.float() - b.float()).abs().max())
+                for a, b in ((dx, want_dx), (ds, want_ds)))
+    rel_g = max(float((a.float() - b.float()).abs().max())
+                / max(float(b.float().abs().max()), 1e-30)
+                for a, b in ((dx, want_dx), (ds, want_ds)))
+    tol, tol_g = RMS_TOL["float32" if x_dtype == s_dtype == "float32"
+                         else "bfloat16"]
+    print(f"[kernels] rmsnorm {rows:6d} x {width:4d} x {x_dtype:8s} scale "
+          f"{s_dtype:8s}{' strided' if strided else '        '} | out max "
+          f"rel err {rel:.3e} (tol {tol}) | dx/dscale max rel err "
+          f"{rel_g:.3e} (tol {tol_g})", flush=True)
+    if not (rel <= tol and rel_g <= tol_g):
+        raise AssertionError(f"rmsnorm ({rows}x{width}, {x_dtype}/"
+                             f"{s_dtype}) disagrees with its plain version")
+    return err, err_g, (x, scale, dy, rstd)
+
+
+def check_rmsnorm(torch, timer):
+    """Phase 2b. Every norm shape of the three main paths (decode tick,
+    verify tick, prefill, training block/q/k norms) in each x/scale dtype
+    pair, strided rows and a ragged width; timed at the training block
+    norm (4096 x 2048 bf16, bf16 scale, rstd written). Returns the
+    forward and backward JSON entries."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.rmsnorm import rmsnorm_backward, rmsnorm_forward
+    seed = 0
+    for x_dtype, s_dtype in (("float32", "float32"), ("bfloat16", "float32"),
+                             ("bfloat16", "bfloat16")):
+        for rows, width, strided in (
+                (8, 2048, False), (40, 2048, False), (1024, 2048, False),
+                (128, 128, False), (16384, 128, False),
+                (TB * TSEQ, 2048, False), (TB * TSEQ * HQ, 128, False),
+                (TB * TSEQ * HKV, 128, False), (131, 2048, True),
+                (517, 128, True), (33, 1000, False)):
+            seed += 1
+            rmsnorm_case(torch, rows, width, x_dtype, s_dtype, strided, seed)
+
+    entries = {}
+    for label, rows, width in (("block", TB * TSEQ, 2048),
+                               ("q-norm", TB * TSEQ * HQ, 128),
+                               ("k-norm", TB * TSEQ * HKV, 128)):
+        err, err_g, (x, scale, dy, rstd) = rmsnorm_case(
+            torch, rows, width, "bfloat16", "bfloat16", False, seed=rows)
+        xl = x.detach().requires_grad_(True)
+        sl = scale.detach().requires_grad_(True)
+        calls = {
+            "fwd": lambda: rmsnorm_forward(x, scale, RMS_EPS,
+                                           want_rstd=True),
+            "bwd": lambda: rmsnorm_backward(x, scale, rstd, dy, RMS_EPS),
+            "fwd_plain": lambda: ref.rmsnorm_ref(x, scale, RMS_EPS),
+            "bwd_plain": lambda: ref.rmsnorm_bwd_ref(x, scale, dy, RMS_EPS),
+            "fwd_lib": lambda: F.rms_norm(x, (width,), scale, RMS_EPS),
+            "bwd_lib": lambda: torch.autograd.backward(
+                F.rms_norm(xl, (width,), sl, RMS_EPS), dy)}
+        dev = {k: timer.device(fn) for k, fn in calls.items()}
+        ev = {k: timer(fn) for k, fn in calls.items()}
+        fwd, bwd, fwd_plain, bwd_plain, fwd_lib, bwd_lib = (
+            dev[k] for k in ("fwd", "bwd", "fwd_plain", "bwd_plain",
+                             "fwd_lib", "bwd_lib"))
+        isz = x.element_size()
+        # forward: x, scale in; y, rstd out. backward: x, dy, rstd, scale
+        # in; dx, dscale out. ~4 f32 operations an element forward, ~8
+        # backward, on the CUDA cores
+        n = rows * width
+        fwd_b = bound(2 * n * isz + width * isz + rows * 4, 4 * n,
+                      PEAK_FLOPS["float32"])
+        bwd_b = bound(3 * n * isz + rows * 4 + 2 * width * isz, 8 * n,
+                      PEAK_FLOPS["float32"])
+        print(f"[kernels] rmsnorm {label} on the training inputs ({rows} x "
+              f"{width} bf16, bf16 scale), device time: forward kernel "
+              f"{fwd:.4f} ms | plain {fwd_plain:.4f} ms | F.rms_norm "
+              f"{fwd_lib:.4f} ms | bound {fwd_b[0]:.4f} ms ({fwd_b[1]}); "
+              f"backward kernel {bwd:.4f} ms | plain {bwd_plain:.4f} ms | "
+              f"F.rms_norm fwd+bwd {bwd_lib:.4f} ms | bound "
+              f"{bwd_b[0]:.4f} ms ({bwd_b[1]})", flush=True)
+        print(f"[kernels] rmsnorm {label}, CUDA events around each call "
+              f"(host launch path included): "
+              + ", ".join(f"{k} {v:.4f} ms" for k, v in ev.items()),
+              flush=True)
+        if label != "block":
+            continue
+        for key, ms, plain_ms, lib_ms, e, (b_ms, by) in (
+                ("rmsnorm_fwd", fwd, fwd_plain, fwd_lib, err, fwd_b),
+                ("rmsnorm_bwd", bwd, bwd_plain, bwd_lib, err_g, bwd_b)):
+            entries[key] = {
+                "name": key, "route": "triton",
+                "source": "src/repro_torch/kernels/rmsnorm.py",
+                "replaces": "src/repro/kernels/rmsnorm.py:23",
+                "max_abs_err": e, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": b_ms, "bound_by": by, "library_ms": lib_ms}
+    return entries
 
 
 # ----------------------------------------------------------------------
@@ -511,13 +713,14 @@ def train_path(torch, np):
     just after. Returns the launches."""
     import math
     import repro_torch.kernels.flash_attention as fa
+    import repro_torch.kernels.rmsnorm as rn
     import repro_torch.kernels.silent_compare as sc
     from repro_torch.configs import registry
     from repro_torch.launch.train import run
 
     cfg = registry.get_config("qwen3-1.7b")
     counters = (fa.flash_attention_forward, fa.flash_attention_backward,
-                sc.silent_compare)
+                sc.silent_compare, rn.rmsnorm_forward, rn.rmsnorm_backward)
     for c in counters:
         c.launches = 0
     t0 = time.perf_counter()
@@ -527,7 +730,9 @@ def train_path(torch, np):
     wall = time.perf_counter() - t0
     launches = {"flash_attention_fwd": fa.flash_attention_forward.launches,
                 "flash_attention_bwd": fa.flash_attention_backward.launches,
-                "silent_compare": sc.silent_compare.launches}
+                "silent_compare": sc.silent_compare.launches,
+                "rmsnorm_fwd": rn.rmsnorm_forward.launches,
+                "rmsnorm_bwd": rn.rmsnorm_backward.launches}
     checked = merged.checked.get("silent_param_store", 0)
     print(f"[train] qwen3-1.7b full width, {TRAIN_STEPS} steps of {TB} x "
           f"{TSEQ} tokens, detectors on: {wall:.1f} s including set-up; "
@@ -539,6 +744,9 @@ def train_path(torch, np):
     layers = cfg.num_layers
     assert launches["flash_attention_fwd"] == layers * TRAIN_STEPS, launches
     assert launches["flash_attention_bwd"] == layers * TRAIN_STEPS, launches
+    norms = NORMS_PER_FORWARD * layers + 1
+    assert launches["rmsnorm_fwd"] == norms * TRAIN_STEPS, launches
+    assert launches["rmsnorm_bwd"] == norms * TRAIN_STEPS, launches
     assert launches["silent_compare"] == checked > 0, (launches, checked)
     assert all(math.isfinite(x) for x in losses), losses
     assert abs(losses[0] - math.log(cfg.padded_vocab)) < 3.0, losses
@@ -692,6 +900,7 @@ def dup_prefix_requests(np, vocab, Request, *, n, shared_len, tails,
 def main_path(torch, np):
     import repro_torch.kernels.flash_prefill as fp
     import repro_torch.kernels.paged_attention as pa
+    import repro_torch.kernels.rmsnorm as rn
     from repro_torch.configs import registry
     from repro_torch.configs.base import ProfilerConfig
     from repro_torch.core.detectors import ServingDetectors
@@ -701,9 +910,11 @@ def main_path(torch, np):
 
     cfg = registry.get_config("qwen3-1.7b")
     layers = cfg.num_layers
+    norms = NORMS_PER_FORWARD * layers + 1
 
     pa.paged_decode_attention.launches = 0
     fp.paged_window_attention.launches = 0
+    rn.rmsnorm_forward.launches = 0
     t0 = time.perf_counter()
     out, merged, stats = run("qwen3-1.7b", smoke=False, kv="paged",
                              profile=True, batch=8, prompt_len=128, gen=32,
@@ -711,13 +922,16 @@ def main_path(torch, np):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {"paged_decode": pa.paged_decode_attention.launches,
-                "paged_window": fp.paged_window_attention.launches}
+                "paged_window": fp.paged_window_attention.launches,
+                "rmsnorm_fwd": rn.rmsnorm_forward.launches}
     print(f"[main] qwen3-1.7b full width, paged, profile: {wall:.1f} s; "
           f"launches {launches}; ticks {stats['ticks']}, prefills "
           f"{stats['prefills']}; prefill {stats['prefill_tok_s']:.1f} tok/s, "
           f"decode {stats['decode_tok_s']:.1f} tok/s", flush=True)
     assert launches["paged_decode"] == layers * stats["ticks"] > 0, launches
     assert launches["paged_window"] == layers * stats["prefills"] > 0, launches
+    assert launches["rmsnorm_fwd"] == norms * (stats["ticks"]
+                                               + stats["prefills"]), launches
     assert out.shape == (8, 32) and ((out >= 0) & (out < cfg.vocab_size)).all()
     assert 3 in merged.tiers and 4 in merged.tiers, merged.tiers
     assert merged.checked.get("kernel_dead_store", 0) > 0
@@ -735,6 +949,7 @@ def main_path(torch, np):
         eng.submit(r)
     pa.paged_decode_attention.launches = 0
     fp.paged_window_attention.launches = 0
+    rn.rmsnorm_forward.launches = 0
     eng.run(max_steps=500)
     st = eng.stats
     prof = det.combined()
@@ -751,6 +966,8 @@ def main_path(torch, np):
     assert st["prefix_hits"] >= 1 and st["cow_copies"] >= 1
     assert pa.paged_decode_attention.launches == layers * st["ticks"]
     assert fp.paged_window_attention.launches == layers * st["prefills"]
+    assert rn.rmsnorm_forward.launches == norms * (st["ticks"]
+                                                   + st["prefills"])
     assert prof.tiers == [3, 4] and prof.checked["kernel_dead_store"] > 0
     assert sum(prof.checked.get(k, 0) for k in
                ("dead_kv_store", "silent_kv_store", "silent_prefix_load")) > 0
@@ -771,6 +988,10 @@ def _kernel_kind(name: str) -> str:
         return "flash_attention_bwd"
     if "silent_count_kernel" in name:
         return "silent_compare"
+    if "rmsnorm_fwd_kernel" in name:
+        return "rmsnorm_fwd"
+    if "rmsnorm_bwd_kernel" in name:
+        return "rmsnorm_bwd"
     if any(s in name for s in ("gemm", "nvjet", "cutlass", "xmma")):
         return "matmul"
     if "copy" in name:
@@ -824,6 +1045,184 @@ def report_trace(torch, prof, label, wall_ms):
     top = sorted(others.items(), key=lambda kv: -kv[1])[:5]
     print(f"[trace] {label}: largest kernels of 'other': "
           + "; ".join(f"{name} {ms:.3f} ms" for name, ms in top), flush=True)
+
+
+# ----------------------------------------------------------------------
+# phase 3b: the speculative-verify path
+# ----------------------------------------------------------------------
+SPEC_K = 4
+
+
+def spec_path(torch, np):
+    """``launch.serve.run --spec on --draft ngram`` at full width, with
+    rollback and with overwrite; the serving kernels' launch counts are
+    set to 0 just before each run and read just after. Returns the
+    launches per run."""
+    import repro_torch.kernels.flash_prefill as fp
+    import repro_torch.kernels.paged_attention as pa
+    import repro_torch.kernels.rmsnorm as rn
+    from repro_torch.configs import registry
+    from repro_torch.launch.serve import run
+
+    cfg = registry.get_config("qwen3-1.7b")
+    layers = cfg.num_layers
+    norms = NORMS_PER_FORWARD * layers + 1
+    counters = {"paged_decode": pa.paged_decode_attention,
+                "paged_window": fp.paged_window_attention,
+                "rmsnorm_fwd": rn.rmsnorm_forward}
+    by_run = {}
+    for rollback in (True, False):
+        mode = "rollback" if rollback else "overwrite"
+        for c in counters.values():
+            c.launches = 0
+        t0 = time.perf_counter()
+        out, merged, stats = run("qwen3-1.7b", smoke=False, kv="paged",
+                                 profile=True, batch=8, prompt_len=128,
+                                 gen=32, spec=True, spec_k=SPEC_K,
+                                 draft="ngram", spec_rollback=rollback,
+                                 device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: c.launches for k, c in counters.items()}
+        forwards = stats["prefills"] + stats["spec_ticks"]
+        rejected = stats["draft_proposed"] - stats["draft_accepted"]
+        checked = merged.checked.get("kernel_rejected_draft_store", 0)
+        flagged = merged.flagged.get("kernel_rejected_draft_store", 0)
+        print(f"[spec] qwen3-1.7b full width, paged, ngram drafts, {mode}: "
+              f"{wall:.1f} s; launches {launches}; verify ticks "
+              f"{stats['spec_ticks']}, prefills {stats['prefills']}; "
+              f"drafts accepted {stats['draft_accepted']} of "
+              f"{stats['draft_proposed']} (accept rate "
+              f"{stats['accept_rate']:.4f}); verify "
+              f"{stats['verify_tok_s']:.1f} tok/s over verified positions, "
+              f"decode {stats['decode_tok_s']:.1f} tok/s over emitted "
+              f"tokens, prefill {stats['prefill_tok_s']:.1f} tok/s; "
+              f"kernel_rejected_draft_store {flagged} of {checked} "
+              f"(rejected drafts {rejected}); tier-3 rejected_draft_store "
+              f"{merged.flagged.get('rejected_draft_store', 0)} of "
+              f"{merged.checked.get('rejected_draft_store', 0)}",
+              flush=True)
+        assert stats["ticks"] == stats["spec_ticks"] > 0, stats
+        assert launches["paged_decode"] == 0, launches
+        assert launches["paged_window"] == layers * forwards, launches
+        assert launches["rmsnorm_fwd"] == norms * forwards, launches
+        assert out.shape == (8, 32) and ((out >= 0)
+                                         & (out < cfg.vocab_size)).all()
+        assert checked == stats["draft_proposed"] > 0, (checked, stats)
+        assert flagged == (0 if rollback else rejected), (flagged, rejected)
+        by_run[f"spec {mode}"] = launches
+    trace_verify_tick(torch, np, cfg)
+    return by_run
+
+
+def trace_verify_tick(torch, np, cfg):
+    """torch.profiler over one verify tick at full width (8 live slots,
+    n-gram drafts, rollback, detectors and kernel counters on, as the
+    spec path runs), after an admission step."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs.base import ProfilerConfig
+    from repro_torch.core.detectors import ServingDetectors
+    from repro_torch.data.synthetic import batch_at
+    from repro_torch.models.zoo import build_model
+    from repro_torch.serve.engine import Request, ServeEngine
+    from repro_torch.serve.spec import NGramDrafter
+
+    model = build_model(cfg)
+    params = model.init(0, device="cuda")
+    eng = ServeEngine(model, params, num_slots=8, max_len=MAX_LEN,
+                      detectors=ServingDetectors(ProfilerConfig(
+                          enabled=True, seed=0)),
+                      kv_dtype=torch.float32, kv_layout="paged",
+                      page_size=PS, kernel_counters=True,
+                      drafter=NGramDrafter(), spec_k=SPEC_K)
+    prompts = batch_at(cfg, 8, 128, seed=0, step=0)["tokens"]
+    for b in range(8):
+        eng.submit(Request(rid=f"v{b}", tokens=np.asarray(prompts[b]),
+                           max_new_tokens=32))
+    # admission and the first ticks: the continuations start to repeat,
+    # so the n-gram drafter proposes in the traced tick
+    for _ in range(4):
+        eng.step()
+    before = dict(eng.stats)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        eng.step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    delta = {k: eng.stats[k] - before[k] for k in
+             ("prefills", "spec_ticks", "draft_proposed", "draft_accepted")}
+    print(f"[trace] verify tick: {delta}", flush=True)
+    assert delta["prefills"] == 0 and delta["spec_ticks"] == 1, delta
+    report_trace(torch, prof, "verify tick", wall_ms)
+    del eng, params, model
+    torch.cuda.empty_cache()
+
+
+def spec_smoke_check(torch, np):
+    """The smoke config in float32 on the card and on the CPU, the same
+    weights: in every spec mode (paged rollback, paged overwrite, dense)
+    the replayed plain continuations are all accepted and give plain
+    decode's tokens (a W-row verify window through the window kernel
+    picks what one-row decode through the decode kernel picked), and the
+    n-gram runs give plain decode's tokens with the same spec counters
+    on the card as on the CPU."""
+    import dataclasses
+    from repro_torch.configs import registry
+    from repro_torch.models.params import tree_map
+    from repro_torch.models.zoo import build_model
+    from repro_torch.serve.engine import Request, ServeEngine
+    from repro_torch.serve.spec import NGramDrafter, ReplayDrafter
+
+    cfg = dataclasses.replace(registry.get_config("qwen3-1.7b").smoke(),
+                              dtype="float32")
+    model = build_model(cfg)
+    cpu_params = model.init(0, device="cpu")
+
+    def serve(params, kv, drafter=None, rollback=True):
+        eng = ServeEngine(model, params, num_slots=3, max_len=48,
+                          kv_dtype=torch.float32, kv_layout=kv, page_size=4,
+                          drafter=drafter, spec_k=SPEC_K,
+                          spec_rollback=rollback)
+        reqs = dup_prefix_requests(np, cfg.vocab_size, Request, n=7,
+                                   shared_len=10, tails=(2, 12),
+                                   gens=(4, 12))
+        for r in reqs:
+            eng.submit(r)
+        eng.run(max_steps=300)
+        return ({rid: r.generated for rid, r in eng.finished.items()},
+                {r.rid: r.tokens for r in reqs}, eng.stats)
+
+    results = {}
+    for dev in ("cpu", "cuda"):
+        params = tree_map(lambda t: t.to(dev), cpu_params)
+        for kv, rollback in (("paged", True), ("paged", False),
+                             ("dense", False)):
+            plain, prompts, _ = serve(params, kv)
+            oracle = ReplayDrafter([np.concatenate(
+                [prompts[rid], np.asarray(toks, np.int32)])
+                for rid, toks in plain.items()])
+            got, _, st = serve(params, kv, oracle, rollback)
+            assert got == plain, (dev, kv, rollback)
+            assert st["draft_accepted"] == st["draft_proposed"] > 0, st
+            got, _, st = serve(params, kv, NGramDrafter(), rollback)
+            assert got == plain, (dev, kv, rollback)
+            results[(dev, kv, rollback)] = (got, {
+                k: st[k] for k in ("spec_ticks", "draft_proposed",
+                                   "draft_accepted", "verified_positions")})
+    same = all(results[("cpu",) + key[1:]] == results[key]
+               for key in results if key[0] == "cuda")
+    print(f"[check] smoke f32 spec: the oracle accepts every draft and "
+          f"gives plain decode's tokens on the card and on the CPU in "
+          f"paged rollback, paged overwrite and dense; n-gram tokens and "
+          f"spec counters on the card equal the CPU's {same} ("
+          + "; ".join(f"{kv}/{'rollback' if rb else 'overwrite'}: "
+                      f"{st['draft_accepted']} of {st['draft_proposed']} "
+                      f"accepted" for (dev, kv, rb), (_, st)
+                      in results.items() if dev == "cuda") + ")",
+          flush=True)
+    assert same, results
 
 
 def small_reference_check(torch, np):
@@ -897,21 +1296,30 @@ def main() -> int:
 
     timer = Timer(torch)
     entries = check_kernels(torch, np, timer)
+    entries.update(check_rmsnorm(torch, timer))
     entries.update(check_flash(torch, timer))
     entries["silent_compare"] = check_silent(torch, timer)
-    launches, stats = main_path(torch, np)
+    # each main path is driven with the launch counts set to 0 just
+    # before it and read just after
+    by_path = {}
+    by_path["serve"], stats = main_path(torch, np)
     small_reference_check(torch, np)
+    by_path.update(spec_path(torch, np))
+    spec_smoke_check(torch, np)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    launches.update(train_path(torch, np))
+    by_path["train"] = train_path(torch, np)
     train_timing_and_trace(torch, np)
     train_smoke_check(torch, np)
 
     for key, e in entries.items():
-        e["launches"] = launches[key]
+        per = {path: n[key] for path, n in by_path.items() if key in n}
+        e["launches"] = sum(per.values())
+        e["launches_by_path"] = per
     print(json.dumps({"kernels": [entries[k] for k in (
         "paged_decode", "paged_window", "flash_attention_fwd",
-        "flash_attention_bwd", "silent_compare")]}))
+        "flash_attention_bwd", "silent_compare", "rmsnorm_fwd",
+        "rmsnorm_bwd")]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

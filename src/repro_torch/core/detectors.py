@@ -194,12 +194,32 @@ class SlotWrite:
         self.offset = pos if offset is None else offset
 
 
+class VerifyWrite:
+    """One slot's speculative verify-window K/V stores in one tick.
+
+    ``sites`` lists the draft rows actually stored this tick, in window
+    order, as (page, offset, rejected): rejected rows are Def.-1 dead
+    stores (written for a token past the accept point, never read by the
+    request, overwritten by the next window). Under rollback the engine
+    never stores rejected rows, so every site arrives with
+    rejected=False."""
+
+    __slots__ = ("slot", "rid", "accepted", "sites")
+
+    def __init__(self, slot: int, rid: str, accepted: int,
+                 sites: Sequence[Tuple[int, int, bool]]):
+        self.slot = slot
+        self.rid = rid
+        self.accepted = accepted
+        self.sites = list(sites)
+
+
 class ServingDetectors:
     """Serve-side tier 3: KV-cache waste at request granularity.
 
     Attach to a ``serve.engine.ServeEngine`` (it calls ``bind`` once and
-    then ``on_admit`` / ``on_finish`` / ``on_step`` / ``on_page_free`` as
-    the schedule advances, in the reference engine's order: the sampled
+    then ``on_admit`` / ``on_finish`` / ``on_step`` / ``on_page_free`` /
+    ``on_verify`` as the schedule advances, in the reference engine's order: the sampled
     watchpoints draw from one seeded RandomState, so the order is part of
     the result). A sampled K/V *site* (layer, page, offset) arms one
     reservoir watchpoint for one client — dead (value-agnostic) or silent
@@ -284,6 +304,51 @@ class ServingDetectors:
                                (f"kernel:{site}", name, f"layer:{layer}"),
                                (f"serve.engine:{site}",), dr * isz,
                                stored_bytes=st * isz)
+
+    def on_kernel_verify(self, step: int, counts, accepted, draft_len,
+                         active) -> None:
+        """Classify one verify tick's kernel counters against the accept
+        point (measured in the kernel, classified on the host).
+
+        counts: as in ``on_kernel_store``; under overwrite the verify
+        forward's full-window stores, under rollback the commit's
+        accepted-prefix stores (the deferred window stored nothing).
+        accepted/draft_len/active: (B,) accept counts m, real draft
+        counts, live mask. Per slot the stored rows are stored elements
+        / row elements; stored drafts past the m accepted are rejected,
+        so the flagged count is the rejected drafts under overwrite and
+        exactly 0 when only the accepted prefix was committed."""
+        self.on_kernel_store(step, "verify", counts)
+        accepted = np.asarray(accepted)
+        draft_len = np.asarray(draft_len)
+        active = np.asarray(active)
+        k = self.kernel
+        for name, c in counts.items():
+            re = self.row_elems.get(name)
+            if not re:
+                continue
+            c = np.asarray(c)
+            # layers store identically; measure rows from layer 0
+            rows_stored = c[0, :, 0] // re                 # (B,)
+            for b in range(c.shape[1]):
+                if not active[b] or draft_len[b] == 0:
+                    continue
+                drafts_stored = min(int(draft_len[b]),
+                                    max(0, int(rows_stored[b]) - 1))
+                rejected = max(0, drafts_stored - int(accepted[b]))
+                k.checked["kernel_rejected_draft_store"] = \
+                    k.checked.get("kernel_rejected_draft_store", 0) \
+                    + int(draft_len[b])
+                k.flagged["kernel_rejected_draft_store"] = \
+                    k.flagged.get("kernel_rejected_draft_store", 0) \
+                    + rejected
+                if rejected:
+                    k.add_pair(
+                        "kernel_rejected_draft_store", 4,
+                        ("kernel:verify", name),
+                        ("serve.engine:verify",),
+                        rejected * re * self.kv_itemsize * c.shape[0],
+                        accepted=int(accepted[b]))
 
     def combined(self) -> WasteProfile:
         """Tier-3 sampled report + tier-4 kernel counters, §5.6-merged."""
@@ -379,6 +444,34 @@ class ServingDetectors:
         for wp in list(self.wp.armed()):
             if wp.meta.get("page") in freed:
                 self.wp.disarm(wp)
+
+    # -- speculative verify (rejected-draft dead stores) ---------------
+    def on_verify(self, step: int,
+                  entries: Sequence[VerifyWrite]) -> List[Finding]:
+        """One verify tick's draft-row K/V stores (Def. 1 at the
+        speculative-decode site): every proposed-and-stored draft row is
+        checked and rows past the accept point are flagged, dead by
+        construction. Exact accounting, no sampling: the engine knows
+        which rows it stored and where the accept point fell. A rejected
+        row is written in every layer, so it costs site_bytes *
+        num_layers."""
+        out: List[Finding] = []
+        for e in entries:
+            for page, off, rejected in e.sites:
+                self.report.observe("rejected_draft_store", rejected)
+                if rejected:
+                    # derived, not drawn: a draw from the shared RNG would
+                    # shift the other detectors' sampling between the
+                    # overwrite and rollback runs of one seed
+                    layer = (page * 131 + off) % self.num_layers
+                    out.append(self.report.add_pair(
+                        "rejected_draft_store", 3,
+                        ("serve.spec:draft", f"req:{e.rid}"),
+                        ("serve.engine:verify", f"slot:{e.slot}"),
+                        self.site_bytes * self.num_layers,
+                        layer=layer, page=page, offset=off,
+                        accepted=e.accepted))
+        return out
 
     # -- per-tick watchpoints ------------------------------------------
     def on_step(self, step: int, writes: Sequence[SlotWrite],

@@ -74,6 +74,14 @@ _RULES: Dict[str, Dict[str, str]] = {
         "help": "Serve-side: bucket padding in batched prefill computes "
                 "attention for positions that are discarded.",
     },
+    "rejected_draft_store": {
+        "short": "Rejected draft store: KV written for tokens verification "
+                 "discarded",
+        "help": "Paper Def. 1 in speculative decoding: draft tokens past "
+                "the first mismatch still wrote their KV into the cache "
+                "(overwrite mode); rollback commits exactly the accepted "
+                "rows and drives this to zero.",
+    },
     "kernel_silent_store": {
         "short": "Kernel-counted silent store (exact, in-kernel)",
         "help": "Tier 4: the paged kernels' store epilogue counted stores "
@@ -84,6 +92,11 @@ _RULES: Dict[str, Dict[str, str]] = {
         "short": "Kernel-counted dead store (exact, in-kernel)",
         "help": "Tier 4: in-kernel counters at the store site; writes "
                 "dropped or overwritten before any read.",
+    },
+    "kernel_rejected_draft_store": {
+        "short": "Kernel-counted rejected-draft store (exact, in-kernel)",
+        "help": "Tier 4: verify-kernel store counters; equals 1-accept "
+                "under overwrite and is provably 0 under rollback.",
     },
 }
 

@@ -1,12 +1,12 @@
 """Model-facing kernel entry points, dispatched by the tensors' device.
 
 A CUDA tensor reaching ``paged_decode``, ``paged_window``, the cache-free
-``attention``, ``silent_fraction`` or ``silent_count`` launches the
-hand-written Hopper kernel (``csrc/*.cu``, or Triton for the silent
-compare) or raises; a CPU tensor takes the kernel's plain version from
-``ref.py``. There is no switch and no fallback. The paged scatter/gather
-and the masked attention of the dense per-slot cache are plain PyTorch on
-every device, as the reference left them to XLA.
+``attention``, ``rmsnorm``, ``silent_fraction`` or ``silent_count``
+launches the hand-written Hopper kernel (``csrc/*.cu``, or Triton for the
+norm and the silent compare) or raises; a CPU tensor takes the kernel's
+plain version from ``ref.py``. There is no switch and no fallback. The
+paged scatter/gather and the masked attention of the dense per-slot cache
+are plain PyTorch on every device, as the reference left them to XLA.
 """
 from __future__ import annotations
 
@@ -19,6 +19,7 @@ from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.flash_prefill import paged_window_attention
 from repro_torch.kernels.paged_attention import paged_decode_attention
+from repro_torch.kernels.rmsnorm import RMSNorm, rmsnorm_forward
 from repro_torch.kernels.silent_compare import silent_compare
 
 # store-site waste-counter tolerance (kernel tier): exact equality, the
@@ -42,6 +43,19 @@ def attention(q, k, v, *, causal: bool = True, q_offset=0,
         return flash_attention(q, k, v, causal=causal)
     return _ref.attention_ref(q, k, v, causal=causal, q_offset=q_offset,
                               kv_len=kv_len, kv_valid=kv_valid)
+
+
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
+            eps: float = 1e-5) -> torch.Tensor:
+    """Row RMSNorm of x (..., d) with scale (d,), differentiable. CPU
+    tensors take ``ref.rmsnorm_ref`` (autograd through its ops); CUDA
+    tensors the Triton kernels, through ``RMSNorm`` when a gradient is
+    needed, else the forward kernel alone, which saves nothing."""
+    if x.device.type == "cpu":
+        return _ref.rmsnorm_ref(x, scale, eps)
+    if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad):
+        return RMSNorm.apply(x, scale, eps)
+    return rmsnorm_forward(x, scale, eps)[0]
 
 
 def paged_decode(q, k_new, v_new, pool_k, pool_v, pt, idx, *,

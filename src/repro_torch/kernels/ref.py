@@ -162,20 +162,34 @@ def _targets(pool: torch.Tensor, pt: torch.Tensor, idx: torch.Tensor,
     return pos, page, flat
 
 
+def _budget(pos: torch.Tensor, length: Optional[torch.Tensor]):
+    """(B, S) mask of the window rows within each slot's row budget
+    (all rows when ``length`` is None)."""
+    if length is None:
+        return torch.ones_like(pos, dtype=torch.bool)
+    S = pos.shape[1]
+    return (torch.arange(S, device=pos.device)[None, :]
+            < torch.as_tensor(length, device=pos.device).long()[:, None])
+
+
 def paged_update(pool_k: torch.Tensor, pool_v: torch.Tensor,
                  k_new: torch.Tensor, v_new: torch.Tensor,
-                 pt: torch.Tensor, idx: torch.Tensor):
+                 pt: torch.Tensor, idx: torch.Tensor,
+                 length: Optional[torch.Tensor] = None):
     """Scatter new K/V rows into the paged pool through the page table,
     in place; returns ``(pool_k, pool_v)``.
 
     pool: (P, page, Hkv, D); k_new/v_new: (B, S, Hkv, D); pt: (B, M)
     (-1 = unmapped); idx: (B,). Row (b, s) lands at logical position
     idx[b]+s -> page pt[b, pos//page]. Stores at negative positions
-    (idle sentinel) or on unmapped pages are dropped.
+    (idle sentinel) or on unmapped pages are dropped, and so are rows
+    s >= length[b] when the (B,) row budget ``length`` is given (the
+    speculative rollback commits only a verify window's accepted
+    prefix this way).
     """
     P, ps = pool_k.shape[:2]
     pos, page, flat = _targets(pool_k, pt, idx, k_new.shape[1])
-    land = (page >= 0) & (pos >= 0)
+    land = (page >= 0) & (pos >= 0) & _budget(pos, length)
     rows = flat[land]
     for pool, new in ((pool_k, k_new), (pool_v, v_new)):
         pool.view((P * ps,) + pool.shape[2:])[rows] = \
@@ -186,15 +200,17 @@ def paged_update(pool_k: torch.Tensor, pool_v: torch.Tensor,
 def paged_store_counts(pool_k: torch.Tensor, pool_v: torch.Tensor,
                        k_new: torch.Tensor, v_new: torch.Tensor,
                        pt: torch.Tensor, idx: torch.Tensor,
+                       length: Optional[torch.Tensor] = None,
                        tol: float = 0.0) -> torch.Tensor:
     """Waste counters of a ``paged_update`` store, per slot: (B, 3) int32
     ``[stored, silent, dropped]`` element counts over K and V, measured
     against the pool content before the store (after the new rows'
-    round trip through the pool dtype). Idle slots count nothing."""
+    round trip through the pool dtype). Idle slots, and rows past the
+    row budget ``length``, attempt no store and count nothing."""
     P, ps = pool_k.shape[:2]
     B, S, Hkv, D = k_new.shape
     pos, page, flat = _targets(pool_k, pt, idx, S)
-    attempted = pos >= 0
+    attempted = (pos >= 0) & _budget(pos, length)
     landing = attempted & (page >= 0)
     flat = torch.where(landing, flat, 0)
 
@@ -290,6 +306,25 @@ def silent_compare_ref(a: torch.Tensor, b: torch.Tensor,
 # ----------------------------------------------------------------------
 def rmsnorm_ref(x: torch.Tensor, scale: torch.Tensor,
                 eps: float = 1e-5) -> torch.Tensor:
+    """Row RMSNorm over the last dimension: f32 mean of squares,
+    ``rsqrt(var + eps)``, times the f32 scale, cast back to x's dtype
+    (the Pallas ``_rmsnorm_kernel``)."""
     xf = x.float()
     var = xf.square().mean(dim=-1, keepdim=True)
     return (xf * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
+
+
+def rmsnorm_bwd_ref(x: torch.Tensor, scale: torch.Tensor, dy: torch.Tensor,
+                    eps: float = 1e-5):
+    """Gradients ``(dx, dscale)`` of ``rmsnorm_ref`` against ``dy``, in
+    f32: with r = rsqrt(mean(x^2) + eps), xhat = x r and g = dy s,
+    dx = r (g - xhat mean(g xhat)) per row and dscale = sum over rows of
+    dy xhat. dx comes back in x's dtype, dscale in scale's."""
+    xf = x.float()
+    r = torch.rsqrt(xf.square().mean(dim=-1, keepdim=True) + eps)
+    xhat = xf * r
+    dyf = dy.float()
+    g = dyf * scale.float()
+    dx = r * (g - xhat * (g * xhat).mean(dim=-1, keepdim=True))
+    dscale = (dyf * xhat).reshape(-1, x.shape[-1]).sum(dim=0)
+    return dx.to(x.dtype), dscale.to(scale.dtype)

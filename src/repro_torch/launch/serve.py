@@ -14,6 +14,16 @@ merges the tier-3 serving detectors, the tier-4 in-kernel store
 counters (paged layout) and the prefill padding accounting into one
 ``WasteProfile``. The reference's tiers 1 and 2 (jaxpr interpreter, HLO
 analysis) are bound to JAX and are not ported.
+
+``--spec on`` adds speculative decoding (serve/spec.py): a host-side
+drafter proposes up to ``--spec-k`` tokens per tick and ONE width-(k+1)
+verify forward accepts the greedy-consistent prefix, so the outputs are
+plain greedy decode's while live slots emit up to k+1 tokens a tick.
+Rejected drafts are Def.-1 dead KV stores, measured at the
+``rejected_draft_store`` site and, in the paged layout, eliminated by
+``--spec-rollback on`` (only the accepted prefix is stored). ``--draft
+oracle`` runs a plain pass first, replays its continuations (accept rate
+1.0) and asserts that the speculative outputs equal it.
 """
 from __future__ import annotations
 
@@ -32,6 +42,7 @@ from repro_torch.core.sarif import write_sarif
 from repro_torch.data.synthetic import batch_at
 from repro_torch.models.zoo import build_model
 from repro_torch.serve.engine import ENGINE_FAMILIES, Request, ServeEngine
+from repro_torch.serve.spec import make_drafter
 
 NOT_PORTED_TIERS = ("tier 1 (jaxpr interpreter, profile_fn) and tier 2 "
                     "(HLO waste analysis) are bound to JAX and not ported")
@@ -71,13 +82,15 @@ def run(arch: str, *, smoke: bool = False, batch: int = 4,
         prompt_len: int = 32, gen: int = 16, seed: int = 0,
         profile: bool = False, profile_out: Optional[str] = None,
         sarif_out: Optional[str] = None, kv: str = "dense",
-        page_size: int = 16, device: str = "cuda"):
+        page_size: int = 16, spec: bool = False, spec_k: int = 4,
+        draft: str = "ngram", spec_rollback: bool = True,
+        device: str = "cuda"):
     """Serve `batch` seeded synthetic prompts through the engine.
 
     Returns ``(tokens, merged profile or None, stats)``: the greedy
     continuations (batch, gen) int32 on the host, the merged waste
     profile when ``profile``, and the engine's counters with its
-    prefill/decode throughput."""
+    prefill/decode (and, with ``spec``, draft/verify) throughput."""
     dev = resolve_device(device)
     cfg = registry.get_config(arch)
     if smoke:
@@ -90,19 +103,47 @@ def run(arch: str, *, smoke: bool = False, batch: int = 4,
     params = model.init(seed, device=dev)
     prompts = batch_at(cfg, batch, prompt_len, seed=seed, step=0)["tokens"]
 
+    def build_and_run(drafter, det):
+        eng = ServeEngine(model, params, num_slots=batch,
+                          max_len=prompt_len + gen + 1, detectors=det,
+                          kv_dtype=torch.float32, kv_layout=kv,
+                          page_size=page_size, drafter=drafter,
+                          spec_k=spec_k, spec_rollback=spec_rollback,
+                          kernel_counters=det is not None and kv == "paged")
+        for b in range(batch):
+            eng.submit(Request(rid=f"r{b}", tokens=np.asarray(prompts[b]),
+                               max_new_tokens=gen))
+        eng.run()
+        return eng, np.stack(
+            [np.asarray(eng.finished[f"r{b}"].generated[:gen], np.int32)
+             for b in range(batch)])
+
+    drafter = None
+    plain_out = None
+    if spec:
+        if draft == "oracle":
+            # harvest the plain greedy continuations first; the replay
+            # drafter proposes exactly them (accept rate 1.0), and the
+            # speculative run must reproduce them
+            _, plain_out = build_and_run(None, None)
+            drafter = make_drafter("oracle", sequences=[
+                np.concatenate([np.asarray(prompts[b]), plain_out[b]])
+                for b in range(batch)])
+        else:
+            drafter = make_drafter(draft, model=model, params=params)
     det = ServingDetectors(ProfilerConfig(enabled=True, seed=seed)) \
         if profile else None
-    eng = ServeEngine(model, params, num_slots=batch,
-                      max_len=prompt_len + gen + 1, detectors=det,
-                      kv_dtype=torch.float32, kv_layout=kv,
-                      page_size=page_size,
-                      kernel_counters=profile and kv == "paged")
-    for b in range(batch):
-        eng.submit(Request(rid=f"r{b}", tokens=np.asarray(prompts[b]),
-                           max_new_tokens=gen))
-    eng.run()
-    out = np.stack([np.asarray(eng.finished[f"r{b}"].generated[:gen],
-                               np.int32) for b in range(batch)])
+    eng, out = build_and_run(drafter, det)
+    if plain_out is not None and not np.array_equal(out, plain_out):
+        diff = out != plain_out
+        first = np.where(diff.any(axis=1), diff.argmax(axis=1), gen)
+        b = int(first.argmin())
+        raise AssertionError(
+            f"speculative outputs diverged from plain greedy decode: "
+            f"first at generated token {int(first[b])} of slot {b} "
+            f"({int(diff.any(axis=1).sum())} of {batch} slots differ; "
+            f"first diverging token per slot {first.tolist()}, {gen} = "
+            f"none)")
     tp = eng.throughput()
     stats = {**eng.stats, **tp}
 
@@ -118,6 +159,14 @@ def run(arch: str, *, smoke: bool = False, batch: int = 4,
           f"{stats['prefill_tokens']} prompt tokens, "
           f"padded waste {stats['padded_prefill_tokens']} tokens, "
           f"pages freed {stats['pages_freed']}")
+    if spec:
+        mode = "rollback" if eng.spec_rollback else "overwrite"
+        print(f"[serve] spec[{draft},{mode}]: accepted drafts: "
+              f"{stats['draft_accepted']} of {stats['draft_proposed']} "
+              f"proposed (accept rate {tp['accept_rate']:.2f}) | "
+              f"draft {tp['draft_tok_s']:.0f} tok/s, "
+              f"verify {tp['verify_tok_s']:.0f} tok/s over "
+              f"{stats['spec_ticks']} verify ticks")
     print("[serve] sample continuation:", out[0][:12])
 
     merged = None
@@ -144,6 +193,18 @@ def main():
     ap.add_argument("--gen", type=int, default=16)
     ap.add_argument("--kv", default="dense", choices=("dense", "paged"))
     ap.add_argument("--page-size", type=int, default=16)
+    ap.add_argument("--spec", default="off", choices=("on", "off"),
+                    help="speculative decoding (draft + width-k verify)")
+    ap.add_argument("--spec-k", type=int, default=4,
+                    help="max draft tokens per verify window")
+    ap.add_argument("--draft", default="ngram",
+                    choices=("ngram", "oracle", "lm"),
+                    help="drafter: self-speculative n-gram lookup, the "
+                         "replay oracle (runs a plain pass first; accept "
+                         "rate 1.0), or the model drafting for itself")
+    ap.add_argument("--spec-rollback", default="on", choices=("on", "off"),
+                    help="paged only: store only the accepted prefix "
+                         "instead of every draft row")
     ap.add_argument("--profile", action="store_true")
     ap.add_argument("--profile-out", default=None)
     ap.add_argument("--sarif-out", default=None,
@@ -154,7 +215,8 @@ def main():
     run(a.arch, smoke=a.smoke, batch=a.batch, prompt_len=a.prompt_len,
         gen=a.gen, profile=a.profile, profile_out=a.profile_out,
         sarif_out=a.sarif_out, kv=a.kv, page_size=a.page_size,
-        device=a.device)
+        spec=a.spec == "on", spec_k=a.spec_k, draft=a.draft,
+        spec_rollback=a.spec_rollback == "on", device=a.device)
 
 
 if __name__ == "__main__":

@@ -23,11 +23,7 @@ from repro_torch.models import params as P
 # Norms
 # ----------------------------------------------------------------------
 def apply_rmsnorm(p, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
-    dt = x.dtype
-    xf = x.float()
-    var = xf.square().mean(dim=-1, keepdim=True)
-    y = xf * torch.rsqrt(var + eps)
-    return (y * p["scale"].float()).to(dt)
+    return ops.rmsnorm(x, p["scale"], eps)
 
 
 # ----------------------------------------------------------------------
@@ -71,7 +67,8 @@ def decl_attention(cfg: ModelConfig) -> Dict[str, Any]:
 
 
 def apply_attention(p, cfg: ModelConfig, x: torch.Tensor, *,
-                    cache: Optional[Dict[str, torch.Tensor]] = None
+                    cache: Optional[Dict[str, torch.Tensor]] = None,
+                    spec: Optional[str] = None
                     ) -> Tuple[torch.Tensor, Optional[Dict[str, Any]]]:
     """Self-attention of S tokens: cache-free (the training forward) or
     against a KV cache.
@@ -90,6 +87,17 @@ def apply_attention(p, cfg: ModelConfig, x: torch.Tensor, *,
                attends [0, idx+S).
     The cache tensors are written IN PLACE (they are views of the stacked
     cache); the returned cache holds the same tensors and idx + S.
+
+    ``spec`` marks a speculative verify window (``LM.verify``):
+      "overwrite" — all S window rows are stored, bounded: on the dense
+          cache rows past the extent drop instead of clamping the window
+          back onto committed history (paged stores drop past the table
+          anyway); rows past the accept point are the Def.-1 dead stores
+          ``rejected_draft_store`` measures;
+      "defer" (paged) — the window kernel in defer mode: the pool is
+          untouched, the counters are zero, and the window K/V ride in
+          ``win_k``/``win_v`` for ``LM.commit_verify`` to store only the
+          accepted prefix (rollback).
     """
     B, S, _ = x.shape
     H, Hkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
@@ -117,24 +125,41 @@ def apply_attention(p, cfg: ModelConfig, x: torch.Tensor, *,
 
     if "pt" in cache:
         counters = "kcnt" in cache
-        if S == 1:
-            out, ck, cv, cnt = ops.paged_decode(
+        if spec == "defer":
+            # the pool is not written: the window rows are spliced into
+            # the history after their pool-dtype round trip, so the
+            # logits equal overwrite mode's bit for bit
+            out, _, _, cnt = ops.paged_window(
                 q, k, v, cache["k"], cache["v"], cache["pt"], idx,
-                counters=counters)
+                store=False, counters=counters)
+            new_cache = {**cache, "idx": idx + S, "win_k": k, "win_v": v}
         else:
-            out, ck, cv, cnt = ops.paged_window(
-                q, k, v, cache["k"], cache["v"], cache["pt"], idx,
-                store=True, counters=counters)
-        new_cache = {**cache, "k": ck, "v": cv, "idx": idx + S}
+            if S == 1:
+                out, ck, cv, cnt = ops.paged_decode(
+                    q, k, v, cache["k"], cache["v"], cache["pt"], idx,
+                    counters=counters)
+            else:
+                out, ck, cv, cnt = ops.paged_window(
+                    q, k, v, cache["k"], cache["v"], cache["pt"], idx,
+                    store=True, counters=counters)
+            new_cache = {**cache, "k": ck, "v": cv, "idx": idx + S}
         if counters:
             new_cache["kcnt"] = cnt
     else:
         ck, cv = cache["k"], cache["v"]
-        start = idx.clamp(0, ck.shape[1] - S).expand(B)
-        rows = start[:, None].long() + ar[None, :].long()           # (B,S)
-        bidx = torch.arange(B, device=x.device)[:, None]
-        ck[bidx, rows] = k.to(ck.dtype)
-        cv[bidx, rows] = v.to(cv.dtype)
+        bidx = torch.arange(B, device=x.device)[:, None].expand(B, S)
+        if spec is not None and idx.ndim == 1:
+            # a verify window: rows past the extent drop (only rejected
+            # drafts and padding reach there), no clamp onto history
+            pos = idx[:, None].long() + ar[None, :].long()         # (B,S)
+            keep = (pos >= 0) & (pos < ck.shape[1])
+            ck[bidx[keep], pos[keep]] = k[keep].to(ck.dtype)
+            cv[bidx[keep], pos[keep]] = v[keep].to(cv.dtype)
+        else:
+            start = idx.clamp(0, ck.shape[1] - S).expand(B)
+            rows = start[:, None].long() + ar[None, :].long()       # (B,S)
+            ck[bidx, rows] = k.to(ck.dtype)
+            cv[bidx, rows] = v.to(cv.dtype)
         new_cache = {**cache, "idx": idx + S}
         out = ops.attention(q, ck.to(dt), cv.to(dt), causal=True,
                             q_offset=idx, kv_len=idx + S)
@@ -178,10 +203,11 @@ def decl_dense_block(cfg: ModelConfig) -> Dict[str, Any]:
     }
 
 
-def apply_dense_block(p, cfg: ModelConfig, x: torch.Tensor, *, cache=None):
+def apply_dense_block(p, cfg: ModelConfig, x: torch.Tensor, *, cache=None,
+                      spec: Optional[str] = None):
     h, new_cache = apply_attention(
         p["attn"], cfg, apply_rmsnorm(p["ln1"], x, cfg.norm_eps),
-        cache=cache)
+        cache=cache, spec=spec)
     x = x + h
     x = x + apply_mlp(p["mlp"], cfg, apply_rmsnorm(p["ln2"], x, cfg.norm_eps))
     return x, new_cache

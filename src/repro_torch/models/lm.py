@@ -20,6 +20,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 from repro_torch.models import params as P
 
@@ -238,32 +239,94 @@ class LM:
             cache = self.with_cache_index(cache, lengths)
         return logits, cache
 
-    def decode_step(self, params, cache, tokens: torch.Tensor):
+    # ------------------------- speculative verify --------------------
+    def verify(self, params, cache, tokens: torch.Tensor, *,
+               commit: bool = True):
+        """Width-W speculative verify forward: tokens (B, W) = [last
+        accepted token, draft_1 .. draft_{W-1}] at each slot's write
+        index. One call gives the logits of all W positions (position j
+        attends the committed history and window rows <= j).
+
+        commit=True ("overwrite"): all W K/V rows are stored (bounded:
+        rows past the extent drop); rows past the accept point are the
+        Def.-1 dead stores ``rejected_draft_store`` measures.
+        commit=False ("defer", paged caches): the pool is untouched and
+        each sub-block carries the window K/V as ``win_k``/``win_v``
+        for ``commit_verify`` to store only the accepted prefix."""
+        return self.decode_step(params, cache, tokens,
+                                spec="overwrite" if commit else "defer")
+
+    def commit_verify(self, cache, start: torch.Tensor,
+                      length: torch.Tensor) -> Any:
+        """Store a deferred verify window's accepted prefix in the paged
+        pool (in place): rows [0, length[b]) of each sub-block's
+        win_k/win_v land at positions start[b]+s through the page table
+        (length 0 = idle slot, nothing stored), all layers in one store.
+        With kernel counters on, ``kcnt`` becomes this commit's
+        [stored, silent, dropped] counts, measured against the pool
+        before the store. Drops the win_* leaves."""
+        new_main = {}
+        for name, sub in cache["main"].items():
+            if "win_k" not in sub:
+                new_main[name] = sub
+                continue
+            n, P = sub["k"].shape[:2]
+            B = sub["win_k"].shape[1]
+            # every layer's pool as one pool of n*P pages, its table
+            # shifted to the layer's pages
+            pt = sub["pt"].long()
+            off = (torch.arange(n, device=pt.device) * P)[:, None, None]
+            pt_all = torch.where(pt >= 0, pt + off, -1).reshape(n * B, -1)
+            pools = [sub[key].view((n * P,) + sub[key].shape[2:])
+                     for key in ("k", "v")]
+            wins = [sub[key].reshape((n * B,) + sub[key].shape[2:])
+                    for key in ("win_k", "win_v")]
+            start_all = start.repeat(n)
+            length_all = torch.as_tensor(length, device=pt.device).repeat(n)
+            out = {key: t for key, t in sub.items()
+                   if key not in ("win_k", "win_v")}
+            if "kcnt" in sub:
+                # the rollback path's stores happen here, so here they
+                # are counted: only accepted rows are ever stored
+                out["kcnt"] = ops.paged_store_counts(
+                    *pools, *wins, pt_all, start_all, length=length_all,
+                    tol=ops.COUNTER_TOL).reshape(n, B, 3)
+            ops.paged_update(*pools, *wins, pt_all, start_all,
+                             length=length_all)
+            new_main[name] = out
+        return {**cache, "main": new_main}
+
+    def decode_step(self, params, cache, tokens: torch.Tensor, *,
+                    spec: Optional[str] = None):
         """One cached forward of tokens (B, S) at each row's write index.
         Returns (logits (B, S, V_padded), new cache); the new cache shares
         the K/V tensors of `cache` (written in place) and carries the
-        advanced indices and, when enabled, this forward's counters."""
+        advanced indices and, when enabled, this forward's counters.
+        ``spec`` marks a speculative verify window (see ``verify``)."""
         cfg, sch = self.cfg, self.sched
         dt = torch_dtype(cfg.dtype)
         x = params["embed"][tokens.long()].to(dt)
         main = cache["main"]
-        idxs = {name: [] for name in main}
-        cnts = {name: [] for name in main if "kcnt" in main[name]}
+        per_layer = {name: {} for name in main}
         for li in range(sch.n_super):
             p_l = _layer(params["main"], li)
             for i, typ in enumerate(sch.pattern):
                 name = f"b{i}_{typ}"
                 c = {key: t[li] for key, t in main[name].items()}
-                x, nc = L.apply_dense_block(p_l[name], cfg, x, cache=c)
-                idxs[name].append(nc["idx"])
-                if name in cnts:
-                    cnts[name].append(nc["kcnt"])
-        new_main = {}
-        for name, sub in main.items():
-            new_main[name] = {**sub, "idx": torch.stack(idxs[name])}
-            if name in cnts:
-                new_main[name]["kcnt"] = torch.stack(cnts[name])
+                x, nc = L.apply_dense_block(p_l[name], cfg, x, cache=c,
+                                            spec=spec)
+                for key in _PER_LAYER:
+                    if key in nc:
+                        per_layer[name].setdefault(key, []).append(nc[key])
+        new_main = {name: {**sub, **{key: torch.stack(ts) for key, ts in
+                                     per_layer[name].items()}}
+                    for name, sub in main.items()}
 
         x = L.apply_rmsnorm(params["final_norm"], x, cfg.norm_eps)
         logits = L.lm_head(x, self.head_weight(params).to(dt))
         return _mask_pad_vocab(logits, cfg), {"main": new_main}
+
+
+# the leaves a cached forward returns per layer, restacked over the
+# layers: write indices, kernel counters, a deferred verify window's K/V
+_PER_LAYER = ("idx", "kcnt", "win_k", "win_v")

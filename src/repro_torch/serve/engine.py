@@ -23,6 +23,16 @@ Production-shaped serving over a fixed-size decode batch:
     the new slot (copy-on-write for partial pages). With
     ``kernel_counters=True`` the paged kernels also count every store
     at the store site (tier 4).
+  * **Speculative decoding** — pass a ``drafter`` (serve/spec.py) and
+    every decode tick becomes draft, verify, accept: the drafter proposes
+    up to ``spec_k`` tokens per live slot, ONE width-(k+1) verify forward
+    (``serve.decode.make_engine_verify`` over ``LM.verify``) scores them
+    all, and the greedy-consistent prefix plus a bonus token are emitted:
+    the same tokens as plain decode, up to k+1 of them per slot per tick.
+    Rejected drafts are Def.-1 dead KV stores
+    (``ServingDetectors.rejected_draft_store``); with ``spec_rollback``
+    on the paged layout only the accepted prefix is stored
+    (``LM.commit_verify``) and they never reach the pool.
 
 The engine serves the dense family (every block carries an indexed KV
 cache).
@@ -37,8 +47,10 @@ from typing import Any, Deque, Dict, List, Optional
 import numpy as np
 import torch
 
-from repro_torch.core.detectors import ServingDetectors, SlotWrite
-from repro_torch.serve.decode import make_engine_prefill, make_engine_tick
+from repro_torch.core.detectors import (ServingDetectors, SlotWrite,
+                                        VerifyWrite)
+from repro_torch.serve.decode import (make_engine_prefill, make_engine_tick,
+                                      make_engine_verify)
 from repro_torch.serve.kv_cache import PagedKV, PoolExhausted, make_page_copy
 
 ENGINE_FAMILIES = ("dense",)
@@ -93,6 +105,8 @@ class ServeEngine:
                  kv_dtype=torch.float32, kv_layout: str = "dense",
                  page_size: int = 16, num_pages: Optional[int] = None,
                  prefix_window: int = 32,
+                 drafter=None, spec_k: int = 4,
+                 spec_rollback: bool = True,
                  kernel_counters: bool = False,
                  step_cache=None):
         if model.cfg.family not in ENGINE_FAMILIES:
@@ -110,6 +124,15 @@ class ServeEngine:
         self.detectors = detectors
         self.kv_layout = kv_layout
         self.paged = kv_layout == "paged"
+        # speculative decoding: up to spec_k drafts per slot per tick, one
+        # width-(k+1) verify forward; rollback (paged only) stores only
+        # the accepted rows, dense always overwrites
+        self.drafter = drafter
+        self.spec = drafter is not None
+        if self.spec and spec_k < 1:
+            raise ValueError("spec_k must be >= 1 when drafting")
+        self.spec_k = spec_k
+        self.spec_rollback = bool(spec_rollback) and self.paged
         # kernel tier: in-kernel store-site waste counters (paged layout
         # only — the counters ride the paged store path)
         if kernel_counters and not self.paged:
@@ -155,16 +178,26 @@ class ServeEngine:
              "prefix_hits": 0, "prefix_hit_tokens": 0,
              "cow_copies": 0, "pages_freed": 0,
              # admissions pushed back by pool pressure
-             "admit_deferred": 0})
+             "admit_deferred": 0,
+             # speculative decode accounting
+             "spec_ticks": 0, "draft_proposed": 0,
+             "draft_accepted": 0, "draft_s": 0.0,
+             "verify_s": 0.0, "verified_positions": 0})
 
         if step_cache is not None:
             assert step_cache.model is model, \
                 "step_cache was built for a different model"
             self._tick_fn = step_cache.get("tick", paged=self.paged)
             self._prefill_fn = step_cache.get("prefill", paged=self.paged)
+            self._verify_fn = step_cache.get(
+                "verify", paged=self.paged,
+                rollback=self.spec_rollback) if self.spec else None
         else:
             self._tick_fn = make_engine_tick(model, paged=self.paged)
             self._prefill_fn = make_engine_prefill(model, paged=self.paged)
+            self._verify_fn = make_engine_verify(
+                model, paged=self.paged,
+                rollback=self.spec_rollback) if self.spec else None
 
         # detector geometry: the KV sub-blocks of one superblock
         main = self.cache["main"]
@@ -244,6 +277,10 @@ class ServeEngine:
             req.finish_step = self.step_no
             self.finished[req.rid] = req
             self.slots[slot] = None        # recycle: slot idles until reuse
+            if self.drafter is not None:
+                # a served sequence is future draft material
+                self.drafter.observe(np.concatenate(
+                    [req.tokens, np.asarray(req.generated, np.int32)]))
             if self.paged:
                 # recycling frees pages; the device page table is synced
                 # at the next admission (a finished slot's writes drop
@@ -355,6 +392,9 @@ class ServeEngine:
             self._accept_token(b, req, host[b])
 
     def _decode_tick(self) -> None:
+        if self.spec:
+            self._spec_tick()
+            return
         active = np.array([r is not None for r in self.slots])
         write_pos = self._lengths.copy()   # the position each slot writes
         t0 = time.perf_counter()
@@ -397,6 +437,121 @@ class ServeEngine:
                                     page=page, offset=off))
         self.detectors.on_step(self.step_no, writes, self._peek)
 
+    # ------------------------- speculative tick -----------------------
+    def _draft_cap(self, slot: int, req: Request) -> int:
+        """Drafts worth proposing for this slot: at most spec_k, the
+        request's remaining allowance less the bonus token, and the
+        slot's writable extent (its mapped pages when paged, the cache
+        otherwise), so an accepted draft always lands."""
+        limit = min(req.max_new_tokens, self.max_len - req.tokens.size)
+        cap = min(self.spec_k, limit - len(req.generated) - 1)
+        pos0 = int(self._lengths[slot])
+        if self.paged:
+            cap = min(cap, self.kv.slot_extent(slot) - pos0 - 1)
+        else:
+            cap = min(cap, self.max_len - pos0 - 1)
+        return max(0, cap)
+
+    def _spec_tick(self) -> None:
+        """One draft, verify, accept step over the whole batch: the
+        drafter proposes up to spec_k tokens per live slot on the host,
+        ONE width-(k+1) verify forward scores them all, and the accepted
+        prefix plus the bonus token are emitted. The host reads the
+        greedy tokens and accept counts once per tick."""
+        B, W = self.num_slots, self.spec_k + 1
+        active = np.array([r is not None for r in self.slots])
+        write_pos = self._lengths.copy()
+        toks = np.zeros((B, W), np.int32)
+        dlen = np.zeros(B, np.int32)
+        t0 = time.perf_counter()
+        for b, req in enumerate(self.slots):
+            if req is None:
+                continue
+            cap = self._draft_cap(b, req)
+            if cap <= 0:
+                continue
+            hist = np.concatenate(
+                [req.tokens, np.asarray(req.generated, np.int32)])
+            d = np.asarray(self.drafter.propose(hist, cap),
+                           np.int32).reshape(-1)[:cap]
+            dlen[b] = d.size
+            toks[b, 1:1 + d.size] = d
+        self.stats["draft_s"] += time.perf_counter() - t0
+
+        dev = self.device
+        t0 = time.perf_counter()
+        toks_d = torch.as_tensor(toks, device=dev)
+        toks_d[:, :1] = self.tokens          # the last accepted tokens
+        g, m, nxt, self.cache = self._verify_fn(
+            self.params, self.cache, toks_d,
+            torch.as_tensor(active, device=dev),
+            torch.as_tensor(dlen, device=dev))
+        self._sync()
+        dt = time.perf_counter() - t0
+        gm = torch.cat([g, m[:, None]], dim=1).cpu().numpy()
+        g, m = gm[:, :W], gm[:, W]
+        self.stats["verify_s"] += dt
+        self.stats["decode_s"] += dt
+        self.stats["ticks"] += 1
+        self.stats["spec_ticks"] += 1
+        self.stats["draft_proposed"] += int(dlen[active].sum())
+        self.stats["verified_positions"] += int(active.sum()) * W
+        self.stats["draft_accepted"] += int(m[active].sum())
+        self.tokens = nxt
+        counts = self._read_kernel_counts()
+        if counts is not None:
+            # overwrite: the verify forward's full-window stores;
+            # rollback: the commit's accepted-prefix stores
+            self.detectors.on_kernel_verify(self.step_no, counts, m, dlen,
+                                            active)
+        self._lengths[active] += 1 + m[active]
+
+        slots_now = list(self.slots)
+        emitted = 0
+        for b, req in enumerate(slots_now):
+            if req is None:
+                continue
+            # the accepted chain and the bonus, up to EOS or the limit,
+            # so the stream is exactly the plain-decode stream
+            for j in range(int(m[b]) + 1):
+                emitted += 1
+                self._accept_token(b, req, int(g[b, j]))
+                if req.done:
+                    break
+        self.stats["decode_tokens"] += emitted
+
+        self._report_tick_writes(slots_now, write_pos)
+        if self.detectors is not None:
+            self.detectors.on_verify(self.step_no, self._verify_writes(
+                slots_now, active, write_pos, m, dlen))
+
+    def _verify_writes(self, slots_now, active, write_pos, m, dlen):
+        """Tier-3 view of one verify tick's draft-row stores: every
+        proposed row under overwrite (so the flagged share is 1 - accept
+        rate), the accepted prefix under rollback. The fixed-width
+        window's padding rows past dlen are stored too under overwrite,
+        dead as well, but not the drafter's waste, so they stay out."""
+        entries = []
+        for b, req in enumerate(slots_now):
+            if req is None or not active[b]:
+                continue
+            pos0 = int(write_pos[b])
+            n_written = int(m[b]) if self.spec_rollback else int(dlen[b])
+            sites = []
+            for j in range(1, n_written + 1):
+                pos = pos0 + j
+                if self.paged:
+                    page, off = self.kv.site(b, pos)
+                    if page < 0:
+                        continue
+                else:
+                    if pos >= self.max_len:
+                        continue
+                    page, off = b, pos
+                sites.append((page, off, j > int(m[b])))
+            entries.append(VerifyWrite(b, req.rid, int(m[b]), sites))
+        return entries
+
     def step(self) -> None:
         """One scheduler step: admit into free slots, then one decode
         tick over the whole batch."""
@@ -415,9 +570,17 @@ class ServeEngine:
     # ---------------------------- reporting ----------------------------
     def throughput(self) -> Dict[str, float]:
         s = self.stats
-        return {
+        out = {
             "prefill_tok_s": (s["prefill_tokens"] / s["prefill_s"]
                               if s["prefill_s"] else 0.0),
             "decode_tok_s": (s["decode_tokens"] / s["decode_s"]
                              if s["decode_s"] else 0.0),
         }
+        if self.spec:
+            out["draft_tok_s"] = (s["draft_proposed"] / s["draft_s"]
+                                  if s["draft_s"] else 0.0)
+            out["verify_tok_s"] = (s["verified_positions"] / s["verify_s"]
+                                   if s["verify_s"] else 0.0)
+            out["accept_rate"] = (s["draft_accepted"] / s["draft_proposed"]
+                                  if s["draft_proposed"] else 0.0)
+        return out

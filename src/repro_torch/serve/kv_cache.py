@@ -331,6 +331,13 @@ class PagedKV:
         self.pt[slot, :] = -1
         return self.alloc.decref(row)
 
+    def slot_extent(self, slot: int) -> int:
+        """Number of logical positions the slot's page table maps (its
+        writable extent). Speculative verify windows are capped to it so
+        an accepted draft never lands on an unmapped position; only
+        rejected and padding rows reach past it (and those drop)."""
+        return int((self.pt[slot] >= 0).sum()) * self.page_size
+
     def site(self, slot: int, pos: int) -> Tuple[int, int]:
         """(page, offset) of a logical token position, or (-1, off)."""
         page_i, off = divmod(int(pos), self.page_size)

@@ -18,6 +18,16 @@ or 2e-2 (bfloat16); dq, dk, dv within 2e-4 (float32) or 3e-2 (bfloat16)
 of the plain gradient's largest magnitude, and within 1e-5 where every
 gradient is zero in exact arithmetic (dq and dk of a single key). Silent compare: counts equal
 exactly, on ragged sizes with NaN, +-0, infinities and subnormals.
+
+RMSNorm (Triton): widths 128 and 2048, ragged row counts, rows read by
+stride, every x/scale dtype pair of the main paths: out within 1e-5
+relative (float32) or 2e-2 (bfloat16, one rounding of the output), rstd
+within 1e-5 relative; dx and dscale within 2e-4 (float32) or 3e-2
+(bfloat16) of the plain gradient's largest magnitude. Speculative verify
+(window kernel at W = 5 through the verify wrapper): both modes on a
+hostile table at head_dim 128, as the window kernel above; defer mode
+leaves the pools alone and gives store mode's outputs bit for bit on
+slots whose window is mapped.
 """
 import numpy as np
 import pytest
@@ -28,6 +38,9 @@ from repro_torch.kernels.flash_attention import (
     flash_attention, flash_attention_backward, flash_attention_forward)
 from repro_torch.kernels.flash_prefill import paged_window_attention
 from repro_torch.kernels.paged_attention import paged_decode_attention
+from repro_torch.kernels.paged_verify import paged_verify_attention
+from repro_torch.kernels.rmsnorm import (RMSNorm, rmsnorm_backward,
+                                        rmsnorm_forward)
 from repro_torch.kernels.silent_compare import silent_compare
 
 pytestmark = pytest.mark.cuda
@@ -205,3 +218,101 @@ def test_silent_compare_matches_plain(cuda, dtype, n, tol):
     assert got.dtype == torch.int32 and int(got) == int(want)
     mixed = silent_compare(a.float(), b, tol)
     assert int(mixed) == int(ref.silent_compare_ref(a.float(), b, tol))
+
+
+VERIFY_PT = np.array([[5, 1, 6, -1, -1, -1],
+                      [2, 7, 0, 4, -1, -1],
+                      [3, -1, -1, -1, -1, -1]], np.int32)
+
+
+def test_verify_wrapper_w5_both_modes(cuda):
+    """The verify window (W = 5, head_dim 128): slot 0 crosses a page
+    boundary, slot 1 runs past its mapped extent (rows drop in store
+    mode), slot 2 is idle at -(W+1). Each mode against the plain window
+    version; defer leaves the pools alone with zero counters, and its
+    outputs on slot 0 equal store mode's bit for bit."""
+    W = 5
+    q, k, v, pk, pv = _inputs(cuda, W, 128, "bfloat16", "float32", seed=5)
+    pt = torch.as_tensor(VERIFY_PT, device=cuda)
+    idx = torch.tensor([6, 14, -(W + 1)], dtype=torch.int32, device=cuda)
+    outs = {}
+    for mode in ("overwrite", "defer"):
+        kk, kv, pk2, pv2 = pk.clone(), pv.clone(), pk.clone(), pv.clone()
+        before = paged_window_attention.launches
+        o_k, l_k, c_k, _, _ = paged_verify_attention(q, k, v, kk, kv, pt,
+                                                     idx, mode=mode)
+        o_p, l_p, _, _, c_p = ref.paged_window_ref(
+            q, k, v, pk2, pv2, pt, idx, store=mode == "overwrite")
+        torch.cuda.synchronize()
+        assert paged_window_attention.launches == before + 1
+        _compare((o_k, l_k, c_k), (o_p, l_p, c_p), (kk, kv), (pk2, pv2),
+                 "bfloat16")
+        if mode == "defer":
+            assert torch.equal(kk, pk) and torch.equal(kv, pv)
+            assert int(c_k.abs().sum()) == 0
+        else:
+            assert int(c_k[1, 2]) > 0 and int(c_k[2].sum()) == 0
+        outs[mode] = o_k
+    assert torch.equal(outs["defer"][0], outs["overwrite"][0])
+
+
+RMS_TOL = {"float32": (1e-5, 2e-4), "bfloat16": (2e-2, 3e-2)}
+
+
+@pytest.mark.parametrize("x_dtype,s_dtype", [
+    ("float32", "float32"), ("bfloat16", "float32"),
+    ("bfloat16", "bfloat16")])
+@pytest.mark.parametrize("rows,width,strided", [
+    (1, 128, False), (8, 2048, False), (517, 128, True), (131, 2048, True),
+    (33, 1000, False)])
+def test_rmsnorm_kernels_match_plain(cuda, x_dtype, s_dtype, rows, width,
+                                     strided):
+    g = torch.Generator(device=cuda).manual_seed(rows * 7 + width)
+    xdt, sdt = getattr(torch, x_dtype), getattr(torch, s_dtype)
+    base = 3 * torch.randn((rows, 2 * width if strided else width),
+                           generator=g, device=cuda)
+    x = base[:, :width].to(xdt) if not strided else \
+        base.to(xdt)[:, width // 2:width // 2 + width]
+    scale = torch.randn(width, generator=g, device=cuda).to(sdt)
+    dy = torch.randn((rows, width), generator=g, device=cuda).to(xdt)
+    before = (rmsnorm_forward.launches, rmsnorm_backward.launches)
+    y, rstd = rmsnorm_forward(x, scale, 1e-6, want_rstd=True)
+    y_only, none = rmsnorm_forward(x, scale, 1e-6)
+    dx, ds = rmsnorm_backward(x, scale, rstd, dy, 1e-6)
+    want = ref.rmsnorm_ref(x, scale, 1e-6)
+    want_rstd = torch.rsqrt(x.float().square().mean(-1) + 1e-6)
+    want_dx, want_ds = ref.rmsnorm_bwd_ref(x, scale, dy, 1e-6)
+    torch.cuda.synchronize()
+    assert (rmsnorm_forward.launches, rmsnorm_backward.launches) == \
+        (before[0] + 2, before[1] + 1)
+    assert none is None and torch.equal(y, y_only)
+    assert y.dtype == xdt and dx.dtype == xdt and ds.dtype == sdt
+    tol, tol_g = RMS_TOL[x_dtype if s_dtype == x_dtype else "bfloat16"]
+    assert float(((y.float() - want.float()).abs()
+                  / want.float().abs().clamp_min(1e-3)).max()) <= tol
+    assert float(((rstd - want_rstd).abs() / want_rstd).max()) <= 1e-5
+    for got, exp in ((dx, want_dx), (ds, want_ds)):
+        scale_g = float(exp.float().abs().max())
+        assert float((got.float() - exp.float()).abs().max()) <= \
+            tol_g * scale_g
+
+
+def test_rmsnorm_autograd_on_qk_norm_layout(cuda):
+    """The autograd binding on qk-norm's (B, S, H, D) reshape of a
+    projection (bf16 x, bf16 scale as the training compute params):
+    outputs and gradients against autograd of the plain version."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    x0 = torch.randn((2, 70, 4 * 128), generator=g, device=cuda)
+    s0 = torch.randn(128, generator=g, device=cuda)
+    dy = torch.randn((2, 70, 4, 128), generator=g, device=cuda)
+    outs = []
+    for fn in (lambda x, s: RMSNorm.apply(x, s, 1e-6),
+               lambda x, s: ref.rmsnorm_ref(x, s, 1e-6)):
+        x = x0.to(torch.bfloat16).requires_grad_(True)
+        s = s0.to(torch.bfloat16).requires_grad_(True)
+        y = fn(x.reshape(2, 70, 4, 128), s)
+        y.backward(dy.to(torch.bfloat16))
+        outs.append((y.float(), x.grad.float(), s.grad.float()))
+    for got, want in zip(*outs):
+        assert float((got - want).abs().max()) <= \
+            3e-2 * float(want.abs().max())

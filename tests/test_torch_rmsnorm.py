@@ -1,0 +1,185 @@
+"""RMSNorm of the PyTorch port against the reference, on the CPU.
+
+The port's plain forward (``ref.rmsnorm_ref``) is held against the
+reference's Pallas ``rmsnorm`` in interpret mode, as
+``tests/test_kernels.py`` runs it: float32 within 1e-6 relative to each
+element (both sum the squares in f32, in other orders), bfloat16 within
+one bfloat16 ulp of the reference's value (one rounding of the f32
+result). The plain backward (``ref.rmsnorm_bwd_ref``) is held against
+``jax.vjp`` of the reference's ``rmsnorm_ref`` and against torch's
+autograd of the plain forward: dx and dscale within 1e-5 of their
+largest magnitude in float32. ``ops.rmsnorm`` on CPU tensors is the
+plain version, bit for bit the inline formula the layers ran before it.
+The Triton kernels themselves run only on the card
+(``tests/test_torch_cuda_kernels.py``, marked ``cuda``).
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ref as kref
+from repro.kernels.rmsnorm import rmsnorm as pallas_rmsnorm
+from repro_torch.kernels import ops
+from repro_torch.kernels import ref as pref
+from repro_torch.kernels import rmsnorm as rn
+from repro_torch.models import layers
+
+EPS = 1e-6              # qwen3's norm_eps
+
+
+def _inputs(shape, x_dtype, s_dtype, seed):
+    rng = np.random.default_rng(seed)
+    x = (3 * rng.standard_normal(shape)).astype(np.float32)
+    s = rng.standard_normal(shape[-1]).astype(np.float32)
+    jx = jnp.asarray(x).astype(x_dtype)
+    js = jnp.asarray(s).astype(s_dtype)
+    tx = torch.from_numpy(x).to(getattr(torch, x_dtype))
+    ts = torch.from_numpy(s).to(getattr(torch, s_dtype))
+    return (jx, js), (tx, ts)
+
+
+def _bf16_ulp(v: np.ndarray) -> np.ndarray:
+    """Spacing of bfloat16 numbers at |v| (8 significant bits)."""
+    mag = np.maximum(np.abs(v), np.float32(2.0 ** -126))
+    return np.exp2(np.floor(np.log2(mag)) - 7).astype(np.float32)
+
+
+@pytest.mark.parametrize("rows", [1, 7, 130])
+@pytest.mark.parametrize("width", [128, 256])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rmsnorm_ref_matches_pallas_interpret(rows, width, dtype):
+    (jx, js), (tx, ts) = _inputs((rows, width), dtype, "float32",
+                                 seed=rows * width)
+    want = np.asarray(pallas_rmsnorm(jx, js, EPS, interpret=True)
+                      .astype(jnp.float32))
+    got = pref.rmsnorm_ref(tx, ts, EPS)
+    assert got.dtype == tx.dtype and got.shape == tx.shape
+    got = got.float().numpy()
+    err = np.abs(got - want)
+    if dtype == "float32":
+        assert np.all(err <= 1e-6 * np.abs(want) + 1e-30), err.max()
+    else:
+        assert np.all(err <= _bf16_ulp(want)), err.max()
+
+
+@pytest.mark.parametrize("shape", [(1, 128), (7, 256), (2, 3, 128),
+                                   (130, 2048)])
+def test_rmsnorm_bwd_ref_matches_jax_vjp(shape):
+    (jx, js), (tx, ts) = _inputs(shape, "float32", "float32", seed=len(shape))
+    dy = np.random.default_rng(5).standard_normal(shape).astype(np.float32)
+    _, vjp = jax.vjp(lambda x, s: kref.rmsnorm_ref(x, s, EPS), jx, js)
+    want_dx, want_ds = (np.asarray(g) for g in vjp(jnp.asarray(dy)))
+    dx, ds = pref.rmsnorm_bwd_ref(tx, ts, torch.from_numpy(dy), EPS)
+    assert dx.dtype == torch.float32 and ds.dtype == torch.float32
+    for got, want in ((dx.numpy(), want_dx), (ds.numpy(), want_ds)):
+        assert got.shape == want.shape
+        assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
+
+
+@pytest.mark.parametrize("x_dtype,s_dtype", [("float32", "float32"),
+                                             ("bfloat16", "float32"),
+                                             ("bfloat16", "bfloat16")])
+def test_rmsnorm_bwd_ref_matches_autograd_of_plain_forward(x_dtype,
+                                                           s_dtype):
+    """Gradients in the operands' dtypes: float32 within 1e-5 of the
+    largest magnitude; bfloat16 outputs within 1e-2 of it (each side
+    rounds its f32 gradient to bfloat16 once, after sums in other
+    orders: at most about one bfloat16 ulp)."""
+    _, (tx, ts) = _inputs((6, 4, 128), x_dtype, s_dtype, seed=9)
+    dy = torch.from_numpy(np.random.default_rng(6).standard_normal(
+        (6, 4, 128)).astype(np.float32)).to(tx.dtype)
+    x = tx.clone().requires_grad_(True)
+    s = ts.clone().requires_grad_(True)
+    pref.rmsnorm_ref(x, s, EPS).backward(dy)
+    dx, ds = pref.rmsnorm_bwd_ref(tx, ts, dy, EPS)
+    assert dx.dtype == tx.dtype and ds.dtype == ts.dtype
+    tol = 1e-5 if x_dtype == s_dtype == "float32" else 1e-2
+    for got, want in ((dx, x.grad), (ds, s.grad)):
+        want = want.float()
+        assert float((got.float() - want).abs().max()) <= \
+            tol * float(want.abs().max())
+
+
+@pytest.mark.parametrize("x_dtype,s_dtype", [("float32", "float32"),
+                                             ("bfloat16", "bfloat16")])
+def test_rmsnorm_autograd_function_on_cpu_matches_plain(x_dtype, s_dtype):
+    """``RMSNorm.apply`` on CPU tensors (forward and backward wrappers'
+    plain versions) against autograd of the plain forward: the output
+    bit for bit, the gradients within 1e-5 (float32) or 1e-2 (bfloat16)
+    of their largest magnitude. No kernel launch is counted."""
+    _, (tx, ts) = _inputs((5, 3, 256), x_dtype, s_dtype, seed=4)
+    dy = torch.from_numpy(np.random.default_rng(8).standard_normal(
+        (5, 3, 256)).astype(np.float32)).to(tx.dtype)
+    before = (rn.rmsnorm_forward.launches, rn.rmsnorm_backward.launches)
+    x1, s1 = tx.clone().requires_grad_(True), ts.clone().requires_grad_(True)
+    y1 = rn.RMSNorm.apply(x1, s1, EPS)
+    y1.backward(dy)
+    x2, s2 = tx.clone().requires_grad_(True), ts.clone().requires_grad_(True)
+    y2 = pref.rmsnorm_ref(x2, s2, EPS)
+    y2.backward(dy)
+    assert torch.equal(y1, y2)
+    tol = 1e-5 if x_dtype == "float32" else 1e-2
+    for got, want in ((x1.grad, x2.grad), (s1.grad, s2.grad)):
+        assert got.dtype == want.dtype
+        assert float((got.float() - want.float()).abs().max()) <= \
+            tol * float(want.float().abs().max())
+    assert (rn.rmsnorm_forward.launches,
+            rn.rmsnorm_backward.launches) == before
+
+
+@pytest.mark.parametrize("shape,x_dtype,s_dtype", [
+    ((2, 5, 64), "float32", "float32"),          # block norm
+    ((2, 5, 4, 16), "bfloat16", "float32"),      # qk-norm, serving
+    ((3, 7, 64), "bfloat16", "bfloat16"),        # training compute params
+])
+def test_ops_rmsnorm_cpu_is_the_old_inline_formula(shape, x_dtype, s_dtype):
+    """On the CPU the layers' norm is the same op sequence as the inline
+    formula ``apply_rmsnorm`` had before it went through ``ops.rmsnorm``:
+    equal bit for bit, with and without autograd."""
+    _, (tx, ts) = _inputs(shape, x_dtype, s_dtype, seed=len(shape))
+
+    def inline(x, scale):
+        xf = x.float()
+        var = xf.square().mean(dim=-1, keepdim=True)
+        y = xf * torch.rsqrt(var + EPS)
+        return (y * scale.float()).to(x.dtype)
+    assert torch.equal(ops.rmsnorm(tx, ts, EPS), inline(tx, ts))
+    assert torch.equal(layers.apply_rmsnorm({"scale": ts}, tx, EPS),
+                       inline(tx, ts))
+    x = tx.clone().requires_grad_(True)
+    s = ts.clone().requires_grad_(True)
+    xr = tx.clone().requires_grad_(True)
+    sr = ts.clone().requires_grad_(True)
+    dy = torch.ones(shape, dtype=tx.dtype)
+    ops.rmsnorm(x, s, EPS).backward(dy)
+    inline(xr, sr).backward(dy)
+    assert torch.equal(x.grad, xr.grad) and torch.equal(s.grad, sr.grad)
+
+
+def test_rmsnorm_wrapper_row_layout_and_dispatch():
+    """What the wrappers hand the kernels: rows by stride without a copy
+    where one row stride describes them (a column slice, a qk-norm head
+    reshape), an explicit copy where none does; the row tiling of both
+    main-path widths; and no path for a device other than CUDA or CPU."""
+    big = torch.randn(6, 256)
+    rows = rn._as_rows(big[:, :128], "x")
+    assert rows.data_ptr() == big.data_ptr() and rows.stride() == (256, 1)
+    heads = torch.randn(2, 3, 4 * 16).reshape(2, 3, 4, 16)
+    assert rn._as_rows(heads, "x").data_ptr() == heads.data_ptr()
+    gappy = torch.randn(4, 5, 32)[:, ::2]          # no single row stride
+    copied = rn._as_rows(gappy, "x")
+    assert copied.is_contiguous() and torch.equal(copied,
+                                                  gappy.reshape(-1, 32))
+    assert rn._tiling(128) == (128, 32)
+    assert rn._tiling(2048) == (2048, 2)
+    assert rn._tiling(1000) == (1024, 4)
+    with pytest.raises(ValueError):
+        rn._tiling(rn.MAX_D + 1)
+    meta = torch.empty((4, 128), device="meta")
+    with pytest.raises(ValueError):
+        rn.rmsnorm_forward(meta, torch.empty(128, device="meta"))
+    with pytest.raises(ValueError):
+        rn.rmsnorm_backward(meta, torch.empty(128, device="meta"), None,
+                            meta)

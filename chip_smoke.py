@@ -7,7 +7,8 @@ the training path.
 
 1. prints the card (nvidia-smi name and power limit), the torch, CUDA
    and nvcc versions, and builds the hand-written CUDA kernels from
-   ``src/repro_torch/csrc`` (timed);
+   ``src/repro_torch/csrc`` (timed; ptxas registers and spills per
+   kernel, and the flash kernels' HMMA instructions from cuobjdump);
 2. holds every kernel of the serving path against its plain PyTorch
    version on the card, at the main path's shapes (qwen3-1.7b: Hq 16,
    Hkv 8, D 128, page 16, 8 slots, windows of 16 and 128) on a hostile
@@ -52,20 +53,27 @@ the training path.
    tokens and spec counters;
 4. holds the training kernels against their plain versions on the card:
    flash attention forward and backward at the training path's shapes
-   (B 4, S 1024, Hq 16, Hkv 8, D 128) in bfloat16 and float32, and at a
-   ragged length, Sq != Skv and without the causal mask (out and lse
-   within 1e-4 / 2e-2, dq, dk, dv within 2e-4 / 3e-2 of the plain
-   gradient's largest magnitude, at float32 / bfloat16); the silent
-   compare on a bfloat16 tensor the size of the embedding leaf, on an
-   f32 leaf and on edge cases (counts equal exactly); and times them as
-   in 2 (the library yardsticks: SDPA forward, SDPA forward + backward
-   through autograd; none for the silent compare);
+   (B 4, S 1024, Hq 16, Hkv 8, D 128) in bfloat16 (tensor-core kernels)
+   and float32 (CUDA-core kernels), and at a ragged length, Sq != Skv
+   and without the causal mask; in bfloat16 also at D 64 and 32, one
+   query row, a row past a 128-row tile, a key past a 64-key tile, the
+   strided views of a fused projection and views that take the
+   wrapper's counted alignment copy (out and lse within 1e-4 / 2e-2,
+   dq, dk, dv within 2e-4 / 3e-2 of the plain gradient's largest
+   magnitude, at float32 / bfloat16); two backward calls give
+   bit-identical gradients; the silent compare on a bfloat16 tensor the
+   size of the embedding leaf, on an f32 leaf and on edge cases (counts
+   equal exactly); and times them as in 2, flash attention and its
+   yardsticks (SDPA forward, SDPA's backward alone, SDPA forward +
+   backward) by device time with CUDA-event times beside it (none for
+   the silent compare);
 5. runs the training path at full width: ``repro_torch.launch.train.run``
    for qwen3-1.7b, 4 steps of batch 4 x 1024 tokens with the training
    detectors on (random weights from seed 0, 28 layers), with the
    kernels' launch counts set to 0 just before and read just after, and
-   checks the launches (28 forward and 28 backward flash launches, 113
-   forward and 113 backward RMSNorm launches per step, one silent
+   checks the launches (28 forward and 28 backward flash launches and
+   no alignment copy, 113 forward and 113 backward RMSNorm launches per
+   step, one silent
    compare per checked parameter store), finite losses
    starting near ln(vocab) and a tier-3 training profile; then times
    train steps with the detectors on (tokens/s) and traces one with
@@ -89,6 +97,7 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}   # dense, no tensor-core TF
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 # flash attention: (out and lse, gradients relative to their largest value)
 FLASH_TOL = {"float32": (1e-4, 2e-4), "bfloat16": (2e-2, 3e-2)}
+ZERO_GRAD_ATOL = 1e-5          # gradients that are zero in exact arithmetic
 
 
 def smi_line() -> str:
@@ -534,10 +543,14 @@ def check_rmsnorm(torch, timer):
 TB, TSEQ = 4, 1024                        # the training path's batch
 
 
-def flash_case(torch, dtype, sq, skv, causal, seed):
+def flash_case(torch, dtype, sq, skv, causal, seed, d=D, layout="plain"):
     """Forward and backward kernels against their plain versions on one
     set of inputs (the backward versions both get the kernel's out and
-    lse). Returns (out/lse error, relative gradient error, inputs)."""
+    lse). ``layout``: "plain" (contiguous q, k, v), "fused" (views of
+    one fused (B, S, Hq + 2 Hkv, d) projection, Sq == Skv) or
+    "misaligned" (views one element into a wider buffer, which the
+    bfloat16 kernels take only through the wrapper's counted copy).
+    Returns (out/lse error, relative gradient error, inputs)."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import (
         flash_attention_backward, flash_attention_forward)
@@ -546,27 +559,49 @@ def flash_case(torch, dtype, sq, skv, causal, seed):
 
     def randn(*shape):
         return torch.randn(shape, generator=g, device="cuda").to(dt)
-    q, k, v = (randn(TB, sq, HQ, D), randn(TB, skv, HKV, D),
-               randn(TB, skv, HKV, D))
-    dout = randn(TB, sq, HQ, D)
+    if layout == "fused":
+        qkv = randn(TB, sq, HQ + 2 * HKV, d)
+        q, k, v = qkv[:, :, :HQ], qkv[:, :, HQ:HQ + HKV], qkv[:, :, HQ + HKV:]
+    elif layout == "misaligned":
+        q, k, v = (randn(TB, s, h, d + 2)[..., 1:d + 1]
+                   for s, h in ((sq, HQ), (skv, HKV), (skv, HKV)))
+    else:
+        q, k, v = (randn(TB, sq, HQ, d), randn(TB, skv, HKV, d),
+                   randn(TB, skv, HKV, d))
+    dout = randn(TB, sq, HQ, d)
+    copies = (flash_attention_forward.copies,
+              flash_attention_backward.copies)
     out, lse = flash_attention_forward(q, k, v, causal)
     grads = flash_attention_backward(q, k, v, out, lse, dout, causal)
+    copies = (flash_attention_forward.copies - copies[0],
+              flash_attention_backward.copies - copies[1])
     want_out, want_lse = ref.flash_attention_ref(q, k, v, causal)
     want = ref.flash_attention_bwd_ref(q, k, v, out, lse, dout, causal)
     torch.cuda.synchronize()
     err = max(float((out.float() - want_out.float()).abs().max()),
               float((lse - want_lse).abs().max()))
-    err_g = max(float((a.float() - b.float()).abs().max())
-                / max(float(b.float().abs().max()), 1e-30)
-                for a, b in zip(grads, want))
     tol, tol_g = FLASH_TOL[dtype]
+    diffs = [(float((a.float() - b.float()).abs().max()),
+              float(b.float().abs().max())) for a, b in zip(grads, want)]
+    err_g = max(e / max(m, 1e-30) for e, m in diffs)
+    # a gradient that is zero in exact arithmetic (dq and dk where a row
+    # sees a single key) is rounding noise on both sides: held within
+    # ZERO_GRAD_ATOL, as in tests/test_torch_cuda_kernels.py
+    ok_g = all(e <= max(tol_g * m, ZERO_GRAD_ATOL) for e, m in diffs)
     print(f"[kernels] flash attention {dtype:8s} Sq {sq:4d} Skv {skv:4d} "
-          f"causal {causal!s:5s} | out/lse max |err| {err:.3e} (tol {tol}) "
-          f"| dq/dk/dv max rel err {err_g:.3e} (tol {tol_g})", flush=True)
-    if not (err <= tol and err_g <= tol_g):
-        raise AssertionError(f"flash attention ({dtype}, {sq}x{skv}, "
-                             f"causal {causal}) disagrees with its plain "
-                             f"version")
+          f"D {d:3d} causal {causal!s:5s} {layout:10s} | out/lse max |err| "
+          f"{err:.3e} (tol {tol}) | dq/dk/dv max rel err {err_g:.3e} (tol "
+          f"{tol_g}; max |err| {max(e for e, _ in diffs):.3e}, largest "
+          f"|grad| {min(m for _, m in diffs):.3e} to "
+          f"{max(m for _, m in diffs):.3e}) | alignment copies fwd/bwd "
+          f"{copies}", flush=True)
+    if not (err <= tol and ok_g):
+        raise AssertionError(f"flash attention ({dtype}, {sq}x{skv}, D {d}, "
+                             f"causal {causal}, {layout}) disagrees with "
+                             f"its plain version")
+    want_copies = ((3, 3) if layout == "misaligned" and dtype == "bfloat16"
+                   else (0, 0))
+    assert copies == want_copies, (layout, dtype, copies)
     return err, err_g, (q, k, v, out, lse, dout)
 
 
@@ -593,8 +628,13 @@ def bound(nbytes, flops, peak):
 
 def check_flash(torch, timer):
     """Phase 4a. The training shapes in both dtypes, then ragged, unequal
-    and non-causal cases; timed at the training path's own inputs
-    (bfloat16, causal). Returns the forward and backward JSON entries."""
+    and non-causal cases; in bfloat16 also D 64, one query row, one row
+    past a 128-row tile, one key past a 64-key tile, a fused projection's
+    strided views and views that take the alignment copy. Two backward
+    calls on the same inputs must give bit-identical gradients. Timed at
+    the training path's own inputs (bfloat16, causal) by device time
+    (CUPTI), CUDA-event times beside it. Returns the forward and backward
+    JSON entries."""
     import torch.nn.functional as F
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import (
@@ -604,14 +644,26 @@ def check_flash(torch, timer):
                                 (1000, TSEQ, True), (TSEQ, 1000, True),
                                 (1000, TSEQ, False)):
             flash_case(torch, dtype, sq, skv, causal, seed=sq + skv)
+    for sq, skv, causal, d, layout in (
+            (TSEQ, TSEQ, True, 64, "plain"), (1, TSEQ, True, D, "plain"),
+            (1, TSEQ, False, D, "plain"), (129, 129, True, D, "plain"),
+            (129, 65, False, D, "plain"), (200, 65, True, D, "plain"),
+            (65, 65, True, 32, "plain"), (TSEQ, TSEQ, True, D, "fused"),
+            (300, 300, True, 64, "fused"), (300, 300, True, D, "misaligned"),
+            (129, 65, False, 64, "misaligned")):
+        flash_case(torch, "bfloat16", sq, skv, causal, seed=sq + 7 * skv + d,
+                   d=d, layout=layout)
     err, err_g, (q, k, v, out, lse, dout) = flash_case(
         torch, "bfloat16", TSEQ, TSEQ, True, seed=1)
-    fwd_ms = timer(lambda: flash_attention_forward(q, k, v, True))
-    bwd_ms = timer(lambda: flash_attention_backward(q, k, v, out, lse, dout,
-                                                    True))
-    fwd_plain = timer(lambda: ref.flash_attention_ref(q, k, v, True))
-    bwd_plain = timer(lambda: ref.flash_attention_bwd_ref(q, k, v, out, lse,
-                                                          dout, True))
+    first = flash_attention_backward(q, k, v, out, lse, dout, True)
+    again = flash_attention_backward(q, k, v, out, lse, dout, True)
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(first, again))
+    print(f"[kernels] flash attention backward, two calls on the training "
+          f"inputs: dq, dk, dv bit-identical {same}", flush=True)
+    assert same, "flash attention backward is not deterministic"
+    del first, again
+
     # SDPA on the (B, H, S, D) layout, transposed outside the timed call
     qt, kt, vt, dt_ = (x.transpose(1, 2).contiguous()
                        for x in (q, k, v, dout))
@@ -619,14 +671,33 @@ def check_flash(torch, timer):
     def sdpa(a, b, c):
         return F.scaled_dot_product_attention(a, b, c, is_causal=True,
                                               enable_gqa=True)
-    fwd_lib = timer(lambda: sdpa(qt, kt, vt))
     leaves = [x.detach().requires_grad_(True) for x in (qt, kt, vt)]
-    bwd_lib = timer(lambda: torch.autograd.backward(sdpa(*leaves), dt_))
+    sdpa_out = sdpa(*leaves)           # the forward of "SDPA bwd", untimed
+    calls = {
+        "fwd": lambda: flash_attention_forward(q, k, v, True),
+        "bwd": lambda: flash_attention_backward(q, k, v, out, lse, dout,
+                                                True),
+        "fwd_plain": lambda: ref.flash_attention_ref(q, k, v, True),
+        "bwd_plain": lambda: ref.flash_attention_bwd_ref(
+            q, k, v, out, lse, dout, True),
+        "sdpa_fwd": lambda: sdpa(qt, kt, vt),
+        # the backward alone: autograd.grad through the saved graph (no
+        # accumulation into .grad)
+        "sdpa_bwd": lambda: torch.autograd.grad(sdpa_out, leaves, dt_,
+                                                retain_graph=True),
+        "sdpa_fwd_bwd": lambda: torch.autograd.grad(sdpa(*leaves), leaves,
+                                                    dt_)}
+    dev = {k: timer.device(fn) for k, fn in calls.items()}
+    ev = {k: timer(fn) for k, fn in calls.items()}
+    print(f"[kernels] flash attention on the training inputs, CUDA events "
+          f"around each call (host launch path and flush tail included): "
+          + ", ".join(f"{k} {v:.4f} ms" for k, v in ev.items()), flush=True)
     isz = q.element_size()
     entries = {}
-    for key, ms, plain_ms, lib_ms, e, back in (
-            ("flash_attention_fwd", fwd_ms, fwd_plain, fwd_lib, err, False),
-            ("flash_attention_bwd", bwd_ms, bwd_plain, bwd_lib, err_g, True)):
+    for key, back, e in (("flash_attention_fwd", False, err),
+                         ("flash_attention_bwd", True, err_g)):
+        tag = "bwd" if back else "fwd"
+        ms, plain_ms, lib_ms = dev[tag], dev[tag + "_plain"], dev["sdpa_" + tag]
         nbytes, flops = flash_bytes_flops(TSEQ, TSEQ, isz, True, back)
         b_ms, by = bound(nbytes, flops, PEAK_FLOPS["bfloat16"])
         entries[key] = {
@@ -634,11 +705,16 @@ def check_flash(torch, timer):
             "source": "src/repro_torch/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention.py:93",
             "max_abs_err": e, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": by, "library_ms": lib_ms}
+            "bound_ms": b_ms, "bound_by": by, "library_ms": lib_ms,
+            "event_ms": ev[tag]}
+        extra = (f" | SDPA fwd+bwd {dev['sdpa_fwd_bwd']:.4f} ms" if back
+                 else "")
         print(f"[kernels] {key} on the training inputs (B {TB}, S {TSEQ}, "
-              f"Hq {HQ}, Hkv {HKV}, D {D}, bf16, causal): kernel "
-              f"{ms:.4f} ms | plain {plain_ms:.4f} ms | "
-              f"{'SDPA fwd+bwd' if back else 'SDPA fwd'} {lib_ms:.4f} ms | "
+              f"Hq {HQ}, Hkv {HKV}, D {D}, bf16, causal), device time: "
+              f"kernel {ms:.4f} ms = {flops / ms / 1e9:.1f} TFLOP/s at the "
+              f"bound's flops, {b_ms / ms:.3f} of the bound | plain "
+              f"{plain_ms:.4f} ms | {'SDPA bwd alone' if back else 'SDPA fwd'}"
+              f" {lib_ms:.4f} ms (kernel / SDPA {ms / lib_ms:.2f}){extra} | "
               f"bound {b_ms:.4f} ms ({by}: {nbytes / 1e6:.2f} MB, "
               f"{flops / 1e9:.3f} GFLOP)", flush=True)
     return entries
@@ -723,6 +799,8 @@ def train_path(torch, np):
                 sc.silent_compare, rn.rmsnorm_forward, rn.rmsnorm_backward)
     for c in counters:
         c.launches = 0
+    fa.flash_attention_forward.copies = 0
+    fa.flash_attention_backward.copies = 0
     t0 = time.perf_counter()
     losses, merged = run("qwen3-1.7b", smoke=False, steps=TRAIN_STEPS,
                          batch=TB, seq=TSEQ, profile=True, device="cuda")
@@ -733,7 +811,11 @@ def train_path(torch, np):
                 "silent_compare": sc.silent_compare.launches,
                 "rmsnorm_fwd": rn.rmsnorm_forward.launches,
                 "rmsnorm_bwd": rn.rmsnorm_backward.launches}
+    copies = (fa.flash_attention_forward.copies,
+              fa.flash_attention_backward.copies)
     checked = merged.checked.get("silent_param_store", 0)
+    print(f"[train] flash attention alignment copies (forward, backward) "
+          f"on the training path: {copies}", flush=True)
     print(f"[train] qwen3-1.7b full width, {TRAIN_STEPS} steps of {TB} x "
           f"{TSEQ} tokens, detectors on: {wall:.1f} s including set-up; "
           f"launches {launches}; losses {losses}; profile tiers "
@@ -744,6 +826,7 @@ def train_path(torch, np):
     layers = cfg.num_layers
     assert launches["flash_attention_fwd"] == layers * TRAIN_STEPS, launches
     assert launches["flash_attention_bwd"] == layers * TRAIN_STEPS, launches
+    assert copies == (0, 0), copies
     norms = NORMS_PER_FORWARD * layers + 1
     assert launches["rmsnorm_fwd"] == norms * TRAIN_STEPS, launches
     assert launches["rmsnorm_bwd"] == norms * TRAIN_STEPS, launches
@@ -982,9 +1065,9 @@ def _kernel_kind(name: str) -> str:
         return "paged_decode"
     if "window_attn_kernel" in name or "window_store_kernel" in name:
         return "paged_window"
-    if "flash_fwd_kernel" in name:
+    if "flash_fwd" in name:
         return "flash_attention_fwd"
-    if "flash_bwd_" in name or "flash_delta_kernel" in name:
+    if "flash_bwd_" in name or "flash_delta" in name:
         return "flash_attention_bwd"
     if "silent_count_kernel" in name:
         return "silent_compare"
@@ -1268,6 +1351,37 @@ def small_reference_check(torch, np):
     assert same, (results["cpu"], results["cuda"])
 
 
+def kernel_label(mangled: str) -> str:
+    """A kernel's readable name, its element type and head dim, from its
+    mangled name: ``flash_fwd_tc_kernel<bf16,128>``."""
+    import re
+    m = re.search(r"([a-z_]+_kernel)(I.*)", mangled)
+    if m is None:
+        return mangled
+    args = m.group(2)
+    d = re.match(r"I(?:f|13__nv_bfloat16)?Li(\d+)E", args)
+    dtype = "f32" if args.startswith("If") else "bf16"
+    return f"{m.group(1)}<{dtype}{',' + d.group(1) if d else ''}>"
+
+
+def sass_hmma(lib):
+    """Tensor-core (HMMA) instructions per kernel of a built library, from
+    ``cuobjdump -sass``; None where the toolkit has no cuobjdump."""
+    import shutil
+    from repro_torch.kernels import build
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.path.dirname(build.nvcc()), "cuobjdump")
+    if not os.path.exists(tool):
+        return None
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    counts = {}
+    for sec in sass.split("Function : ")[1:]:
+        counts[kernel_label(sec.split("\n", 1)[0].strip())] = sec.count(
+            "HMMA")
+    return counts
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1290,9 +1404,17 @@ def main() -> int:
     print(f"[build] {len(logs)} CUDA sources compiled for sm_90a in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     for name, log in logs.items():
+        fn = ""
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"[build] {name}: {line.strip()}")
+            if "Compiling entry function" in line:
+                fn = kernel_label(line.split("'")[1])
+            elif "registers" in line or "spill" in line:
+                print(f"[build] {name}: {fn}: {line.strip()}")
+    hmma = sass_hmma(build.library_path("flash_attention"))
+    print("[build] flash_attention HMMA instructions per kernel (cuobjdump "
+          "-sass): " + ("not measured (no cuobjdump)" if hmma is None else
+                        ", ".join(f"{k} {n}" for k, n in sorted(hmma.items()))),
+          flush=True)
 
     timer = Timer(torch)
     entries = check_kernels(torch, np, timer)

@@ -20,25 +20,48 @@
 // delta = rowsum(dout * out), dS = p (dP - delta) / sqrt(D) with
 // dP = dout v^T; dq = dS k, dk = dS^T q, dv = p^T dout.
 //
-// Launches: forward, one block per (q tile of 64 rows, q head, batch)
-// looping over the 64-key tiles at or below the diagonal. Backward, three
-// launches and no atomics, so the gradients are deterministic:
-//   (1) delta, one warp per (batch, row, q head);
-//   (2) dK/dV, one block per (k tile, kv head, batch), looping over the G
-//       query heads of the group and the q tiles at or below the diagonal;
-//       dK and dV are written once, already summed over the group;
-//   (3) dQ, one block per (q tile, q head, batch), looping over k tiles.
-//
 // What bounds it on the H100: operations. At the training shapes (S 1024,
-// D 128) a forward does ~2 S^2 D flops per head against ~4 S D bytes per
-// head: ~1000 flops per byte, above the ridge (~295 at bf16). This first
-// version runs the products on the CUDA cores in f32 (the 67 TFLOP/s
-// path, not the tensor cores), so it stays far from the bf16 bound. What
-// the design does: every tile is staged once in shared memory (rows padded
-// to D+1 floats against bank conflicts) and each thread keeps a 4 x 4
-// score tile and a 4 x D/16 output tile in registers, so a shared-memory
-// read feeds 2 to 4 FMAs. No tensor cores, TMA or load/compute overlap
-// yet: that is later work.
+// D 128, causal) a forward does ~2 S^2 D flops per head against ~4 S D
+// bytes per head, about 1000 flops per byte, far above the bf16 ridge
+// (~295). So the products belong on the tensor cores.
+//
+// Two routes, chosen by dtype in dispatch():
+// * bfloat16 (the training path): every product runs on the tensor cores
+//   as mma.sync m16n8k16 (bf16 operands, f32 accumulators), fragments
+//   loaded by ldmatrix (.trans where an operand is needed transposed: V in
+//   P.V, K in dS.K, Q and dO in the dK/dV products). Tiles live in shared
+//   memory as bf16, rows unpadded, the 16-byte chunks of a row XOR-swizzled
+//   with the row so ldmatrix and the cp.async stores are free of bank
+//   conflicts. K/V (forward, dQ) or Q/dO (dK/dV) tiles stream through a
+//   2-stage ring of cp.async.cg 16-byte copies: tile j+1 loads while tile j
+//   computes. ~96 KB of shared memory per block at D 128.
+//   Forward (FA2 order): 4 warps x 32 rows = a resident 128-row Q tile,
+//   64-key tiles taken 32 keys per softmax step; each K and V fragment
+//   feeds the warp's two m16 tiles, halving the ldmatrix traffic per mma
+//   (shared-memory reads, not the tensor cores, bound mma.sync on this
+//   card). S = Q K^T in registers, online softmax in registers
+//   (quad shuffles, exp2f with 1/sqrt(D) folded into log2 e), P turned
+//   from the accumulator layout into the A-operand layout in registers,
+//   rounded to bf16, and fed to P.V without a trip through shared memory.
+//   Only the diagonal tile and the ragged tails are masked; q tiles are
+//   issued heaviest (last) first.
+//   Backward, three launches and no atomics, so dq, dk and dv are
+//   deterministic: (1) delta, one warp per (batch, row, q head);
+//   (2) dK/dV, one block per (k tile of 64, kv head, batch), 4 warps x 16
+//   keys, looping over the G query heads and the q tiles at or below the
+//   diagonal: S^T = K Q^T and dP^T = V dO^T come out in the accumulator
+//   layout, so P^T and dS^T become A operands in registers for
+//   dV += P^T dO and dK += dS^T Q; (3) dQ, one block per (q tile of 64,
+//   q head, batch), recomputing S and dP for dQ += dS K. P and dS are
+//   rounded to bf16 as operands (the TPU's one bf16 pass of the reference
+//   rounded the same operands); every sum is f32. The recompute in (3)
+//   costs 14 D flops per visible pair against the bound's 10 D.
+// * float32: the first, CUDA-core kernels (flash_fwd_kernel, flash_bwd_*),
+//   f32 products at the 67 TFLOP/s rate. TF32 tensor cores keep ~3 digits,
+//   which the f32 tolerances (1e-4 / 2e-4) and the f32 card-against-CPU
+//   checks do not allow. Tiles staged as f32 in shared memory (rows padded
+//   to D+1), each thread a 4 x 4 score tile; launches as the bf16 route
+//   but with 64-row q tiles.
 #include <cstdint>
 
 #include "common.cuh"
@@ -424,6 +447,537 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(
   }
 }
 
+// ----------------------------------------------------------------------
+// bfloat16: the tensor-core kernels
+// ----------------------------------------------------------------------
+using bf16 = __nv_bfloat16;
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
+
+// element offset of 16-byte chunk c of row r in a (rows, D) bf16 tile:
+// the chunk index XORed with the row, so the 8 rows an ldmatrix phase (or
+// 8 consecutive cp.async chunks) touch land in 8 distinct bank groups
+template <int D>
+__device__ __forceinline__ int swz(int r, int c) {
+  constexpr int CPR = D / 8;  // chunks per row
+  int f;  // CPR < 8: rows of (8 / CPR) share a bank line, XOR by line
+  if constexpr (CPR >= 8)
+    f = r & 7;
+  else
+    f = (r / (8 / CPR)) & (CPR - 1);
+  return (r * CPR + (c ^ f)) * 8;
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// 16 bytes global -> shared, bypassing L1; zero-filled when !valid
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(valid ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+// c (16 x 8, f32) += a (16 x 16, bf16, row) . b (16 x 8, bf16, col)
+__device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// two floats rounded to bf16 (round to nearest even), lo in the low half
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// rows [r0, r0+R) of head h of x (0 past n) into a swizzled (R, D) tile,
+// as cp.async copies of 16 bytes spread over NTH threads
+template <int D, int R, int NTH>
+__device__ __forceinline__ void load_async(bf16* dst,
+                                           const bf16* __restrict__ x,
+                                           const Strides& st, int b, int h,
+                                           int r0, int n) {
+  constexpr int CPR = D / 8;
+  for (int i = threadIdx.x; i < R * CPR; i += NTH) {
+    const int r = i / CPR, c = i - r * CPR;
+    const bool ok = r0 + r < n;
+    cp_async16(dst + swz<D>(r, c), ok ? x + at(st, b, r0 + r, h) + c * 8 : x,
+               ok);
+  }
+}
+
+// acc[mt] (16 x N) = A[a0+16mt : a0+16mt+16] . B[b0 : b0+N]^T over the D
+// columns of two swizzled (rows, D) tiles, for MT m16 tiles that share
+// each B fragment; acc[mt][n / 8] is the C fragment of columns [8n, 8n+8):
+// rows lane/4 (c0, c1) and lane/4 + 8 (c2, c3), columns 2 (lane % 4) +
+// {0, 1}
+template <int D, int N, int MT>
+__device__ __forceinline__ void mma_abt(float (&acc)[MT][N / 8][4],
+                                        const bf16* A, int a0, const bf16* B,
+                                        int b0, int lane) {
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int n = 0; n < N / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][n][e] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    uint32_t a[MT][4];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+      ldsm_x4(a[mt],
+              A + swz<D>(a0 + 16 * mt + (lane & 15), 2 * kk + (lane >> 4)));
+#pragma unroll
+    for (int nb = 0; nb < N / 16; ++nb) {
+      uint32_t b[4];
+      ldsm_x4(b, B + swz<D>(b0 + 16 * nb + (lane & 7) + ((lane >> 4) << 3),
+                            2 * kk + ((lane >> 3) & 1)));
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        mma16816(acc[mt][2 * nb], a[mt], b[0], b[1]);
+        mma16816(acc[mt][2 * nb + 1], a[mt], b[2], b[3]);
+      }
+    }
+  }
+}
+
+// acc[mt] (16 x D) += P[mt] (16 x KD, A fragments) . V[v0 : v0+KD] of a
+// swizzled (rows, D) tile, V read transposed by ldmatrix.trans, each B
+// fragment shared by the MT m16 tiles
+template <int D, int KD, int MT>
+__device__ __forceinline__ void mma_pv(float (&acc)[MT][D / 8][4],
+                                       const uint32_t (&p)[MT][KD / 16][4],
+                                       const bf16* V, int v0, int lane) {
+#pragma unroll
+  for (int kk = 0; kk < KD / 16; ++kk)
+#pragma unroll
+    for (int nb = 0; nb < D / 16; ++nb) {
+      uint32_t b[4];
+      ldsm_x4_t(b, V + swz<D>(v0 + 16 * kk + (lane & 7) +
+                                  (((lane >> 3) & 1) << 3),
+                              2 * nb + (lane >> 4)));
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        mma16816(acc[mt][2 * nb], p[mt][kk], b[0], b[1]);
+        mma16816(acc[mt][2 * nb + 1], p[mt][kk], b[2], b[3]);
+      }
+    }
+}
+
+// a (16 x KD) C-fragment tile, rounded to bf16, as KD/16 A fragments
+template <int KD>
+__device__ __forceinline__ void c_to_a(uint32_t (&a)[KD / 16][4],
+                                       const float (&c)[KD / 8][4]) {
+#pragma unroll
+  for (int kk = 0; kk < KD / 16; ++kk) {
+    a[kk][0] = pack_bf16(c[2 * kk][0], c[2 * kk][1]);
+    a[kk][1] = pack_bf16(c[2 * kk][2], c[2 * kk][3]);
+    a[kk][2] = pack_bf16(c[2 * kk + 1][0], c[2 * kk + 1][1]);
+    a[kk][3] = pack_bf16(c[2 * kk + 1][2], c[2 * kk + 1][3]);
+  }
+}
+
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// rows g, g+8 of a warp's 16-row C tile (g = lane / 4), each a bf16 pair
+// per 8 columns, written to the row-strided output of head h
+template <int D>
+__device__ __forceinline__ void store_rows(bf16* __restrict__ y,
+                                           const Strides& st,
+                                           const float (&acc)[D / 8][4],
+                                           int b, int h, int r0, int n,
+                                           float s0, float s1, int lane) {
+  const int c2 = 2 * (lane & 3);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = r0 + (lane >> 2) + 8 * r;
+    if (row >= n) continue;
+    const float s = r ? s1 : s0;
+    bf16* p = y + at(st, b, row, h) + c2;
+#pragma unroll
+    for (int nb = 0; nb < D / 8; ++nb)
+      *reinterpret_cast<uint32_t*>(p + 8 * nb) =
+          pack_bf16(acc[nb][2 * r] * s, acc[nb][2 * r + 1] * s);
+  }
+}
+
+constexpr int FW = 4;    // forward: warps per block
+constexpr int FM = 2;    // forward: m16 tiles per warp (32 rows)
+constexpr int FQ = FW * FM * 16;  // forward: query rows per block (128)
+constexpr int FS = 32;   // forward: keys per online-softmax step
+constexpr int TK = 64;   // keys per K/V tile (forward and dQ)
+constexpr int TQ = 64;   // backward: q rows per Q/dO tile and per dQ block
+constexpr int TW = 4;    // backward: warps per block (4 x 16 keys or rows)
+
+// Each warp owns 32 rows (two m16 tiles), so every K and V fragment read
+// from shared memory feeds two mma: ldmatrix traffic, not the tensor
+// cores, is what bounds mma.sync on this card. Scores are taken 32 keys
+// at a time to leave registers for the 32 x D accumulator.
+template <int D>
+__global__ void __launch_bounds__(FW * 32) flash_fwd_tc_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k,
+    const bf16* __restrict__ v, bf16* __restrict__ out,
+    float* __restrict__ lse, int Sq, int Skv, int Hq, int Hkv, Strides sq,
+    Strides sk, Strides sv, Strides so, int causal, float scale_log2) {
+  // heaviest first: blockIdx.z runs over the q tiles from the last
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * FQ;
+  const int hk = h / (Hq / Hkv);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int qw = q0 + 16 * FM * warp;  // the warp's first row
+  const int g = lane >> 2, c2 = 2 * (lane & 3);
+
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);  // (FQ, D)
+  bf16* Ks = Qs + FQ * D;                        // 2 x (TK, D)
+  bf16* Vs = Ks + 2 * TK * D;                    // 2 x (TK, D)
+
+  const int kend = causal ? min(Skv, q0 + FQ) : Skv;
+  const int nk = (kend + TK - 1) / TK;
+  load_async<D, FQ, FW * 32>(Qs, q, sq, b, h, q0, Sq);
+  load_async<D, TK, FW * 32>(Ks, k, sk, b, hk, 0, Skv);
+  load_async<D, TK, FW * 32>(Vs, v, sv, b, hk, 0, Skv);
+  cp_async_commit();
+
+  // per m16 tile: row g in e 0-1 / r 0, row g+8 in e 2-3 / r 1
+  float o[FM][D / 8][4], m[FM][2], l[FM][2];
+#pragma unroll
+  for (int mt = 0; mt < FM; ++mt) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      m[mt][r] = -INFINITY;
+      l[mt][r] = 0.f;
+    }
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[mt][n][e] = 0.f;
+  }
+
+  for (int j = 0; j < nk; ++j) {
+    const int k0 = j * TK, st = j & 1;
+    if (j + 1 < nk) {  // tile j+1 loads while tile j computes
+      load_async<D, TK, FW * 32>(Ks + (st ^ 1) * TK * D, k, sk, b, hk,
+                                 k0 + TK, Skv);
+      load_async<D, TK, FW * 32>(Vs + (st ^ 1) * TK * D, v, sv, b, hk,
+                                 k0 + TK, Skv);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const bf16* Kt = Ks + st * TK * D;
+    const bf16* Vt = Vs + st * TK * D;
+#pragma unroll 1  // unrolled, the two steps spill registers
+    for (int ks = k0; ks < k0 + TK; ks += FS) {
+      // past the keys, or (causal) past the warp's last row: nothing left
+      if (ks >= Skv || (causal && ks > qw + 16 * FM - 1)) break;
+      float s[FM][FS / 8][4];
+      mma_abt<D, FS, FM>(s, Qs, qw - q0, Kt, ks - k0, lane);
+      // only the diagonal steps and the ragged key tail are masked
+      if (ks + FS > Skv || (causal && ks + FS - 1 > qw)) {
+#pragma unroll
+        for (int mt = 0; mt < FM; ++mt)
+#pragma unroll
+          for (int n = 0; n < FS / 8; ++n)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int kpos = ks + 8 * n + c2 + (e & 1);
+              const int qpos = qw + 16 * mt + g + 8 * (e >> 1);
+              if (kpos >= Skv || (causal && kpos > qpos))
+                s[mt][n][e] = -INFINITY;
+            }
+      }
+      // online softmax in log2 units, the 1/sqrt(D) scale folded in
+      uint32_t p[FM][FS / 16][4];
+#pragma unroll
+      for (int mt = 0; mt < FM; ++mt) {
+        float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+        for (int n = 0; n < FS / 8; ++n) {
+          mx[0] = fmaxf(mx[0], fmaxf(s[mt][n][0], s[mt][n][1]));
+          mx[1] = fmaxf(mx[1], fmaxf(s[mt][n][2], s[mt][n][3]));
+        }
+        float mu[2], alpha[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const float mn = fmaxf(m[mt][r], quad_max(mx[r]) * scale_log2);
+          mu[r] = mn == -INFINITY ? 0.f : mn;  // a row with no key yet
+          alpha[r] = exp2f(m[mt][r] - mu[r]);
+          m[mt][r] = mn;
+        }
+#pragma unroll
+        for (int n = 0; n < FS / 8; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            s[mt][n][e] = exp2f(fmaf(s[mt][n][e], scale_log2, -mu[e >> 1]));
+            sum[e >> 1] += s[mt][n][e];
+          }
+#pragma unroll
+        for (int r = 0; r < 2; ++r) l[mt][r] = l[mt][r] * alpha[r] + sum[r];
+#pragma unroll
+        for (int n = 0; n < D / 8; ++n) {
+          o[mt][n][0] *= alpha[0];
+          o[mt][n][1] *= alpha[0];
+          o[mt][n][2] *= alpha[1];
+          o[mt][n][3] *= alpha[1];
+        }
+        c_to_a<FS>(p[mt], s[mt]);
+      }
+      mma_pv<D, FS, FM>(o, p, Vt, ks - k0, lane);
+    }
+    __syncthreads();  // stage st is consumed before it is refilled
+  }
+
+#pragma unroll
+  for (int mt = 0; mt < FM; ++mt) {
+    float inv[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[mt][r] = quad_sum(l[mt][r]);
+      inv[r] = l[mt][r] > 0.f ? 1.f / l[mt][r] : 0.f;
+      const int qpos = qw + 16 * mt + g + 8 * r;
+      if ((lane & 3) == 0 && qpos < Sq)
+        lse[((int64_t)b * Hq + h) * Sq + qpos] =
+            l[mt][r] > 0.f ? (m[mt][r] + log2f(l[mt][r])) * LN2 : NEG_INF;
+    }
+    store_rows<D>(out, so, o[mt], b, h, qw + 16 * mt, Sq, inv[0], inv[1],
+                  lane);
+  }
+}
+
+// Q, dO (async) and lse * log2 e, delta (plain loads) of the q tile
+// [q0, q0+TQ) of head h into one stage of the dK/dV kernel's ring
+template <int D>
+__device__ __forceinline__ void load_q_stage(
+    bf16* Qs, bf16* dOs, float* Ls, float* Ds, const bf16* __restrict__ q,
+    const bf16* __restrict__ dout, const float* __restrict__ lse,
+    const float* __restrict__ delta, const Strides& sq, const Strides& sd,
+    int b, int h, int Hq, int q0, int Sq) {
+  load_async<D, TQ, TW * 32>(Qs, q, sq, b, h, q0, Sq);
+  load_async<D, TQ, TW * 32>(dOs, dout, sd, b, h, q0, Sq);
+  for (int r = threadIdx.x; r < TQ; r += TW * 32) {
+    const int64_t i = ((int64_t)b * Hq + h) * Sq + q0 + r;
+    Ls[r] = q0 + r < Sq ? lse[i] * LOG2E : 0.f;
+    Ds[r] = q0 + r < Sq ? delta[i] : 0.f;
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(TW * 32) flash_bwd_dkdv_tc_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k,
+    const bf16* __restrict__ v, const bf16* __restrict__ dout,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    bf16* __restrict__ dk, bf16* __restrict__ dv, int Sq, int Skv, int Hq,
+    int Hkv, Strides sq, Strides sk, Strides sv, Strides sd, Strides sdk,
+    int causal, float scale, float scale_log2) {
+  // heaviest first: blockIdx.z runs over the k tiles from the first
+  const int hk = blockIdx.x, b = blockIdx.y, k0 = blockIdx.z * TK;
+  const int G = Hq / Hkv;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int kw = k0 + 16 * warp;  // the warp's first key
+  const int g = lane >> 2, c2 = 2 * (lane & 3);
+
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);  // (TK, D)
+  bf16* Vs = Ks + TK * D;                        // (TK, D)
+  bf16* Qs = Vs + TK * D;                        // 2 x (TQ, D)
+  bf16* dOs = Qs + 2 * TQ * D;                   // 2 x (TQ, D)
+  float* Ls = reinterpret_cast<float*>(dOs + 2 * TQ * D);  // 2 x TQ
+  float* Ds = Ls + 2 * TQ;                                 // 2 x TQ
+
+  // the q tiles at or below the diagonal (rows below k0 see none of
+  // these keys), for each of the G query heads: n steps in all
+  const int qt0 = causal ? k0 / TQ : 0;
+  const int per = max((Sq + TQ - 1) / TQ - qt0, 0);
+  const int n = G * per;
+  load_async<D, TK, TW * 32>(Ks, k, sk, b, hk, k0, Skv);
+  load_async<D, TK, TW * 32>(Vs, v, sv, b, hk, k0, Skv);
+  if (n > 0)
+    load_q_stage<D>(Qs, dOs, Ls, Ds, q, dout, lse, delta, sq, sd, b,
+                    hk * G, Hq, qt0 * TQ, Sq);
+  cp_async_commit();
+
+  float dk_acc[1][D / 8][4], dv_acc[1][D / 8][4];  // one m16 tile of keys
+#pragma unroll
+  for (int c = 0; c < D / 8; ++c)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[0][c][e] = dv_acc[0][c][e] = 0.f;
+
+  for (int t = 0; t < n; ++t) {
+    const int st = t & 1;
+    const int q0 = (qt0 + t % per) * TQ;
+    if (t + 1 < n) {  // the next (head, q tile) loads while this computes
+      const int t1 = t + 1;
+      load_q_stage<D>(Qs + (st ^ 1) * TQ * D, dOs + (st ^ 1) * TQ * D,
+                      Ls + (st ^ 1) * TQ, Ds + (st ^ 1) * TQ, q, dout, lse,
+                      delta, sq, sd, b, hk * G + t1 / per, Hq,
+                      (qt0 + t1 % per) * TQ, Sq);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const bf16* Qt = Qs + st * TQ * D;
+    const bf16* dOt = dOs + st * TQ * D;
+    const float* Lt = Ls + st * TQ;
+    const float* Dt = Ds + st * TQ;
+#pragma unroll 1
+    for (int half = 0; half < 2; ++half) {
+      const int qh = q0 + 32 * half;
+      if (causal && qh + 31 < kw) continue;  // these rows see none
+      // S^T and dP^T (16 keys x 32 rows) land in the accumulator layout
+      float sT[1][4][4], dpT[1][4][4];
+      mma_abt<D, 32, 1>(sT, Ks, 16 * warp, Qt, 32 * half, lane);
+      mma_abt<D, 32, 1>(dpT, Vs, 16 * warp, dOt, 32 * half, lane);
+      const bool edge = qh + 32 > Sq || kw + 16 > Skv ||
+                        (causal && kw + 15 > qh);
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = 32 * half + 8 * c + c2 + (e & 1);  // row of Qt
+          float p = exp2f(fmaf(sT[0][c][e], scale_log2, -Lt[col]));
+          if (edge) {
+            const int qpos = q0 + col, kpos = kw + g + 8 * (e >> 1);
+            if (qpos >= Sq || kpos >= Skv || (causal && kpos > qpos))
+              p = 0.f;
+          }
+          sT[0][c][e] = p;
+          dpT[0][c][e] = p * (dpT[0][c][e] - Dt[col]) * scale;
+        }
+      uint32_t pa[1][2][4], dsa[1][2][4];
+      c_to_a<32>(pa[0], sT[0]);
+      c_to_a<32>(dsa[0], dpT[0]);
+      mma_pv<D, 32, 1>(dv_acc, pa, dOt, 32 * half, lane);
+      mma_pv<D, 32, 1>(dk_acc, dsa, Qt, 32 * half, lane);
+    }
+    __syncthreads();  // stage st is consumed before it is refilled
+  }
+  store_rows<D>(dk, sdk, dk_acc[0], b, hk, kw, Skv, 1.f, 1.f, lane);
+  store_rows<D>(dv, sdk, dv_acc[0], b, hk, kw, Skv, 1.f, 1.f, lane);
+}
+
+template <int D>
+__global__ void __launch_bounds__(TW * 32) flash_bwd_dq_tc_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k,
+    const bf16* __restrict__ v, const bf16* __restrict__ dout,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    bf16* __restrict__ dq, int Sq, int Skv, int Hq, int Hkv, Strides sq,
+    Strides sk, Strides sv, Strides sd, Strides sdq, int causal, float scale,
+    float scale_log2) {
+  // heaviest first: blockIdx.z runs over the q tiles from the last
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * TQ;
+  const int hk = h / (Hq / Hkv);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int qw = q0 + 16 * warp;
+  const int g = lane >> 2, c2 = 2 * (lane & 3);
+
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);  // (TQ, D)
+  bf16* dOs = Qs + TQ * D;                       // (TQ, D)
+  bf16* Ks = dOs + TQ * D;                       // 2 x (TK, D)
+  bf16* Vs = Ks + 2 * TK * D;                    // 2 x (TK, D)
+
+  const int kend = causal ? min(Skv, q0 + TQ) : Skv;
+  const int nk = (kend + TK - 1) / TK;
+  load_async<D, TQ, TW * 32>(Qs, q, sq, b, h, q0, Sq);
+  load_async<D, TQ, TW * 32>(dOs, dout, sd, b, h, q0, Sq);
+  load_async<D, TK, TW * 32>(Ks, k, sk, b, hk, 0, Skv);
+  load_async<D, TK, TW * 32>(Vs, v, sv, b, hk, 0, Skv);
+  cp_async_commit();
+  // lse (log2 units) and delta of rows g and g+8
+  float l2[2], dl[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qpos = qw + g + 8 * r;
+    const int64_t i = ((int64_t)b * Hq + h) * Sq + qpos;
+    l2[r] = qpos < Sq ? lse[i] * LOG2E : 0.f;
+    dl[r] = qpos < Sq ? delta[i] : 0.f;
+  }
+
+  float dq_acc[1][D / 8][4];  // one m16 tile of rows
+#pragma unroll
+  for (int c = 0; c < D / 8; ++c)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dq_acc[0][c][e] = 0.f;
+
+  for (int j = 0; j < nk; ++j) {
+    const int k0 = j * TK, st = j & 1;
+    if (j + 1 < nk) {
+      load_async<D, TK, TW * 32>(Ks + (st ^ 1) * TK * D, k, sk, b, hk,
+                                 k0 + TK, Skv);
+      load_async<D, TK, TW * 32>(Vs + (st ^ 1) * TK * D, v, sv, b, hk,
+                                 k0 + TK, Skv);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    if (!causal || k0 <= qw + 15) {
+      const bf16* Kt = Ks + st * TK * D;
+      const bf16* Vt = Vs + st * TK * D;
+      float s[1][TK / 8][4], dp[1][TK / 8][4];
+      mma_abt<D, TK, 1>(s, Qs, 16 * warp, Kt, 0, lane);
+      mma_abt<D, TK, 1>(dp, dOs, 16 * warp, Vt, 0, lane);
+      const bool edge = k0 + TK > Skv || (causal && k0 + TK - 1 > qw);
+#pragma unroll
+      for (int n = 0; n < TK / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = e >> 1;
+          float p = exp2f(fmaf(s[0][n][e], scale_log2, -l2[r]));
+          if (edge) {
+            const int kpos = k0 + 8 * n + c2 + (e & 1);
+            const int qpos = qw + g + 8 * r;
+            if (kpos >= Skv || (causal && kpos > qpos)) p = 0.f;
+          }
+          dp[0][n][e] = p * (dp[0][n][e] - dl[r]) * scale;
+        }
+      uint32_t dsa[1][TK / 16][4];
+      c_to_a<TK>(dsa[0], dp[0]);
+      mma_pv<D, TK, 1>(dq_acc, dsa, Kt, 0, lane);
+    }
+    __syncthreads();
+  }
+  store_rows<D>(dq, sdq, dq_acc[0], b, h, qw, Sq, 1.f, 1.f, lane);
+}
+
 template <typename K>
 cudaError_t set_smem(K kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel,
@@ -484,9 +1038,64 @@ int bwd(const void* q, const void* k, const void* v, const void* out,
   return (int)cudaGetLastError();
 }
 
+template <int D>
+int fwd_tc(const void* q, const void* k, const void* v, void* out,
+           float* lse, int B, int Sq, int Skv, int Hq, int Hkv, Strides sq,
+           Strides sk, Strides sv, Strides so, int causal, float scale,
+           cudaStream_t st) {
+  const size_t smem = sizeof(bf16) * (FQ + 4 * TK) * D;
+  auto kernel = flash_fwd_tc_kernel<D>;
+  cudaError_t e = set_smem(kernel, smem);
+  if (e != cudaSuccess) return (int)e;
+  kernel<<<dim3(Hq, B, (Sq + FQ - 1) / FQ), FW * 32, smem, st>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<bf16*>(out), lse, Sq, Skv,
+      Hq, Hkv, sq, sk, sv, so, causal, scale * LOG2E);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+int bwd_tc(const void* q, const void* k, const void* v, const void* out,
+           const void* dout, const float* lse, float* delta, void* dq,
+           void* dk, void* dv, int B, int Sq, int Skv, int Hq, int Hkv,
+           Strides sq, Strides sk, Strides sv, Strides so, Strides sd,
+           Strides sdq, Strides sdk, int causal, float scale,
+           cudaStream_t st) {
+  const bf16* q_ = static_cast<const bf16*>(q);
+  const bf16* k_ = static_cast<const bf16*>(k);
+  const bf16* v_ = static_cast<const bf16*>(v);
+  const bf16* do_ = static_cast<const bf16*>(dout);
+  const int64_t rows = (int64_t)B * Sq * Hq;
+  flash_delta_kernel<bf16><<<(unsigned)((rows + NT / 32 - 1) / (NT / 32)),
+                             NT, 0, st>>>(static_cast<const bf16*>(out), do_,
+                                          delta, B, Sq, Hq, D, so, sd);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+
+  const size_t smem_kv =
+      sizeof(bf16) * (2 * TK + 4 * TQ) * D + sizeof(float) * 4 * TQ;
+  auto kv_kernel = flash_bwd_dkdv_tc_kernel<D>;
+  if ((e = set_smem(kv_kernel, smem_kv)) != cudaSuccess) return (int)e;
+  kv_kernel<<<dim3(Hkv, B, (Skv + TK - 1) / TK), TW * 32, smem_kv, st>>>(
+      q_, k_, v_, do_, lse, delta, static_cast<bf16*>(dk),
+      static_cast<bf16*>(dv), Sq, Skv, Hq, Hkv, sq, sk, sv, sd, sdk, causal,
+      scale, scale * LOG2E);
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+
+  const size_t smem_q = sizeof(bf16) * (2 * TQ + 4 * TK) * D;
+  auto q_kernel = flash_bwd_dq_tc_kernel<D>;
+  if ((e = set_smem(q_kernel, smem_q)) != cudaSuccess) return (int)e;
+  q_kernel<<<dim3(Hq, B, (Sq + TQ - 1) / TQ), TW * 32, smem_q, st>>>(
+      q_, k_, v_, do_, lse, delta, static_cast<bf16*>(dq), Sq, Skv, Hq, Hkv,
+      sq, sk, sv, sd, sdq, causal, scale, scale * LOG2E);
+  return (int)cudaGetLastError();
+}
+
 Strides strides(const int64_t* s) { return Strides{s[0], s[1], s[2]}; }
 
-// dtype x head_dim dispatch; F is a functor templated on <T, D>
+// dtype x head_dim dispatch: float32 goes to the CUDA-core kernels
+// (fwd / bwd), bfloat16 to the tensor-core kernels (fwd_tc / bwd_tc,
+// through the specialisations of Fwd and Bwd); F is templated on <T, D>
 template <template <typename, int> class F, typename... Args>
 int dispatch(int dtype, int D, Args... args) {
 #define REPRO_FLASH_CASE(T, DD) \
@@ -495,8 +1104,8 @@ int dispatch(int dtype, int D, Args... args) {
     REPRO_FLASH_CASE(float, 16) REPRO_FLASH_CASE(float, 32)
     REPRO_FLASH_CASE(float, 64) REPRO_FLASH_CASE(float, 128)
   } else if (dtype == DT_BF16) {
-    REPRO_FLASH_CASE(__nv_bfloat16, 16) REPRO_FLASH_CASE(__nv_bfloat16, 32)
-    REPRO_FLASH_CASE(__nv_bfloat16, 64) REPRO_FLASH_CASE(__nv_bfloat16, 128)
+    REPRO_FLASH_CASE(bf16, 16) REPRO_FLASH_CASE(bf16, 32)
+    REPRO_FLASH_CASE(bf16, 64) REPRO_FLASH_CASE(bf16, 128)
   }
 #undef REPRO_FLASH_CASE
   return (int)cudaErrorInvalidValue;
@@ -508,10 +1117,22 @@ struct Fwd {
   static int run(Args... args) { return fwd<T, D>(args...); }
 };
 
+template <int D>
+struct Fwd<bf16, D> {
+  template <typename... Args>
+  static int run(Args... args) { return fwd_tc<D>(args...); }
+};
+
 template <typename T, int D>
 struct Bwd {
   template <typename... Args>
   static int run(Args... args) { return bwd<T, D>(args...); }
+};
+
+template <int D>
+struct Bwd<bf16, D> {
+  template <typename... Args>
+  static int run(Args... args) { return bwd_tc<D>(args...); }
 };
 
 }  // namespace
@@ -521,8 +1142,10 @@ struct Bwd {
 // Sq >= 1 and Skv >= 1 (the wrapper checks). dtype: 0 = float32,
 // 1 = bfloat16; D in {16, 32, 64, 128}. Each *_st argument points to 3
 // int64 element strides (batch, row, head) of a (B, S, H, D) tensor whose
-// last dimension is contiguous. lse and delta are contiguous (B, Hq, Sq)
-// f32.
+// last dimension is contiguous; for bfloat16, q, k, v and dout are read
+// by 16-byte cp.async copies, so their base pointers and strides must be
+// 16-byte aligned (the wrapper copies what is not). lse and delta are
+// contiguous (B, Hq, Sq) f32.
 extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    const void* v, void* out, float* lse,
                                    int B, int Sq, int Skv, int Hq, int Hkv,

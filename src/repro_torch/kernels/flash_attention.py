@@ -7,10 +7,18 @@ returns the f32 log-sum-exp; the backward is the counterpart of the
 hand-written VJP the reference trains through (``flash_xla._bwd_rule``).
 Both are bound to autograd by ``FlashAttention``.
 
-CUDA tensors go to the hand-written kernels of ``csrc/flash_attention.cu``;
-CPU tensors go to their plain versions, ``ref.flash_attention_ref`` and
-``ref.flash_attention_bwd_ref``. There is no other path: a tensor on any
-other device raises.
+CUDA tensors go to the hand-written kernels of ``csrc/flash_attention.cu``:
+bfloat16 to the tensor-core kernels (``mma.sync``), float32 to the
+CUDA-core kernels; CPU tensors go to their plain versions,
+``ref.flash_attention_ref`` and ``ref.flash_attention_bwd_ref``. There is
+no other path: a tensor on any other device raises.
+
+The bfloat16 kernels copy rows into shared memory 16 bytes at a time, so
+each bfloat16 operand they read that way (q, k, v; dout in the backward)
+needs a 16-byte aligned base pointer and (batch, row, head) strides that
+are multiples of 8 elements. An operand that is not is replaced by an
+explicit contiguous copy, counted in the wrapper's ``copies``; the
+training path's operands are aligned and take none.
 """
 from __future__ import annotations
 
@@ -61,17 +69,32 @@ def _check(q, k, v) -> None:
                              f"in its last dimension")
 
 
+def _aligned(t: torch.Tensor, counter) -> torch.Tensor:
+    """``t`` itself, or for a bfloat16 operand whose base pointer or
+    (batch, row, head) strides are not 16-byte aligned a contiguous copy,
+    counted on ``counter.copies``."""
+    if t.dtype != torch.bfloat16:
+        return t
+    if t.data_ptr() % 16 == 0 and all(s % 8 == 0 for s in t.stride()[:3]):
+        return t
+    counter.copies += 1
+    return t.clone(memory_format=torch.contiguous_format)
+
+
 def flash_attention_forward(q: torch.Tensor, k: torch.Tensor,
                             v: torch.Tensor, causal: bool = True):
     """q: (B, Sq, Hq, D), k/v: (B, Skv, Hkv, D), read by stride. Returns
     ``(out, lse)``: out (B, Sq, Hq, D) in q's dtype, lse (B, Hq, Sq) f32
-    (NEG_INF where a row sees no key). No autograd: see ``FlashAttention``."""
+    (NEG_INF where a row sees no key). No autograd: see ``FlashAttention``.
+    A bfloat16 operand that is not 16-byte aligned is copied first (see
+    the module's note) and counted in ``flash_attention_forward.copies``."""
     if q.device.type == "cpu":
         return ref.flash_attention_ref(q, k, v, causal)
     if q.device.type != "cuda":
         raise ValueError(f"flash attention runs on CUDA or CPU tensors, "
                          f"not {q.device}")
     _check(q, k, v)
+    q, k, v = (_aligned(t, flash_attention_forward) for t in (q, k, v))
     B, Sq, Hq, D = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
     lib = build.load("flash_attention", _SIGNATURES)
@@ -92,7 +115,9 @@ def flash_attention_forward(q: torch.Tensor, k: torch.Tensor,
 def flash_attention_backward(q, k, v, out, lse, dout, causal: bool = True):
     """Gradients ``(dq, dk, dv)`` of ``flash_attention_forward``'s out
     against ``dout`` (same shape as out), from the saved ``out`` and
-    ``lse``; dk and dv are summed over each kv head's query heads."""
+    ``lse``; dk and dv are summed over each kv head's query heads. A
+    bfloat16 q, k, v or dout that is not 16-byte aligned is copied first,
+    counted in ``flash_attention_backward.copies``."""
     if q.device.type == "cpu":
         return ref.flash_attention_bwd_ref(q, k, v, out, lse, dout, causal)
     if q.device.type != "cuda":
@@ -107,6 +132,8 @@ def flash_attention_backward(q, k, v, out, lse, dout, causal: bool = True):
             or not lse.is_contiguous()):
         raise ValueError("flash attention backward: out and dout must be "
                          "q-shaped in q's dtype, lse contiguous f32")
+    q, k, v, dout = (_aligned(t, flash_attention_backward)
+                     for t in (q, k, v, dout))
     B, Sq, Hq, D = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
     lib = build.load("flash_attention", _SIGNATURES)
@@ -128,9 +155,12 @@ def flash_attention_backward(q, k, v, out, lse, dout, causal: bool = True):
     return dq, dk, dv
 
 
-# kernel launches since the count was last set to 0 (CPU calls not counted)
+# kernel launches, and alignment copies of bfloat16 operands, since the
+# counts were last set to 0 (CPU calls not counted)
 flash_attention_forward.launches = 0
 flash_attention_backward.launches = 0
+flash_attention_forward.copies = 0
+flash_attention_backward.copies = 0
 
 
 class FlashAttention(torch.autograd.Function):

@@ -12,8 +12,12 @@ kernel sums in another order) or 2e-2 (bfloat16: one rounding of the
 output) on rows that attend something; rows that attend nothing come
 back 0 / NEG_INF.
 
-Flash attention: ragged and unequal Sq/Skv, GQA G = 1 and 2, causal and
-not, every head_dim the kernel takes: out and lse within 1e-4 (float32)
+Flash attention (float32: the CUDA-core kernels; bfloat16: the
+tensor-core kernels, also on a fused projection's strided views and on
+misaligned views, which take the wrapper's counted copy, and twice for
+bit-identical gradients): ragged and unequal Sq/Skv around the 128-row
+and 64-key tiles, one query row, GQA G = 1 and 2, causal and not, every
+head_dim the kernel takes: out and lse within 1e-4 (float32)
 or 2e-2 (bfloat16); dq, dk, dv within 2e-4 (float32) or 3e-2 (bfloat16)
 of the plain gradient's largest magnitude, and within 1e-5 where every
 gradient is zero in exact arithmetic (dq and dk of a single key). Silent compare: counts equal
@@ -147,6 +151,11 @@ FLASH_TOL = {"float32": (1e-4, 2e-4), "bfloat16": (2e-2, 3e-2)}
     (1, 1, 2, 2, 16, True), (7, 7, 4, 2, 16, True),
     (130, 130, 4, 2, 128, True), (200, 130, 4, 4, 64, True),
     (130, 200, 2, 1, 32, True), (200, 130, 4, 2, 128, False),
+    # the bf16 tensor-core kernels' edges: D 64, one query row, one row
+    # past a 128-row tile, one key past a 64-key tile
+    (64, 64, 4, 2, 64, True), (1, 130, 4, 2, 128, True),
+    (1, 65, 4, 2, 64, False), (129, 129, 4, 2, 128, True),
+    (129, 65, 4, 2, 64, False), (70, 65, 4, 2, 128, True),
 ])
 def test_flash_kernels_match_plain(cuda, dtype, sq, skv, hq, hkv, d, causal):
     g = torch.Generator(device=cuda).manual_seed(sq * 1000 + skv)
@@ -188,6 +197,44 @@ def test_flash_autograd_and_strided_inputs(cuda):
     ref.flash_attention_ref(rq, rk, rv, True)[0].square().sum().backward()
     scale = float(ref_leaf.grad.abs().max())
     assert float((leaf.grad - ref_leaf.grad).abs().max()) <= 2e-4 * scale
+
+
+@pytest.mark.parametrize("d", [32, 128])
+def test_flash_bf16_fused_and_misaligned_views(cuda, d):
+    """The bf16 kernels on q/k/v views of one fused projection (read by
+    stride, no copy) and on views one element into a wider buffer
+    (16-byte copies impossible: the wrapper copies each, counted), within
+    the bf16 FLASH_TOL of the plain version; two backward calls give
+    bit-identical gradients."""
+    g = torch.Generator(device=cuda).manual_seed(d)
+    bf = torch.bfloat16
+    qkv = torch.randn((2, 150, 4 + 2 * 2, d), generator=g,
+                      device=cuda).to(bf)
+    fused = (qkv[:, :, :4], qkv[:, :, 4:6], qkv[:, :, 6:])
+    wide = torch.randn((2, 150, 8, d + 2), generator=g, device=cuda).to(bf)
+    misaligned = (wide[:, :, :4, 1:d + 1], wide[:, :, 4:6, 1:d + 1],
+                  wide[:, :, 6:, 1:d + 1])
+    dout = torch.randn((2, 150, 4, d), generator=g, device=cuda).to(bf)
+    tol_o, tol_g = FLASH_TOL["bfloat16"]
+    for (q, k, v), want_copies in ((fused, 0), (misaligned, 3)):
+        before = (flash_attention_forward.copies,
+                  flash_attention_backward.copies)
+        out, lse = flash_attention_forward(q, k, v, True)
+        grads = flash_attention_backward(q, k, v, out, lse, dout, True)
+        again = flash_attention_backward(q, k, v, out, lse, dout, True)
+        want_out, want_lse = ref.flash_attention_ref(q, k, v, True)
+        want = ref.flash_attention_bwd_ref(q, k, v, want_out, want_lse,
+                                           dout, True)
+        torch.cuda.synchronize()
+        assert (flash_attention_forward.copies - before[0],
+                flash_attention_backward.copies - before[1]) == (
+                    want_copies, 2 * want_copies)
+        assert float((out.float() - want_out.float()).abs().max()) <= tol_o
+        assert float((lse - want_lse).abs().max()) <= tol_o
+        for got, exp, rep in zip(grads, want, again):
+            assert torch.equal(got, rep)
+            atol = tol_g * float(exp.float().abs().max())
+            assert float((got.float() - exp.float()).abs().max()) <= atol
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

@@ -121,3 +121,129 @@ def test_silent_count_matches_pallas_interpret(n, tol, dtype):
                                       tol)) == want
     assert ops.silent_fraction(ta, tb, tol) == pytest.approx(want / n,
                                                              rel=1e-6)
+
+
+# ----------------------------------------------------------------------
+# The arithmetic of the bfloat16 tensor-core kernels, emulated on the CPU
+# ----------------------------------------------------------------------
+def _tc_forward(q, k, v, causal, bk=32):
+    """The tensor-core forward's arithmetic: bf16 q, k, v; S in f32;
+    online softmax in steps of 32 keys in log2 units; P rounded to bf16
+    before P.V; f32 sums. Returns (out in bf16, lse f32 (B, Hq, Sq))."""
+    B, Sq, Hq, D = q.shape
+    Skv, G = k.shape[1], Hq // k.shape[2]
+    qf = q.float().transpose(1, 2)                           # (B, Hq, Sq, D)
+    kf = k.float().repeat_interleave(G, dim=2).transpose(1, 2)
+    vf = v.float().repeat_interleave(G, dim=2).transpose(1, 2)
+    scale_log2 = torch.tensor(1.0 / np.sqrt(D) * np.log2(np.e),
+                              dtype=torch.float32)
+    m = torch.full((B, Hq, Sq), -torch.inf)
+    l = torch.zeros((B, Hq, Sq))
+    o = torch.zeros((B, Hq, Sq, D))
+    qpos = torch.arange(Sq)[:, None]
+    for k0 in range(0, Skv, bk):
+        s = qf @ kf[:, :, k0:k0 + bk].transpose(-1, -2)
+        if causal:
+            kpos = torch.arange(k0, min(k0 + bk, Skv))[None, :]
+            s = torch.where(kpos <= qpos, s, -torch.inf)
+        mn = torch.maximum(m, s.amax(-1) * scale_log2)
+        mu = torch.where(mn == -torch.inf, 0.0, mn)
+        alpha = torch.exp2(m - mu)
+        p = torch.exp2(s * scale_log2 - mu[..., None])
+        l = l * alpha + p.sum(-1)
+        m = mn
+        o = (o * alpha[..., None]
+             + p.to(torch.bfloat16).float() @ vf[:, :, k0:k0 + bk])
+    out = torch.where(l[..., None] > 0, o / l[..., None], 0.0)
+    lse = torch.where(l > 0, (m + torch.log2(l)) * np.log(2), ref.NEG_INF)
+    return out.transpose(1, 2).to(torch.bfloat16), lse
+
+
+def _tc_backward(q, k, v, out, lse, dout, causal):
+    """The tensor-core backward's arithmetic: S and dP in f32 from bf16
+    operands, p = exp2(S scale log2 e - lse log2 e), delta in f32, P and
+    dS rounded to bf16 before dV = P^T dO, dK = dS^T Q, dQ = dS K; f32
+    sums. Returns (dq, dk, dv) in bf16."""
+    B, Sq, Hq, D = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    scale = 1.0 / np.sqrt(D)
+    qf, dof = (x.float().transpose(1, 2) for x in (q, dout))
+    kf, vf = (x.float().repeat_interleave(G, dim=2).transpose(1, 2)
+              for x in (k, v))
+    s = qf @ kf.transpose(-1, -2)
+    p = torch.exp2(s * float(scale * np.log2(np.e))
+                   - (lse * float(np.log2(np.e)))[..., None])
+    if causal:
+        p = torch.where(torch.arange(Skv)[None, :]
+                        <= torch.arange(Sq)[:, None], p, 0.0)
+    delta = (dout.float() * out.float()).sum(-1).transpose(1, 2)
+    ds = p * (dof @ vf.transpose(-1, -2) - delta[..., None]) * scale
+    pb, dsb = (x.to(torch.bfloat16).float() for x in (p, ds))
+    dq = (dsb @ kf).transpose(1, 2)
+    dk = (dsb.transpose(-1, -2) @ qf).reshape(B, Hkv, G, Skv, D).sum(2)
+    dv = (pb.transpose(-1, -2) @ dof).reshape(B, Hkv, G, Skv, D).sum(2)
+    return (dq.to(torch.bfloat16), dk.transpose(1, 2).to(torch.bfloat16),
+            dv.transpose(1, 2).to(torch.bfloat16))
+
+
+# chip_smoke's and the card tests' bf16 tolerance: out and lse, and the
+# gradients relative to the plain gradient's largest magnitude
+FLASH_TOL_BF16 = (2e-2, 3e-2)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_tc_rounding_within_flash_tol_at_training_length(causal):
+    """Rounding P and dS to bf16 as the tensor-core kernels do stays
+    within the bf16 FLASH_TOL of the f32 plain versions at S 1024, D 128
+    (one batch, Hq 4, Hkv 2)."""
+    rng = np.random.default_rng(14)
+    q, k, v, dout = (torch.from_numpy(rng.standard_normal(
+        (1, 1024, h, 128)).astype(np.float32)).to(torch.bfloat16)
+        for h in (4, 2, 2, 4))
+    out, lse = _tc_forward(q, k, v, causal)
+    grads = _tc_backward(q, k, v, out, lse, dout, causal)
+    want_out, want_lse = ref.flash_attention_ref(q, k, v, causal)
+    want = ref.flash_attention_bwd_ref(q, k, v, want_out, want_lse, dout,
+                                       causal)
+    tol_o, tol_g = FLASH_TOL_BF16
+    assert float((out.float() - want_out.float()).abs().max()) <= tol_o
+    assert float((lse - want_lse).abs().max()) <= tol_o
+    for got, exp in zip(grads, want):
+        rel = (float((got.float() - exp.float()).abs().max())
+               / float(exp.float().abs().max()))
+        assert rel <= tol_g, rel
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("shape", SHAPES)
+def test_tc_rounding_matches_pallas_interpret(shape, causal):
+    """The emulated tensor-core forward against the reference's Pallas
+    kernel in interpret mode, bf16 inputs, within the file's bf16 TOL."""
+    sq, skv, hq, hkv = shape
+    (q, k, v), (tq, tk, tv) = _qkv(sq, skv, hq, hkv, 32, "bfloat16",
+                                   seed=3 * sq + skv)
+    want = ref_fa.flash_attention(q, k, v, causal=causal, interpret=True)
+    out, _ = _tc_forward(tq, tk, tv, causal)
+    np.testing.assert_allclose(out.float().numpy(),
+                               np.asarray(want.astype(jnp.float32)),
+                               atol=TOL["bfloat16"], rtol=TOL["bfloat16"])
+
+
+def test_bf16_alignment_copy_rule():
+    """The wrapper's rule for the bf16 kernels' 16-byte copies: a view of a
+    fused projection is read in place; a view one element into a wider
+    row is copied (contiguous, equal) and counted; f32 is never copied."""
+    from repro_torch.kernels import flash_attention as fa
+
+    class Counter:
+        copies = 0
+    fused = torch.randn((2, 5, 8, 64)).to(torch.bfloat16)[:, :, 4:6]
+    assert fa._aligned(fused, Counter) is fused and Counter.copies == 0
+    wide = torch.randn((2, 5, 8, 66)).to(torch.bfloat16)
+    view = wide[..., 1:65]
+    got = fa._aligned(view, Counter)
+    assert Counter.copies == 1 and got.is_contiguous()
+    assert torch.equal(got, view) and got.data_ptr() % 16 == 0
+    f32 = torch.randn((2, 5, 8, 66))[..., 1:65]
+    assert fa._aligned(f32, Counter) is f32 and Counter.copies == 1

@@ -8,26 +8,34 @@ the training path.
 1. prints the card (nvidia-smi name and power limit), the torch, CUDA
    and nvcc versions, and builds the hand-written CUDA kernels from
    ``src/repro_torch/csrc`` (timed; ptxas registers and spills per
-   kernel, and the flash kernels' HMMA instructions from cuobjdump);
+   kernel, and the HMMA instructions of the flash attention and paged
+   window kernels from cuobjdump);
 2. holds every kernel of the serving path against its plain PyTorch
    version on the card, at the main path's shapes (qwen3-1.7b: Hq 16,
-   Hkv 8, D 128, page 16, 8 slots, windows of 16 and 128) on a hostile
+   Hkv 8, D 128, page 16, 8 slots, windows of 2, 3, 8, 9, 32, 33 and
+   128: both sides of each route threshold of the window kernel) on a hostile
    page table (out-of-order pages, partial last pages, unmapped holes
-   and tails, an idle slot, a write past the table; verify windows of 5
-   that cross page boundaries or run past the mapped extent), for
-   float32 and
-   bfloat16 pools: pools and counters must be equal, outputs and lse
+   and tails, an idle slot, a write past the table; decode positions
+   whose histories span 1 to 6 history splits; verify windows of 5 that
+   cross page boundaries or run past the mapped extent), for float32
+   and bfloat16 pools: pools and counters must be equal, outputs and lse
    within 1e-4 (float32 activations) or 2e-2 (bfloat16) on rows that
-   attend something; and times kernel, plain version and a PyTorch
-   library call (SDPA over the gathered view, a yardstick the port never
-   calls) with CUDA events, L2 flushed before every launch; then the
-   RMSNorm forward and backward (Triton) against their plain versions at
-   every norm shape of the three paths, in each x/scale dtype pair, with
-   rows read by stride (out within 1e-5 relative at float32 and 2e-2 at
-   bfloat16; dx and dscale within 2e-4 / 3e-2 of the plain gradient's
-   largest magnitude), timed at the training norms beside
-   ``torch.nn.functional.rms_norm`` (the library yardstick) by device
-   time from CUPTI, CUDA-event times printed beside it;
+   attend something, and two calls on the same inputs bit-identical in
+   outputs, lse, pools and counters; times kernel, plain version and a
+   PyTorch library call (SDPA over the gathered view, a yardstick the
+   port never calls) on the main path's inputs by device time (CUPTI, L2
+   flushed before every call) with CUDA-event times beside, and reads
+   each call's launches and grids from the profiler's trace (one launch
+   a call, history splits); then the same at a 2048-position history,
+   and the window kernel's split and tensor-core routes side by side at
+   windows of 1 to 32 rows (the measurement behind its route choice);
+   then the RMSNorm forward and backward (Triton) against their plain
+   versions at every norm shape of the three paths, in each x/scale
+   dtype pair, with rows read by stride (out within 1e-5 relative at
+   float32 and 2e-2 at bfloat16; dx and dscale within 2e-4 / 3e-2 of
+   the plain gradient's largest magnitude), timed at the training norms
+   beside ``torch.nn.functional.rms_norm`` (the library yardstick) by
+   device time from CUPTI, CUDA-event times printed beside it;
 3. runs the main path at full width: ``repro_torch.launch.serve.run``
    for qwen3-1.7b with the paged KV heap and the profiler on (random
    weights from seed 0, 28 layers), with the kernels' launch counts set
@@ -119,6 +127,7 @@ class Timer:
     def __init__(self, torch):
         self.torch = torch
         self.flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+        self.flush_names = set()      # the flush's own kernels (device())
 
     def __call__(self, fn, iters: int = 20, warmup: int = 3) -> float:
         torch = self.torch
@@ -150,20 +159,37 @@ class Timer:
         def kernels(prof):
             return [e for e in prof.events() if e.device_type == cuda]
         acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-        with profile(activities=acts) as prof:
-            self.flush.zero_()
-            torch.cuda.synchronize()
-        flush_names = {e.name for e in kernels(prof)}
         for _ in range(warmup):
             fn()
         torch.cuda.synchronize()
-        with profile(activities=acts) as prof:
-            for _ in range(iters):
+        # A trace can miss the first kernel of its window: the flush's
+        # names come from a trace of three flushes, and each timed trace
+        # opens with an untimed flush. A trace in which fewer flushes than
+        # calls were seen is retaken.
+        for _ in range(5):
+            if not self.flush_names:
+                with profile(activities=acts) as prof:
+                    for _ in range(3):
+                        self.flush.zero_()
+                    torch.cuda.synchronize()
+                self.flush_names = {e.name for e in kernels(prof)}
+            with profile(activities=acts) as prof:
                 self.flush.zero_()
-                fn()
-            torch.cuda.synchronize()
-        return sum(e.time_range.elapsed_us() for e in kernels(prof)
-                   if e.name not in flush_names) / iters / 1e3
+                torch.cuda.synchronize()
+                for _ in range(iters):
+                    self.flush.zero_()
+                    fn()
+                torch.cuda.synchronize()
+            evs = kernels(prof)
+            flushes = sum(e.name in self.flush_names for e in evs)
+            us = sum(e.time_range.elapsed_us() for e in evs
+                     if e.name not in self.flush_names)
+            if us > 0 and flushes >= iters:
+                return us / iters / 1e3
+            print(f"[timer] retaking a trace: {flushes} flushes of "
+                  f"{iters} seen, {len(evs)} kernels", flush=True)
+            self.flush_names = set()
+        return float("nan")     # not measured
 
 
 # ----------------------------------------------------------------------
@@ -205,8 +231,12 @@ def kernel_cases(np):
     w5 = np.array([0, 72, 30, 14, 156, 45, 9, -6], np.int32)
     cases += [("verify W=5 overwrite", 5, w5, True),
               ("verify W=5 defer", 5, w5, False)]
-    for S in (16, 128):
-        w = np.array([0, 72, 32, 0, 17, 0, 9, -(S + 1)], np.int32)
+    # windows on both sides of the routes' thresholds: the split and the
+    # tensor cores for bf16 (S * G = 4, 6), the split and the CUDA-core
+    # kernel for f32 (S * G = 16, 18), the tensor-core kernel with and
+    # without history splits (S * G = 64, 66)
+    for S in (2, 3, 8, 9, 32, 33, 128):
+        w = np.array([0, 72, 32, 140, 17, 0, 9, -(S + 1)], np.int32)
         w = np.minimum(w, MAX_LEN - S)
         w[-1] = -(S + 1)
         cases += [(f"window S={S} store", S, w, True),
@@ -218,6 +248,7 @@ def bytes_flops(np, name, S, idx, pt, store, act_isz, pool_isz):
     """Least bytes moved and flops done by one call on these inputs: each
     input read once, each output written once, history counted as the
     mapped rows the call attends, stores as the rows that land."""
+    m = pt.shape[1]
     row = 2 * HKV * D * pool_isz                       # one K+V pool row
     nbytes = (B * S * HQ * D * act_isz * 2             # q in, out
               + 2 * B * S * HKV * D * act_isz          # new/window K, V
@@ -225,11 +256,11 @@ def bytes_flops(np, name, S, idx, pt, store, act_isz, pool_isz):
     flops = 0
     for b in range(B):
         i0 = int(idx[b])
-        mapped = [pt[b, p // PS] >= 0 if 0 <= p < M * PS else False
+        mapped = [pt[b, p // PS] >= 0 if 0 <= p < m * PS else False
                   for p in range(max(i0, 0) + S)]
         hist = sum(mapped[:max(i0, 0)])
         nbytes += hist * row
-        win_ok = [(0 <= i0 + c < M * PS) and (not store or mapped[i0 + c])
+        win_ok = [(0 <= i0 + c < m * PS) and (not store or mapped[i0 + c])
                   for c in range(S)] if i0 + S > 0 else [False] * S
         if store:
             nbytes += 2 * row * sum(win_ok)             # old read + new write
@@ -247,12 +278,16 @@ def main_path_table(np, rng):
     return rng.permutation(P).reshape(B, M).astype(np.int32)
 
 
-def run_case(torch, act, pool_dt, name, S, idx_np, pt_np, store, seed):
-    """Build one case's inputs on the card, run the kernel and its plain
-    version on copies of the pools, check them against each other and
-    print the result. Returns (max |err|, kernel, plain, inputs)."""
+def run_case(torch, act, pool_dt, name, S, idx_np, pt_np, store, seed,
+             pages=P, route=None):
+    """Build one case's inputs on the card (a pool of ``pages`` pages), run
+    the kernel twice and its plain version once on copies of the pools,
+    check the two kernel calls bit for bit against each other and the
+    kernel against the plain version, and print the result. ``route``
+    forces a route of the window kernel (``flash_prefill.ROUTES``).
+    Returns (max |err|, kernel, plain, inputs)."""
     from repro_torch.kernels import ref
-    from repro_torch.kernels.flash_prefill import paged_window_attention
+    from repro_torch.kernels import flash_prefill as fp
     from repro_torch.kernels.paged_attention import paged_decode_attention
     from repro_torch.kernels.paged_verify import paged_verify_attention
 
@@ -264,8 +299,8 @@ def run_case(torch, act, pool_dt, name, S, idx_np, pt_np, store, seed):
     q = randn(B, S, HQ, D, dtype=adt)
     kn = randn(B, S, HKV, D, dtype=adt)
     vn = randn(B, S, HKV, D, dtype=adt)
-    pool_k = randn(P, PS, HKV, D, dtype=pdt)
-    pool_v = randn(P, PS, HKV, D, dtype=pdt)
+    pool_k = randn(pages, PS, HKV, D, dtype=pdt)
+    pool_v = randn(pages, PS, HKV, D, dtype=pdt)
     pt = torch.as_tensor(pt_np, device="cuda")
     idx = torch.as_tensor(idx_np, device="cuda")
     if store:
@@ -282,21 +317,23 @@ def run_case(torch, act, pool_dt, name, S, idx_np, pt_np, store, seed):
         def plain(pk, pv):
             out, lse, _, _, cnt = ref.paged_decode_ref(*args, pk, pv, pt, idx)
             return out, lse, cnt
-    elif name.startswith("verify"):
-        def kernel(pk, pv):
-            out, lse, cnt, _, _ = paged_verify_attention(
-                *args, pk, pv, pt, idx,
-                mode="overwrite" if store else "defer")
-            return out, lse, cnt
-
-        def plain(pk, pv):
-            out, lse, _, _, cnt = ref.paged_window_ref(
-                *args, pk, pv, pt, idx, store=store)
-            return out, lse, cnt
     else:
+        if route is not None:
+            def call(pk, pv):
+                return fp.paged_window_on_route(route, *args, pk, pv, pt,
+                                                idx, store=store)
+        elif name.startswith("verify"):
+            def call(pk, pv):
+                return paged_verify_attention(
+                    *args, pk, pv, pt, idx,
+                    mode="overwrite" if store else "defer")
+        else:
+            def call(pk, pv):
+                return fp.paged_window_attention(*args, pk, pv, pt, idx,
+                                                 store=store)
+
         def kernel(pk, pv):
-            out, lse, cnt, _, _ = paged_window_attention(
-                *args, pk, pv, pt, idx, store=store)
+            out, lse, cnt, _, _ = call(pk, pv)
             return out, lse, cnt
 
         def plain(pk, pv):
@@ -304,10 +341,14 @@ def run_case(torch, act, pool_dt, name, S, idx_np, pt_np, store, seed):
                 *args, pk, pv, pt, idx, store=store)
             return out, lse, cnt
     kk, kv = pool_k.clone(), pool_v.clone()
+    kk2, kv2 = pool_k.clone(), pool_v.clone()
     pk_, pv_ = pool_k.clone(), pool_v.clone()
     o_k, l_k, c_k = kernel(kk, kv)
+    again = kernel(kk2, kv2)
     o_p, l_p, c_p = plain(pk_, pv_)
     torch.cuda.synchronize()
+    twice = (all(torch.equal(x, y) for x, y in zip((o_k, l_k, c_k), again))
+             and torch.equal(kk, kk2) and torch.equal(kv, kv2))
     lse_k = l_k.reshape(B, HQ, S)
     lse_p = l_p.reshape(B, HQ, S)
     live = (lse_p > NEG_INF / 2)                     # (B, Hq, S)
@@ -320,22 +361,20 @@ def run_case(torch, act, pool_dt, name, S, idx_np, pt_np, store, seed):
                    == 0) and bool((lse_k[~live] == NEG_INF).all())
     same = (torch.equal(kk, pk_) and torch.equal(kv, pv_)
             and torch.equal(c_k, c_p))
-    print(f"[kernels] {name:21s} act {act:8s} pool {pool_dt:8s} "
+    label = name if route is None else f"{name} route {route}"
+    print(f"[kernels] {label:21s} act {act:8s} pool {pool_dt:8s} "
           f"pools+counters equal {same} | max |err| {err:.3e} "
-          f"(tol {TOL[act]}) | idle rows 0 {dead_ok} | counters "
-          f"{c_k.sum(0).tolist()}", flush=True)
-    if not (same and err <= TOL[act] and dead_ok):
-        raise AssertionError(f"{name} ({act}/{pool_dt}) disagrees with its "
-                             f"plain version")
+          f"(tol {TOL[act]}) | idle rows 0 {dead_ok} | two calls "
+          f"bit-identical {twice} | counters {c_k.sum(0).tolist()}",
+          flush=True)
+    if not (same and err <= TOL[act] and dead_ok and twice):
+        raise AssertionError(f"{label} ({act}/{pool_dt}) disagrees with its "
+                             f"plain version or with itself")
     return err, kernel, plain, (q, kn, vn, pool_k, pool_v, pt, idx)
 
 
-def check_kernels(torch, np, timer):
-    """Phase 2. Hostile tables in every dtype pair, then the main path's
-    own inputs (bf16 activations, f32 pool; decode with every slot at
-    position 144, prefill of 128 tokens at 0, verify windows of 5 at 144
-    in both modes), timed. Returns the kernels' JSON entries (all but
-    launches)."""
+def check_hostile(torch, np):
+    """Phase 2, hostile tables in every dtype pair."""
     rng = np.random.default_rng(0)
     seed = 0
     for act, pool_dt in (("bfloat16", "float32"), ("bfloat16", "bfloat16"),
@@ -345,35 +384,104 @@ def check_kernels(torch, np, timer):
             run_case(torch, act, pool_dt, name, S, idx_np,
                      hostile_table(np, rng, idx_np, S), store, seed)
 
+
+# the main path's kernel calls: (JSON key, case, S, position)
+MAIN_CALLS = (("paged_decode", "decode", 1, 144),
+              ("paged_window", "window S=128 store", 128, 0),
+              ("paged_verify", "verify W=5 defer", 5, 144),
+              ("paged_verify", "verify W=5 overwrite", 5, 144))
+
+
+def time_paged(torch, np, timer, name, S, pos, pt_np, pages, seed):
+    """Check one call on the main path's dtypes (bf16 activations, f32
+    pool) with every slot at ``pos``, then time kernel, plain version and
+    SDPA over the gathered view by device time (CUPTI, L2 flushed before
+    each call), kernel and SDPA also by CUDA events. Returns (max |err|,
+    device ms by call, event ms by call, bytes, flops)."""
+    idx_np = np.full(B, pos, np.int32)
+    store = not name.endswith("defer")
+    err, kernel, plain, inputs = run_case(
+        torch, "bfloat16", "float32", name, S, idx_np, pt_np, store,
+        seed=seed, pages=pages)
+    q, kn, vn, pool_k, pool_v, pt, idx = inputs
+    # store mode rewrites the same rows on every call
+    kk, kv = pool_k.clone(), pool_v.clone()
+    pk_, pv_ = pool_k.clone(), pool_v.clone()
+    calls = {"kernel": lambda: kernel(kk, kv),
+             "plain": lambda: plain(pk_, pv_),
+             "sdpa": library_call(torch, q, kn, vn, pool_k, pool_v, pt, idx,
+                                  S)}
+    dev = {k: timer.device(fn) for k, fn in calls.items()}
+    ev = {k: timer(calls[k]) for k in ("kernel", "sdpa")}
+    dev["launches"] = launch_grids(torch, calls["kernel"])
+    nbytes, flops = bytes_flops(np, name, S, idx_np, pt_np, store,
+                                q.element_size(), pool_k.element_size())
+    return err, dev, ev, nbytes, flops
+
+
+def launch_grids(torch, fn):
+    """The paged kernels one call of fn launches, with their grids, from
+    the profiler's trace: [(kernel, (x, y, z))]."""
+    import tempfile
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.zeros(1, device="cuda")   # a trace can miss its first kernel
+        torch.cuda.synchronize()
+        fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    return [(kernel_label_demangled(e["name"]),
+             tuple(e.get("args", {}).get("grid", ())))
+            for e in events if e.get("cat") == "kernel"
+            and _kernel_kind(e["name"]) in ("paged_decode", "paged_window")]
+
+
+def kernel_label_demangled(name: str) -> str:
+    """``window_tc_kernel<float, 128>`` from a demangled kernel name."""
+    import re
+    m = re.search(r"([a-z_]+_kernel<[^(]*>)", name)
+    return m.group(1) if m else name
+
+
+def check_kernels(torch, np, timer):
+    """Phase 2. Hostile tables in every dtype pair, then the main path's
+    own inputs (bf16 activations, f32 pool; decode with every slot at
+    position 144, prefill of 128 tokens at 0, verify windows of 5 at 144
+    in both modes), timed. Returns the kernels' JSON entries (all but
+    launches)."""
+    check_hostile(torch, np)
+    rng = np.random.default_rng(1)
     entries = {}
-    for key, name, S, pos in (("paged_decode", "decode", 1, 144),
-                              ("paged_window", "window S=128 store", 128, 0),
-                              ("paged_verify", "verify W=5 defer", 5, 144),
-                              ("paged_verify", "verify W=5 overwrite", 5,
-                               144)):
-        idx_np = np.full(B, pos, np.int32)
-        pt_np = main_path_table(np, rng)
-        store = not name.endswith("defer")
-        err, kernel, plain, inputs = run_case(
-            torch, "bfloat16", "float32", name, S, idx_np, pt_np, store,
+    for key, name, S, pos in MAIN_CALLS:
+        err, dev, ev, nbytes, flops = time_paged(
+            torch, np, timer, name, S, pos, main_path_table(np, rng), P,
             seed=100 + S)
-        q, kn, vn, pool_k, pool_v, pt, idx = inputs
-        # store mode rewrites the same rows on every call
-        kk, kv = pool_k.clone(), pool_v.clone()
-        ms = timer(lambda: kernel(kk, kv))
-        pk_, pv_ = pool_k.clone(), pool_v.clone()
-        plain_ms = timer(lambda: plain(pk_, pv_))
-        library_ms = time_library(torch, timer, q, kn, vn, pool_k, pool_v,
-                                  pt, idx, S)
-        nbytes, flops = bytes_flops(np, name, S, idx_np, pt_np, store,
-                                    q.element_size(), pool_k.element_size())
-        t_bytes = nbytes / HBM_BYTES_S * 1e3
-        t_ops = flops / PEAK_FLOPS["bfloat16"] * 1e3
+        b_ms, by = bound(nbytes, flops, PEAK_FLOPS["bfloat16"])
+        ms = dev["kernel"]
+        grids = dev.pop("launches")
+        print(f"[kernels] {key} on the main path's inputs ({name}): "
+              f"launches per call {grids}", flush=True)
+        # one launch a call (the store rides it); the decode and the
+        # verify windows split the history (grid x: splits of the split
+        # kernel, grid z: of the tensor-core kernel's one row tile)
+        assert len(grids) == 1, grids
+        kern, grid = grids[0]
+        if S < 128 and grid:
+            splits = grid[0] if "split" in kern else grid[2]
+            assert splits >= 2, grids
         print(f"[kernels] {key} on the main path's inputs ({name}, B {B}, "
-              f"position {pos}, bf16 act, f32 pool): kernel {ms:.4f} ms | "
-              f"plain {plain_ms:.4f} ms | SDPA over the gathered view "
-              f"{library_ms:.4f} ms | bound {max(t_bytes, t_ops):.4f} ms "
-              f"({nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP)", flush=True)
+              f"position {pos}, bf16 act, f32 pool), device time: kernel "
+              f"{ms:.4f} ms | plain {dev['plain']:.4f} ms | SDPA over the "
+              f"gathered view {dev['sdpa']:.4f} ms (kernel / SDPA "
+              f"{ms / dev['sdpa']:.2f}) | bound {b_ms:.4f} ms ({by}: "
+              f"{nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP; kernel at "
+              f"{b_ms / ms:.3f} of it) | CUDA events: kernel "
+              f"{ev['kernel']:.4f} ms, SDPA {ev['sdpa']:.4f} ms", flush=True)
         if key == "paged_verify":
             continue          # a mode of paged_window, printed only
         entries[key] = {
@@ -382,16 +490,69 @@ def check_kernels(torch, np, timer):
             "replaces": ("src/repro/kernels/paged_attention.py:120"
                          if key == "paged_decode" else
                          "src/repro/kernels/flash_prefill.py:171"),
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": library_ms}
+            "max_abs_err": err, "ms": ms, "plain_ms": dev["plain"],
+            "bound_ms": b_ms, "bound_by": by, "library_ms": dev["sdpa"],
+            "event_ms": ev["kernel"]}
+    long_history(torch, np, timer)
+    crossover(torch, np, timer)
     return entries
 
 
-def time_library(torch, timer, q, kn, vn, pool_k, pool_v, pt, idx, S):
+def crossover(torch, np, timer):
+    """B2 through its split and tensor-core routes on the same inputs
+    (bf16 activations, f32 pool, store mode), windows of S rows at
+    positions 0 and 144, checked against the plain version and timed by
+    device time: the measurement behind the kernel's choice of the
+    tensor cores for bf16 activations."""
+    rng = np.random.default_rng(4)
+    for pos in (0, 144):
+        times = []
+        for S in (1, 2, 4, 5, 8, 16, 32):
+            pt_np = main_path_table(np, rng)
+            row = []
+            for route in ("split", "tensor_core"):
+                _, kernel, _, inputs = run_case(
+                    torch, "bfloat16", "float32", f"window S={S} store", S,
+                    np.full(B, pos, np.int32), pt_np, True, seed=300 + S,
+                    route=route)
+                kk, kv = inputs[3].clone(), inputs[4].clone()
+                row.append(timer.device(lambda: kernel(kk, kv)))
+            times.append(f"S {S}: split {row[0]:.4f}, tensor cores "
+                         f"{row[1]:.4f}")
+        print(f"[kernels] B2 routes at position {pos} (bf16 act, f32 pool, "
+              f"store), device ms: " + "; ".join(times), flush=True)
+
+
+LONG_M = 128                              # pages per slot: 2048 positions
+
+
+def long_history(torch, np, timer):
+    """B1 and B2 at W = 5 (both modes) with every slot at the end of a
+    2048-position history (128 pages a slot, shuffled), checked and timed
+    as on the main path's inputs: where long-context users feel the
+    split of the history."""
+    rng = np.random.default_rng(3)
+    pages = B * LONG_M
+    pt_np = rng.permutation(pages).reshape(B, LONG_M).astype(np.int32)
+    for name, S in (("decode", 1), ("verify W=5 defer", 5),
+                    ("verify W=5 overwrite", 5)):
+        pos = LONG_M * PS - S
+        err, dev, ev, nbytes, flops = time_paged(
+            torch, np, timer, name, S, pos, pt_np, pages, seed=200 + S)
+        b_ms, by = bound(nbytes, flops, PEAK_FLOPS["bfloat16"])
+        print(f"[kernels] long history ({name}, B {B}, position {pos} of "
+              f"{LONG_M * PS}, M {LONG_M}), device time: kernel "
+              f"{dev['kernel']:.4f} ms | plain {dev['plain']:.4f} ms | SDPA "
+              f"over the gathered view {dev['sdpa']:.4f} ms (kernel / SDPA "
+              f"{dev['kernel'] / dev['sdpa']:.2f}) | bound {b_ms:.4f} ms "
+              f"({by}: {nbytes / 1e6:.2f} MB) | max |err| {err:.3e} | CUDA "
+              f"events: kernel {ev['kernel']:.4f} ms, SDPA "
+              f"{ev['sdpa']:.4f} ms", flush=True)
+
+
+def library_call(torch, q, kn, vn, pool_k, pool_v, pt, idx, S):
     """One SDPA call on the gathered, masked view of the same inputs (the
-    gather and the mask are built outside the timed call)."""
+    gather and the mask are built outside the call)."""
     import torch.nn.functional as F
     from repro_torch.kernels import ref
     dt = q.dtype
@@ -407,8 +568,7 @@ def time_library(torch, timer, q, kn, vn, pool_k, pool_v, pt, idx, S):
     mask = ((torch.arange(L, device="cuda")[None, None] <= qpos[..., None])
             & valid[:, None, :])[:, None]                # (B,1,S,L)
     qt = q.transpose(1, 2).contiguous()
-    return timer(lambda: F.scaled_dot_product_attention(qt, k, v,
-                                                        attn_mask=mask))
+    return lambda: F.scaled_dot_product_attention(qt, k, v, attn_mask=mask)
 
 
 # ----------------------------------------------------------------------
@@ -1061,9 +1221,10 @@ def main_path(torch, np):
 
 
 def _kernel_kind(name: str) -> str:
-    if "paged_decode_kernel" in name:
+    if "paged_decode_split_kernel" in name:
         return "paged_decode"
-    if "window_attn_kernel" in name or "window_store_kernel" in name:
+    if any(k in name for k in ("window_split_kernel", "window_tc_kernel",
+                               "window_attn_kernel")):
         return "paged_window"
     if "flash_fwd" in name:
         return "flash_attention_fwd"
@@ -1352,16 +1513,26 @@ def small_reference_check(torch, np):
 
 
 def kernel_label(mangled: str) -> str:
-    """A kernel's readable name, its element type and head dim, from its
-    mangled name: ``flash_fwd_tc_kernel<bf16,128>``."""
+    """A kernel's readable name and template arguments (element types,
+    then numbers) from its mangled name: ``window_split_kernel<bf16,f32,4>``
+    (activations bf16, pool f32, 4 elements a lane)."""
     import re
-    m = re.search(r"([a-z_]+_kernel)(I.*)", mangled)
+    m = re.search(r"([a-z_]+_kernel)I(.*)", mangled)
     if m is None:
         return mangled
-    args = m.group(2)
-    d = re.match(r"I(?:f|13__nv_bfloat16)?Li(\d+)E", args)
-    dtype = "f32" if args.startswith("If") else "bf16"
-    return f"{m.group(1)}<{dtype}{',' + d.group(1) if d else ''}>"
+    # a type, a substitution (S<n>_: a repeat of the type before, the only
+    # repeated component of these names) or an integer
+    tok = re.compile(r"f|13__nv_bfloat16|S\d*_|Li(\d+)E")
+    args, rest = [], m.group(2)
+    while rest and not rest.startswith("E"):
+        t = tok.match(rest)
+        if t is None:
+            break
+        w = t.group(0)
+        args.append("f32" if w == "f" else "bf16" if w[0] == "1" else
+                    args[-1] if w[0] == "S" else t.group(1))
+        rest = rest[t.end():]
+    return f"{m.group(1)}<{','.join(args)}>"
 
 
 def sass_hmma(lib):
@@ -1382,6 +1553,31 @@ def sass_hmma(lib):
     return counts
 
 
+def build_kernels():
+    """Build the CUDA kernels (one nvcc per source, in parallel), printing
+    the build time, each kernel's registers and spills (ptxas) and the
+    tensor-core kernels' HMMA instructions (cuobjdump)."""
+    from repro_torch.kernels import build
+    t0 = time.perf_counter()
+    logs = build.build()
+    print(f"[build] {len(logs)} CUDA sources compiled for sm_90a in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    for name, log in logs.items():
+        fn = ""
+        for line in log.splitlines():
+            if "Compiling entry function" in line:
+                fn = kernel_label(line.split("'")[1])
+            elif "registers" in line or "spill" in line:
+                print(f"[build] {name}: {fn}: {line.strip()}")
+    for name in ("flash_attention", "paged_window"):
+        hmma = sass_hmma(build.library_path(name))
+        print(f"[build] {name} HMMA instructions per kernel (cuobjdump "
+              f"-sass): " + ("not measured (no cuobjdump)" if hmma is None
+                             else ", ".join(f"{k} {n}" for k, n
+                                            in sorted(hmma.items()))),
+              flush=True)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1399,22 +1595,7 @@ def main() -> int:
                             text=True, check=True).stdout.strip().splitlines()
     print(f"[card] {card} | torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}, {nvcc_v[-1]}", flush=True)
-    t0 = time.perf_counter()
-    logs = build.build()
-    print(f"[build] {len(logs)} CUDA sources compiled for sm_90a in "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
-    for name, log in logs.items():
-        fn = ""
-        for line in log.splitlines():
-            if "Compiling entry function" in line:
-                fn = kernel_label(line.split("'")[1])
-            elif "registers" in line or "spill" in line:
-                print(f"[build] {name}: {fn}: {line.strip()}")
-    hmma = sass_hmma(build.library_path("flash_attention"))
-    print("[build] flash_attention HMMA instructions per kernel (cuobjdump "
-          "-sass): " + ("not measured (no cuobjdump)" if hmma is None else
-                        ", ".join(f"{k} {n}" for k, n in sorted(hmma.items()))),
-          flush=True)
+    build_kernels()
 
     timer = Timer(torch)
     entries = check_kernels(torch, np, timer)
@@ -1434,10 +1615,14 @@ def main() -> int:
     train_timing_and_trace(torch, np)
     train_smoke_check(torch, np)
 
+    import math
     for key, e in entries.items():
         per = {path: n[key] for path, n in by_path.items() if key in n}
         e["launches"] = sum(per.values())
         e["launches_by_path"] = per
+        bad = [k for k, v in e.items() if isinstance(v, float)
+               and not math.isfinite(v)]
+        assert not bad, f"{key}: not measured: {bad}"
     print(json.dumps({"kernels": [entries[k] for k in (
         "paged_decode", "paged_window", "flash_attention_fwd",
         "flash_attention_bwd", "silent_compare", "rmsnorm_fwd",

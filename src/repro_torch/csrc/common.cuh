@@ -6,6 +6,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include <cstdint>
+
 namespace repro_torch {
 
 // dtype codes shared with the Python wrappers
@@ -48,6 +50,85 @@ __device__ __forceinline__ float warp_sum(float v) {
 __device__ __forceinline__ int warp_sum(int v) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
+}
+
+// N consecutive elements of type T at p (N * sizeof(T) bytes, aligned to
+// that) as floats, in one vector load
+template <typename T, int N>
+struct alignas(sizeof(T) * N) Vec {
+  T v[N];
+};
+
+template <typename T, int N>
+__device__ __forceinline__ void load_f(const T* p, float (&x)[N]) {
+  const Vec<T, N> u = *reinterpret_cast<const Vec<T, N>*>(p);
+#pragma unroll
+  for (int i = 0; i < N; ++i) x[i] = to_f(u.v[i]);
+}
+
+// The paged store with its counters, shared by every route of the paged
+// kernels: window rows [c0, c1) of kv head h of one slot (kw, vw: the
+// slot's (S, Hkv, D) rows; ptb: its page-table row; cnt3: its [stored,
+// silent, dropped]) land at positions i0 + c. A row is counted against
+// the pool content it overwrites (is_silent, tol); rows on unmapped
+// pages or past the table count as dropped; negative positions (the idle
+// sentinel) attempt nothing. The block's threads take 4-element pieces
+// of the rows, U pieces a thread with all their loads in flight before
+// any store (D a multiple of 4, rows 16-byte aligned).
+template <typename T, typename PT, int U>
+__device__ __forceinline__ void store_window(
+    const T* __restrict__ kw, const T* __restrict__ vw,
+    PT* __restrict__ pool_k, PT* __restrict__ pool_v,
+    const int* __restrict__ ptb, int* cnt3, int h, int i0, int c0, int c1,
+    int Hkv, int D, int ps, int M, float tol) {
+  constexpr int V = 4;
+  const int vpr = D / V, n = (c1 - c0) * vpr;
+  int stored = 0, silent = 0, dropped = 0;
+  for (int base = threadIdx.x; base < n; base += U * blockDim.x) {
+    float nk[U][V], nv[U][V], ok[U][V], ov[U][V];
+    int64_t off[U];
+    int state[U];  // 0: nothing attempted, 1: stored, 2: dropped
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int t = base + u * blockDim.x;
+      const int c = c0 + t / vpr, d = (t % vpr) * V, pos = i0 + c;
+      const int page_i = pos / ps;
+      const int page = t < n && pos >= 0 && page_i < M ? ptb[page_i] : -1;
+      state[u] = t >= n || pos < 0 ? 0 : page < 0 ? 2 : 1;
+      off[u] = (((int64_t)page * ps + pos % ps) * Hkv + h) * D + d;
+      if (state[u] == 1) {
+        const int64_t src = ((int64_t)c * Hkv + h) * D + d;
+        load_f<T, V>(kw + src, nk[u]);
+        load_f<T, V>(vw + src, nv[u]);
+        load_f<PT, V>(pool_k + off[u], ok[u]);
+        load_f<PT, V>(pool_v + off[u], ov[u]);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      dropped += state[u] == 2 ? 2 * V : 0;
+      if (state[u] != 1) continue;
+      Vec<PT, V> a, b;
+#pragma unroll
+      for (int e = 0; e < V; ++e) {
+        a.v[e] = from_f<PT>(nk[u][e]);
+        b.v[e] = from_f<PT>(nv[u][e]);
+        silent += is_silent(ok[u][e], to_f(a.v[e]), tol) +
+                  is_silent(ov[u][e], to_f(b.v[e]), tol);
+      }
+      *reinterpret_cast<Vec<PT, V>*>(pool_k + off[u]) = a;
+      *reinterpret_cast<Vec<PT, V>*>(pool_v + off[u]) = b;
+      stored += 2 * V;
+    }
+  }
+  stored = warp_sum(stored);
+  silent = warp_sum(silent);
+  dropped = warp_sum(dropped);
+  if ((threadIdx.x & 31) == 0) {
+    if (stored) atomicAdd(&cnt3[0], stored);
+    if (silent) atomicAdd(&cnt3[1], silent);
+    if (dropped) atomicAdd(&cnt3[2], dropped);
+  }
 }
 
 // One online-softmax step for n queries over a chunk of keys: p holds

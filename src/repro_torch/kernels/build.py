@@ -17,7 +17,7 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
-from typing import Dict, Iterable, Sequence
+from typing import Dict, Iterable, Optional, Sequence, Tuple
 
 import torch
 
@@ -118,7 +118,9 @@ def dtype_code(t) -> int:
 def check_paged(what: str, q, k, v, pool_k, pool_v, pt, idx) -> None:
     """The paged kernels' operands: q (B, S, Hq, D) and k/v (B, S, Hkv,
     D) in one float type, pools (P, page, Hkv, D) in one float type, pt
-    (B, M) and idx (B,) int32 — all contiguous, on q's CUDA device."""
+    (B, M) and idx (B,) int32 — all contiguous, on q's CUDA device; D a
+    multiple of 8 up to 32, or 64 or 128; the float operands 16-byte
+    aligned (the kernels read them by 16-byte copies)."""
     B, S, Hq, D = q.shape
     Hkv = pool_k.shape[2]
     if (k.shape != (B, S, Hkv, D) or v.shape != k.shape
@@ -130,6 +132,9 @@ def check_paged(what: str, q, k, v, pool_k, pool_v, pt, idx) -> None:
             f"{tuple(v.shape)}, pools {tuple(pool_k.shape)}/"
             f"{tuple(pool_v.shape)}, pt {tuple(pt.shape)}, idx "
             f"{tuple(idx.shape)}")
+    if D % 8 or not (D <= 32 or D in (64, 128)):
+        raise ValueError(f"{what}: head_dim {D} is not a multiple of 8 up "
+                         f"to 32, or 64 or 128")
     if pt.dtype != torch.int32 or idx.dtype != torch.int32:
         raise TypeError(f"{what}: pt and idx must be int32")
     if k.dtype != q.dtype or v.dtype != q.dtype or pool_v.dtype != pool_k.dtype:
@@ -143,6 +148,32 @@ def check_paged(what: str, q, k, v, pool_k, pool_v, pt, idx) -> None:
                              f"runs on the CUDA device {q.device}")
         if not t.is_contiguous():
             raise ValueError(f"{what}: {name} must be contiguous")
+        if t.is_floating_point() and t.data_ptr() % 16:
+            raise ValueError(f"{what}: {name} must be 16-byte aligned")
+
+
+# (C function, sizes) -> (ticket ints, partial floats)
+_WORKSPACE: Dict[tuple, Tuple[int, int]] = {}
+
+
+def workspace(lib: ctypes.CDLL, fn: str, device, B: int,
+              *sizes: int) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """What a paged kernel's launch needs beside its operands, as the C
+    function ``fn`` of ``lib`` reports it for ``(B, *sizes)`` (asked once
+    per shape): one zeroed int32 buffer holding the (B, 3) store counters
+    and then the split route's tickets, and the split partials' float
+    buffer (None when the route has none), both from torch's caching
+    allocator."""
+    key = (fn, B) + sizes
+    need = _WORKSPACE.get(key)
+    if need is None:
+        out = (ctypes.c_int64 * 2)()
+        launched(getattr(lib, fn)(B, *sizes, out), fn)
+        need = _WORKSPACE[key] = (int(out[0]), int(out[1]))
+    ints = torch.zeros(3 * B + need[0], dtype=torch.int32, device=device)
+    part = (torch.empty(need[1], dtype=torch.float32, device=device)
+            if need[1] else None)
+    return ints, part
 
 
 def launched(rc: int, what: str) -> None:

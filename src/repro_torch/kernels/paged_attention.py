@@ -16,8 +16,9 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels import ref
 
-_SIGNATURES = {"paged_decode": [build.PTR] * 10 + [build.INT] * 6
-               + [build.FLOAT] * 2 + [build.INT] * 2 + [build.PTR]}
+_SIGNATURES = {"paged_decode": [build.PTR] * 11 + [build.INT] * 6
+               + [build.FLOAT] * 2 + [build.INT] * 2 + [build.PTR],
+               "paged_decode_workspace": [build.INT] * 5 + [build.PTR]}
 
 
 def paged_decode_attention(q: torch.Tensor, k_new: torch.Tensor,
@@ -51,18 +52,20 @@ def paged_decode_attention(q: torch.Tensor, k_new: torch.Tensor,
     lib = build.load("paged_decode", _SIGNATURES)
     out = torch.empty_like(q)
     lse = torch.empty((B, Hq), dtype=torch.float32, device=q.device)
-    cnt = torch.zeros((B, 3), dtype=torch.int32, device=q.device)
+    ints, part = build.workspace(lib, "paged_decode_workspace", q.device, B,
+                                 Hq, Hkv, D, M)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.paged_decode(
             q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
             pool_k.data_ptr(), pool_v.data_ptr(), pt.data_ptr(),
-            idx.data_ptr(), out.data_ptr(), lse.data_ptr(), cnt.data_ptr(),
+            idx.data_ptr(), out.data_ptr(), lse.data_ptr(), ints.data_ptr(),
+            None if part is None else part.data_ptr(),
             B, Hq, Hkv, D, ps, M, 1.0 / math.sqrt(D), tol,
             build.dtype_code(q), build.dtype_code(pool_k), stream)
     build.launched(rc, "paged_decode")
     paged_decode_attention.launches += 1
-    return out, lse, cnt
+    return out, lse, ints[:3 * B].view(B, 3)
 
 
 # kernel launches since the count was last set to 0 (CPU calls not counted)

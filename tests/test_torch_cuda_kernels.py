@@ -69,15 +69,16 @@ def cuda():
     return torch.device("cuda")
 
 
-def _inputs(dev, S, D, act, pool, seed):
+def _inputs(dev, S, D, act, pool, seed, b=B, pages=P, ps=PS):
     g = torch.Generator(device=dev).manual_seed(seed)
 
     def randn(*shape, dtype):
         return torch.randn(shape, generator=g, device=dev).to(
             getattr(torch, dtype))
-    return (randn(B, S, HQ, D, dtype=act), randn(B, S, HKV, D, dtype=act),
-            randn(B, S, HKV, D, dtype=act), randn(P, PS, HKV, D, dtype=pool),
-            randn(P, PS, HKV, D, dtype=pool))
+    return (randn(b, S, HQ, D, dtype=act), randn(b, S, HKV, D, dtype=act),
+            randn(b, S, HKV, D, dtype=act),
+            randn(pages, ps, HKV, D, dtype=pool),
+            randn(pages, ps, HKV, D, dtype=pool))
 
 
 def _compare(got, want, pools_got, pools_want, act):
@@ -85,8 +86,8 @@ def _compare(got, want, pools_got, pools_want, act):
     assert torch.equal(pools_got[0], pools_want[0])
     assert torch.equal(pools_got[1], pools_want[1])
     assert torch.equal(c_k, c_p)
-    S = o_k.shape[1]
-    lse_k, lse_p = l_k.reshape(B, HQ, S), l_p.reshape(B, HQ, S)
+    b, S = o_k.shape[:2]
+    lse_k, lse_p = l_k.reshape(b, HQ, S), l_p.reshape(b, HQ, S)
     live = lse_p > ref.NEG_INF / 2
     live_o = live.permute(0, 2, 1)[..., None]
     tol = 1e-5 if act == "float32" else 2e-2
@@ -127,6 +128,99 @@ def test_window_kernel_matches_plain(cuda, act, pool, S, store):
                                                store=store)
     torch.cuda.synchronize()
     _compare((o_k, l_k, c_k), (o_p, l_p, c_p), (kk, kv), (pk2, pv2), act)
+
+
+# the split-history layout: pages of 4 rows, 11 pages a slot: 6 splits of
+# 2 pages (8 rows) in the split kernel, 3 of 4 pages in the tensor-core
+# route
+SPLIT_PS, SPLIT_M = 4, 11
+
+
+def _split_table(b, seed):
+    pt = np.random.default_rng(seed).permutation(b * SPLIT_M)
+    pt = pt.reshape(b, SPLIT_M).astype(np.int32)
+    pt[1, 2] = -1                         # a hole inside a history
+    return pt
+
+
+@pytest.mark.parametrize("act,pool", PAIRS)
+@pytest.mark.parametrize("D", [8, 128])
+def test_decode_history_over_splits(cuda, act, pool, D):
+    """The decode kernel over histories that span 1, 2, 3 and 6 splits (a
+    hole in slot 1's history, the table's last row, an idle slot), and
+    twice on the same inputs: bit-identical out, lse, pools, counters."""
+    b = 6
+    q, k, v, pk, pv = _inputs(cuda, 1, D, act, pool, seed=D + 1, b=b,
+                              pages=b * SPLIT_M, ps=SPLIT_PS)
+    pt = torch.as_tensor(_split_table(b, seed=D), device=cuda)
+    idx = torch.tensor([5, 12, 20, 40, SPLIT_M * SPLIT_PS - 1, -1],
+                       dtype=torch.int32, device=cuda)
+    kk, kv, pk2, pv2 = pk.clone(), pv.clone(), pk.clone(), pv.clone()
+    k3, v3 = pk.clone(), pv.clone()
+    got = paged_decode_attention(q, k, v, kk, kv, pt, idx)
+    again = paged_decode_attention(q, k, v, k3, v3, pt, idx)
+    out, lse, _, _, cnt = ref.paged_decode_ref(q, k, v, pk2, pv2, pt, idx)
+    torch.cuda.synchronize()
+    _compare(got, (out, lse, cnt), (kk, kv), (pk2, pv2), act)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+    assert torch.equal(kk, k3) and torch.equal(kv, v3)
+
+
+@pytest.mark.parametrize("route", ["split", "tensor_core"])
+@pytest.mark.parametrize("S", [5, 16, 64, 128, 130])
+@pytest.mark.parametrize("store", [True, False])
+def test_window_routes_bf16(cuda, route, S, store):
+    """The window kernel's split and tensor-core routes on the same bf16
+    inputs (f32 pool, head_dim 128), windows at 0 and after a history of
+    48 rows (6 and 3 history splits: the tensor cores split the history
+    of a window of one row tile, S <= 32 here), against the plain
+    version; the route the kernel picks itself (the tensor cores, at
+    S * G > 4) gives the same result bit for bit."""
+    from repro_torch.kernels.flash_prefill import paged_window_on_route
+    b, M_ = 3, -(-(48 + S) // SPLIT_PS) + 1
+    q, k, v, pk, pv = _inputs(cuda, S, 128, "bfloat16", "float32", seed=S,
+                              b=b, pages=b * M_, ps=SPLIT_PS)
+    pt_np = np.random.default_rng(S).permutation(b * M_).reshape(b, M_)
+    pt = torch.as_tensor(pt_np.astype(np.int32), device=cuda)
+    idx = torch.tensor([0, 48, -(S + 1)], dtype=torch.int32, device=cuda)
+    kk, kv, pk2, pv2 = pk.clone(), pv.clone(), pk.clone(), pv.clone()
+    o_k, l_k, c_k, _, _ = paged_window_on_route(route, q, k, v, kk, kv, pt,
+                                                idx, store=store)
+    o_p, l_p, _, _, c_p = ref.paged_window_ref(q, k, v, pk2, pv2, pt, idx,
+                                               store=store)
+    k3, v3 = pk.clone(), pv.clone()
+    o_a, l_a, c_a, _, _ = paged_window_attention(q, k, v, k3, v3, pt, idx,
+                                                 store=store)
+    torch.cuda.synchronize()
+    _compare((o_k, l_k, c_k), (o_p, l_p, c_p), (kk, kv), (pk2, pv2),
+             "bfloat16")
+    if route == "tensor_core":
+        assert torch.equal(o_a, o_k) and torch.equal(l_a, l_k)
+        assert torch.equal(c_a, c_k) and torch.equal(k3, kk)
+
+
+@pytest.mark.parametrize("S,store", [(1, True), (5, True), (5, False),
+                                     (20, True)])
+def test_paged_slot_independent_of_other_slots(cuda, S, store):
+    """A slot's out and lse do not change, bit for bit, when the other
+    slots' positions change: the split follows page index."""
+    b = 4
+    q, k, v, pk, pv = _inputs(cuda, S, 128, "bfloat16", "float32", seed=S,
+                              b=b, pages=b * SPLIT_M, ps=SPLIT_PS)
+    pt = torch.as_tensor(_split_table(b, seed=S), device=cuda)
+    results = []
+    for rest in ([5, 30, -(S + 1)], [40 - S, 0, 12]):
+        idx = torch.tensor([21] + rest, dtype=torch.int32, device=cuda)
+        kk, kv = pk.clone(), pv.clone()
+        if S == 1:
+            out, lse, _ = paged_decode_attention(q, k, v, kk, kv, pt, idx)
+        else:
+            out, lse, _, _, _ = paged_window_attention(
+                q, k, v, kk, kv, pt, idx, store=store)
+        results.append((out[0], lse[0]))
+    torch.cuda.synchronize()
+    (o0, l0), (o1, l1) = results
+    assert torch.equal(o0, o1) and torch.equal(l0, l1)
 
 
 def test_kernels_reject_bad_inputs(cuda):

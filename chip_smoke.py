@@ -29,13 +29,17 @@ the training path.
    a call, history splits); then the same at a 2048-position history,
    and the window kernel's split and tensor-core routes side by side at
    windows of 1 to 32 rows (the measurement behind its route choice);
-   then the RMSNorm forward and backward (Triton) against their plain
-   versions at every norm shape of the three paths, in each x/scale
-   dtype pair, with rows read by stride (out within 1e-5 relative at
-   float32 and 2e-2 at bfloat16; dx and dscale within 2e-4 / 3e-2 of
-   the plain gradient's largest magnitude), timed at the training norms
-   beside ``torch.nn.functional.rms_norm`` (the library yardstick) by
-   device time from CUPTI, CUDA-event times printed beside it;
+   then the RMSNorm forward (Triton) and backward (CUDA) against their
+   plain versions at every norm shape of the three paths and on every
+   route of the backward, in each x/scale dtype pair, with rows read by
+   stride (out within 1e-5 relative at float32 and 2e-2 at bfloat16; dx
+   and dscale within 2e-4 / 3e-2 of the plain gradient's largest
+   magnitude; two backward calls bit-identical, dscale equal bit for bit
+   to the blocked plain version on the kernel's plan), timed at the
+   three training norms beside ``torch.nn.functional.rms_norm`` (the
+   library yardstick) by device time from CUPTI, CUDA-event times
+   printed beside it, with one backward launch a call and its grid read
+   from the trace, and the backward's blocks an SM swept over 1-8;
 3. runs the main path at full width: ``repro_torch.launch.serve.run``
    for qwen3-1.7b with the paged KV heap and the profiler on (random
    weights from seed 0, 28 layers), with the kernels' launch counts set
@@ -87,7 +91,11 @@ the training path.
    train steps with the detectors on (tokens/s) and traces one with
    torch.profiler; and, on the smoke config in float32, checks that 4
    train steps with the kernels on the card give the losses, grad norms
-   and detector findings of the plain versions on the CPU.
+   and detector findings of the plain versions on the CPU; then one
+   full-width train step under remat "none", "full" and "dots" from the
+   same state: loss and grad norm bit for bit equal, the recomputed
+   forwards' launches counted (B4 28 + 28, B5 113 + 112 a step), peak
+   device memory of each.
 
 The line before the last lists the card; the last line is the JSON
 result. Any failure exits non-zero; without CUDA, or without the rest of
@@ -419,9 +427,9 @@ def time_paged(torch, np, timer, name, S, pos, pt_np, pages, seed):
     return err, dev, ev, nbytes, flops
 
 
-def launch_grids(torch, fn):
-    """The paged kernels one call of fn launches, with their grids, from
-    the profiler's trace: [(kernel, (x, y, z))]."""
+def launch_grids(torch, fn, kinds=("paged_decode", "paged_window")):
+    """The kernels of ``kinds`` one call of fn launches, with their grids,
+    from the profiler's trace: [(kernel, (x, y, z))]."""
     import tempfile
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -438,7 +446,7 @@ def launch_grids(torch, fn):
     return [(kernel_label_demangled(e["name"]),
              tuple(e.get("args", {}).get("grid", ())))
             for e in events if e.get("cat") == "kernel"
-            and _kernel_kind(e["name"]) in ("paged_decode", "paged_window")]
+            and _kernel_kind(e["name"]) in kinds]
 
 
 def kernel_label_demangled(name: str) -> str:
@@ -584,7 +592,8 @@ def rmsnorm_case(torch, rows, width, x_dtype, s_dtype, strided, seed):
     versions on one set of inputs. Returns (max |err| of y, max |err| of
     dx and dscale, relative errors, inputs)."""
     from repro_torch.kernels import ref
-    from repro_torch.kernels.rmsnorm import rmsnorm_backward, rmsnorm_forward
+    from repro_torch.kernels.rmsnorm import (plan_for, rmsnorm_backward,
+                                            rmsnorm_forward)
     g = torch.Generator(device="cuda").manual_seed(seed)
     xdt, sdt = getattr(torch, x_dtype), getattr(torch, s_dtype)
     if strided:       # rows of a wider buffer: read by stride, no copy
@@ -596,10 +605,18 @@ def rmsnorm_case(torch, rows, width, x_dtype, s_dtype, strided, seed):
     scale = torch.randn(width, generator=g, device="cuda").to(sdt)
     dy = torch.randn((rows, width), generator=g, device="cuda").to(xdt)
     y, rstd = rmsnorm_forward(x, scale, RMS_EPS, want_rstd=True)
+    before = rmsnorm_backward.launches
     dx, ds = rmsnorm_backward(x, scale, rstd, dy, RMS_EPS)
+    dx2, ds2 = rmsnorm_backward(x, scale, rstd, dy, RMS_EPS)
+    plan = plan_for(x, dy)
+    _, blocked_ds = ref.rmsnorm_bwd_blocked(
+        x, scale, rstd, dy, blocks=plan.blocks, workers=plan.workers,
+        group=plan.group)
     want = ref.rmsnorm_ref(x, scale, RMS_EPS)
     want_dx, want_ds = ref.rmsnorm_bwd_ref(x, scale, dy, RMS_EPS)
     torch.cuda.synchronize()
+    same = torch.equal(dx, dx2) and torch.equal(ds, ds2)
+    blocked = torch.equal(ds, blocked_ds)
     err = float((y.float() - want.float()).abs().max())
     rel = float(((y.float() - want.float()).abs()
                  / want.float().abs().clamp_min(1e-3)).max())
@@ -610,25 +627,35 @@ def rmsnorm_case(torch, rows, width, x_dtype, s_dtype, strided, seed):
                 for a, b in ((dx, want_dx), (ds, want_ds)))
     tol, tol_g = RMS_TOL["float32" if x_dtype == s_dtype == "float32"
                          else "bfloat16"]
-    print(f"[kernels] rmsnorm {rows:6d} x {width:4d} x {x_dtype:8s} scale "
+    print(f"[kernels] rmsnorm {rows:6d} x {width:5d} x {x_dtype:8s} scale "
           f"{s_dtype:8s}{' strided' if strided else '        '} | out max "
           f"rel err {rel:.3e} (tol {tol}) | dx/dscale max rel err "
-          f"{rel_g:.3e} (tol {tol_g})", flush=True)
+          f"{rel_g:.3e} (tol {tol_g}) | backward {plan.route} route, "
+          f"{plan.blocks} blocks: two calls bit-identical {same}, dscale "
+          f"equal to the blocked plain version {blocked}", flush=True)
     if not (rel <= tol and rel_g <= tol_g):
         raise AssertionError(f"rmsnorm ({rows}x{width}, {x_dtype}/"
                              f"{s_dtype}) disagrees with its plain version")
+    assert same and blocked, (rows, width, x_dtype, s_dtype, plan)
+    assert rmsnorm_backward.launches == before + 2
     return err, err_g, (x, scale, dy, rstd)
 
 
 def check_rmsnorm(torch, timer):
     """Phase 2b. Every norm shape of the three main paths (decode tick,
     verify tick, prefill, training block/q/k norms) in each x/scale dtype
-    pair, strided rows and a ragged width; timed at the training block
-    norm (4096 x 2048 bf16, bf16 scale, rstd written). Returns the
-    forward and backward JSON entries."""
+    pair, strided rows, a ragged width, and widths that take the
+    backward's narrow (64) and general (999, 10000) routes; timed at the
+    three training norms (bf16, bf16 scale, rstd written), each backward
+    call's launches and grid read from the trace, and the backward's
+    blocks an SM swept over 1-8. Returns the forward and backward JSON
+    entries (the block norm's numbers, every shape's under
+    ``by_shape``)."""
     import torch.nn.functional as F
     from repro_torch.kernels import ref
-    from repro_torch.kernels.rmsnorm import rmsnorm_backward, rmsnorm_forward
+    from repro_torch.kernels.rmsnorm import (BLOCKS_PER_SM, plan_for,
+                                            rmsnorm_backward,
+                                            rmsnorm_forward)
     seed = 0
     for x_dtype, s_dtype in (("float32", "float32"), ("bfloat16", "float32"),
                              ("bfloat16", "bfloat16")):
@@ -637,11 +664,19 @@ def check_rmsnorm(torch, timer):
                 (128, 128, False), (16384, 128, False),
                 (TB * TSEQ, 2048, False), (TB * TSEQ * HQ, 128, False),
                 (TB * TSEQ * HKV, 128, False), (131, 2048, True),
-                (517, 128, True), (33, 1000, False)):
+                (517, 128, True), (33, 1000, False), (77, 64, False),
+                (45, 999, False), (6, 10000, False)):
             seed += 1
             rmsnorm_case(torch, rows, width, x_dtype, s_dtype, strided, seed)
 
-    entries = {}
+    entries = {
+        "rmsnorm_fwd": {"name": "rmsnorm_fwd", "route": "triton",
+                        "source": "src/repro_torch/kernels/rmsnorm.py",
+                        "replaces": "src/repro/kernels/rmsnorm.py:23"},
+        "rmsnorm_bwd": {"name": "rmsnorm_bwd", "route": "cuda",
+                        "source": "src/repro_torch/csrc/rmsnorm.cu",
+                        "replaces": "src/repro/kernels/rmsnorm.py:23"}}
+    by_shape = {"rmsnorm_fwd": {}, "rmsnorm_bwd": {}}
     for label, rows, width in (("block", TB * TSEQ, 2048),
                                ("q-norm", TB * TSEQ * HQ, 128),
                                ("k-norm", TB * TSEQ * HKV, 128)):
@@ -660,9 +695,31 @@ def check_rmsnorm(torch, timer):
                 F.rms_norm(xl, (width,), sl, RMS_EPS), dy)}
         dev = {k: timer.device(fn) for k, fn in calls.items()}
         ev = {k: timer(fn) for k, fn in calls.items()}
+        # the backward's bytes moved by one elementwise pass (reads x and
+        # dy, writes one x-sized tensor): what streaming them costs here
+        out = torch.empty_like(x)
+        stream_ms = timer.device(lambda: torch.add(x, dy, out=out))
         fwd, bwd, fwd_plain, bwd_plain, fwd_lib, bwd_lib = (
             dev[k] for k in ("fwd", "bwd", "fwd_plain", "bwd_plain",
                              "fwd_lib", "bwd_lib"))
+        plan = plan_for(x, dy)
+        grids = launch_grids(torch, calls["bwd"], ("rmsnorm_bwd",))
+        print(f"[kernels] rmsnorm {label} backward, one call in the trace: "
+              f"{grids} ({plan.route} route, {plan.blocks} blocks of "
+              f"{plan.workers} row workers, groups of {plan.group})",
+              flush=True)
+        assert len(grids) == 1 and grids[0][1] == (plan.blocks, 1, 1), grids
+        sweep = {}
+        for k in range(1, 9):      # up to what stays resident
+            blocks = plan_for(x, dy, k).blocks
+            if blocks not in sweep:
+                sweep[blocks] = (k, timer.device(lambda: rmsnorm_backward(
+                    x, scale, rstd, dy, RMS_EPS, blocks_per_sm=k)))
+        print(f"[kernels] rmsnorm {label} backward by blocks an SM (device "
+              f"ms; {BLOCKS_PER_SM} on the path, {plan.blocks} "
+              f"blocks): " + ", ".join(f"{k} ({b} blocks): {v:.4f}"
+                                      for b, (k, v) in sweep.items()),
+              flush=True)
         isz = x.element_size()
         # forward: x, scale in; y, rstd out. backward: x, dy, rstd, scale
         # in; dx, dscale out. ~4 f32 operations an element forward, ~8
@@ -678,22 +735,23 @@ def check_rmsnorm(torch, timer):
               f"{fwd_lib:.4f} ms | bound {fwd_b[0]:.4f} ms ({fwd_b[1]}); "
               f"backward kernel {bwd:.4f} ms | plain {bwd_plain:.4f} ms | "
               f"F.rms_norm fwd+bwd {bwd_lib:.4f} ms | bound "
-              f"{bwd_b[0]:.4f} ms ({bwd_b[1]})", flush=True)
+              f"{bwd_b[0]:.4f} ms ({bwd_b[1]}) | one elementwise pass over "
+              f"the same bytes (torch.add of x and dy) {stream_ms:.4f} ms",
+              flush=True)
         print(f"[kernels] rmsnorm {label}, CUDA events around each call "
               f"(host launch path included): "
               + ", ".join(f"{k} {v:.4f} ms" for k, v in ev.items()),
               flush=True)
-        if label != "block":
-            continue
         for key, ms, plain_ms, lib_ms, e, (b_ms, by) in (
                 ("rmsnorm_fwd", fwd, fwd_plain, fwd_lib, err, fwd_b),
                 ("rmsnorm_bwd", bwd, bwd_plain, bwd_lib, err_g, bwd_b)):
-            entries[key] = {
-                "name": key, "route": "triton",
-                "source": "src/repro_torch/kernels/rmsnorm.py",
-                "replaces": "src/repro/kernels/rmsnorm.py:23",
-                "max_abs_err": e, "ms": ms, "plain_ms": plain_ms,
-                "bound_ms": b_ms, "bound_by": by, "library_ms": lib_ms}
+            num = {"max_abs_err": e, "ms": ms, "plain_ms": plain_ms,
+                   "bound_ms": b_ms, "bound_by": by, "library_ms": lib_ms}
+            by_shape[key][label] = num
+            if label == "block":
+                entries[key].update(num)
+    for key, e in entries.items():
+        e["by_shape"] = by_shape[key]
     return entries
 
 
@@ -1117,6 +1175,76 @@ def train_smoke_check(torch, np):
     assert rel <= 1e-4 and same, results
 
 
+def remat_check(torch, np):
+    """One train step at full width under remat "none", "full" and
+    "dots", each from the same seeded state and batch: loss and grad norm
+    equal bit for bit (recomputing a deterministic forward gives the same
+    bits); launches per step: B4 forward 28 and B5 forward 113 under
+    "none", and the 28 attention and 112 superblock norms again under
+    "full" and "dots" (the final norm is not recomputed); B4 and B5
+    backward 28 and 113 in every mode. Prints each mode's peak device
+    memory."""
+    import repro_torch.kernels.flash_attention as fa
+    import repro_torch.kernels.rmsnorm as rn
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data.synthetic import stream
+    from repro_torch.models.zoo import build_model
+    from repro_torch.train import state as TS
+    from repro_torch.train.step import make_train_step
+
+    cfg = registry.get_config("qwen3-1.7b")
+    batch = {k: torch.from_numpy(v).to("cuda")
+             for k, v in next(stream(cfg, TB, TSEQ, seed=0)).items()}
+    layers = cfg.num_layers
+    norms = NORMS_PER_FORWARD * layers + 1
+    counters = {"flash_attention_fwd": fa.flash_attention_forward,
+                "flash_attention_bwd": fa.flash_attention_backward,
+                "rmsnorm_fwd": rn.rmsnorm_forward,
+                "rmsnorm_bwd": rn.rmsnorm_backward}
+    results = {}
+    for remat in ("none", "full", "dots"):
+        model = build_model(cfg)
+        step = make_train_step(model, TrainConfig(
+            learning_rate=3e-4, total_steps=8, warmup_steps=1, remat=remat))
+        state = TS.create(model, 0, device="cuda")
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        for c in counters.values():
+            c.launches = 0
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        launches = {k: c.launches for k, c in counters.items()}
+        loss, gnorm = m["loss"].cpu(), m["grad_norm"].cpu()
+        results[remat] = (loss, gnorm, launches)
+        print(f"[remat] {remat}: one train step of {TB} x {TSEQ} tokens at "
+              f"full width, loss {float(loss)!r}, grad norm "
+              f"{float(gnorm)!r}, launches {launches}, peak device memory "
+              f"{peak / 2**30:.2f} GiB ({(peak - held) / 2**30:.2f} GiB "
+              f"above the {held / 2**30:.2f} GiB of state held before the "
+              f"step), {wall * 1e3:.1f} ms including the first call's "
+              f"set-up", flush=True)
+        del state, m, step, model
+        torch.cuda.empty_cache()
+    want_loss, want_gnorm, _ = results["none"]
+    for remat, (loss, gnorm, launches) in results.items():
+        again = 0 if remat == "none" else 1
+        assert torch.equal(loss, want_loss) and torch.equal(
+            gnorm, want_gnorm), (remat, loss, gnorm, want_loss, want_gnorm)
+        assert launches == {
+            "flash_attention_fwd": layers * (1 + again),
+            "flash_attention_bwd": layers,
+            "rmsnorm_fwd": norms + again * NORMS_PER_FORWARD * layers,
+            "rmsnorm_bwd": norms}, (remat, launches)
+    print("[remat] full and dots give none's loss and grad norm bit for "
+          "bit", flush=True)
+
+
 # ----------------------------------------------------------------------
 # phase 3: the main path
 # ----------------------------------------------------------------------
@@ -1234,7 +1362,7 @@ def _kernel_kind(name: str) -> str:
         return "silent_compare"
     if "rmsnorm_fwd_kernel" in name:
         return "rmsnorm_fwd"
-    if "rmsnorm_bwd_kernel" in name:
+    if "rmsnorm_bwd_" in name:
         return "rmsnorm_bwd"
     if any(s in name for s in ("gemm", "nvjet", "cutlass", "xmma")):
         return "matmul"
@@ -1522,7 +1650,7 @@ def kernel_label(mangled: str) -> str:
         return mangled
     # a type, a substitution (S<n>_: a repeat of the type before, the only
     # repeated component of these names) or an integer
-    tok = re.compile(r"f|13__nv_bfloat16|S\d*_|Li(\d+)E")
+    tok = re.compile(r"f|13__nv_bfloat16|6__half|S\d*_|Li(\d+)E")
     args, rest = [], m.group(2)
     while rest and not rest.startswith("E"):
         t = tok.match(rest)
@@ -1530,6 +1658,7 @@ def kernel_label(mangled: str) -> str:
             break
         w = t.group(0)
         args.append("f32" if w == "f" else "bf16" if w[0] == "1" else
+                    "f16" if w[0] == "6" else
                     args[-1] if w[0] == "S" else t.group(1))
         rest = rest[t.end():]
     return f"{m.group(1)}<{','.join(args)}>"
@@ -1614,6 +1743,7 @@ def main() -> int:
     by_path["train"] = train_path(torch, np)
     train_timing_and_trace(torch, np)
     train_smoke_check(torch, np)
+    remat_check(torch, np)
 
     import math
     for key, e in entries.items():
@@ -1622,6 +1752,9 @@ def main() -> int:
         e["launches_by_path"] = per
         bad = [k for k, v in e.items() if isinstance(v, float)
                and not math.isfinite(v)]
+        bad += [f"{shape}.{k}" for shape, nums in e.get("by_shape", {}).items()
+                for k, v in nums.items() if isinstance(v, float)
+                and not math.isfinite(v)]
         assert not bad, f"{key}: not measured: {bad}"
     print(json.dumps({"kernels": [entries[k] for k in (
         "paged_decode", "paged_window", "flash_attention_fwd",

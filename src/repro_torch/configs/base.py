@@ -186,8 +186,7 @@ class TrainConfig:
     grad_clip: float = 1.0
     # microbatches for gradient accumulation (1 = no accumulation)
     microbatches: int = 1
-    # activation checkpointing policy: none | dots | full (the port runs
-    # "none" only; train.step raises on the others)
+    # activation checkpointing policy: none | dots | full
     remat: str = "dots"
     seed: int = 0
     # gradient compression for cross-pod ("pod" axis) reduction

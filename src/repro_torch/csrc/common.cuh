@@ -1,8 +1,10 @@
-// Shared device helpers of the paged serving kernels: element-type
-// conversions and rounding, the one "silent" comparison, warp sums.
+// Shared device helpers of the hand-written kernels: element-type
+// conversions and rounding, the one "silent" comparison, warp sums, the
+// last-block election of a fixed-order combine.
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -13,6 +15,7 @@ namespace repro_torch {
 // dtype codes shared with the Python wrappers
 constexpr int DT_F32 = 0;
 constexpr int DT_BF16 = 1;
+constexpr int DT_F16 = 2;
 
 // what a kernel reports as lse for a row that attended nothing
 constexpr float NEG_INF = -1e30f;
@@ -23,10 +26,17 @@ template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 x
   return __bfloat162float(x);
 }
 
+template <> __device__ __forceinline__ float to_f<__half>(__half x) {
+  return __half2float(x);
+}
+
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
 template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);  // round to nearest even, as torch's .to()
+}
+template <> __device__ __forceinline__ __half from_f<__half>(float x) {
+  return __float2half_rn(x);
 }
 
 // x rounded through type T and read back as float
@@ -50,6 +60,19 @@ __device__ __forceinline__ float warp_sum(float v) {
 __device__ __forceinline__ int warp_sum(int v) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
+}
+
+// Whether this block is the last of n to arrive at *ticket, after its
+// partial was written: the fences order the partials' writes before the
+// ticket, and the last block's reads after it.
+__device__ __forceinline__ bool last_to_arrive(int* ticket, int n) {
+  __shared__ int last;
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) last = atomicAdd(ticket, 1) == n - 1;
+  __syncthreads();
+  if (last) __threadfence();
+  return last;
 }
 
 // N consecutive elements of type T at p (N * sizeof(T) bytes, aligned to

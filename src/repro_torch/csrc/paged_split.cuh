@@ -165,19 +165,6 @@ __device__ __forceinline__ void write_result(T* out, float* lse, int b,
         L > 0.f ? (mx + log2f(L)) * LN2 : NEG_INF;
 }
 
-// Whether this block is the last of n to arrive at *ticket, after its
-// partial was written: the fences order the partials' writes before the
-// ticket, and the last block's reads after it.
-__device__ __forceinline__ bool last_to_arrive(int* ticket, int n) {
-  __shared__ int last;
-  __threadfence();
-  __syncthreads();
-  if (threadIdx.x == 0) last = atomicAdd(ticket, 1) == n - 1;
-  __syncthreads();
-  if (last) __threadfence();
-  return last;
-}
-
 // The combine of a group's NS partials, in split order, into out and lse.
 // Partial s at P0 + s * (rows * (D + 2)): m (rows, log2 units), l
 // (rows), acc (rows, D), unnormalised. rowmap(i, r, hq) gives query row

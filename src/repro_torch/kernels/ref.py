@@ -328,3 +328,44 @@ def rmsnorm_bwd_ref(x: torch.Tensor, scale: torch.Tensor, dy: torch.Tensor,
     dx = r * (g - xhat * (g * xhat).mean(dim=-1, keepdim=True))
     dscale = (dyf * xhat).reshape(-1, x.shape[-1]).sum(dim=0)
     return dx.to(x.dtype), dscale.to(scale.dtype)
+
+
+def rmsnorm_bwd_blocked(x: torch.Tensor, scale: torch.Tensor,
+                        rstd: torch.Tensor, dy: torch.Tensor, *,
+                        blocks: int, workers: int, group: int):
+    """``rmsnorm_bwd_ref`` cut as the CUDA kernel (``csrc/rmsnorm.cu``)
+    cuts it, from the forward's f32 ``rstd`` (n,): the n rows split into
+    ``blocks * workers`` contiguous balanced ranges, each worker summing
+    its rows' dy xhat in row order; a block's partial is its workers'
+    summed in worker order; groups of ``group`` blocks summed in block
+    order, then the group sums in group order. Every product is rounded
+    before it is added, as the kernel's are, so dscale is the kernel's
+    bit for bit on the same plan. dx (the kernel sums each row in
+    another order) comes back in x's dtype, dscale in scale's."""
+    d = x.shape[-1]
+    xf = x.reshape(-1, d).float()
+    dyf = dy.reshape(-1, d).float()
+    n = xf.shape[0]
+    r = rstd.reshape(n, 1)
+    xhat = xf * r
+    g = dyf * scale.float()
+    dx = r * (g - xhat * ((g * xhat).sum(dim=-1, keepdim=True) / d))
+    contrib = dyf * xhat
+    nw = blocks * workers
+    bounds = torch.arange(nw + 1, device=x.device) * n // nw
+    start, count = bounds[:-1], bounds[1:] - bounds[:-1]
+    acc = torch.zeros((nw, d), dtype=torch.float32, device=x.device)
+    for k in range(int(count.max()) if n else 0):
+        live = count > k
+        acc[live] = acc[live] + contrib[start[live] + k]
+    acc = acc.view(blocks, workers, d)
+    part = torch.zeros((blocks, d), dtype=torch.float32, device=x.device)
+    for w in range(workers):
+        part = part + acc[:, w]
+    total = torch.zeros(d, dtype=torch.float32, device=x.device)
+    for g0 in range(0, blocks, group):
+        gsum = torch.zeros(d, dtype=torch.float32, device=x.device)
+        for j in range(g0, min(blocks, g0 + group)):
+            gsum = gsum + part[j]
+        total = total + gsum
+    return dx.to(x.dtype).reshape(x.shape), total.to(scale.dtype)

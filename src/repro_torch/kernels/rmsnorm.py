@@ -7,43 +7,49 @@ Replaces: src/repro/kernels/rmsnorm.py:rmsnorm (the Pallas kernel
 f32 scale, cast back). The TPU package has no backward kernel (it trains
 through XLA's autodiff of the inline norm); the backward here is the
 gradient of the same function. Plain versions: ``ref.rmsnorm_ref`` and
-``ref.rmsnorm_bwd_ref``.
+``ref.rmsnorm_bwd_ref`` (and ``ref.rmsnorm_bwd_blocked``, the backward
+in the CUDA kernel's row partition and combine order).
 
-CUDA tensors go to the Triton kernels below; CPU tensors go to the plain
-versions. There is no other path: a tensor on any other device raises.
+CUDA tensors go to the kernels: the forward is the Triton kernel below,
+the backward the CUDA C++ kernel of ``csrc/rmsnorm.cu`` (one launch a
+call). CPU tensors go to the plain versions. There is no other path: a
+tensor on any other device raises.
 
-What bounds it on the H100: bytes. A row is one reduction and one
-elementwise pass, far below the card's ridge point. Each program holds
+What bounds them on the H100: bytes. A row is one reduction and one
+elementwise pass, far below the card's ridge point. The forward holds
 whole rows in registers (``BLOCK_D`` = the row width rounded up to a
 power of two, masked), so x is read once and y written once; narrow rows
 (qk-norm, 128 wide) go several to a program. Each operand is read in its
 own dtype and converted in registers; the math is f32. The forward
 writes the f32 ``rstd`` per row only when a backward will need it. The
-backward recomputes xhat from x and rstd, writes dx, and keeps one f32
-partial ``dscale`` per program, which one sum over the programs adds:
-no float atomics, so the gradient is deterministic.
+backward recomputes xhat from x and rstd, writes dx, and sums dscale
+over the rows inside the same launch in a fixed order (see
+``csrc/rmsnorm.cu``): no float atomics, so the gradient is
+deterministic.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import ctypes
+import math
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import ref
+from repro_torch.kernels import build, ref
 
 TILE = 4096            # elements of x a program holds per step
 WARPS = 8              # 16 elements of a 4096 tile per thread
-MAX_D = 16384          # widest row the kernels hold in registers
-PROGRAMS_PER_SM = 4    # grid-stride programs of the backward
+MAX_D = 16384          # widest row the kernels take
 
-_KERNELS = None
+_KERNEL = None
 
 
-def _kernels():
-    """The two ``@triton.jit`` kernels, compiled by Triton at their first
-    launch (triton is imported here, not when this module is imported)."""
-    global _KERNELS
-    if _KERNELS is None:
+def _kernel():
+    """The forward's ``@triton.jit`` kernel, compiled by Triton at its
+    first launch (triton is imported here, not when this module is
+    imported)."""
+    global _KERNEL
+    if _KERNEL is None:
         import triton
         import triton.language as tl
 
@@ -69,37 +75,8 @@ def _kernels():
             if WRITE_RSTD:
                 tl.store(rstd_ptr + rows, rstd, mask=rmask)
 
-        @triton.jit
-        def rmsnorm_bwd_kernel(x_ptr, s_ptr, dy_ptr, rstd_ptr, dx_ptr,
-                               part_ptr, n_rows, d, x_stride, dy_stride,
-                               num_tiles, ROWS: tl.constexpr,
-                               BLOCK_D: tl.constexpr):
-            pid = tl.program_id(0)
-            cols = tl.arange(0, BLOCK_D)
-            cmask = cols < d
-            s = tl.load(s_ptr + cols, mask=cmask, other=0.0).to(tl.float32)
-            acc = tl.zeros([BLOCK_D], dtype=tl.float32)
-            for t in range(pid, num_tiles, tl.num_programs(0)):
-                rows = t * ROWS + tl.arange(0, ROWS)
-                rmask = rows < n_rows
-                mask = rmask[:, None] & cmask[None, :]
-                rows64 = rows.to(tl.int64)[:, None]
-                x = tl.load(x_ptr + rows64 * x_stride + cols[None, :],
-                            mask=mask, other=0.0).to(tl.float32)
-                dy = tl.load(dy_ptr + rows64 * dy_stride + cols[None, :],
-                             mask=mask, other=0.0).to(tl.float32)
-                rstd = tl.load(rstd_ptr + rows, mask=rmask, other=0.0)
-                xhat = x * rstd[:, None]
-                g = dy * s[None, :]
-                mean_gx = tl.sum(g * xhat, axis=1) / d
-                dx = rstd[:, None] * (g - xhat * mean_gx[:, None])
-                tl.store(dx_ptr + rows64 * d + cols[None, :],
-                         dx.to(dx_ptr.dtype.element_ty), mask=mask)
-                acc += tl.sum(dy * xhat, axis=0)
-            tl.store(part_ptr + pid.to(tl.int64) * d + cols, acc, mask=cmask)
-
-        _KERNELS = (rmsnorm_fwd_kernel, rmsnorm_bwd_kernel)
-    return _KERNELS
+        _KERNEL = rmsnorm_fwd_kernel
+    return _KERNEL
 
 
 def _tiling(d: int) -> Tuple[int, int]:
@@ -160,7 +137,7 @@ def rmsnorm_forward(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5,
             if want_rstd else y)          # not written without WRITE_RSTD
     if n:
         with torch.cuda.device(x.device):
-            _kernels()[0][(-(-n // per_prog),)](
+            _kernel()[(-(-n // per_prog),)](
                 rows, scale, y, rstd, n, d, rows.stride(0), float(eps),
                 ROWS=per_prog, BLOCK_D=block_d, WRITE_RSTD=want_rstd,
                 num_warps=WARPS)
@@ -168,14 +145,120 @@ def rmsnorm_forward(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5,
     return y.view(x.shape), (rstd if want_rstd else None)
 
 
+# ----------------------------------------------------------------------
+# Backward: csrc/rmsnorm.cu
+# ----------------------------------------------------------------------
+ROUTES = {"general": 0, "narrow": 1, "wide": 2}   # the C side's codes
+NARROW_WARPS = 16      # row workers (warps) of a narrow-route block
+NARROW_D = 128         # widest narrow row (4 elements a lane)
+WIDE_MAX_D = 4096      # widest wide row (8 elements a thread, 512 threads)
+# persistent blocks an SM, capped at what stays resident (one narrow
+# block of 16 warps fills an SM's shared memory): the fastest at the
+# three training norms in chip_smoke's sweep (PERF.md)
+BLOCKS_PER_SM = 2
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+_SIGNATURES = {"rmsnorm_bwd": [build.PTR] * 8
+               + [ctypes.c_int64, build.INT, ctypes.c_int64,
+                  ctypes.c_int64] + [build.INT] * 5 + [build.PTR],
+               "rmsnorm_bwd_resident": [build.INT] * 3 + [build.PTR]}
+
+
+class BwdPlan(NamedTuple):
+    """How the backward kernel cuts a call: its route, ``blocks``
+    persistent blocks of ``workers`` row workers each (contiguous row
+    ranges, balanced); dscale sums the block partials in groups of
+    ``group`` consecutive blocks, then the groups."""
+    route: str
+    blocks: int
+    workers: int
+    group: int
+
+
+def bwd_plan(n: int, d: int, itemsize: int, addresses, sms: int,
+             blocks_per_sm: Optional[int] = None) -> BwdPlan:
+    """The backward's plan for n rows of width d whose operands start at
+    byte ``addresses`` (the x and dy base pointers and row strides in
+    bytes): the narrow route for rows of at most 128 elements, a multiple
+    of 4, aligned to 4 elements; the wide route for 128 < d <= 4096, a
+    multiple of 8, 16-byte aligned; the general route otherwise.
+    ``blocks_per_sm`` overrides ``BLOCKS_PER_SM`` (the timing sweep)."""
+    def aligned(b):
+        return all(a % b == 0 for a in addresses) and (d * itemsize) % b == 0
+    if d <= NARROW_D and d % 4 == 0 and aligned(4 * itemsize):
+        route, workers = "narrow", NARROW_WARPS
+        units = -(-n // (4 * NARROW_WARPS))   # 4 rows a warp at least
+    elif NARROW_D < d <= WIDE_MAX_D and d % 8 == 0 and aligned(16):
+        route, workers, units = "wide", 1, n
+    else:
+        route, workers, units = "general", 1, n
+    k = blocks_per_sm or BLOCKS_PER_SM
+    blocks = max(1, min(units, k * sms))
+    return BwdPlan(route, blocks, workers, math.isqrt(blocks - 1) + 1)
+
+
+# (device, stream) -> (partials, ticket): the backward's workspace, kept
+# across calls; the ticket (arrivals, generation) is zeroed when
+# allocated, and every launch leaves the arrivals at zero
+_WORKSPACE: Dict[Tuple[int, int], Tuple[torch.Tensor, torch.Tensor]] = {}
+_SMS: Dict[int, int] = {}
+# (device, route, width, dtype) -> blocks of the route resident on an SM
+_RESIDENT: Dict[tuple, int] = {}
+
+
+def _workspace(device, stream: int, floats: int
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    key = (device.index, stream)
+    part, tick = _WORKSPACE.get(key, (None, None))
+    if part is None or part.numel() < floats:
+        part = torch.empty(floats, dtype=torch.float32, device=device)
+    if tick is None:
+        tick = torch.zeros(2, dtype=torch.int32, device=device)
+    _WORKSPACE[key] = (part, tick)
+    return part, tick
+
+
+def plan_for(rows: torch.Tensor, dy_rows: torch.Tensor,
+             blocks_per_sm: Optional[int] = None) -> BwdPlan:
+    """``bwd_plan`` of a call on CUDA rows of x and dy, its blocks an SM
+    capped at what the route keeps resident (the launch is
+    cooperative)."""
+    n, d = rows.shape
+    isz = rows.element_size()
+    dev = rows.device.index
+    if dev not in _SMS:
+        _SMS[dev] = torch.cuda.get_device_properties(
+            rows.device).multi_processor_count
+    addresses = (rows.data_ptr(), dy_rows.data_ptr(), rows.stride(0) * isz,
+                 dy_rows.stride(0) * isz)
+    plan = bwd_plan(n, d, isz, addresses, _SMS[dev], blocks_per_sm)
+    key = (dev, plan.route, d, rows.dtype)
+    if key not in _RESIDENT:
+        out = ctypes.c_int(0)
+        with torch.cuda.device(rows.device):
+            build.launched(_lib().rmsnorm_bwd_resident(
+                ROUTES[plan.route], d, _DTYPES[rows.dtype],
+                ctypes.byref(out)), "rmsnorm backward occupancy")
+        _RESIDENT[key] = max(1, out.value)
+    cap = _RESIDENT[key]
+    if plan.blocks > cap * _SMS[dev]:
+        plan = bwd_plan(n, d, isz, addresses, _SMS[dev], cap)
+    return plan
+
+
+def _lib():
+    return build.load("rmsnorm", _SIGNATURES)
+
+
 def rmsnorm_backward(x: torch.Tensor, scale: torch.Tensor,
                      rstd: Optional[torch.Tensor], dy: torch.Tensor,
-                     eps: float = 1e-5
+                     eps: float = 1e-5, *,
+                     blocks_per_sm: Optional[int] = None
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Gradients ``(dx, dscale)`` of ``rmsnorm_forward``'s y against
-    ``dy`` (x's shape), from x and the forward's rstd: dx in x's dtype,
-    dscale in scale's dtype, summed over the rows in f32. On CPU tensors
-    the plain version, which recomputes rstd."""
+    ``dy`` (x's shape and dtype), from x and the forward's rstd: dx in
+    x's dtype, dscale in scale's dtype, summed over the rows in f32, in
+    one launch of the CUDA kernel. On CPU tensors the plain version,
+    which recomputes rstd."""
     if x.device.type == "cpu":
         return ref.rmsnorm_bwd_ref(x, scale, dy, eps)
     _check(x, scale)
@@ -184,23 +267,29 @@ def rmsnorm_backward(x: torch.Tensor, scale: torch.Tensor,
     dy_rows = _as_rows(dy, "dy")
     if (dy_rows.shape != rows.shape or rstd is None
             or rstd.shape != (n,) or rstd.dtype != torch.float32
-            or not rstd.is_contiguous() or dy.device != x.device):
+            or not rstd.is_contiguous() or dy.device != x.device
+            or dy.dtype != x.dtype):
         raise ValueError("rmsnorm backward: dy must be x-shaped on x's "
-                         "device, rstd the forward's (n,) f32 rows")
-    block_d, per_prog = _tiling(d)
+                         "device in x's dtype, rstd the forward's (n,) "
+                         "f32 rows")
+    if d > MAX_D:
+        raise ValueError(f"rmsnorm kernel: row width {d} > {MAX_D}")
     dx = torch.empty((n, d), dtype=x.dtype, device=x.device)
-    num_tiles = -(-n // per_prog)
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    grid = max(1, min(num_tiles, PROGRAMS_PER_SM * sms))
-    part = torch.zeros((grid, d), dtype=torch.float32, device=x.device)
-    if n:
-        with torch.cuda.device(x.device):
-            _kernels()[1][(grid,)](
-                rows, scale, dy_rows, rstd, dx, part, n, d, rows.stride(0),
-                dy_rows.stride(0), num_tiles, ROWS=per_prog,
-                BLOCK_D=block_d, num_warps=WARPS)
-        rmsnorm_backward.launches += 1
-    return dx.view(x.shape), part.sum(dim=0).to(scale.dtype)
+    ds = torch.empty(d, dtype=scale.dtype, device=x.device)
+    if not n:
+        return dx.view(x.shape), ds.zero_()
+    plan = plan_for(rows, dy_rows, blocks_per_sm)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        part, tick = _workspace(x.device, stream, plan.blocks * d)
+        build.launched(_lib().rmsnorm_bwd(
+            rows.data_ptr(), scale.data_ptr(), dy_rows.data_ptr(),
+            rstd.data_ptr(), dx.data_ptr(), ds.data_ptr(), part.data_ptr(),
+            tick.data_ptr(), n, d, rows.stride(0), dy_rows.stride(0),
+            ROUTES[plan.route], plan.blocks, plan.group, _DTYPES[x.dtype],
+            _DTYPES[scale.dtype], stream), "rmsnorm backward")
+    rmsnorm_backward.launches += 1
+    return dx.view(x.shape), ds
 
 
 # kernel launches since the count was last set to 0 (CPU calls not counted)

@@ -10,7 +10,7 @@ reduced config). Without CUDA and without ``--device cpu`` it raises.
 Port of src/repro/launch/train.py. Not ported yet (ROADMAP A6): the
 checkpoint options ``--ckpt-dir``/``--resume`` and the ``FleetMonitor``
 heartbeat (A11), ``--waste-report`` (tier 2, A10), ``--objects`` (A9),
-``--strategy`` (A11) and ``--remat`` other than none.
+and ``--strategy`` (A11).
 """
 from __future__ import annotations
 
@@ -39,7 +39,7 @@ LOG_EVERY = 10
 
 def run(arch: str, *, smoke: bool = True, steps: int = 50, batch: int = 8,
         seq: int = 128, lr: float = 3e-4, profile: bool = False,
-        microbatches: int = 1, seed: int = 0,
+        microbatches: int = 1, remat: str = "none", seed: int = 0,
         profile_out: Optional[str] = None, sarif_out: Optional[str] = None,
         device: str = "cuda"):
     """Train ``steps`` steps on seeded synthetic batches. Returns
@@ -52,7 +52,7 @@ def run(arch: str, *, smoke: bool = True, steps: int = 50, batch: int = 8,
     model = build_model(cfg)
     tc = TrainConfig(learning_rate=lr, total_steps=steps,
                      warmup_steps=max(steps // 10, 1),
-                     microbatches=microbatches, remat="none", seed=seed)
+                     microbatches=microbatches, remat=remat, seed=seed)
     step_fn = make_train_step(model, tc)
     state = TS.create(model, seed, device=dev)
     detectors = (TrainingDetectors(ProfilerConfig(enabled=True))
@@ -103,6 +103,9 @@ def main():
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--profile", action="store_true")
     ap.add_argument("--microbatches", type=int, default=1)
+    ap.add_argument("--remat", default="none",
+                    choices=("none", "full", "dots"),
+                    help="activation checkpointing of each superblock")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile-out", default=None,
                     help="write the merged waste profile as JSON")
@@ -113,8 +116,8 @@ def main():
     a = ap.parse_args()
     run(a.arch, smoke=a.smoke, steps=a.steps, batch=a.batch, seq=a.seq,
         lr=a.lr, profile=a.profile, microbatches=a.microbatches,
-        seed=a.seed, profile_out=a.profile_out, sarif_out=a.sarif_out,
-        device=a.device)
+        remat=a.remat, seed=a.seed, profile_out=a.profile_out,
+        sarif_out=a.sarif_out, device=a.device)
 
 
 if __name__ == "__main__":

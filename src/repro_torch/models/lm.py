@@ -10,14 +10,19 @@ Python loop over the layers takes the place of the reference's
 its K/V (dense rows or paged pool) in place — the reference's functional
 update would cost a cache copy per call. The training forward takes each
 stacked leaf apart once with ``unbind``, so autograd assembles a stacked
-leaf's gradient from its layers in one stack.
+leaf's gradient from its layers in one stack. Under ``remat`` "full"
+or "dots" each superblock of the training forward runs under
+``torch.utils.checkpoint`` (the reference's ``jax.checkpoint`` around
+its scanned superblock).
 """
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
@@ -59,6 +64,16 @@ def _layer(tree, li: int):
     return P.tree_map(lambda t: t[li], tree)
 
 
+def _save_dots(ctx, op, *args, **kwargs):
+    """The "dots" policy, counterpart of the reference's
+    ``checkpoint_dots_with_no_batch_dims``: keep the outputs of the 2-D
+    projection matmuls, recompute everything else (norms, attention,
+    activations: batched products and the kernels' own calls)."""
+    if op is torch.ops.aten.mm.default:
+        return ckpt.CheckpointPolicy.MUST_SAVE
+    return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
 # ----------------------------------------------------------------------
 # Model
 # ----------------------------------------------------------------------
@@ -68,6 +83,29 @@ class LM:
     def __init__(self, cfg: ModelConfig):
         self.cfg = cfg
         self.sched = make_schedule(cfg)
+        # activation checkpointing for each superblock of the training
+        # forward: "none" | "full" | "dots" (set by the train-step factory)
+        self.remat = "none"
+
+    def _superblock(self, p_l, x: torch.Tensor) -> torch.Tensor:
+        for i, typ in enumerate(self.sched.pattern):
+            x, _ = L.apply_dense_block(p_l[f"b{i}_{typ}"], self.cfg, x)
+        return x
+
+    def _maybe_remat(self, p_l, x: torch.Tensor) -> torch.Tensor:
+        """One superblock, recomputed in the backward under "full" (saves
+        nothing inside) or "dots" (saves the projection matmuls)."""
+        if self.remat == "none" or not torch.is_grad_enabled():
+            return self._superblock(p_l, x)
+        if self.remat == "full":
+            ctx = ckpt.noop_context_fn
+        elif self.remat == "dots":
+            ctx = functools.partial(ckpt.create_selective_checkpoint_contexts,
+                                    _save_dots)
+        else:
+            raise ValueError(f"remat={self.remat!r}: none, full or dots")
+        return ckpt.checkpoint(self._superblock, p_l, x, use_reentrant=False,
+                               context_fn=ctx)
 
     # -------------------------- declarations -------------------------
     def decl(self) -> Dict[str, Any]:
@@ -109,9 +147,7 @@ class LM:
         x = params["embed"][tokens.long()].to(dt)
         layers = P.tree_map(lambda t: t.unbind(0), params["main"])
         for li in range(sch.n_super):
-            p_l = P.tree_map(lambda ts: ts[li], layers)
-            for i, typ in enumerate(sch.pattern):
-                x, _ = L.apply_dense_block(p_l[f"b{i}_{typ}"], cfg, x)
+            x = self._maybe_remat(P.tree_map(lambda ts: ts[li], layers), x)
         x = L.apply_rmsnorm(params["final_norm"], x, cfg.norm_eps)
         return x, torch.zeros((), dtype=torch.float32, device=x.device)
 

@@ -40,10 +40,7 @@ def _compress_int8_ef(g: torch.Tensor) -> torch.Tensor:
 def make_train_step(model, tc: TrainConfig):
     """Returns train_step(state, batch) -> (new_state, metrics); batch is
     {"tokens", "labels"} (B,S) int tensors on the params' device."""
-    if tc.remat != "none":
-        raise NotImplementedError(
-            f"remat={tc.remat!r}: activation checkpointing is not ported "
-            f"yet (ROADMAP A6); pass remat='none'")
+    model.remat = tc.remat
 
     def value_and_grad(params, batch):
         live = tree_map(lambda t: t.detach().requires_grad_(True), params)

@@ -23,11 +23,14 @@ of the plain gradient's largest magnitude, and within 1e-5 where every
 gradient is zero in exact arithmetic (dq and dk of a single key). Silent compare: counts equal
 exactly, on ragged sizes with NaN, +-0, infinities and subnormals.
 
-RMSNorm (Triton): widths 128 and 2048, ragged row counts, rows read by
-stride, every x/scale dtype pair of the main paths: out within 1e-5
-relative (float32) or 2e-2 (bfloat16, one rounding of the output), rstd
-within 1e-5 relative; dx and dscale within 2e-4 (float32) or 3e-2
-(bfloat16) of the plain gradient's largest magnitude. Speculative verify
+RMSNorm (Triton forward, CUDA backward): widths 128 and 2048 and every
+route of the backward (64; 999, 1000 and 10000 wide), ragged row counts,
+rows read by stride, every x/scale dtype pair of the main paths: out
+within 1e-5 relative (float32) or 2e-2 (bfloat16, one rounding of the
+output), rstd within 1e-5 relative; dx and dscale within 2e-4 (float32)
+or 3e-2 (bfloat16) of the plain gradient's largest magnitude; one
+backward launch a call, two calls bit-identical, and dscale equal bit
+for bit to the blocked plain version on the kernel's own plan. Speculative verify
 (window kernel at W = 5 through the verify wrapper): both modes on a
 hostile table at head_dim 128, as the window kernel above; defer mode
 leaves the pools alone and gives store mode's outputs bit for bit on
@@ -43,8 +46,8 @@ from repro_torch.kernels.flash_attention import (
 from repro_torch.kernels.flash_prefill import paged_window_attention
 from repro_torch.kernels.paged_attention import paged_decode_attention
 from repro_torch.kernels.paged_verify import paged_verify_attention
-from repro_torch.kernels.rmsnorm import (RMSNorm, rmsnorm_backward,
-                                        rmsnorm_forward)
+from repro_torch.kernels.rmsnorm import (RMSNorm, plan_for,
+                                        rmsnorm_backward, rmsnorm_forward)
 from repro_torch.kernels.silent_compare import silent_compare
 
 pytestmark = pytest.mark.cuda
@@ -405,7 +408,8 @@ RMS_TOL = {"float32": (1e-5, 2e-4), "bfloat16": (2e-2, 3e-2)}
     ("bfloat16", "bfloat16")])
 @pytest.mark.parametrize("rows,width,strided", [
     (1, 128, False), (8, 2048, False), (517, 128, True), (131, 2048, True),
-    (33, 1000, False)])
+    (33, 1000, False), (700, 2048, False), (9, 64, False),
+    (29, 999, False), (3, 10000, False)])
 def test_rmsnorm_kernels_match_plain(cuda, x_dtype, s_dtype, rows, width,
                                      strided):
     g = torch.Generator(device=cuda).manual_seed(rows * 7 + width)
@@ -426,6 +430,13 @@ def test_rmsnorm_kernels_match_plain(cuda, x_dtype, s_dtype, rows, width,
     torch.cuda.synchronize()
     assert (rmsnorm_forward.launches, rmsnorm_backward.launches) == \
         (before[0] + 2, before[1] + 1)
+    dx2, ds2 = rmsnorm_backward(x, scale, rstd, dy, 1e-6)
+    assert torch.equal(dx, dx2) and torch.equal(ds, ds2)
+    plan = plan_for(x, dy)
+    _, blocked_ds = ref.rmsnorm_bwd_blocked(
+        x, scale, rstd, dy, blocks=plan.blocks, workers=plan.workers,
+        group=plan.group)
+    assert torch.equal(ds, blocked_ds), plan
     assert none is None and torch.equal(y, y_only)
     assert y.dtype == xdt and dx.dtype == xdt and ds.dtype == sdt
     tol, tol_g = RMS_TOL[x_dtype if s_dtype == x_dtype else "bfloat16"]

@@ -10,7 +10,11 @@ result). The plain backward (``ref.rmsnorm_bwd_ref``) is held against
 autograd of the plain forward: dx and dscale within 1e-5 of their
 largest magnitude in float32. ``ops.rmsnorm`` on CPU tensors is the
 plain version, bit for bit the inline formula the layers ran before it.
-The Triton kernels themselves run only on the card
+The backward in the CUDA kernel's row partition and combine order
+(``ref.rmsnorm_bwd_blocked``) is held against both, within 1e-5 of the
+largest magnitude in float32, on every route's plan and on plans with
+more row workers than rows. The kernels themselves (Triton forward,
+CUDA backward) run only on the card
 (``tests/test_torch_cuda_kernels.py``, marked ``cuda``).
 """
 import jax
@@ -183,3 +187,98 @@ def test_rmsnorm_wrapper_row_layout_and_dispatch():
     with pytest.raises(ValueError):
         rn.rmsnorm_backward(meta, torch.empty(128, device="meta"), None,
                             meta)
+
+
+# (rows, width, x/dy addresses and row strides in bytes of 2-byte
+# elements, expected route): the training norms, the serving decode
+# norm, ragged and misaligned rows, the widest rows
+PLAN_CASES = [
+    (4096, 2048, (0, 0, 4096, 4096), "wide"),
+    (65536, 128, (0, 0, 256, 256), "narrow"),
+    (32768, 128, (0, 0, 768, 256), "narrow"),
+    (8, 2048, (0, 0, 4096, 4096), "wide"),
+    (33, 1000, (0, 0, 2000, 2000), "wide"),
+    (33, 1000, (0, 2, 2000, 2000), "general"),
+    (517, 128, (256, 0, 768, 256), "narrow"),
+    (9, 64, (0, 0, 128, 128), "narrow"),
+    (9, 130, (0, 0, 260, 260), "general"),
+    (5, 12, (0, 0, 24, 24), "narrow"),
+    (5, 12, (0, 0, 24, 26), "general"),
+    (3, 10000, (0, 0, 20000, 20000), "general"),
+]
+
+
+@pytest.mark.parametrize("n,d,addresses,route", PLAN_CASES)
+def test_rmsnorm_bwd_plan_routes_and_grid(n, d, addresses, route):
+    """The backward kernel's plan: its route by width and alignment, a
+    persistent grid of at most ``BLOCKS_PER_SM`` blocks an SM (fewer when
+    the rows run out), first-level groups of ceil(sqrt(blocks))."""
+    sms = 132
+    for k in (None, 1, 3):
+        plan = rn.bwd_plan(n, d, 2, addresses, sms, k)
+        assert plan.route == route
+        assert plan.workers == (rn.NARROW_WARPS if route == "narrow" else 1)
+        units = -(-n // (4 * rn.NARROW_WARPS)) if route == "narrow" else n
+        assert plan.blocks == min(units, (k or rn.BLOCKS_PER_SM) * sms)
+        assert (plan.group - 1) ** 2 < plan.blocks <= plan.group ** 2
+
+
+@pytest.mark.parametrize("shape,blocks,workers,group", [
+    ((130, 2048), 20, 1, 5),        # wide: several rows a block
+    ((200, 128), 4, 8, 2),          # narrow: warps as row workers
+    ((7, 256), 5, 8, 3),            # more workers than rows
+    ((2, 3, 128), 1, 1, 1),         # one worker takes every row
+    ((33, 1000), 33, 1, 6),         # a block per row, ragged groups
+])
+def test_rmsnorm_bwd_blocked_matches_ref_and_jax_vjp(shape, blocks, workers,
+                                                     group):
+    """The blocked backward (the CUDA kernel's partition and fixed-order
+    combine) from the forward's rstd against the plain backward and
+    ``jax.vjp`` of the reference: dx and dscale within 1e-5 of their
+    largest magnitude in float32."""
+    (jx, js), (tx, ts) = _inputs(shape, "float32", "float32",
+                                 seed=blocks * 31 + workers)
+    dy = np.random.default_rng(blocks).standard_normal(shape).astype(
+        np.float32)
+    rstd = torch.rsqrt(tx.square().mean(dim=-1) + EPS).reshape(-1)
+    dx, ds = pref.rmsnorm_bwd_blocked(tx, ts, rstd, torch.from_numpy(dy),
+                                      blocks=blocks, workers=workers,
+                                      group=group)
+    assert dx.shape == tx.shape and ds.shape == ts.shape
+    want_dx, want_ds = pref.rmsnorm_bwd_ref(tx, ts, torch.from_numpy(dy),
+                                            EPS)
+    _, vjp = jax.vjp(lambda x, s: kref.rmsnorm_ref(x, s, EPS), jx, js)
+    jdx, jds = (np.asarray(g) for g in vjp(jnp.asarray(dy)))
+    for got, want in ((dx, want_dx.numpy()), (ds, want_ds.numpy()),
+                      (dx, jdx), (ds, jds)):
+        assert np.abs(got.numpy() - want).max() <= 1e-5 * np.abs(want).max()
+
+
+def test_rmsnorm_bwd_blocked_sums_in_the_stated_order():
+    """dscale of the blocked backward is the stated order of f32 sums,
+    exactly: one worker a block and one block a group is the sequential
+    sum over the rows; a plan of 4 blocks of 2 workers in groups of 2 is
+    ((w0 + w1) + (w2 + w3)) + ((w4 + w5) + (w6 + w7)) of the workers'
+    sequential sums."""
+    rng = np.random.default_rng(11)
+    x = torch.from_numpy(rng.standard_normal((16, 8)).astype(np.float32))
+    dy = torch.from_numpy(rng.standard_normal((16, 8)).astype(np.float32))
+    s = torch.ones(8)
+    rstd = torch.rsqrt(x.square().mean(dim=-1) + EPS)
+    c = dy * (x * rstd[:, None])
+
+    def seq(rows):
+        acc = torch.zeros(8)
+        for row in rows:
+            acc = acc + row
+        return acc
+    _, ds = pref.rmsnorm_bwd_blocked(x, s, rstd, dy, blocks=1, workers=1,
+                                     group=1)
+    assert torch.equal(ds, seq(c))
+    _, ds = pref.rmsnorm_bwd_blocked(x, s, rstd, dy, blocks=4, workers=2,
+                                     group=2)
+    w = [seq(c[2 * i:2 * i + 2]) for i in range(8)]
+    z = torch.zeros(8)
+    blocks = [z + w[2 * b] + w[2 * b + 1] for b in range(4)]
+    want = z + (z + blocks[0] + blocks[1]) + (z + blocks[2] + blocks[3])
+    assert torch.equal(ds, want)

@@ -34,6 +34,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro.configs.base import ProfilerConfig as RefProfilerConfig
 from repro.configs.base import TrainConfig as RefTrainConfig
@@ -55,6 +56,7 @@ from repro_torch.core.sarif import to_sarif
 from repro_torch.data.pipeline import Prefetcher
 from repro_torch.data.synthetic import stream
 from repro_torch.launch import train as pt_train
+from repro_torch.models import layers
 from repro_torch.models import params as P
 from repro_torch.optim import adamw
 from repro_torch.optim.schedule import lr_at
@@ -331,10 +333,137 @@ def test_train_driver_needs_cuda_and_rejects_unported_options(monkeypatch):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             pt_train.run("qwen3-1.7b", smoke=True, steps=1)
     for flag in ("--ckpt-dir=x", "--resume", "--waste-report", "--objects",
-                 "--strategy=fsdp", "--remat=dots"):
+                 "--strategy=fsdp", "--remat=some"):
         monkeypatch.setattr(sys, "argv", ["train", "--arch", "qwen3-1.7b",
                                           flag])
         with pytest.raises(SystemExit):
             pt_train.main()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pt_step.make_train_step(None, TrainConfig(remat="dots"))
+
+
+def _remat_steps(model, state, remat, steps=3):
+    """``steps`` port train steps under ``remat`` from a copy of
+    ``state``: the per-step (loss, nll, grad norm) and the final state."""
+    tc = TrainConfig(learning_rate=3e-4, total_steps=steps, warmup_steps=1,
+                     remat=remat)
+    fn = pt_step.make_train_step(model, tc)
+    assert model.remat == remat
+    copy = lambda tree: P.tree_map(torch.clone, tree)
+    state = pt_state.TrainState(
+        params=copy(state.params), master=copy(state.master),
+        opt=adamw.AdamWState(m=copy(state.opt.m), v=copy(state.opt.v)),
+        step=state.step.clone())
+    data = stream(model.cfg, 4, 32, seed=0)
+    rows = []
+    for _ in range(steps):
+        b = next(data)
+        state, m = fn(state, {k: torch.from_numpy(v) for k, v in b.items()})
+        rows.append((m["loss"], m["nll"], m["grad_norm"]))
+    return rows, state
+
+
+class _CountOps(TorchDispatchMode):
+    """Counts the aten ops that run under it, by name."""
+
+    def __init__(self):
+        super().__init__()
+        self.n = {}
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.n[str(func)] = self.n.get(str(func), 0) + 1
+        return func(*args, **(kwargs or {}))
+
+
+def _remat_grads(model, params, remat, monkeypatch):
+    """Loss and gradients of one batch with ``model.remat`` set, with the
+    norms and the 2-D matmuls run in the forward and backward counted."""
+    model.remat = remat
+    b = next(stream(model.cfg, 4, 32, seed=1))
+    live = P.tree_map(lambda t: t.detach().requires_grad_(True), params)
+    norms = [0]
+    apply_rmsnorm = layers.apply_rmsnorm
+
+    def counted(*args, **kwargs):
+        norms[0] += 1
+        return apply_rmsnorm(*args, **kwargs)
+    monkeypatch.setattr(layers, "apply_rmsnorm", counted)
+    with _CountOps() as ops:
+        loss, _ = model.loss(live, {k: torch.from_numpy(v) for k, v in
+                                    b.items()})
+        grads = torch.autograd.grad(loss, P.tree_leaves(live))
+    monkeypatch.setattr(layers, "apply_rmsnorm", apply_rmsnorm)
+    return loss, grads, norms[0], ops.n["aten.mm.default"]
+
+
+@pytest.mark.parametrize("remat", ["full", "dots"])
+def test_remat_equals_none_bit_for_bit(remat, monkeypatch):
+    """Activation checkpointing recomputes each superblock's forward in
+    the backward; the recomputation repeats the same float32 operations,
+    so the loss and every gradient of a batch, and the losses, grad
+    norms and master params of 3 train steps, equal those without it bit
+    for bit. Both modes recompute every norm inside the superblocks (the
+    final norm lies outside them); "full" recomputes the projection
+    matmuls too, up to the last one whose output the backward reads (the
+    down projection's is not: recomputation stops before it), "dots"
+    keeps them."""
+    _, _, model, params = smoke_models("float32")
+    want_loss, want_grads, want_norms, want_mm = _remat_grads(
+        model, params, "none", monkeypatch)
+    loss, grads, norms, mm = _remat_grads(model, params, remat, monkeypatch)
+    assert torch.equal(loss, want_loss)
+    assert len(grads) == len(want_grads)
+    for g, w in zip(grads, want_grads):
+        assert torch.equal(g, w)
+    layers_n = model.cfg.num_layers
+    assert want_norms == 4 * layers_n + 1
+    assert norms == want_norms + 4 * layers_n
+    projections = 6 * layers_n          # q, k, v, o, gate, up
+    assert mm == want_mm + (projections if remat == "full" else 0)
+    s0 = pt_state.create(model, 0, compute_dtype=torch.float32,
+                         device="cpu")
+    want = _remat_steps(model, s0, "none")
+    got = _remat_steps(model, s0, remat)
+    for a, b in zip(got[0], want[0]):
+        assert all(torch.equal(x, y) for x, y in zip(a, b)), (a, b)
+    for g, w in zip(P.tree_leaves(got[1].master),
+                    P.tree_leaves(want[1].master)):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("remat", ["full", "dots"])
+def test_remat_train_steps_match_reference(remat):
+    """The port's step under ``remat`` against the reference's jitted
+    step with the same ``remat`` (``jax.checkpoint`` with its policy),
+    from one state: loss and grad norm within 1e-5 relative per step, as
+    ``test_train_steps_match_reference`` holds "none"."""
+    steps = 3
+    ref_model, _, pt_model, _ = smoke_models("float32")
+    kw = dict(learning_rate=3e-4, total_steps=steps, warmup_steps=1,
+              remat=remat)
+    ref_fn = jax.jit(ref_step.make_train_step(ref_model, RefTrainConfig(**kw)))
+    pt_fn = pt_step.make_train_step(pt_model, TrainConfig(**kw))
+    rs = ref_state.create(ref_model, jax.random.PRNGKey(0),
+                          compute_dtype=jnp.float32)
+    ps = pt_state.from_reference(jax.device_get(rs), device="cpu")
+    data = stream(pt_model.cfg, 4, 32, seed=0)
+    for _ in range(steps):
+        b = next(data)
+        rs, rm = ref_fn(rs, {k: jnp.asarray(v) for k, v in b.items()})
+        ps, pm = pt_fn(ps, {k: torch.from_numpy(v) for k, v in b.items()})
+        for key in ("loss", "nll", "grad_norm"):
+            _close(pm[key], rm[key], rtol=1e-5)
+
+
+def test_default_train_config_trains():
+    """``TrainConfig()`` (remat "dots", as the reference's default) makes
+    a step that runs, and the driver takes ``remat``."""
+    assert TrainConfig().remat == "dots"
+    _, _, model, _ = smoke_models("float32")
+    state = pt_state.create(model, 0, compute_dtype=torch.float32,
+                            device="cpu")
+    b = next(stream(model.cfg, 2, 16, seed=0))
+    state, m = pt_step.make_train_step(model, TrainConfig())(
+        state, {k: torch.from_numpy(v) for k, v in b.items()})
+    assert np.isfinite(float(m["loss"])) and int(state.step) == 1
+    losses, _ = pt_train.run("qwen3-1.7b", smoke=True, steps=2, batch=2,
+                             seq=16, remat="dots", device="cpu")
+    assert len(losses) == 2 and np.isfinite(losses).all()

@@ -40,6 +40,14 @@ the training path.
    library yardstick) by device time from CUPTI, CUDA-event times
    printed beside it, with one backward launch a call and its grid read
    from the trace, and the backward's blocks an SM swept over 1-8;
+   then B1 and B2 at granite-moe-3b-a800m's heads (Hq 24, Hkv 8, D 64:
+   G 3, so a kv group's rows leave a slack row in the split kernel's
+   4-row block and in the tensor-core route's 64 stacked rows) on the
+   hostile tables in every dtype pair, B2 through the route it picks and
+   through every route that takes the inputs, two calls bit-identical,
+   and their main-path calls timed; and B5 at width 1536 (decode,
+   verify and prefill rows, strided rows, every dtype pair), its
+   forward timed beside ``F.rms_norm``;
 3. runs the main path at full width: ``repro_torch.launch.serve.run``
    for qwen3-1.7b with the paged KV heap and the profiler on (random
    weights from seed 0, 28 layers), with the kernels' launch counts set
@@ -63,6 +71,17 @@ the training path.
    plain continuations (``--draft oracle``) give plain decode's tokens on
    the card, in every mode, and that the n-gram runs give the CPU's
    tokens and spec counters;
+3c. runs granite-moe-3b-a800m (the MoE family: 32 layers, d_model 1536,
+   40 experts top-8) at full width through ``launch.serve.run``: paged,
+   profile on, batch 8, prompt 128 + 32, twice (equal tokens), then with
+   n-gram drafts under rollback and overwrite, launch counts set to 0
+   before each run (32 B1 or B2 and 65 RMSNorm launches a forward); the
+   dispatch buffer's dead rows of every MoE layer of an admission step,
+   a decode tick and a verify tick (0 under scatter); one traced
+   admission step, decode tick and verify tick (kernels by kind, read
+   from the trace: the same launches); and granite's smoke config in
+   float32, as is (G 2) and at Hq 6, Hkv 2 (G 3), the card against the
+   CPU: tokens, stats, spec counters and tier-3/4 findings equal;
 4. holds the training kernels against their plain versions on the card:
    flash attention forward and backward at the training path's shapes
    (B 4, S 1024, Hq 16, Hkv 8, D 128) in bfloat16 (tensor-core kernels)
@@ -190,12 +209,15 @@ class Timer:
                 torch.cuda.synchronize()
             evs = kernels(prof)
             flushes = sum(e.name in self.flush_names for e in evs)
-            us = sum(e.time_range.elapsed_us() for e in evs
-                     if e.name not in self.flush_names)
-            if us > 0 and flushes >= iters:
+            timed = [e for e in evs if e.name not in self.flush_names]
+            us = sum(e.time_range.elapsed_us() for e in timed)
+            # every call launches the same kernels: a count that is not a
+            # multiple of the calls means the trace missed some
+            if us > 0 and flushes >= iters and len(timed) % iters == 0:
                 return us / iters / 1e3
             print(f"[timer] retaking a trace: {flushes} flushes of "
-                  f"{iters} seen, {len(evs)} kernels", flush=True)
+                  f"{iters} seen, {len(timed)} other kernels for {iters} "
+                  f"calls", flush=True)
             self.flush_names = set()
         return float("nan")     # not measured
 
@@ -204,6 +226,9 @@ class Timer:
 # phase 2: kernels against their plain versions
 # ----------------------------------------------------------------------
 B, HQ, HKV, D, PS = 8, 16, 8, 128, 16
+QWEN3_HEADS = (HQ, HKV, D)                # (Hq, Hkv, D) of qwen3-1.7b
+GRANITE = "granite-moe-3b-a800m"
+GRANITE_HEADS = (24, 8, 64)               # G 3, D 64
 MAX_LEN = 128 + 32 + 1                    # the main path's cache extent
 M = -(-MAX_LEN // PS)                     # pages per slot (11)
 P = B * M                                 # pool pages (88)
@@ -225,8 +250,9 @@ def hostile_table(np, rng, idx, S):
     return pt
 
 
-def kernel_cases(np):
-    """(name, S, idx, store) cases at the main path's shapes."""
+def kernel_cases(np, sizes=(2, 3, 8, 9, 32, 33, 128)):
+    """(name, S, idx, store) cases at the main path's shapes; windows of
+    ``sizes`` rows."""
     # decode: page boundaries, a row past the table (idx >= M*PS, drop),
     # a row on an unmapped page, an idle slot
     dec = np.array([140, 37, 15, 16, 100, 159, M * PS, -1], np.int32)
@@ -243,7 +269,7 @@ def kernel_cases(np):
     # tensor cores for bf16 (S * G = 4, 6), the split and the CUDA-core
     # kernel for f32 (S * G = 16, 18), the tensor-core kernel with and
     # without history splits (S * G = 64, 66)
-    for S in (2, 3, 8, 9, 32, 33, 128):
+    for S in sizes:
         w = np.array([0, 72, 32, 140, 17, 0, 9, -(S + 1)], np.int32)
         w = np.minimum(w, MAX_LEN - S)
         w[-1] = -(S + 1)
@@ -252,10 +278,12 @@ def kernel_cases(np):
     return cases
 
 
-def bytes_flops(np, name, S, idx, pt, store, act_isz, pool_isz):
+def bytes_flops(np, name, S, idx, pt, store, act_isz, pool_isz,
+                heads=QWEN3_HEADS):
     """Least bytes moved and flops done by one call on these inputs: each
     input read once, each output written once, history counted as the
     mapped rows the call attends, stores as the rows that land."""
+    HQ, HKV, D = heads
     m = pt.shape[1]
     row = 2 * HKV * D * pool_isz                       # one K+V pool row
     nbytes = (B * S * HQ * D * act_isz * 2             # q in, out
@@ -287,13 +315,15 @@ def main_path_table(np, rng):
 
 
 def run_case(torch, act, pool_dt, name, S, idx_np, pt_np, store, seed,
-             pages=P, route=None):
-    """Build one case's inputs on the card (a pool of ``pages`` pages), run
-    the kernel twice and its plain version once on copies of the pools,
-    check the two kernel calls bit for bit against each other and the
-    kernel against the plain version, and print the result. ``route``
-    forces a route of the window kernel (``flash_prefill.ROUTES``).
-    Returns (max |err|, kernel, plain, inputs)."""
+             pages=P, route=None, heads=QWEN3_HEADS):
+    """Build one case's inputs on the card (a pool of ``pages`` pages,
+    ``heads`` = (Hq, Hkv, D)), run the kernel twice and its plain version
+    once on copies of the pools, check the two kernel calls bit for bit
+    against each other and the kernel against the plain version, and
+    print the result. ``route`` forces a route of the window kernel
+    (``flash_prefill.ROUTES``). Returns (max |err|, kernel, plain,
+    inputs)."""
+    HQ, HKV, D = heads
     from repro_torch.kernels import ref
     from repro_torch.kernels import flash_prefill as fp
     from repro_torch.kernels.paged_attention import paged_decode_attention
@@ -370,6 +400,8 @@ def run_case(torch, act, pool_dt, name, S, idx_np, pt_np, store, seed,
     same = (torch.equal(kk, pk_) and torch.equal(kv, pv_)
             and torch.equal(c_k, c_p))
     label = name if route is None else f"{name} route {route}"
+    if heads != QWEN3_HEADS:
+        label = f"{label} G{HQ // HKV} D{D}"
     print(f"[kernels] {label:21s} act {act:8s} pool {pool_dt:8s} "
           f"pools+counters equal {same} | max |err| {err:.3e} "
           f"(tol {TOL[act]}) | idle rows 0 {dead_ok} | two calls "
@@ -381,12 +413,15 @@ def run_case(torch, act, pool_dt, name, S, idx_np, pt_np, store, seed,
     return err, kernel, plain, (q, kn, vn, pool_k, pool_v, pt, idx)
 
 
+DTYPE_PAIRS = (("bfloat16", "float32"), ("bfloat16", "bfloat16"),
+               ("float32", "float32"))
+
+
 def check_hostile(torch, np):
     """Phase 2, hostile tables in every dtype pair."""
     rng = np.random.default_rng(0)
     seed = 0
-    for act, pool_dt in (("bfloat16", "float32"), ("bfloat16", "bfloat16"),
-                         ("float32", "float32")):
+    for act, pool_dt in DTYPE_PAIRS:
         for name, S, idx_np, store in kernel_cases(np):
             seed += 1
             run_case(torch, act, pool_dt, name, S, idx_np,
@@ -400,7 +435,8 @@ MAIN_CALLS = (("paged_decode", "decode", 1, 144),
               ("paged_verify", "verify W=5 overwrite", 5, 144))
 
 
-def time_paged(torch, np, timer, name, S, pos, pt_np, pages, seed):
+def time_paged(torch, np, timer, name, S, pos, pt_np, pages, seed,
+               heads=QWEN3_HEADS):
     """Check one call on the main path's dtypes (bf16 activations, f32
     pool) with every slot at ``pos``, then time kernel, plain version and
     SDPA over the gathered view by device time (CUPTI, L2 flushed before
@@ -410,7 +446,7 @@ def time_paged(torch, np, timer, name, S, pos, pt_np, pages, seed):
     store = not name.endswith("defer")
     err, kernel, plain, inputs = run_case(
         torch, "bfloat16", "float32", name, S, idx_np, pt_np, store,
-        seed=seed, pages=pages)
+        seed=seed, pages=pages, heads=heads)
     q, kn, vn, pool_k, pool_v, pt, idx = inputs
     # store mode rewrites the same rows on every call
     kk, kv = pool_k.clone(), pool_v.clone()
@@ -423,7 +459,8 @@ def time_paged(torch, np, timer, name, S, pos, pt_np, pages, seed):
     ev = {k: timer(calls[k]) for k in ("kernel", "sdpa")}
     dev["launches"] = launch_grids(torch, calls["kernel"])
     nbytes, flops = bytes_flops(np, name, S, idx_np, pt_np, store,
-                                q.element_size(), pool_k.element_size())
+                                q.element_size(), pool_k.element_size(),
+                                heads)
     return err, dev, ev, nbytes, flops
 
 
@@ -456,23 +493,22 @@ def kernel_label_demangled(name: str) -> str:
     return m.group(1) if m else name
 
 
-def check_kernels(torch, np, timer):
-    """Phase 2. Hostile tables in every dtype pair, then the main path's
-    own inputs (bf16 activations, f32 pool; decode with every slot at
-    position 144, prefill of 128 tokens at 0, verify windows of 5 at 144
-    in both modes), timed. Returns the kernels' JSON entries (all but
-    launches)."""
-    check_hostile(torch, np)
+def time_main_calls(torch, np, timer, heads, model):
+    """The main path's kernel calls (``MAIN_CALLS``) on the main path's own
+    inputs at ``heads`` = (Hq, Hkv, D): checked against the plain version
+    (run_case), one launch a call with its grid read from the trace, and
+    timed (time_paged). Returns {(JSON key, case): numbers}."""
+    HQ, HKV, D = heads
     rng = np.random.default_rng(1)
-    entries = {}
+    nums = {}
     for key, name, S, pos in MAIN_CALLS:
         err, dev, ev, nbytes, flops = time_paged(
             torch, np, timer, name, S, pos, main_path_table(np, rng), P,
-            seed=100 + S)
+            seed=100 + S, heads=heads)
         b_ms, by = bound(nbytes, flops, PEAK_FLOPS["bfloat16"])
         ms = dev["kernel"]
         grids = dev.pop("launches")
-        print(f"[kernels] {key} on the main path's inputs ({name}): "
+        print(f"[kernels] {key} on {model}'s main-path inputs ({name}): "
               f"launches per call {grids}", flush=True)
         # one launch a call (the store rides it); the decode and the
         # verify windows split the history (grid x: splits of the split
@@ -482,28 +518,97 @@ def check_kernels(torch, np, timer):
         if S < 128 and grid:
             splits = grid[0] if "split" in kern else grid[2]
             assert splits >= 2, grids
-        print(f"[kernels] {key} on the main path's inputs ({name}, B {B}, "
-              f"position {pos}, bf16 act, f32 pool), device time: kernel "
+        print(f"[kernels] {key} on {model}'s main-path inputs ({name}, B "
+              f"{B}, Hq {HQ}, Hkv {HKV}, D {D}, position {pos}, bf16 act, "
+              f"f32 pool), device time: kernel "
               f"{ms:.4f} ms | plain {dev['plain']:.4f} ms | SDPA over the "
               f"gathered view {dev['sdpa']:.4f} ms (kernel / SDPA "
               f"{ms / dev['sdpa']:.2f}) | bound {b_ms:.4f} ms ({by}: "
               f"{nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP; kernel at "
               f"{b_ms / ms:.3f} of it) | CUDA events: kernel "
               f"{ev['kernel']:.4f} ms, SDPA {ev['sdpa']:.4f} ms", flush=True)
+        nums[(key, name)] = {
+            "max_abs_err": err, "ms": ms, "plain_ms": dev["plain"],
+            "bound_ms": b_ms, "bound_by": by, "library_ms": dev["sdpa"],
+            "event_ms": ev["kernel"]}
+    return nums
+
+
+def shape_label(model, name):
+    """A ``by_shape`` key: the model and the call (``decode``,
+    ``prefill``, ``verify W=5 defer`` ...)."""
+    return f"{model} {'prefill' if name.startswith('window') else name}"
+
+
+def check_kernels(torch, np, timer):
+    """Phase 2. Hostile tables in every dtype pair, then the main path's
+    own inputs (bf16 activations, f32 pool; decode with every slot at
+    position 144, prefill of 128 tokens at 0, verify windows of 5 at 144
+    in both modes), timed. Returns the kernels' JSON entries (all but
+    launches), each call's numbers under ``by_shape``."""
+    check_hostile(torch, np)
+    nums = time_main_calls(torch, np, timer, QWEN3_HEADS, "qwen3-1.7b")
+    entries = {}
+    for (key, name), num in nums.items():
         if key == "paged_verify":
-            continue          # a mode of paged_window, printed only
-        entries[key] = {
+            key = "paged_window"          # a mode of paged_window
+        e = entries.setdefault(key, {
             "name": key, "route": "cuda",
             "source": f"src/repro_torch/csrc/{key}.cu",
             "replaces": ("src/repro/kernels/paged_attention.py:120"
                          if key == "paged_decode" else
                          "src/repro/kernels/flash_prefill.py:171"),
-            "max_abs_err": err, "ms": ms, "plain_ms": dev["plain"],
-            "bound_ms": b_ms, "bound_by": by, "library_ms": dev["sdpa"],
-            "event_ms": ev["kernel"]}
+            "by_shape": {}})
+        if "ms" not in e:                 # the decode, the prefill
+            e.update(num)
+        e["by_shape"][shape_label("qwen3-1.7b", name)] = num
     long_history(torch, np, timer)
     crossover(torch, np, timer)
     return entries
+
+
+def window_routes(act, heads):
+    """The window kernel's routes that take these inputs (route_ok in
+    csrc/paged_window.cu): the split (D 64/128 and small D), the tensor
+    cores (bf16 activations, G <= 64) and the CUDA cores."""
+    routes = ["split", "cuda_core"]
+    if act == "bfloat16" and heads[0] // heads[1] <= 64:
+        routes.append("tensor_core")
+    return routes
+
+
+# granite's windows: both sides of the routes' thresholds at G 3: the
+# split and the tensor cores for bf16 (S * G = 3, 6), the split and the
+# CUDA-core kernel for f32 (S * G = 15, 18), the tensor-core kernel with
+# history splits (one row tile: S * G = 63, the 64th stacked row slack)
+# and without (66), the prefill (7 row tiles of 21)
+GRANITE_SIZES = (1, 2, 5, 6, 21, 22, 128)
+
+
+def check_granite_kernels(torch, np, timer, entries):
+    """Phase 2c. B1 and B2 at granite-moe-3b-a800m's heads (Hq 24, Hkv 8,
+    D 64: G 3) on hostile tables in every dtype pair, B2 through the
+    route it picks and through every route that takes the inputs (forced:
+    ``paged_window_on_route``), two calls bit-identical in each; then the
+    main path's calls timed as qwen3's, their numbers added to the
+    entries' ``by_shape``."""
+    rng = np.random.default_rng(10)
+    seed = 1000
+    for act, pool_dt in DTYPE_PAIRS:
+        for name, S, idx_np, store in kernel_cases(np, GRANITE_SIZES):
+            seed += 1
+            pt_np = hostile_table(np, rng, idx_np, S)
+            run_case(torch, act, pool_dt, name, S, idx_np, pt_np, store,
+                     seed, heads=GRANITE_HEADS)
+            if name == "decode":
+                continue
+            for route in window_routes(act, GRANITE_HEADS):
+                run_case(torch, act, pool_dt, name, S, idx_np, pt_np, store,
+                         seed, route=route, heads=GRANITE_HEADS)
+    nums = time_main_calls(torch, np, timer, GRANITE_HEADS, GRANITE)
+    for (key, name), num in nums.items():
+        key = "paged_window" if key == "paged_verify" else key
+        entries[key]["by_shape"][shape_label(GRANITE, name)] = num
 
 
 def crossover(torch, np, timer):
@@ -569,7 +674,7 @@ def library_call(torch, q, kn, vn, pool_k, pool_v, pt, idx, S):
     gk, valid = ref.paged_gather(pk, pt)
     gv, _ = ref.paged_gather(pv, pt)
     L = gk.shape[1]
-    G = HQ // HKV
+    G = q.shape[2] // kn.shape[2]
     k = gk.to(dt).repeat_interleave(G, dim=2).transpose(1, 2).contiguous()
     v = gv.to(dt).repeat_interleave(G, dim=2).transpose(1, 2).contiguous()
     qpos = idx.long()[:, None] + torch.arange(S, device="cuda")[None]
@@ -753,6 +858,43 @@ def check_rmsnorm(torch, timer):
     for key, e in entries.items():
         e["by_shape"] = by_shape[key]
     return entries
+
+
+def check_rmsnorm_granite(torch, timer, entries):
+    """Phase 2d. B5 at granite-moe-3b-a800m's width (1536: a masked
+    block, no power of two) at its serving paths' row counts (decode 8,
+    verify 40, prefill 1024) and strided rows, in each x/scale dtype pair
+    (the backward's routes too); the forward timed at the serving path's
+    dtypes (bf16 x, f32 scale) at the prefill's and the decode's rows
+    beside ``F.rms_norm``, its numbers added to ``by_shape``."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.rmsnorm import rmsnorm_forward
+    width, seed = 1536, 500
+    for x_dtype, s_dtype in (("float32", "float32"), ("bfloat16", "float32"),
+                             ("bfloat16", "bfloat16")):
+        for rows, strided in ((8, False), (40, False), (1024, False),
+                              (131, True)):
+            seed += 1
+            rmsnorm_case(torch, rows, width, x_dtype, s_dtype, strided, seed)
+    for label, rows in (("prefill", 1024), ("decode", 8)):
+        err, _, (x, scale, _, _) = rmsnorm_case(
+            torch, rows, width, "bfloat16", "float32", False, seed=rows)
+        calls = {"fwd": lambda: rmsnorm_forward(x, scale, RMS_EPS),
+                 "plain": lambda: ref.rmsnorm_ref(x, scale, RMS_EPS),
+                 "lib": lambda: F.rms_norm(x, (width,), scale, RMS_EPS)}
+        dev = {k: timer.device(fn) for k, fn in calls.items()}
+        n = rows * width
+        b_ms, by = bound(2 * n * x.element_size() + width * 4, 4 * n,
+                         PEAK_FLOPS["float32"])
+        print(f"[kernels] rmsnorm forward, {GRANITE} {label} ({rows} x "
+              f"{width} bf16, f32 scale), device time: kernel "
+              f"{dev['fwd']:.4f} ms | plain {dev['plain']:.4f} ms | "
+              f"F.rms_norm {dev['lib']:.4f} ms | bound {b_ms:.4f} ms ({by})",
+              flush=True)
+        entries["rmsnorm_fwd"]["by_shape"][f"{GRANITE} {label}"] = {
+            "max_abs_err": err, "ms": dev["fwd"], "plain_ms": dev["plain"],
+            "bound_ms": b_ms, "bound_by": by, "library_ms": dev["lib"]}
 
 
 # ----------------------------------------------------------------------
@@ -1394,20 +1536,21 @@ def trace_steps(torch, np, eng, vocab, Request):
 
 def report_trace(torch, prof, label, wall_ms):
     """Device time by kernel kind, kernel count and the device's busy
-    share of a profiled step's wall time."""
-    kinds, others, n = {}, {}, 0
+    share of a profiled step's wall time. Returns the kernels by kind."""
+    kinds, others, counts, n = {}, {}, {}, 0
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
             n += 1
             k = _kernel_kind(e.name)
             ms = e.time_range.elapsed_us() / 1e3
             kinds[k] = kinds.get(k, 0.0) + ms
+            counts[k] = counts.get(k, 0) + 1
             if k == "other":
                 others[e.name[:70]] = others.get(e.name[:70], 0.0) + ms
     if not n:
         print(f"[trace] {label}: the profiler saw no device kernels; "
               f"device time not measured (wall {wall_ms:.2f} ms)")
-        return
+        return counts
     busy = sum(kinds.values())
     parts = ", ".join(f"{k} {v:.3f} ms" for k, v in
                       sorted(kinds.items(), key=lambda kv: -kv[1]))
@@ -1417,6 +1560,7 @@ def report_trace(torch, prof, label, wall_ms):
     top = sorted(others.items(), key=lambda kv: -kv[1])[:5]
     print(f"[trace] {label}: largest kernels of 'other': "
           + "; ".join(f"{name} {ms:.3f} ms" for name, ms in top), flush=True)
+    return counts
 
 
 # ----------------------------------------------------------------------
@@ -1640,6 +1784,305 @@ def small_reference_check(torch, np):
     assert same, (results["cpu"], results["cuda"])
 
 
+# ----------------------------------------------------------------------
+# phase 3c: granite-moe-3b-a800m, the MoE family, served at full width
+# ----------------------------------------------------------------------
+def granite_path(torch, np):
+    """``launch.serve.run`` for granite-moe-3b-a800m at full width (32
+    layers, d_model 1536, Hq 24, Hkv 8, D 64, 40 experts top-8; random
+    weights from seed 0): paged, profile on, batch 8, prompt 128 + 32;
+    twice (equal tokens), then ``--spec on`` (n-gram drafts, k 4) with
+    rollback and with overwrite. The serving kernels' launch counts are
+    set to 0 just before each run and read just after: 32 B1 or B2 and 65
+    B5 launches a forward. Then the MoE dispatch stats and traced steps
+    (granite_steps). Returns the launches per run."""
+    import repro_torch.kernels.flash_prefill as fp
+    import repro_torch.kernels.paged_attention as pa
+    import repro_torch.kernels.rmsnorm as rn
+    from repro_torch.configs import registry
+    from repro_torch.launch.serve import run
+
+    cfg = registry.get_config(GRANITE)
+    layers = cfg.num_layers
+    norms = 2 * layers + 1                # ln1, ln2 per layer, final norm
+    counters = {"paged_decode": pa.paged_decode_attention,
+                "paged_window": fp.paged_window_attention,
+                "rmsnorm_fwd": rn.rmsnorm_forward}
+    by_run, outs = {}, []
+    for label, kw in (("granite serve", {}), ("granite serve, again", {}),
+                      ("granite spec rollback",
+                       {"spec": True, "spec_rollback": True}),
+                      ("granite spec overwrite",
+                       {"spec": True, "spec_rollback": False})):
+        spec = bool(kw)
+        for c in counters.values():
+            c.launches = 0
+        t0 = time.perf_counter()
+        out, merged, stats = run(GRANITE, smoke=False, kv="paged",
+                                 profile=True, batch=8, prompt_len=128,
+                                 gen=32, spec_k=SPEC_K, draft="ngram",
+                                 device="cuda", **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: c.launches for k, c in counters.items()}
+        ticks = stats["spec_ticks"] if spec else stats["ticks"]
+        forwards = stats["prefills"] + ticks
+        rates = (f"verify {stats['verify_tok_s']:.1f} tok/s over verified "
+                 f"positions, drafts accepted {stats['draft_accepted']} of "
+                 f"{stats['draft_proposed']}, " if spec else "")
+        print(f"[granite] {label}: full width, paged, profile: {wall:.1f} s; "
+              f"launches {launches}; {ticks} ticks, {stats['prefills']} "
+              f"prefills; prefill {stats['prefill_tok_s']:.1f} tok/s, "
+              f"{rates}decode {stats['decode_tok_s']:.1f} tok/s; tiers "
+              f"{merged.tiers}", flush=True)
+        if spec:
+            assert stats["ticks"] == stats["spec_ticks"] > 0, stats
+            assert launches["paged_decode"] == 0, launches
+            assert launches["paged_window"] == layers * forwards, launches
+            rejected = stats["draft_proposed"] - stats["draft_accepted"]
+            checked = merged.checked.get("kernel_rejected_draft_store", 0)
+            flagged = merged.flagged.get("kernel_rejected_draft_store", 0)
+            assert checked == stats["draft_proposed"] > 0, (checked, stats)
+            assert flagged == (0 if kw["spec_rollback"] else rejected)
+        else:
+            assert launches["paged_decode"] == layers * ticks > 0, launches
+            assert launches["paged_window"] == layers * stats["prefills"] > 0
+        assert launches["rmsnorm_fwd"] == norms * forwards, launches
+        assert out.shape == (8, 32) and ((out >= 0)
+                                         & (out < cfg.vocab_size)).all()
+        assert 3 in merged.tiers and 4 in merged.tiers, merged.tiers
+        outs.append(out)
+        by_run[label] = launches
+    same = np.array_equal(outs[0], outs[1])
+    print(f"[granite] two plain runs give equal tokens {same}; rollback and "
+          f"overwrite give equal tokens {np.array_equal(outs[2], outs[3])}",
+          flush=True)
+    assert same, "two runs of the same requests gave different tokens"
+    granite_steps(torch, np, cfg)
+    return by_run
+
+
+class MoEDispatchStats:
+    """While active, every MoE layer call also measures its dispatch
+    buffer (``models.moe.dispatch_stats`` on the layer's own input) and
+    counts its tokens."""
+
+    def __init__(self):
+        self.calls, self.stats = 0, {}
+
+    def __enter__(self):
+        from repro_torch.models import moe as M
+        self._orig = M.apply_moe
+
+        def measured(p, cfg, x):
+            st = M.dispatch_stats(p, cfg, x)
+            assert st["dispatch"] == "scatter", st
+            self.calls += 1
+            st["choices"] = x.shape[0] * x.shape[1] * \
+                cfg.moe.experts_per_token
+            for k, v in st.items():
+                if k not in ("dispatch", "dead_fraction"):
+                    self.stats[k] = self.stats.get(k, 0) + v
+            return self._orig(p, cfg, x)
+        M.apply_moe = measured
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe as M
+        M.apply_moe = self._orig
+
+    def report(self, label):
+        st = self.stats
+        print(f"[granite] MoE dispatch, {label}: {self.calls} layer calls, "
+              f"{st['choices']} expert choices, {st['rows_routed']} routed "
+              f"({st['choices'] - st['rows_routed']} dropped past capacity) "
+              f"of {st['rows_total']} buffer rows; rows stored "
+              f"{st['rows_stored']}, dead rows {st['dead_rows']} "
+              f"(scatter)", flush=True)
+        assert st["dead_rows"] == 0 and st["rows_stored"] == st["rows_routed"]
+
+
+def granite_steps(torch, np, cfg):
+    """At full width, one set of weights: the dispatch stats of an
+    admission step (prefill 8 x 128 + first tick), a decode tick and a
+    verify tick (dead rows 0 under scatter); then torch.profiler over an
+    admission step, a decode tick and a verify tick (rollback), with the
+    kernels of each read from the trace: 32 B1 or B2 and 65 B5 a
+    forward."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs.base import ProfilerConfig
+    from repro_torch.core.detectors import ServingDetectors
+    from repro_torch.data.synthetic import batch_at
+    from repro_torch.models.zoo import build_model
+    from repro_torch.serve.engine import Request, ServeEngine
+    from repro_torch.serve.spec import NGramDrafter
+
+    model = build_model(cfg)
+    params = model.init(0, device="cuda")
+    prompts = batch_at(cfg, 8, 128, seed=0, step=0)["tokens"]
+    layers, norms = cfg.num_layers, 2 * cfg.num_layers + 1
+
+    def engine(spec):
+        eng = ServeEngine(model, params, num_slots=8, max_len=MAX_LEN,
+                          detectors=ServingDetectors(ProfilerConfig(
+                              enabled=True, seed=0)),
+                          kv_dtype=torch.float32, kv_layout="paged",
+                          page_size=PS, kernel_counters=True,
+                          drafter=NGramDrafter() if spec else None,
+                          spec_k=SPEC_K)
+        for b in range(8):
+            eng.submit(Request(rid=f"g{b}", tokens=np.asarray(prompts[b]),
+                               max_new_tokens=32))
+        return eng
+
+    def traced(eng, label, want):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            eng.step()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        counts = report_trace(torch, prof, f"{GRANITE} {label}", wall_ms)
+        got = {k: counts.get(k, 0) for k in want}
+        print(f"[trace] {GRANITE} {label}: kernels {got} (expected {want})",
+              flush=True)
+        assert got == want, (label, got, want)
+
+    eng = engine(False)
+    with MoEDispatchStats() as st:
+        eng.step()                        # admission: prefill + a tick
+    st.report("admission step (prefill 8 x 128, 4 groups of 256)")
+    with MoEDispatchStats() as st:
+        eng.step()
+    st.report("decode tick (8 tokens, one group)")
+    del eng
+    eng = engine(False)
+    traced(eng, "admission step", {"paged_window": layers,
+                                   "paged_decode": layers,
+                                   "rmsnorm_fwd": 2 * norms})
+    traced(eng, "decode tick", {"paged_window": 0, "paged_decode": layers,
+                                "rmsnorm_fwd": norms})
+    del eng
+    eng = engine(True)
+    # admission and the first ticks: the continuations start to repeat,
+    # so the n-gram drafter proposes in the measured ticks
+    for _ in range(4):
+        eng.step()
+    with MoEDispatchStats() as st:
+        eng.step()
+    st.report("verify tick (8 x 5 tokens, one group of 40)")
+    before = dict(eng.stats)
+    traced(eng, "verify tick", {"paged_window": layers, "paged_decode": 0,
+                                "rmsnorm_fwd": norms})
+    delta = {k: eng.stats[k] - before[k] for k in
+             ("prefills", "spec_ticks", "draft_proposed", "draft_accepted")}
+    print(f"[trace] {GRANITE} verify tick: {delta}", flush=True)
+    assert delta["prefills"] == 0 and delta["spec_ticks"] == 1, delta
+    del eng, params, model
+    torch.cuda.empty_cache()
+
+
+class KernelIdleRows:
+    """While active, the plain paged versions (CPU tensors) return 0 in
+    the rows that attend nothing, as the kernels do (the plain versions
+    return NaN there, as the reference's do)."""
+
+    def __enter__(self):
+        from repro_torch.kernels import ops
+        self._orig = (ops.paged_decode_attention, ops.paged_window_attention)
+        decode, window = self._orig
+
+        def zero(out, lse):
+            import torch
+            live = lse.reshape(out.shape[0], out.shape[2], -1) > NEG_INF / 2
+            return torch.where(live.permute(0, 2, 1)[..., None], out,
+                               torch.zeros((), dtype=out.dtype))
+
+        def dec(*a, **k):
+            out, lse, cnt = decode(*a, **k)
+            return zero(out, lse), lse, cnt
+
+        def win(*a, **k):
+            out, lse, cnt, ck, cv = window(*a, **k)
+            return zero(out, lse), lse, cnt, ck, cv
+        ops.paged_decode_attention, ops.paged_window_attention = dec, win
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import ops
+        ops.paged_decode_attention, ops.paged_window_attention = self._orig
+
+
+def granite_smoke_check(torch, np):
+    """granite's smoke config in float32, as is (G 2) and at Hq 6, Hkv 2
+    (G 3), the same weights on the card (kernels) and on the CPU: the
+    engine (paged, kernel counters and detectors on) on duplicated-prefix
+    traffic, plain and with n-gram drafts under rollback and overwrite.
+    Greedy tokens, stats, spec counters, store counts and the tier-3 and
+    tier-4 findings must be equal on the card and on the CPU with the
+    kernels' rows-that-attend-nothing (0; KernelIdleRows); whether they
+    also equal the plain versions' (NaN there) is printed: an MoE layer
+    routes those rows too, and they take expert capacity."""
+    import contextlib
+    import dataclasses
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import ProfilerConfig
+    from repro_torch.core.detectors import ServingDetectors
+    from repro_torch.models.params import tree_map
+    from repro_torch.models.zoo import build_model
+    from repro_torch.serve.engine import Request, ServeEngine
+    from repro_torch.serve.spec import NGramDrafter
+
+    def serve(model, params, mode):
+        det = ServingDetectors(ProfilerConfig(enabled=True, seed=0))
+        eng = ServeEngine(model, params, num_slots=3, max_len=48,
+                          detectors=det, kv_dtype=torch.float32,
+                          kv_layout="paged", page_size=4,
+                          kernel_counters=True,
+                          drafter=None if mode == "plain" else NGramDrafter(),
+                          spec_k=SPEC_K, spec_rollback=mode == "rollback")
+        for r in dup_prefix_requests(np, model.cfg.vocab_size, Request, n=7,
+                                     shared_len=10, tails=(2, 12),
+                                     gens=(4, 12)):
+            eng.submit(r)
+        eng.run(max_steps=300)
+        return ({rid: r.generated for rid, r in eng.finished.items()},
+                {k: v for k, v in eng.stats.items() if not k.endswith("_s")},
+                {t: (dict(p.checked), dict(p.flagged)) for t, p in
+                 (("tier 3", det.report), ("tier 4", det.kernel))})
+
+    modes = ("plain", "rollback", "overwrite")
+    for label, heads in (("G2", {}), ("G3", {"num_heads": 6,
+                                             "num_kv_heads": 2})):
+        cfg = dataclasses.replace(registry.get_config(GRANITE).smoke(),
+                                  dtype="float32", **heads)
+        model = build_model(cfg)
+        cpu_params = model.init(0, device="cpu")
+        res = {}
+        for dev, idle in (("cpu", "NaN"), ("cpu", "0"), ("cuda", "0")):
+            params = tree_map(lambda t: t.to(dev), cpu_params)
+            ctx = (KernelIdleRows() if dev == "cpu" and idle == "0"
+                   else contextlib.nullcontext())
+            with ctx:
+                for mode in modes:
+                    res[(dev, idle, mode)] = serve(model, params, mode)
+        same = [res[("cuda", "0", m)] == res[("cpu", "0", m)] for m in modes]
+        plain = [res[("cuda", "0", m)] == res[("cpu", "NaN", m)]
+                 for m in modes]
+        st = {m: res[("cuda", "0", m)][1] for m in modes}
+        print(f"[check] {GRANITE} smoke f32 {label} (Hq {cfg.num_heads}, "
+              f"Hkv {cfg.num_kv_heads}), engine on the card vs the CPU "
+              f"(plain / rollback / overwrite): tokens, stats, spec "
+              f"counters, tier-3/4 checked and flagged equal {same}; equal "
+              f"to the CPU with the plain versions' NaN rows {plain}; drafts "
+              f"accepted {[st[m]['draft_accepted'] for m in modes[1:]]} of "
+              f"{[st[m]['draft_proposed'] for m in modes[1:]]}, prefix hits "
+              f"{st['plain']['prefix_hits']}", flush=True)
+        assert all(same), {m: (res[("cpu", "0", m)], res[("cuda", "0", m)])
+                           for m in modes}
+
+
 def kernel_label(mangled: str) -> str:
     """A kernel's readable name and template arguments (element types,
     then numbers) from its mangled name: ``window_split_kernel<bf16,f32,4>``
@@ -1728,7 +2171,9 @@ def main() -> int:
 
     timer = Timer(torch)
     entries = check_kernels(torch, np, timer)
+    check_granite_kernels(torch, np, timer, entries)
     entries.update(check_rmsnorm(torch, timer))
+    check_rmsnorm_granite(torch, timer, entries)
     entries.update(check_flash(torch, timer))
     entries["silent_compare"] = check_silent(torch, timer)
     # each main path is driven with the launch counts set to 0 just
@@ -1738,6 +2183,8 @@ def main() -> int:
     small_reference_check(torch, np)
     by_path.update(spec_path(torch, np))
     spec_smoke_check(torch, np)
+    by_path.update(granite_path(torch, np))
+    granite_smoke_check(torch, np)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     by_path["train"] = train_path(torch, np)

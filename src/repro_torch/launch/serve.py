@@ -4,7 +4,8 @@ KV-cache waste detectors and prefill-vs-decode accounting, on the card.
     python -m repro_torch.launch.serve --arch qwen3-1.7b --kv paged --profile
 
 runs qwen3-1.7b at its published width from random weights (seeded) on
-the CUDA device; ``--device cpu`` runs on the CPU (with ``--smoke``, the
+the CUDA device; ``--arch granite-moe-3b-a800m`` serves the MoE family
+the same way. ``--device cpu`` runs on the CPU (with ``--smoke``, the
 reduced config). Without CUDA and without ``--device cpu`` it raises.
 
 ``--kv paged`` switches the engine to the block-paged KV heap

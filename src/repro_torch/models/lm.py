@@ -1,7 +1,7 @@
-"""Decoder LM assembly, dense family: parameter declaration and init,
-the cache-free training forward and loss, per-slot dense and paged KV
-caches, and the cached decode step that the serving engine's prefill and
-tick run.
+"""Decoder LM assembly, dense and moe families: parameter declaration and
+init, the cache-free training forward and loss, per-slot dense and paged
+KV caches, and the cached decode step that the serving engine's prefill
+and tick run.
 
 Parameters and caches keep the reference's stacked per-layer storage,
 ``(n_layers, ...)`` under ``"main"``, so reference trees load 1:1; a
@@ -27,6 +27,7 @@ from torch.utils import checkpoint as ckpt
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
+from repro_torch.models import moe as M
 from repro_torch.models import params as P
 
 
@@ -54,9 +55,50 @@ class Schedule:
 def make_schedule(cfg: ModelConfig) -> Schedule:
     if cfg.family == "dense":
         return Schedule(("dense",), cfg.num_layers)
+    if cfg.family == "moe":
+        return Schedule(("moe",), cfg.num_layers)
     raise NotImplementedError(
-        f"family {cfg.family!r} is not ported yet (dense only; the other "
-        f"block types are ROADMAP A7)")
+        f"family {cfg.family!r} is not ported yet (dense and moe only; the "
+        f"other block types are ROADMAP A7)")
+
+
+# ----------------------------------------------------------------------
+# Sub-blocks
+# ----------------------------------------------------------------------
+def decl_moe_block(cfg: ModelConfig) -> Dict[str, Any]:
+    return {
+        "ln1": P.norm(cfg.d_model),
+        "attn": L.decl_attention(cfg),
+        "ln2": P.norm(cfg.d_model),
+        "moe": M.decl_moe(cfg),
+    }
+
+
+def _decl_sub(cfg: ModelConfig, typ: str) -> Dict[str, Any]:
+    if typ == "dense":
+        return L.decl_dense_block(cfg)
+    if typ == "moe":
+        return decl_moe_block(cfg)
+    raise ValueError(typ)
+
+
+def _apply_sub(p, cfg: ModelConfig, typ: str, x: torch.Tensor, *,
+               cache=None, spec: Optional[str] = None):
+    """One sub-block, cache-free or cached (as ``L.apply_attention``):
+    (x, new cache, moe_aux or None). A moe block is attention, then the
+    MoE layer on ln2."""
+    if typ == "dense":
+        x, nc = L.apply_dense_block(p, cfg, x, cache=cache, spec=spec)
+        return x, nc, None
+    if typ == "moe":
+        h, nc = L.apply_attention(
+            p["attn"], cfg, L.apply_rmsnorm(p["ln1"], x, cfg.norm_eps),
+            cache=cache, spec=spec)
+        x = x + h
+        h, aux = M.apply_moe(p["moe"], cfg,
+                             L.apply_rmsnorm(p["ln2"], x, cfg.norm_eps))
+        return x + h, nc, aux
+    raise ValueError(typ)
 
 
 def _layer(tree, li: int):
@@ -87,16 +129,20 @@ class LM:
         # forward: "none" | "full" | "dots" (set by the train-step factory)
         self.remat = "none"
 
-    def _superblock(self, p_l, x: torch.Tensor) -> torch.Tensor:
+    def _superblock(self, p_l, x: torch.Tensor, aux: torch.Tensor
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
         for i, typ in enumerate(self.sched.pattern):
-            x, _ = L.apply_dense_block(p_l[f"b{i}_{typ}"], self.cfg, x)
-        return x
+            x, _, a = _apply_sub(p_l[f"b{i}_{typ}"], self.cfg, typ, x)
+            if a is not None:
+                aux = aux + a
+        return x, aux
 
-    def _maybe_remat(self, p_l, x: torch.Tensor) -> torch.Tensor:
+    def _maybe_remat(self, p_l, x: torch.Tensor, aux: torch.Tensor
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """One superblock, recomputed in the backward under "full" (saves
         nothing inside) or "dots" (saves the projection matmuls)."""
         if self.remat == "none" or not torch.is_grad_enabled():
-            return self._superblock(p_l, x)
+            return self._superblock(p_l, x, aux)
         if self.remat == "full":
             ctx = ckpt.noop_context_fn
         elif self.remat == "dots":
@@ -104,8 +150,8 @@ class LM:
                                     _save_dots)
         else:
             raise ValueError(f"remat={self.remat!r}: none, full or dots")
-        return ckpt.checkpoint(self._superblock, p_l, x, use_reentrant=False,
-                               context_fn=ctx)
+        return ckpt.checkpoint(self._superblock, p_l, x, aux,
+                               use_reentrant=False, context_fn=ctx)
 
     # -------------------------- declarations -------------------------
     def decl(self) -> Dict[str, Any]:
@@ -115,7 +161,7 @@ class LM:
                                  ("vocab", "embed"), "normal", 0.02),
             "final_norm": P.norm(cfg.d_model),
             "main": P.stack_decls(
-                {f"b{i}_{t}": L.decl_dense_block(cfg)
+                {f"b{i}_{t}": _decl_sub(cfg, t)
                  for i, t in enumerate(sch.pattern)}, sch.n_super),
         }
         if not cfg.tie_embeddings:
@@ -141,15 +187,18 @@ class LM:
     def backbone(self, params, tokens: torch.Tensor
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Everything up to (and incl.) the final norm, cache-free:
-        (hidden (B,S,d), moe_aux f32 scalar, 0 for the dense family)."""
+        (hidden (B,S,d), moe_aux f32 scalar: the MoE layers' aux losses
+        summed over the layers, 0 for the dense family)."""
         cfg, sch = self.cfg, self.sched
         dt = torch_dtype(cfg.dtype)
         x = params["embed"][tokens.long()].to(dt)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         layers = P.tree_map(lambda t: t.unbind(0), params["main"])
         for li in range(sch.n_super):
-            x = self._maybe_remat(P.tree_map(lambda ts: ts[li], layers), x)
+            x, aux = self._maybe_remat(
+                P.tree_map(lambda ts: ts[li], layers), x, aux)
         x = L.apply_rmsnorm(params["final_norm"], x, cfg.norm_eps)
-        return x, torch.zeros((), dtype=torch.float32, device=x.device)
+        return x, aux
 
     def forward(self, params, tokens: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -349,8 +398,8 @@ class LM:
             for i, typ in enumerate(sch.pattern):
                 name = f"b{i}_{typ}"
                 c = {key: t[li] for key, t in main[name].items()}
-                x, nc = L.apply_dense_block(p_l[name], cfg, x, cache=c,
-                                            spec=spec)
+                x, nc, _ = _apply_sub(p_l[name], cfg, typ, x, cache=c,
+                                      spec=spec)
                 for key in _PER_LAYER:
                     if key in nc:
                         per_layer[name].setdefault(key, []).append(nc[key])

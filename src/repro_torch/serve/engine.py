@@ -34,8 +34,11 @@ Production-shaped serving over a fixed-size decode batch:
     on the paged layout only the accepted prefix is stored
     (``LM.commit_verify``) and they never reach the pool.
 
-The engine serves the dense family (every block carries an indexed KV
-cache).
+The engine serves the dense and moe families (every block carries an
+indexed KV cache). An MoE layer routes with capacity per group of up to
+256 tokens across the whole batch, so a slot's drops depend on its batch
+mates: idle slots and padded prefill positions feed the reference's
+tokens.
 """
 from __future__ import annotations
 
@@ -53,7 +56,7 @@ from repro_torch.serve.decode import (make_engine_prefill, make_engine_tick,
                                       make_engine_verify)
 from repro_torch.serve.kv_cache import PagedKV, PoolExhausted, make_page_copy
 
-ENGINE_FAMILIES = ("dense",)
+ENGINE_FAMILIES = ("dense", "moe")
 KV_LAYOUTS = ("dense", "paged")
 
 

@@ -6,7 +6,10 @@ nvcc). Run them on a machine with one:
 
 Paged kernels: small hostile shapes (the reference's hostile page
 table: out-of-order pages, partial last pages, unmapped tails, an idle
-slot), every activation/pool dtype pair: pools after the store and
+slot), at G = Hq/Hkv = 2 and at granite-moe-3b-a800m's G = 3 with
+head_dim 64 (a kv group's 3 decode rows in the split kernel's 4-row
+block, 21 window rows = 63 of the tensor-core route's 64 stacked rows,
+the 64th slack), every activation/pool dtype pair: pools after the store and
 counters equal bit for bit; outputs and lse within 1e-5 (float32: the
 kernel sums in another order) or 2e-2 (bfloat16: one rounding of the
 output) on rows that attend something; rows that attend nothing come
@@ -23,7 +26,7 @@ of the plain gradient's largest magnitude, and within 1e-5 where every
 gradient is zero in exact arithmetic (dq and dk of a single key). Silent compare: counts equal
 exactly, on ragged sizes with NaN, +-0, infinities and subnormals.
 
-RMSNorm (Triton forward, CUDA backward): widths 128 and 2048 and every
+RMSNorm (Triton forward, CUDA backward): widths 128, 1536 and 2048 and every
 route of the backward (64; 999, 1000 and 10000 wide), ragged row counts,
 rows read by stride, every x/scale dtype pair of the main paths: out
 within 1e-5 relative (float32) or 2e-2 (bfloat16, one rounding of the
@@ -72,16 +75,28 @@ def cuda():
     return torch.device("cuda")
 
 
-def _inputs(dev, S, D, act, pool, seed, b=B, pages=P, ps=PS):
+def _inputs(dev, S, D, act, pool, seed, b=B, pages=P, ps=PS, hq=HQ,
+            hkv=HKV):
     g = torch.Generator(device=dev).manual_seed(seed)
 
     def randn(*shape, dtype):
         return torch.randn(shape, generator=g, device=dev).to(
             getattr(torch, dtype))
-    return (randn(b, S, HQ, D, dtype=act), randn(b, S, HKV, D, dtype=act),
-            randn(b, S, HKV, D, dtype=act),
-            randn(pages, ps, HKV, D, dtype=pool),
-            randn(pages, ps, HKV, D, dtype=pool))
+    return (randn(b, S, hq, D, dtype=act), randn(b, S, hkv, D, dtype=act),
+            randn(b, S, hkv, D, dtype=act),
+            randn(pages, ps, hkv, D, dtype=pool),
+            randn(pages, ps, hkv, D, dtype=pool))
+
+
+def _g3(*cases):
+    """pytest params (value..., hq, hkv): each case at G 2 (hq 4, hkv 2)
+    under its old id (its first value), then the granite shapes at G 3
+    (id: the values and G3)."""
+    out = [pytest.param(*c, HQ, HKV, id=str(c[0]))
+           for c in cases if c[-1] != "G3"]
+    out += [pytest.param(*c[:-1], 6, 2, id="-".join(map(str, c)))
+            for c in cases if c[-1] == "G3"]
+    return out
 
 
 def _compare(got, want, pools_got, pools_want, act):
@@ -89,8 +104,8 @@ def _compare(got, want, pools_got, pools_want, act):
     assert torch.equal(pools_got[0], pools_want[0])
     assert torch.equal(pools_got[1], pools_want[1])
     assert torch.equal(c_k, c_p)
-    b, S = o_k.shape[:2]
-    lse_k, lse_p = l_k.reshape(b, HQ, S), l_p.reshape(b, HQ, S)
+    b, S, hq = o_k.shape[:3]
+    lse_k, lse_p = l_k.reshape(b, hq, S), l_p.reshape(b, hq, S)
     live = lse_p > ref.NEG_INF / 2
     live_o = live.permute(0, 2, 1)[..., None]
     tol = 1e-5 if act == "float32" else 2e-2
@@ -103,9 +118,10 @@ def _compare(got, want, pools_got, pools_want, act):
 
 
 @pytest.mark.parametrize("act,pool", PAIRS)
-@pytest.mark.parametrize("D", [8, 128])
-def test_decode_kernel_matches_plain(cuda, act, pool, D):
-    q, k, v, pk, pv = _inputs(cuda, 1, D, act, pool, seed=D)
+@pytest.mark.parametrize("D,hq,hkv", _g3((8,), (128,), (64, "G3")))
+def test_decode_kernel_matches_plain(cuda, act, pool, D, hq, hkv):
+    q, k, v, pk, pv = _inputs(cuda, 1, D, act, pool, seed=D, hq=hq,
+                              hkv=hkv)
     pt = torch.as_tensor(HOSTILE_PT, device=cuda)
     idx = torch.tensor([9, 5, -1], dtype=torch.int32, device=cuda)
     kk, kv, pk2, pv2 = pk.clone(), pv.clone(), pk.clone(), pv.clone()
@@ -118,10 +134,14 @@ def test_decode_kernel_matches_plain(cuda, act, pool, D):
 
 
 @pytest.mark.parametrize("act,pool", PAIRS)
-@pytest.mark.parametrize("S", [1, 5, 20])
+@pytest.mark.parametrize("S,D,hq,hkv", _g3(
+    (1, 16), (5, 16), (20, 16), (1, 64, "G3"), (5, 64, "G3"),
+    (21, 64, "G3"), (22, 64, "G3")))
 @pytest.mark.parametrize("store", [True, False])
-def test_window_kernel_matches_plain(cuda, act, pool, S, store):
-    q, k, v, pk, pv = _inputs(cuda, S, 16, act, pool, seed=S)
+def test_window_kernel_matches_plain(cuda, act, pool, S, D, hq, hkv,
+                                     store):
+    q, k, v, pk, pv = _inputs(cuda, S, D, act, pool, seed=S, hq=hq,
+                              hkv=hkv)
     pt = torch.as_tensor(HOSTILE_PT, device=cuda)
     idx = torch.tensor([9, 5, -(S + 1)], dtype=torch.int32, device=cuda)
     kk, kv, pk2, pv2 = pk.clone(), pv.clone(), pk.clone(), pv.clone()
@@ -147,14 +167,15 @@ def _split_table(b, seed):
 
 
 @pytest.mark.parametrize("act,pool", PAIRS)
-@pytest.mark.parametrize("D", [8, 128])
-def test_decode_history_over_splits(cuda, act, pool, D):
+@pytest.mark.parametrize("D,hq,hkv", _g3((8,), (128,), (64, "G3")))
+def test_decode_history_over_splits(cuda, act, pool, D, hq, hkv):
     """The decode kernel over histories that span 1, 2, 3 and 6 splits (a
     hole in slot 1's history, the table's last row, an idle slot), and
     twice on the same inputs: bit-identical out, lse, pools, counters."""
     b = 6
     q, k, v, pk, pv = _inputs(cuda, 1, D, act, pool, seed=D + 1, b=b,
-                              pages=b * SPLIT_M, ps=SPLIT_PS)
+                              pages=b * SPLIT_M, ps=SPLIT_PS, hq=hq,
+                              hkv=hkv)
     pt = torch.as_tensor(_split_table(b, seed=D), device=cuda)
     idx = torch.tensor([5, 12, 20, 40, SPLIT_M * SPLIT_PS - 1, -1],
                        dtype=torch.int32, device=cuda)
@@ -170,19 +191,22 @@ def test_decode_history_over_splits(cuda, act, pool, D):
 
 
 @pytest.mark.parametrize("route", ["split", "tensor_core"])
-@pytest.mark.parametrize("S", [5, 16, 64, 128, 130])
+@pytest.mark.parametrize("S,D,hq,hkv", _g3(
+    (5, 128), (16, 128), (64, 128), (128, 128), (130, 128), (5, 64, "G3"),
+    (21, 64, "G3"), (22, 64, "G3"), (128, 64, "G3")))
 @pytest.mark.parametrize("store", [True, False])
-def test_window_routes_bf16(cuda, route, S, store):
+def test_window_routes_bf16(cuda, route, S, D, hq, hkv, store):
     """The window kernel's split and tensor-core routes on the same bf16
-    inputs (f32 pool, head_dim 128), windows at 0 and after a history of
-    48 rows (6 and 3 history splits: the tensor cores split the history
-    of a window of one row tile, S <= 32 here), against the plain
-    version; the route the kernel picks itself (the tensor cores, at
-    S * G > 4) gives the same result bit for bit."""
+    inputs (f32 pool, head_dim 128, or 64 at G 3), windows at 0 and after
+    a history of 48 rows (6 and 3 history splits: the tensor cores split
+    the history of a window of one row tile, S * G <= 64 here), against
+    the plain version; the route the kernel picks itself (the tensor
+    cores, at S * G > 4) gives the same result bit for bit."""
     from repro_torch.kernels.flash_prefill import paged_window_on_route
     b, M_ = 3, -(-(48 + S) // SPLIT_PS) + 1
-    q, k, v, pk, pv = _inputs(cuda, S, 128, "bfloat16", "float32", seed=S,
-                              b=b, pages=b * M_, ps=SPLIT_PS)
+    q, k, v, pk, pv = _inputs(cuda, S, D, "bfloat16", "float32", seed=S,
+                              b=b, pages=b * M_, ps=SPLIT_PS, hq=hq,
+                              hkv=hkv)
     pt_np = np.random.default_rng(S).permutation(b * M_).reshape(b, M_)
     pt = torch.as_tensor(pt_np.astype(np.int32), device=cuda)
     idx = torch.tensor([0, 48, -(S + 1)], dtype=torch.int32, device=cuda)
@@ -409,7 +433,8 @@ RMS_TOL = {"float32": (1e-5, 2e-4), "bfloat16": (2e-2, 3e-2)}
 @pytest.mark.parametrize("rows,width,strided", [
     (1, 128, False), (8, 2048, False), (517, 128, True), (131, 2048, True),
     (33, 1000, False), (700, 2048, False), (9, 64, False),
-    (29, 999, False), (3, 10000, False)])
+    (29, 999, False), (3, 10000, False), (1024, 1536, False),
+    (40, 1536, True)])
 def test_rmsnorm_kernels_match_plain(cuda, x_dtype, s_dtype, rows, width,
                                      strided):
     g = torch.Generator(device=cuda).manual_seed(rows * 7 + width)

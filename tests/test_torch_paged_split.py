@@ -1,7 +1,8 @@
 """The arithmetic of the redesigned paged kernels (B1 and B2), emulated on
 the CPU and held against the reference's jnp oracles
 (``repro.kernels.ref.paged_decode_ref`` / ``paged_window_ref``) at the
-serving path's shapes: B 8, Hq 16, Hkv 8, D 128, page 16, M 11.
+serving paths' shapes: B 8, page 16, M 11, and Hq 16, Hkv 8, D 128
+(qwen3-1.7b, G 2) or Hq 24, Hkv 8, D 64 (granite-moe-3b-a800m, G 3).
 
 * The split history (``csrc/paged_split.cuh``: B1, and B2's short
   windows of f32 activations): each slot's history is cut by page index
@@ -30,8 +31,9 @@ import torch
 from repro.kernels import ref as kref
 from repro_torch.kernels import ref as pref
 
-B, HQ, HKV, D, PS, M = 8, 16, 8, 128, 16, 11
-G = HQ // HKV
+B, PS, M = 8, 16, 11
+# (Hq, Hkv, D) of the serving paths; qwen3's cases keep their ids
+QWEN3, GRANITE = (16, 8, 128), (24, 8, 64)
 P = B * M
 NP = 2                                   # split kernel: pages per split
 NS = -(-M // NP)                         # its splits per slot at M 11: 6
@@ -41,8 +43,24 @@ TK = 32                                  # keys per tensor-core tile
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 DT = {"float32": (jnp.float32, torch.float32),
       "bfloat16": (jnp.bfloat16, torch.bfloat16)}
-SCALE_LOG2 = (torch.tensor(1.0 / math.sqrt(D), dtype=torch.float32)
-              * torch.tensor(math.log2(math.e), dtype=torch.float32))
+
+
+def _scale_log2(D):
+    return (torch.tensor(1.0 / math.sqrt(D), dtype=torch.float32)
+            * torch.tensor(math.log2(math.e), dtype=torch.float32))
+
+
+def _with_granite(cases):
+    """Each case at qwen3's shape (under its old id) and at granite's
+    (id prefixed "granite-"): pytest params whose last value is the
+    (Hq, Hkv, D) shape."""
+    out = []
+    for shape, prefix in ((QWEN3, ""), (GRANITE, "granite-")):
+        for case in cases:
+            vals = case if isinstance(case, tuple) else (case,)
+            out.append(pytest.param(*vals, shape, id=prefix + "-".join(
+                str(v) for v in vals)))
+    return out
 
 # decode positions: 1 to 6 splits of 32 rows (16, 37, 64, 100, 144, 175),
 # mid-page (37, 100), the last row of the table (175), page boundaries
@@ -63,7 +81,8 @@ def _table(seed=0):
     return pt
 
 
-def _inputs(S, act, pool, seed):
+def _inputs(S, act, pool, seed, shape=QWEN3):
+    HQ, HKV, D = shape
     rng = np.random.default_rng(seed)
     f = {k: rng.standard_normal(shape).astype(np.float32) for k, shape in
          (("q", (B, S, HQ, D)), ("k", (B, S, HKV, D)), ("v", (B, S, HKV, D)),
@@ -81,7 +100,7 @@ def _keys(tx, pt, i0, b, h, store):
     and V as the kernels read them (history through the activation dtype,
     window keys through the pool dtype and back)."""
     act, pool = tx["q"].dtype, tx["pk"].dtype
-    S = tx["q"].shape[1]
+    S, D = tx["q"].shape[1], tx["q"].shape[3]
     hist = [p for p in range(min(max(i0, 0), M * PS)) if pt[b, p // PS] >= 0]
 
     def rows(ps_):
@@ -100,7 +119,7 @@ def _keys(tx, pt, i0, b, h, store):
 
 def _partial(qg, k, v, vis):
     """One split's f32 partial in log2 units: (max, sum, accumulator)."""
-    s = torch.where(vis, (qg @ k.T) * SCALE_LOG2, -torch.inf)
+    s = torch.where(vis, (qg @ k.T) * _scale_log2(qg.shape[1]), -torch.inf)
     m = s.amax(-1) if s.shape[1] else torch.full((qg.shape[0],), -torch.inf)
     p = torch.where(vis, torch.exp2(s - torch.where(
         m == -torch.inf, 0.0, m)[:, None]), 0.0)
@@ -111,7 +130,8 @@ def split_partials(tx, pt, i0, b, h, store):
     """Slot b, kv head h: the NS partials of the split kernel, in split
     order; the window's keys go to the split that holds i0."""
     q = tx["q"]
-    S = q.shape[1]
+    S, D = q.shape[1], q.shape[3]
+    G = q.shape[2] // tx["k"].shape[2]
     SR = NP * PS
     ws = min(max(i0, 0) // SR, NS - 1)
     r_of = torch.arange(S * G) // G              # query row i = r * G + g
@@ -133,7 +153,9 @@ def split_emulation(tx, pt, idx, store):
     """The split-history kernel's arithmetic: per-split partials combined
     in split order. Returns (out, lse) in the kernels' layouts."""
     q = tx["q"]
-    S = q.shape[1]
+    S, HQ, D = q.shape[1:]
+    HKV = tx["k"].shape[2]
+    G = HQ // HKV
     out = torch.zeros((B, S, HQ, D))
     lse = torch.full((B, HQ, S), pref.NEG_INF)
     for b in range(B):
@@ -156,7 +178,8 @@ def _tc_softmax(qg, tiles):
     """Online softmax over key tiles as the tensor-core kernel takes them:
     log2 units, P rounded to bf16 before P V, f32 sums. Returns the
     unnormalised (m, l, acc)."""
-    n = qg.shape[0]
+    n, D = qg.shape
+    SCALE_LOG2 = _scale_log2(D)
     m = torch.full((n,), -torch.inf)
     l, o = torch.zeros(n), torch.zeros((n, D))
     for k, v, vis in tiles:
@@ -179,7 +202,9 @@ def tc_emulation(tx, pt, idx, store):
     pages, the window's keys in the split that holds idx, combined in
     split order. Returns (out, lse)."""
     q = tx["q"]
-    S = q.shape[1]
+    S, HQ, D = q.shape[1:]
+    HKV = tx["k"].shape[2]
+    G = HQ // HKV
     out = torch.zeros((B, S, HQ, D))
     lse = torch.full((B, HQ, S), pref.NEG_INF)
     r_of = torch.arange(S * G) // G
@@ -261,49 +286,54 @@ PAIRS = [("float32", "float32"), ("bfloat16", "float32"),
          ("bfloat16", "bfloat16")]
 
 
-@pytest.mark.parametrize("act,pool", PAIRS)
-def test_split_decode_matches_reference(act, pool):
+@pytest.mark.parametrize("act,pool,shape", _with_granite(PAIRS))
+def test_split_decode_matches_reference(act, pool, shape):
     """B1: the decode through the split history at positions spanning 1, 2
-    and 3 splits, against ``paged_decode_ref``."""
-    jx, tx = _inputs(1, act, pool, seed=1)
+    and 3 splits, against ``paged_decode_ref``; at granite's G 3 a kv
+    group's 3 query rows sit in the kernel's 4-row block."""
+    jx, tx = _inputs(1, act, pool, seed=1, shape=shape)
     pt = _table()
     want_out, want_lse = _oracle(jx, tx, pt, DEC_IDX, 1, True)
     got = split_emulation(tx, pt, DEC_IDX, store=True)
     _check(got, want_out, want_lse, DEC_IDX, act)
 
 
-@pytest.mark.parametrize("act,pool", PAIRS)
+@pytest.mark.parametrize("act,pool,shape", _with_granite(PAIRS))
 @pytest.mark.parametrize("store", [True, False])
-def test_split_verify_window_matches_reference(act, pool, store):
+def test_split_verify_window_matches_reference(act, pool, shape, store):
     """B2 at W = 5 (verify, overwrite and defer) through the split
-    history, against ``paged_window_ref``."""
-    jx, tx = _inputs(5, act, pool, seed=5)
+    history, against ``paged_window_ref`` (at granite's G 3: 15 query
+    rows a kv group)."""
+    jx, tx = _inputs(5, act, pool, seed=5, shape=shape)
     pt = _table(1)
     want_out, want_lse = _oracle(jx, tx, pt, W5_IDX, 5, store)
     got = split_emulation(tx, pt, W5_IDX, store=store)
     _check(got, want_out, want_lse, W5_IDX, act)
 
 
-@pytest.mark.parametrize("pool", ["float32", "bfloat16"])
+@pytest.mark.parametrize("pool,shape", _with_granite(["float32",
+                                                     "bfloat16"]))
 @pytest.mark.parametrize("store", [True, False])
-def test_tc_prefill_rounding_matches_reference(pool, store):
+def test_tc_prefill_rounding_matches_reference(pool, shape, store):
     """B2's tensor-core route at the prefill (S 128, bf16 activations):
     fresh slots at 0, prefix hits with history, an idle slot; rounding P
-    to bf16 stays within the bf16 tolerance of ``paged_window_ref``."""
-    jx, tx = _inputs(128, "bfloat16", pool, seed=128)
+    to bf16 stays within the bf16 tolerance of ``paged_window_ref`` (at
+    granite's G 3 the kernel takes the 128 rows in 7 row tiles of 21)."""
+    jx, tx = _inputs(128, "bfloat16", pool, seed=128, shape=shape)
     pt = _table(2)
     want_out, want_lse = _oracle(jx, tx, pt, S128_IDX, 128, store)
     got = tc_emulation(tx, pt, S128_IDX, store=store)
     _check(got, want_out, want_lse, S128_IDX, "bfloat16")
 
 
-@pytest.mark.parametrize("pool", ["float32", "bfloat16"])
+@pytest.mark.parametrize("pool,shape", _with_granite(["float32",
+                                                     "bfloat16"]))
 @pytest.mark.parametrize("store", [True, False])
-def test_tc_verify_window_matches_reference(pool, store):
+def test_tc_verify_window_matches_reference(pool, shape, store):
     """The tensor-core route at the verify width (W = 5, bf16 activations:
     one row tile, so the history is split 3 ways and combined in split
     order): within the bf16 tolerance of ``paged_window_ref``."""
-    jx, tx = _inputs(5, "bfloat16", pool, seed=6)
+    jx, tx = _inputs(5, "bfloat16", pool, seed=6, shape=shape)
     pt = _table(3)
     want_out, want_lse = _oracle(jx, tx, pt, W5_IDX, 5, store)
     got = tc_emulation(tx, pt, W5_IDX, store=store)

@@ -188,6 +188,19 @@ class WasteProfile:
                                                   bytes=f.bytes)
         return t
 
+    # the reference's accessors, which its tests and examples read
+    @property
+    def dead_stores(self) -> PairTable:
+        return self.pair_table("dead_store")
+
+    @property
+    def silent_stores(self) -> PairTable:
+        return self.pair_table("silent_store")
+
+    @property
+    def silent_loads(self) -> PairTable:
+        return self.pair_table("silent_load")
+
     @property
     def total_store_events(self) -> int:
         return int(self.totals.get("store_events", 0))
@@ -195,6 +208,14 @@ class WasteProfile:
     @property
     def total_load_events(self) -> int:
         return int(self.totals.get("load_events", 0))
+
+    @property
+    def total_store_bytes(self) -> float:
+        return self.totals.get("store_bytes", 0.0)
+
+    @property
+    def total_load_bytes(self) -> float:
+        return self.totals.get("load_bytes", 0.0)
 
     # -- merge (cross-epoch, cross-shard, cross-tier) ------------------
     def merge(self, other: "WasteProfile") -> "WasteProfile":

@@ -1,13 +1,37 @@
-"""Profile JSON round trip (paper §5.6, DESIGN.md §2): every tier emits
-the same findings.WasteProfile, written and read losslessly so shards
-can be merged post-mortem (``findings.merge_profiles``). The JSON is the
-reference package's: either package loads the other's profiles.
+"""Post-mortem profile rendering and merging (paper §5.6, DESIGN.md §2).
+
+Every tier emits the same findings.WasteProfile, so merging is uniform:
+per-device / per-process / per-tier profiles coalesce with the paper's
+rule — ⟨C1,C2⟩ pairs merge iff both calling contexts (and kind/tier)
+match; estimator counters and totals aggregate. Profiles round-trip
+through JSON losslessly, so shards can be written per host and merged
+post-mortem. The JSON is the reference package's: either package loads
+the other's profiles.
 """
 from __future__ import annotations
 
 import os
+from typing import Iterable
 
-from repro_torch.core.findings import WasteProfile
+from repro_torch.core.findings import WasteProfile, merge_profiles
+
+
+def merge_reports(reports: Iterable[WasteProfile]) -> WasteProfile:
+    """Mutating left-fold merge (seed API): first profile absorbs the rest."""
+    it = iter(reports)
+    first = next(it)
+    for r in it:
+        first.merge(r)
+    return first
+
+
+def merge_shards(reports: Iterable[WasteProfile]) -> WasteProfile:
+    """Pure cross-shard merge: inputs untouched, fresh merged profile."""
+    return merge_profiles(reports)
+
+
+def render(report: WasteProfile, top_k: int = 5) -> str:
+    return report.render(top_k=top_k)
 
 
 def dump_json(report: WasteProfile, path: str) -> str:

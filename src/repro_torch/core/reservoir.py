@@ -19,7 +19,7 @@ from __future__ import annotations
 
 import random
 from dataclasses import dataclass
-from typing import Any, List, Optional
+from typing import Any, Callable, List, Optional
 
 
 @dataclass
@@ -85,6 +85,9 @@ class ReservoirWatchpoints:
         return installed
 
     # ------------------------------------------------------------------
+    def matching(self, pred: Callable[[Watchpoint], bool]) -> List[Watchpoint]:
+        return [w for w in self.slots if w is not None and pred(w)]
+
     def disarm(self, wp: Watchpoint) -> None:
         """Trap handled: free the slot (reservoir P resets to 1.0 — the
         slot count restarts when the next occupant arms)."""
@@ -94,3 +97,9 @@ class ReservoirWatchpoints:
                 self.counts[i] = 0
                 self.stats["traps"] += 1
                 return
+
+    def disarm_all(self) -> None:
+        """Epoch boundary (GC analogue: one profiled run) — watchpoints
+        never survive an epoch because buffer identity is not stable."""
+        self.slots = [None] * self.num_slots
+        self.counts = [0] * self.num_slots

@@ -7,6 +7,11 @@ norm and the silent compare) or raises; a CPU tensor takes the kernel's
 plain version from ``ref.py``. There is no switch and no fallback. The
 paged scatter/gather and the masked attention of the dense per-slot cache
 are plain PyTorch on every device, as the reference left them to XLA.
+
+Under a tier-1 recording (``core/interpreter.py``) each entry point
+records itself as one operation ``ops.<name>`` on every device: a LOAD
+per tensor input, a STORE per output and per pool written in place.
+Outside a recording it runs as it is.
 """
 from __future__ import annotations
 
@@ -15,6 +20,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch.core.interpreter import recorded
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.flash_prefill import paged_window_attention
@@ -31,6 +37,7 @@ paged_gather = _ref.paged_gather
 paged_store_counts = _ref.paged_store_counts
 
 
+@recorded("attention")
 def attention(q, k, v, *, causal: bool = True, q_offset=0,
               kv_len: Optional[torch.Tensor] = None,
               kv_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -45,6 +52,7 @@ def attention(q, k, v, *, causal: bool = True, q_offset=0,
                               kv_len=kv_len, kv_valid=kv_valid)
 
 
+@recorded("rmsnorm")
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
             eps: float = 1e-5) -> torch.Tensor:
     """Row RMSNorm of x (..., d) with scale (d,), differentiable. CPU
@@ -58,6 +66,7 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
     return rmsnorm_forward(x, scale, eps)[0]
 
 
+@recorded("paged_decode", writes=lambda a: (a["pool_k"], a["pool_v"]))
 def paged_decode(q, k_new, v_new, pool_k, pool_v, pt, idx, *,
                  counters: bool = False):
     """One-token paged decode: attend the slot history + the new K/V row
@@ -71,6 +80,8 @@ def paged_decode(q, k_new, v_new, pool_k, pool_v, pt, idx, *,
     return out, pool_k, pool_v, (cnt if counters else None)
 
 
+@recorded("paged_window", writes=lambda a: (
+    (a["pool_k"], a["pool_v"]) if a["store"] else ()))
 def paged_window(q, k_win, v_win, pool_k, pool_v, pt, idx, *,
                  store: bool = True, counters: bool = False):
     """S-token paged window forward (prefill chunk / verify window): the
@@ -83,6 +94,7 @@ def paged_window(q, k_win, v_win, pool_k, pool_v, pt, idx, *,
     return out, ck, cv, (cnt if counters else None)
 
 
+@recorded("silent_count")
 def silent_count(a, b, tol: float = 0.01) -> torch.Tensor:
     """Count of silent (unchanged within tol) elements between a and b, a
     0-d int32 tensor: the silent-compare kernel on CUDA tensors, its

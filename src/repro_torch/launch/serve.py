@@ -12,9 +12,11 @@ reduced config). Without CUDA and without ``--device cpu`` it raises.
 (serve/kv_cache.py): refcounted pages + copy-on-write prefix reuse,
 eliminating the waste the detectors flag in dense mode. ``--profile``
 merges the tier-3 serving detectors, the tier-4 in-kernel store
-counters (paged layout) and the prefill padding accounting into one
-``WasteProfile``. The reference's tiers 1 and 2 (jaxpr interpreter, HLO
-analysis) are bound to JAX and are not ported.
+counters (paged layout), the prefill padding accounting and tier 1 (the
+concrete-run recorder, trace→replay, period 5000, 2 epochs) on one
+single-token decode microstep over a dense f32 cache into one
+``WasteProfile``, as the reference does. The reference's tier 2 (HLO
+analysis) is bound to JAX and is not ported.
 
 ``--spec on`` adds speculative decoding (serve/spec.py): a host-side
 drafter proposes up to ``--spec-k`` tokens per tick and ONE width-(k+1)
@@ -29,6 +31,7 @@ oracle`` runs a plain pass first, replays its continuations (accept rate
 from __future__ import annotations
 
 import argparse
+import time
 from typing import Optional
 
 import numpy as np
@@ -38,6 +41,7 @@ from repro_torch.configs import registry
 from repro_torch.configs.base import ProfilerConfig
 from repro_torch.core.detectors import ServingDetectors
 from repro_torch.core.findings import Finding, WasteProfile, merge_profiles
+from repro_torch.core.interpreter import JxInterpreter
 from repro_torch.core.report import dump_json
 from repro_torch.core.sarif import write_sarif
 from repro_torch.data.synthetic import batch_at
@@ -45,8 +49,7 @@ from repro_torch.models.zoo import build_model
 from repro_torch.serve.engine import ENGINE_FAMILIES, Request, ServeEngine
 from repro_torch.serve.spec import make_drafter
 
-NOT_PORTED_TIERS = ("tier 1 (jaxpr interpreter, profile_fn) and tier 2 "
-                    "(HLO waste analysis) are bound to JAX and not ported")
+NOT_PORTED_TIERS = "tier 2 (HLO waste analysis) is bound to JAX and not ported"
 
 
 def padding_waste_profile(stats) -> WasteProfile:
@@ -67,6 +70,32 @@ def padding_waste_profile(stats) -> WasteProfile:
             fraction=padded / max(padded + useful, 1),
             meta={"padded_tokens": padded, "computed_tokens": useful}))
     return prof
+
+
+def tier1_decode_subject(model, params, batch: int, max_len: int):
+    """Tier 1's serving subject, the reference driver's: the greedy next
+    token of one cached forward of (batch, 1) tokens over a fresh dense
+    f32 cache of `max_len` positions."""
+    cache1 = model.init_cache(params, batch, max_len, kv_dtype=torch.float32)
+
+    @torch.no_grad()
+    def decode(tok):
+        logits, _ = model.decode_step(params, cache1, tok)
+        return torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
+    return decode
+
+
+def tier1_decode_profile(model, params, tokens: torch.Tensor, max_len: int,
+                         seed: int):
+    """Tier 1 on the decode microstep (``tier1_decode_subject``) of
+    `tokens`, as the reference's serving driver runs it: period 5000, 2
+    epochs (the second replays the first's trace). Returns ``(profile,
+    interpreter)``; the interpreter's ``stats`` hold the recording's
+    counts and times."""
+    interp = JxInterpreter(ProfilerConfig(enabled=True, period=5000,
+                                          seed=seed))
+    decode = tier1_decode_subject(model, params, tokens.shape[0], max_len)
+    return interp.profile(decode, tokens, epochs=2), interp
 
 
 def resolve_device(device: str) -> torch.device:
@@ -172,8 +201,24 @@ def run(arch: str, *, smoke: bool = False, batch: int = 4,
 
     merged = None
     if profile:
+        t0 = time.perf_counter()
+        tier1, interp = tier1_decode_profile(
+            model, params, torch.as_tensor(out[:, -1:], device=dev),
+            prompt_len + gen + 1, seed)
+        ts = interp.stats
+        stats["tier1_s"] = time.perf_counter() - t0
+        stats["tier1_record_s"] = ts["record_s"]
+        stats["tier1_epoch_s"] = ts["epoch_s"]
+        print(f"[serve] tier 1 (decode microstep): {ts['ops']} ops "
+              f"({ts['kernel_ops']} kernel), {ts['events']} events, "
+              f"{ts['element_events']:,} element-events, "
+              f"{ts['snapshot_bytes']:,} bytes snapshotted; recording "
+              f"{ts['record_s']:.2f} s, epochs "
+              + " / ".join(f"{t:.2f}" for t in ts["epoch_s"])
+              + f" s, {stats['tier1_s']:.2f} s in all")
+        del interp
         print(f"[serve] {NOT_PORTED_TIERS}")
-        merged = merge_profiles([det.combined(),
+        merged = merge_profiles([tier1, det.combined(),
                                  padding_waste_profile(stats)])
         print(merged.render(top_k=3))
         if profile_out:

@@ -372,7 +372,7 @@ def test_launch_serve_matches_reference(spec, rollback, monkeypatch):
     for key, value in ref_stats.items():
         if key in stats and key not in WALL_CLOCK:
             assert stats[key] == value, key
-    assert merged.tiers == [2, 3, 4]
+    assert merged.tiers == [1, 2, 3, 4]
     for kind, n in tier3.checked.items():
         assert merged.checked[kind] == n, kind
         assert merged.flagged.get(kind, 0) == tier3.flagged.get(kind, 0)

@@ -174,7 +174,7 @@ def test_launch_serve_run_matches_reference_engine(kv, monkeypatch):
 
 def test_merged_profile_json_round_trips_through_reference(tmp_path,
                                                           monkeypatch):
-    """The port's merged serving profile (tiers 2, 3, 4) is a reference
+    """The port's merged serving profile (tiers 1, 2, 3, 4) is a reference
     WasteProfile: it loads with ``repro.core.report.load_json``, equals
     itself after the round trip, and merges with a reference profile."""
     from repro_torch.configs import registry as pt_registry
@@ -191,7 +191,7 @@ def test_merged_profile_json_round_trips_through_reference(tmp_path,
         "qwen3-1.7b", batch=2, prompt_len=8, gen=4, kv="paged",
         profile=True, profile_out=path, sarif_out=str(tmp_path / "p.sarif"),
         device="cpu")
-    assert merged.tiers == [2, 3, 4]
+    assert merged.tiers == [1, 2, 3, 4]
     loaded = ref_load_json(path)
     assert loaded.to_dict() == merged.to_dict()
     ref_det = RefDetectors(RefProfilerConfig(enabled=True))
@@ -201,6 +201,49 @@ def test_merged_profile_json_round_trips_through_reference(tmp_path,
         merged.checked["silent_prefix_load"] + 1
     dump_json(merged, str(tmp_path / "again.json"))
     assert ref_load_json(str(tmp_path / "again.json")) == loaded
+
+
+def test_serve_profile_runs_tier1_on_the_decode_microstep(monkeypatch,
+                                                          capsys):
+    """``--profile`` runs tier 1 on one decode microstep, as the
+    reference's driver: the merged profile has tier 1, whose loads cover
+    at least every parameter byte of the decode step (each weight is read
+    for its cast) and whose stores are non-zero; each norm and attention
+    entry point is one recorded kernel operation; the rendered header
+    names tiers 1-4 and only tier 2 is reported as not ported."""
+    from repro_torch.configs import registry as pt_registry
+    from repro_torch.launch import serve as pt_serve
+    from repro_torch.models import lm as pt_lm
+    from repro_torch.models.params import tree_leaves
+
+    _, _, pt_model, pt_params = smoke_models()
+    monkeypatch.setattr(pt_registry, "get_config",
+                        lambda arch: pt_model.cfg)
+    monkeypatch.setattr(pt_lm.LM, "init",
+                        lambda self, seed=0, **kw: pt_params)
+    out, merged, stats = pt_serve.run(
+        "qwen3-1.7b", batch=2, prompt_len=8, gen=4, kv="paged",
+        profile=True, device="cpu")
+    text = capsys.readouterr().out
+    assert "(tiers 1,2,3,4)" in text
+    assert pt_serve.NOT_PORTED_TIERS in text
+    assert "tier 1" not in pt_serve.NOT_PORTED_TIERS
+    assert 1 in merged.tiers and stats["tier1_s"] > 0
+
+    tier1, interp = pt_serve.tier1_decode_profile(
+        pt_model, pt_params, torch.as_tensor(out[:, -1:]), 8 + 4 + 1, 0)
+    param_bytes = sum(t.numel() * t.element_size()
+                      for t in tree_leaves(pt_params))
+    assert tier1.tiers == [1]
+    assert tier1.total_store_events > 0 and tier1.total_load_events > 0
+    assert tier1.total_load_bytes >= param_bytes
+    assert merged.total_load_bytes >= tier1.total_load_bytes
+    assert sum(tier1.checked.values()) > 0
+    layers = pt_model.cfg.num_layers
+    assert interp.stats["kernel_ops"] == (4 * layers + 1) + layers
+    assert len(interp.stats["epoch_s"]) == 2
+    assert tier1.to_dict() == merged.__class__.from_json(
+        tier1.to_json()).to_dict()
 
 
 def test_engines_share_one_step_cache():

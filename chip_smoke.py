@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch port (``src/repro_torch``) on one
 NVIDIA GPU: the serving path, the speculative-verify serving path and
-the training path.
+the training path of qwen3-1.7b, granite-moe-3b-a800m's serving and
+training, and zamba2-1.2b's (the hybrid family's) serving and training.
 
     python3 chip_smoke.py
 
@@ -47,7 +48,9 @@ the training path.
    through every route that takes the inputs, two calls bit-identical,
    and their main-path calls timed; and B5 at width 1536 (decode,
    verify and prefill rows, strided rows, every dtype pair), its
-   forward timed beside ``F.rms_norm``;
+   forward timed beside ``F.rms_norm``; and B5's forward at qwen3's
+   serving shapes (decode 8 x 2048, prefill 1024 x 2048, the q- and
+   k-norms of both) timed beside ``F.rms_norm``;
 3. runs the main path at full width: ``repro_torch.launch.serve.run``
    for qwen3-1.7b with the paged KV heap and the profiler on (random
    weights from seed 0, 28 layers), with the kernels' launch counts set
@@ -60,9 +63,10 @@ the training path.
    each run of phases 3-3c), and, on the smoke config in float32, the
    same greedy tokens
    and store counts from the kernels on the card as from the plain
-   versions on the CPU; and traces one admission step and one decode
-   tick at full width with torch.profiler (device time by kernel kind,
-   device busy share);
+   versions on the CPU; and traces one admission step, one decode tick
+   and one verify tick at full width with torch.profiler (device time by
+   kernel kind, device busy share), each trace opened by untimed spin
+   kernels and its B1, B2 and B5 kernels equal to the launch counters;
 3b. runs the speculative-verify path at full width:
    ``repro_torch.launch.serve.run`` with ``spec=True, spec_k=4,
    draft="ngram"``, once with rollback and once without, launch counts
@@ -114,9 +118,11 @@ the training path.
    train steps with the kernels on the card give the losses, grad norms
    and detector findings of the plain versions on the CPU; then one
    full-width train step under remat "none", "full" and "dots" from the
-   same state: loss and grad norm bit for bit equal, the recomputed
-   forwards' launches counted (B4 28 + 28, B5 113 + 112 a step), peak
-   device memory of each;
+   same state, each mode run only when its reckoned bytes fit the card
+   (``reckon_step_bytes``): loss and grad norm bit for bit equal, the
+   recomputed forwards' launches counted (B4 28 + 28, B5 113 + 112 a
+   step), peak device memory of each beside its reckoning; the traced
+   train step's kernels equal to the launch counters;
 6. runs tier 1 (``core/interpreter.py``, the concrete-run recorder) on
    the card: the tier-1 corpus programs (linear search, loop-invariant
    recompute, dead stores, the clean chain, FP drift) on CUDA tensors,
@@ -128,7 +134,24 @@ the training path.
    recorded operations, events and element-events, B5 launches in the
    recording (113) and in the engine's passes (0), bytes snapshotted,
    the seconds of the recording and of each pass, peak device memory
-   with the trace held and after it is dropped, the top findings.
+   with the trace held and after it is dropped, the top findings;
+7. trains granite-moe-3b-a800m at full width (32 layers, 40 experts
+   top-8): first B4 at its heads (Hq 24, Hkv 8, D 64: G 3) and B5 at
+   4096 x 1536 against their plain versions and timed (phase 7a, run
+   with 8a before the main paths); one step under each remat mode that
+   fits (bit-equal, peaks beside the reckoning); ``launch.train.run``, 4
+   steps of 4 x 1024 tokens with the detectors on (32 + 32 B4 and 65 +
+   65 B5 launches a step, one B3 per checked store); timed steps and a
+   traced step; the smoke config in float32, card against CPU;
+8. runs zamba2-1.2b (38 Mamba2 blocks, one shared attention block used
+   6 times) at full width: B4 at its heads (32, 32, 64: G 1) and B5 at
+   4096 x 4096 (the gate norm, the backward's widest wide-route row)
+   and 4104 against their plain versions (8a); ``launch.serve.run`` (the
+   token-loop driver, profile on, batch 8, prompt 128 + 32) twice, equal
+   tokens, 89 B5 launches a step, tier 1's line, prefill and decode
+   tok/s, one decode step traced; the smoke config (8 layers) in float32,
+   the card's tokens and tier-1 totals equal to the CPU's; then training
+   as in 7 (6 + 6 B4 and 89 + 89 B5 launches a step).
 
 The line before the last lists the card; the last line is the JSON
 result. Any failure exits non-zero; without CUDA, or without the rest of
@@ -485,7 +508,8 @@ def launch_grids(torch, fn, kinds=("paged_decode", "paged_window")):
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        torch.zeros(1, device="cuda")   # a trace can miss its first kernel
+        for _ in range(LEAD_IN):        # a trace can miss its first kernels
+            torch.cuda._sleep(100)
         torch.cuda.synchronize()
         fn()
         torch.cuda.synchronize()
@@ -703,7 +727,6 @@ def library_call(torch, q, kn, vn, pool_k, pool_v, pt, idx, S):
 # ----------------------------------------------------------------------
 RMS_TOL = {"float32": (1e-5, 2e-4), "bfloat16": (2e-2, 3e-2)}
 RMS_EPS = 1e-6                            # qwen3's norm_eps
-NORMS_PER_FORWARD = 4                     # per layer: ln1, ln2, q, k
 
 
 def rmsnorm_case(torch, rows, width, x_dtype, s_dtype, strided, seed):
@@ -881,9 +904,6 @@ def check_rmsnorm_granite(torch, timer, entries):
     (the backward's routes too); the forward timed at the serving path's
     dtypes (bf16 x, f32 scale) at the prefill's and the decode's rows
     beside ``F.rms_norm``, its numbers added to ``by_shape``."""
-    import torch.nn.functional as F
-    from repro_torch.kernels import ref
-    from repro_torch.kernels.rmsnorm import rmsnorm_forward
     width, seed = 1536, 500
     for x_dtype, s_dtype in (("float32", "float32"), ("bfloat16", "float32"),
                              ("bfloat16", "bfloat16")):
@@ -892,23 +912,105 @@ def check_rmsnorm_granite(torch, timer, entries):
             seed += 1
             rmsnorm_case(torch, rows, width, x_dtype, s_dtype, strided, seed)
     for label, rows in (("prefill", 1024), ("decode", 8)):
-        err, _, (x, scale, _, _) = rmsnorm_case(
-            torch, rows, width, "bfloat16", "float32", False, seed=rows)
-        calls = {"fwd": lambda: rmsnorm_forward(x, scale, RMS_EPS),
-                 "plain": lambda: ref.rmsnorm_ref(x, scale, RMS_EPS),
-                 "lib": lambda: F.rms_norm(x, (width,), scale, RMS_EPS)}
-        dev = {k: timer.device(fn) for k, fn in calls.items()}
-        n = rows * width
-        b_ms, by = bound(2 * n * x.element_size() + width * 4, 4 * n,
-                         PEAK_FLOPS["float32"])
-        print(f"[kernels] rmsnorm forward, {GRANITE} {label} ({rows} x "
-              f"{width} bf16, f32 scale), device time: kernel "
-              f"{dev['fwd']:.4f} ms | plain {dev['plain']:.4f} ms | "
-              f"F.rms_norm {dev['lib']:.4f} ms | bound {b_ms:.4f} ms ({by})",
-              flush=True)
-        entries["rmsnorm_fwd"]["by_shape"][f"{GRANITE} {label}"] = {
-            "max_abs_err": err, "ms": dev["fwd"], "plain_ms": dev["plain"],
-            "bound_ms": b_ms, "bound_by": by, "library_ms": dev["lib"]}
+        norm_forward_times(torch, timer, entries, f"{GRANITE} {label}", rows,
+                           width)
+
+
+def norm_forward_times(torch, timer, entries, tag, rows, width,
+                       s_dtype="float32"):
+    """B5's forward at one serving shape (bf16 x, a scale in
+    ``s_dtype``, no rstd) against its plain version (and its backward on
+    the same rows, by ``rmsnorm_case``), timed by device time beside
+    ``F.rms_norm``; the numbers go into the forward entry's ``by_shape``
+    under ``tag``."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.rmsnorm import rmsnorm_forward
+    err, _, (x, scale, _, _) = rmsnorm_case(
+        torch, rows, width, "bfloat16", s_dtype, False, seed=rows + width)
+    calls = {"fwd": lambda: rmsnorm_forward(x, scale, RMS_EPS),
+             "plain": lambda: ref.rmsnorm_ref(x, scale, RMS_EPS),
+             "lib": lambda: F.rms_norm(x, (width,), scale, RMS_EPS)}
+    dev = {k: timer.device(fn) for k, fn in calls.items()}
+    n = rows * width
+    b_ms, by = bound(2 * n * x.element_size() + width * scale.element_size(),
+                     4 * n, PEAK_FLOPS["float32"])
+    print(f"[kernels] rmsnorm forward, {tag} ({rows} x {width} bf16, "
+          f"{s_dtype} scale), device time: kernel {dev['fwd']:.4f} ms "
+          f"({b_ms / dev['fwd']:.3f} of the bound) | plain "
+          f"{dev['plain']:.4f} ms | F.rms_norm {dev['lib']:.4f} ms | bound "
+          f"{b_ms:.4f} ms ({by}: {(2 * n * 2) / 1e6:.3f} MB)", flush=True)
+    entries["rmsnorm_fwd"]["by_shape"][tag] = {
+        "max_abs_err": err, "ms": dev["fwd"], "plain_ms": dev["plain"],
+        "bound_ms": b_ms, "bound_by": by, "library_ms": dev["lib"]}
+
+
+def norm_train_times(torch, timer, entries, tag, rows, width):
+    """B5's forward (rstd written) and backward at a training shape (bf16
+    x and scale, as the compute params are) against their plain versions
+    (two backward calls bit-identical, one backward launch a call in the
+    trace), timed by device time beside ``F.rms_norm``; the numbers go
+    into both entries' ``by_shape`` under ``tag``."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.rmsnorm import (plan_for, rmsnorm_backward,
+                                            rmsnorm_forward)
+    err, err_g, (x, scale, dy, rstd) = rmsnorm_case(
+        torch, rows, width, "bfloat16", "bfloat16", False, seed=rows + width)
+    xl = x.detach().requires_grad_(True)
+    sl = scale.detach().requires_grad_(True)
+    calls = {
+        "fwd": lambda: rmsnorm_forward(x, scale, RMS_EPS, want_rstd=True),
+        "bwd": lambda: rmsnorm_backward(x, scale, rstd, dy, RMS_EPS),
+        "fwd_plain": lambda: ref.rmsnorm_ref(x, scale, RMS_EPS),
+        "bwd_plain": lambda: ref.rmsnorm_bwd_ref(x, scale, dy, RMS_EPS),
+        "fwd_lib": lambda: F.rms_norm(x, (width,), scale, RMS_EPS),
+        "bwd_lib": lambda: torch.autograd.backward(
+            F.rms_norm(xl, (width,), sl, RMS_EPS), dy)}
+    dev = {k: timer.device(fn) for k, fn in calls.items()}
+    plan = plan_for(x, dy)
+    grids = launch_grids(torch, calls["bwd"], ("rmsnorm_bwd",))
+    assert len(grids) == 1 and grids[0][1] == (plan.blocks, 1, 1), grids
+    n, isz = rows * width, x.element_size()
+    fwd_b = bound(2 * n * isz + width * isz + rows * 4, 4 * n,
+                  PEAK_FLOPS["float32"])
+    bwd_b = bound(3 * n * isz + rows * 4 + 2 * width * isz, 8 * n,
+                  PEAK_FLOPS["float32"])
+    print(f"[kernels] rmsnorm {tag} ({rows} x {width} bf16, bf16 scale), "
+          f"device time: forward kernel {dev['fwd']:.4f} ms ("
+          f"{fwd_b[0] / dev['fwd']:.3f} of the bound) | plain "
+          f"{dev['fwd_plain']:.4f} ms | F.rms_norm {dev['fwd_lib']:.4f} ms | "
+          f"bound {fwd_b[0]:.4f} ms ({fwd_b[1]}); backward kernel "
+          f"{dev['bwd']:.4f} ms ({bwd_b[0] / dev['bwd']:.3f} of the bound; "
+          f"{plan.route} route, {plan.blocks} blocks, one launch in the "
+          f"trace) | plain {dev['bwd_plain']:.4f} ms | F.rms_norm fwd+bwd "
+          f"{dev['bwd_lib']:.4f} ms | bound {bwd_b[0]:.4f} ms ({bwd_b[1]}: "
+          f"{(3 * n * isz) / 1e6:.2f} MB)", flush=True)
+    for key, tag_ms, e, (b_ms, by) in (("rmsnorm_fwd", "fwd", err, fwd_b),
+                                       ("rmsnorm_bwd", "bwd", err_g, bwd_b)):
+        entries[key]["by_shape"][tag] = {
+            "max_abs_err": e, "ms": dev[tag_ms],
+            "plain_ms": dev[tag_ms + "_plain"], "bound_ms": b_ms,
+            "bound_by": by, "library_ms": dev[tag_ms + "_lib"]}
+
+
+# qwen3-1.7b's serving norms: (tag, rows, width) of a decode tick of 8
+# slots and an admission prefill of 8 x 128 tokens: the block norms (ln1,
+# ln2, final) over 2048, the q-norm over Hq 16 rows a token and the
+# k-norm over Hkv 8, each over D 128
+QWEN3_SERVING_NORMS = (
+    ("qwen3-1.7b decode", B, 2048), ("qwen3-1.7b decode q-norm", B * HQ, D),
+    ("qwen3-1.7b decode k-norm", B * HKV, D),
+    ("qwen3-1.7b prefill", B * 128, 2048),
+    ("qwen3-1.7b prefill q-norm", B * 128 * HQ, D),
+    ("qwen3-1.7b prefill k-norm", B * 128 * HKV, D))
+
+
+def check_rmsnorm_serving(torch, timer, entries):
+    """Phase 2e. B5's forward at qwen3-1.7b's serving shapes (bf16 x, f32
+    scale, no rstd), timed beside ``F.rms_norm``."""
+    for tag, rows, width in QWEN3_SERVING_NORMS:
+        norm_forward_times(torch, timer, entries, tag, rows, width)
 
 
 # ----------------------------------------------------------------------
@@ -917,7 +1019,8 @@ def check_rmsnorm_granite(torch, timer, entries):
 TB, TSEQ = 4, 1024                        # the training path's batch
 
 
-def flash_case(torch, dtype, sq, skv, causal, seed, d=D, layout="plain"):
+def flash_case(torch, dtype, sq, skv, causal, seed, d=D, layout="plain",
+               hq=HQ, hkv=HKV):
     """Forward and backward kernels against their plain versions on one
     set of inputs (the backward versions both get the kernel's out and
     lse). ``layout``: "plain" (contiguous q, k, v), "fused" (views of
@@ -934,15 +1037,15 @@ def flash_case(torch, dtype, sq, skv, causal, seed, d=D, layout="plain"):
     def randn(*shape):
         return torch.randn(shape, generator=g, device="cuda").to(dt)
     if layout == "fused":
-        qkv = randn(TB, sq, HQ + 2 * HKV, d)
-        q, k, v = qkv[:, :, :HQ], qkv[:, :, HQ:HQ + HKV], qkv[:, :, HQ + HKV:]
+        qkv = randn(TB, sq, hq + 2 * hkv, d)
+        q, k, v = qkv[:, :, :hq], qkv[:, :, hq:hq + hkv], qkv[:, :, hq + hkv:]
     elif layout == "misaligned":
         q, k, v = (randn(TB, s, h, d + 2)[..., 1:d + 1]
-                   for s, h in ((sq, HQ), (skv, HKV), (skv, HKV)))
+                   for s, h in ((sq, hq), (skv, hkv), (skv, hkv)))
     else:
-        q, k, v = (randn(TB, sq, HQ, d), randn(TB, skv, HKV, d),
-                   randn(TB, skv, HKV, d))
-    dout = randn(TB, sq, HQ, d)
+        q, k, v = (randn(TB, sq, hq, d), randn(TB, skv, hkv, d),
+                   randn(TB, skv, hkv, d))
+    dout = randn(TB, sq, hq, d)
     copies = (flash_attention_forward.copies,
               flash_attention_backward.copies)
     out, lse = flash_attention_forward(q, k, v, causal)
@@ -963,7 +1066,8 @@ def flash_case(torch, dtype, sq, skv, causal, seed, d=D, layout="plain"):
     # ZERO_GRAD_ATOL, as in tests/test_torch_cuda_kernels.py
     ok_g = all(e <= max(tol_g * m, ZERO_GRAD_ATOL) for e, m in diffs)
     print(f"[kernels] flash attention {dtype:8s} Sq {sq:4d} Skv {skv:4d} "
-          f"D {d:3d} causal {causal!s:5s} {layout:10s} | out/lse max |err| "
+          f"Hq {hq:2d} Hkv {hkv:2d} D {d:3d} causal {causal!s:5s} "
+          f"{layout:10s} | out/lse max |err| "
           f"{err:.3e} (tol {tol}) | dq/dk/dv max rel err {err_g:.3e} (tol "
           f"{tol_g}; max |err| {max(e for e, _ in diffs):.3e}, largest "
           f"|grad| {min(m for _, m in diffs):.3e} to "
@@ -979,18 +1083,19 @@ def flash_case(torch, dtype, sq, skv, causal, seed, d=D, layout="plain"):
     return err, err_g, (q, k, v, out, lse, dout)
 
 
-def flash_bytes_flops(sq, skv, isz, causal, backward):
+def flash_bytes_flops(sq, skv, isz, causal, backward, heads=QWEN3_HEADS):
     """Least bytes and flops of one call: inputs read once, outputs
     written once; 4 D flops per visible (query, key) pair forward (two
     products), 10 D backward (the scores again, dP, dV, dK, dQ)."""
-    pairs = TB * HQ * (sum(min(r + 1, skv) for r in range(sq)) if causal
+    hq, hkv, d = heads
+    pairs = TB * hq * (sum(min(r + 1, skv) for r in range(sq)) if causal
                        else sq * skv)
-    qo = TB * sq * HQ * D * isz
-    kv = TB * skv * HKV * D * isz
-    lse = TB * HQ * sq * 4
+    qo = TB * sq * hq * d * isz
+    kv = TB * skv * hkv * d * isz
+    lse = TB * hq * sq * 4
     if backward:       # q k v out dout lse in; dq dk dv out
-        return 3 * qo + 2 * kv + lse + qo + 2 * kv, 10 * D * pairs
-    return 2 * qo + 2 * kv + lse, 4 * D * pairs
+        return 3 * qo + 2 * kv + lse + qo + 2 * kv, 10 * d * pairs
+    return 2 * qo + 2 * kv + lse, 4 * d * pairs
 
 
 def bound(nbytes, flops, peak):
@@ -1009,10 +1114,6 @@ def check_flash(torch, timer):
     the training path's own inputs (bfloat16, causal) by device time
     (CUPTI), CUDA-event times beside it. Returns the forward and backward
     JSON entries."""
-    import torch.nn.functional as F
-    from repro_torch.kernels import ref
-    from repro_torch.kernels.flash_attention import (
-        flash_attention_backward, flash_attention_forward)
     for dtype in ("float32", "bfloat16"):
         for sq, skv, causal in ((TSEQ, TSEQ, True), (1000, 1000, True),
                                 (1000, TSEQ, True), (TSEQ, 1000, True),
@@ -1027,14 +1128,39 @@ def check_flash(torch, timer):
             (129, 65, False, 64, "misaligned")):
         flash_case(torch, "bfloat16", sq, skv, causal, seed=sq + 7 * skv + d,
                    d=d, layout=layout)
+    nums = flash_on_training_inputs(torch, timer, "qwen3-1.7b", QWEN3_HEADS)
+    entries = {}
+    for key, num in nums.items():
+        entries[key] = {
+            "name": key, "route": "cuda",
+            "source": "src/repro_torch/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:93",
+            **num, "by_shape": {}}
+    return entries
+
+
+def flash_on_training_inputs(torch, timer, arch, heads):
+    """Flash attention at a training path's inputs (B 4, S 1024, the
+    model's heads, bf16, causal) in bfloat16 and float32 against the
+    plain versions, two backward calls bit-identical, then timed by
+    device time (CUPTI) beside SDPA's forward, its backward alone and
+    its forward + backward, CUDA-event times printed beside. Returns the
+    forward's and the backward's numbers."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_backward, flash_attention_forward)
+    hq, hkv, d = heads
+    flash_case(torch, "float32", TSEQ, TSEQ, True, seed=3, d=d, hq=hq,
+               hkv=hkv)
     err, err_g, (q, k, v, out, lse, dout) = flash_case(
-        torch, "bfloat16", TSEQ, TSEQ, True, seed=1)
+        torch, "bfloat16", TSEQ, TSEQ, True, seed=1, d=d, hq=hq, hkv=hkv)
     first = flash_attention_backward(q, k, v, out, lse, dout, True)
     again = flash_attention_backward(q, k, v, out, lse, dout, True)
     torch.cuda.synchronize()
     same = all(torch.equal(a, b) for a, b in zip(first, again))
-    print(f"[kernels] flash attention backward, two calls on the training "
-          f"inputs: dq, dk, dv bit-identical {same}", flush=True)
+    print(f"[kernels] flash attention backward, two calls on {arch}'s "
+          f"training inputs: dq, dk, dv bit-identical {same}", flush=True)
     assert same, "flash attention backward is not deterministic"
     del first, again
 
@@ -1063,35 +1189,32 @@ def check_flash(torch, timer):
                                                     dt_)}
     dev = {k: timer.device(fn) for k, fn in calls.items()}
     ev = {k: timer(fn) for k, fn in calls.items()}
-    print(f"[kernels] flash attention on the training inputs, CUDA events "
-          f"around each call (host launch path and flush tail included): "
-          + ", ".join(f"{k} {v:.4f} ms" for k, v in ev.items()), flush=True)
+    print(f"[kernels] flash attention on {arch}'s training inputs, CUDA "
+          f"events around each call (host launch path and flush tail "
+          f"included): " + ", ".join(f"{k} {v:.4f} ms" for k, v in
+                                     ev.items()), flush=True)
     isz = q.element_size()
-    entries = {}
+    nums = {}
     for key, back, e in (("flash_attention_fwd", False, err),
                          ("flash_attention_bwd", True, err_g)):
         tag = "bwd" if back else "fwd"
         ms, plain_ms, lib_ms = dev[tag], dev[tag + "_plain"], dev["sdpa_" + tag]
-        nbytes, flops = flash_bytes_flops(TSEQ, TSEQ, isz, True, back)
+        nbytes, flops = flash_bytes_flops(TSEQ, TSEQ, isz, True, back, heads)
         b_ms, by = bound(nbytes, flops, PEAK_FLOPS["bfloat16"])
-        entries[key] = {
-            "name": key, "route": "cuda",
-            "source": "src/repro_torch/csrc/flash_attention.cu",
-            "replaces": "src/repro/kernels/flash_attention.py:93",
-            "max_abs_err": e, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": by, "library_ms": lib_ms,
-            "event_ms": ev[tag]}
+        nums[key] = {"max_abs_err": e, "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": b_ms, "bound_by": by, "library_ms": lib_ms,
+                     "event_ms": ev[tag]}
         extra = (f" | SDPA fwd+bwd {dev['sdpa_fwd_bwd']:.4f} ms" if back
                  else "")
-        print(f"[kernels] {key} on the training inputs (B {TB}, S {TSEQ}, "
-              f"Hq {HQ}, Hkv {HKV}, D {D}, bf16, causal), device time: "
-              f"kernel {ms:.4f} ms = {flops / ms / 1e9:.1f} TFLOP/s at the "
-              f"bound's flops, {b_ms / ms:.3f} of the bound | plain "
+        print(f"[kernels] {key} on {arch}'s training inputs (B {TB}, S "
+              f"{TSEQ}, Hq {hq}, Hkv {hkv}, D {d}, bf16, causal), device "
+              f"time: kernel {ms:.4f} ms = {flops / ms / 1e9:.1f} TFLOP/s at "
+              f"the bound's flops, {b_ms / ms:.3f} of the bound | plain "
               f"{plain_ms:.4f} ms | {'SDPA bwd alone' if back else 'SDPA fwd'}"
               f" {lib_ms:.4f} ms (kernel / SDPA {ms / lib_ms:.2f}){extra} | "
               f"bound {b_ms:.4f} ms ({by}: {nbytes / 1e6:.2f} MB, "
               f"{flops / 1e9:.3f} GFLOP)", flush=True)
-    return entries
+    return nums
 
 
 def check_silent(torch, timer):
@@ -1155,54 +1278,79 @@ def check_silent(torch, timer):
 # phase 5: the training path
 # ----------------------------------------------------------------------
 TRAIN_STEPS = 4
+QWEN3 = "qwen3-1.7b"
+ZAMBA = "zamba2-1.2b"
+ZAMBA_HEADS = (32, 32, 64)                # G 1, D 64
 
 
-def train_path(torch, np):
-    """``launch.train.run`` at full width with the detectors on; the
-    training kernels' launch counts are set to 0 just before and read
-    just after. Returns the launches."""
-    import math
+def launches_per_forward(cfg):
+    """(B4 launches, B5 launches, B5 launches inside the superblocks) of
+    one cache-free forward, derived from the model's schedule: per
+    attention block (dense, moe, the hybrid's shared block) one B4 and
+    ln1, ln2 (and the q- and k-norm with qk-norm); per Mamba2 block its
+    ln and gate norm; the final norm outside every block."""
+    from repro_torch.models.lm import make_schedule
+    sch = make_schedule(cfg)
+    attn_norms = 2 + (2 if cfg.qk_norm else 0)
+    norms = {"dense": attn_norms, "moe": attn_norms, "shared": attn_norms,
+             "mamba": 2}
+    inner = sch.n_super * sum(norms[t] for t in sch.pattern)
+    attn = sch.n_super * sum(t != "mamba" for t in sch.pattern)
+    return attn, inner + sum(norms[t] for t in sch.tail) + 1, inner
+
+
+def train_counters():
     import repro_torch.kernels.flash_attention as fa
     import repro_torch.kernels.rmsnorm as rn
     import repro_torch.kernels.silent_compare as sc
+    return {"flash_attention_fwd": fa.flash_attention_forward,
+            "flash_attention_bwd": fa.flash_attention_backward,
+            "silent_compare": sc.silent_compare,
+            "rmsnorm_fwd": rn.rmsnorm_forward,
+            "rmsnorm_bwd": rn.rmsnorm_backward}
+
+
+def train_path(torch, np, arch=QWEN3, remat="none"):
+    """``launch.train.run`` for ``arch`` at full width with the detectors
+    on, under ``remat``; the training kernels' launch counts are set to 0
+    just before and read just after. Returns the launches."""
+    import math
+    import repro_torch.kernels.flash_attention as fa
     from repro_torch.configs import registry
     from repro_torch.launch.train import run
 
-    cfg = registry.get_config("qwen3-1.7b")
-    counters = (fa.flash_attention_forward, fa.flash_attention_backward,
-                sc.silent_compare, rn.rmsnorm_forward, rn.rmsnorm_backward)
-    for c in counters:
+    cfg = registry.get_config(arch)
+    counters = train_counters()
+    for c in counters.values():
         c.launches = 0
     fa.flash_attention_forward.copies = 0
     fa.flash_attention_backward.copies = 0
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    losses, merged = run("qwen3-1.7b", smoke=False, steps=TRAIN_STEPS,
-                         batch=TB, seq=TSEQ, profile=True, device="cuda")
+    losses, merged = run(arch, smoke=False, steps=TRAIN_STEPS, batch=TB,
+                         seq=TSEQ, profile=True, remat=remat, device="cuda")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"flash_attention_fwd": fa.flash_attention_forward.launches,
-                "flash_attention_bwd": fa.flash_attention_backward.launches,
-                "silent_compare": sc.silent_compare.launches,
-                "rmsnorm_fwd": rn.rmsnorm_forward.launches,
-                "rmsnorm_bwd": rn.rmsnorm_backward.launches}
+    launches = {k: c.launches for k, c in counters.items()}
     copies = (fa.flash_attention_forward.copies,
               fa.flash_attention_backward.copies)
     checked = merged.checked.get("silent_param_store", 0)
-    print(f"[train] flash attention alignment copies (forward, backward) "
-          f"on the training path: {copies}", flush=True)
-    print(f"[train] qwen3-1.7b full width, {TRAIN_STEPS} steps of {TB} x "
-          f"{TSEQ} tokens, detectors on: {wall:.1f} s including set-up; "
-          f"launches {launches}; losses {losses}; profile tiers "
+    print(f"[train] {arch} full width, {TRAIN_STEPS} steps of {TB} x {TSEQ} "
+          f"tokens, remat {remat}, detectors on: {wall:.1f} s including "
+          f"set-up; launches {launches}; flash attention alignment copies "
+          f"(forward, backward) {copies}; losses {losses}; profile tiers "
           f"{merged.tiers}, checked {dict(sorted(merged.checked.items()))}, "
           f"flagged {dict(sorted(merged.flagged.items()))}; peak device "
-          f"memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB",
+          f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
           flush=True)
-    layers = cfg.num_layers
-    assert launches["flash_attention_fwd"] == layers * TRAIN_STEPS, launches
-    assert launches["flash_attention_bwd"] == layers * TRAIN_STEPS, launches
+    attn, norms, inner = launches_per_forward(cfg)
+    again = 0 if remat == "none" else 1
+    assert launches["flash_attention_fwd"] == \
+        attn * (1 + again) * TRAIN_STEPS, launches
+    assert launches["flash_attention_bwd"] == attn * TRAIN_STEPS, launches
     assert copies == (0, 0), copies
-    norms = NORMS_PER_FORWARD * layers + 1
-    assert launches["rmsnorm_fwd"] == norms * TRAIN_STEPS, launches
+    assert launches["rmsnorm_fwd"] == \
+        (norms + again * inner) * TRAIN_STEPS, launches
     assert launches["rmsnorm_bwd"] == norms * TRAIN_STEPS, launches
     assert launches["silent_compare"] == checked > 0, (launches, checked)
     assert all(math.isfinite(x) for x in losses), losses
@@ -1228,12 +1376,12 @@ def _train_loop(torch, state, step_fn, det, batches, dev):
         yield state, metrics
 
 
-def train_timing_and_trace(torch, np):
+def train_timing_and_trace(torch, np, arch=QWEN3, remat="none"):
     """Train tokens/s with the detectors on, full width: a first step
     (warm-up, untimed), then steps timed on the host clock, each ending
     in a device synchronization; then one step under torch.profiler
-    (device time by kernel kind, device busy share)."""
-    from torch.profiler import ProfilerActivity, profile
+    (device time by kernel kind, device busy share), its kernels checked
+    against the launch counters (``traced_step``)."""
     from repro_torch.configs import registry
     from repro_torch.configs.base import ProfilerConfig, TrainConfig
     from repro_torch.core.detectors import TrainingDetectors
@@ -1242,14 +1390,15 @@ def train_timing_and_trace(torch, np):
     from repro_torch.train import state as TS
     from repro_torch.train.step import make_train_step
 
-    cfg = registry.get_config("qwen3-1.7b")
+    cfg = registry.get_config(arch)
     model = build_model(cfg)
     tc = TrainConfig(learning_rate=3e-4, total_steps=8, warmup_steps=1,
-                     remat="none")
+                     remat=remat)
     state = TS.create(model, 0, device="cuda")
     det = TrainingDetectors(ProfilerConfig(enabled=True))
     loop = _train_loop(torch, state, make_train_step(model, tc), det,
                        stream(cfg, TB, TSEQ, seed=0), "cuda")
+    del state
     state, m = next(loop)
     float(m["loss"])
     times = []
@@ -1261,24 +1410,21 @@ def train_timing_and_trace(torch, np):
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     tok = TB * TSEQ
-    print(f"[train] timed steps (detectors on): "
+    print(f"[train] {arch} timed steps (remat {remat}, detectors on): "
           f"{', '.join(f'{t * 1e3:.1f}' for t in times)} ms = "
           f"{', '.join(f'{tok / t:.1f}' for t in times)} tok/s", flush=True)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        state, m = next(loop)
-        float(m["loss"])
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    report_trace(torch, prof, "train step", wall_ms)
-    del loop, state, m
+    del state, m
+
+    def step():
+        _, metrics = next(loop)
+        float(metrics["loss"])
+    traced_step(torch, f"{arch} train step", lambda: step, train_counters())
+    del loop
     torch.cuda.empty_cache()
     return times
 
 
-def train_smoke_check(torch, np):
+def train_smoke_check(torch, np, arch=QWEN3, **overrides):
     """The smoke config in float32: 4 train steps with the detectors on,
     kernels on the card against plain versions on the CPU, from the same
     state and batches. Losses and grad norms within 1e-4 relative (the
@@ -1295,8 +1441,8 @@ def train_smoke_check(torch, np):
     from repro_torch.train import state as TS
     from repro_torch.train.step import make_train_step
 
-    cfg = dataclasses.replace(registry.get_config("qwen3-1.7b").smoke(),
-                              dtype="float32")
+    cfg = dataclasses.replace(registry.get_config(arch).smoke(),
+                              dtype="float32", **overrides)
     model = build_model(cfg)
     tc = TrainConfig(learning_rate=3e-4, total_steps=TRAIN_STEPS,
                      warmup_steps=1, remat="none")
@@ -1315,33 +1461,114 @@ def train_smoke_check(torch, np):
         rows = []
         for _ in range(TRAIN_STEPS):
             state, m = next(loop)
-            rows.append((float(m["loss"]), float(m["grad_norm"])))
+            rows.append((float(m["loss"]), float(m["grad_norm"]),
+                         float(m["moe_aux"])))
         rep = det.report
         results[dev] = (np.array(rows),
                         sorted((f.kind, f.c1, f.step) for f in rep.findings),
                         dict(rep.checked), dict(rep.flagged))
     (rc, fc, cc, gc), (rg, fg, cg, gg) = results["cpu"], results["cuda"]
-    rel = float(np.max(np.abs(rg - rc) / np.abs(rc)))
+    rel = float(np.max(np.abs(rg - rc) / np.maximum(np.abs(rc), 1e-30)))
     same = (fc, cc, gc) == (fg, cg, gg)
-    print(f"[check] smoke f32 training, kernels on the card vs plain on the "
-          f"CPU: losses {rg[:, 0].tolist()} vs {rc[:, 0].tolist()}, max "
-          f"relative difference of loss and grad norm {rel:.3e} (tol 1e-4); "
+    print(f"[check] {arch} smoke f32 training ({cfg.num_layers} layers), "
+          f"kernels on the card vs plain on the CPU: losses "
+          f"{rg[:, 0].tolist()} vs {rc[:, 0].tolist()}, max relative "
+          f"difference of loss, grad norm and moe_aux {rel:.3e} (tol 1e-4); "
           f"detector findings and counters equal {same} (checked {cg})",
           flush=True)
     assert rel <= 1e-4 and same, results
 
 
-def remat_check(torch, np):
+def reckon_step_bytes(torch, model, state, batch, remat):
+    """The device bytes a train step under ``remat`` would reach,
+    reckoned before the step runs: the state held now (master, moments,
+    compute params), the gradients (one compute-dtype element per
+    parameter), and the larger of (a) the activations the forward keeps
+    for the backward with the head's and the loss's forward and backward
+    on top, and (b) the clip's f32 temporaries of the largest leaf (a
+    copy and its square). The activations are measured at full width on
+    the step's own batch: the bytes one superblock under ``remat`` (and,
+    for the hybrid, one tail block, which is never checkpointed) keeps
+    alive for its backward, times their count; under "full" and "dots"
+    one superblock's recomputation adds what it keeps under "none".
+    Returns (bytes, parts)."""
+    import gc
+    from repro_torch.models import lm as LMmod
+    from repro_torch.models import params as P
+    from repro_torch.train.fused_xent import lm_loss
+    cfg, sch = model.cfg, model.sched
+    params = state.params
+
+    def leaf(t):
+        return t.detach().requires_grad_(True)
+
+    def kept(fn):
+        """Bytes that fn's outputs (and the graph behind them) hold."""
+        gc.collect()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        with torch.enable_grad():
+            out = fn()
+        torch.cuda.synchronize()
+        n = torch.cuda.memory_allocated() - base
+        del out
+        return n
+
+    with torch.no_grad():
+        x0 = params["embed"][batch["tokens"].long()].to(
+            getattr(torch, cfg.dtype))
+    layer = P.tree_map(lambda t: leaf(t[0]), params["main"])
+    shared = (P.tree_map(leaf, params["shared"]) if "shared" in params
+              else None)
+    aux = torch.zeros((), device=x0.device)
+    saved_remat = model.remat
+    per_super = {}
+    for mode in {"none", remat}:
+        model.remat = mode
+        per_super[mode] = kept(lambda: model._maybe_remat(
+            layer, shared, leaf(x0), aux))
+    model.remat = saved_remat
+    recompute = per_super["none"] if remat != "none" else 0
+    per_tail = 0
+    if sch.tail:
+        tail = P.tree_map(lambda t: leaf(t[0]), params["tail"])
+        per_tail = kept(lambda: LMmod._apply_sub(tail, cfg, sch.tail[0],
+                                                 leaf(x0)))
+    gc.collect()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.enable_grad():
+        xx = leaf(x0)
+        loss = lm_loss(xx, model.head_weight(params), batch["labels"])
+        torch.autograd.grad(loss, [xx])
+    del xx, loss
+    head = torch.cuda.max_memory_allocated() - base
+    leaves = P.tree_leaves(params)
+    grads = sum(t.numel() * t.element_size() for t in leaves)
+    clip = 8 * max(t.numel() for t in leaves)
+    held = torch.cuda.memory_allocated()
+    acts = (sch.n_super * per_super[remat] + recompute
+            + len(sch.tail) * per_tail + head)
+    parts = {"state": held, "grads": grads, "superblock": per_super[remat],
+             "recomputed superblock": recompute, "tail block": per_tail,
+             "head and loss": head, "activations": acts, "clip": clip}
+    return held + grads + max(acts, clip), parts
+
+
+def remat_check(torch, np, arch=QWEN3):
     """One train step at full width under remat "none", "full" and
-    "dots", each from the same seeded state and batch: loss and grad norm
-    equal bit for bit (recomputing a deterministic forward gives the same
-    bits); launches per step: B4 forward 28 and B5 forward 113 under
-    "none", and the 28 attention and 112 superblock norms again under
-    "full" and "dots" (the final norm is not recomputed); B4 and B5
-    backward 28 and 113 in every mode. Prints each mode's peak device
-    memory."""
-    import repro_torch.kernels.flash_attention as fa
-    import repro_torch.kernels.rmsnorm as rn
+    "dots", each from the same seeded state and batch, for each mode
+    whose reckoned bytes (``reckon_step_bytes``, before anything of the
+    mode is allocated) fit in 94% of the card's memory; a mode that does
+    not fit is reported with its reckoning and not run. Among the modes
+    run: loss and grad norm equal bit for bit (recomputing a
+    deterministic forward gives the same bits); launches per step: B4
+    forward and B5 forward as ``launches_per_forward`` derives them, and
+    the checkpointed superblocks' attention and norms again under "full"
+    and "dots"; B4 and B5 backward once in every mode. Prints each mode's
+    peak device memory beside its reckoning. Returns the modes run."""
+    import gc
     from repro_torch.configs import registry
     from repro_torch.configs.base import TrainConfig
     from repro_torch.data.synthetic import stream
@@ -1349,21 +1576,32 @@ def remat_check(torch, np):
     from repro_torch.train import state as TS
     from repro_torch.train.step import make_train_step
 
-    cfg = registry.get_config("qwen3-1.7b")
+    cfg = registry.get_config(arch)
     batch = {k: torch.from_numpy(v).to("cuda")
              for k, v in next(stream(cfg, TB, TSEQ, seed=0)).items()}
-    layers = cfg.num_layers
-    norms = NORMS_PER_FORWARD * layers + 1
-    counters = {"flash_attention_fwd": fa.flash_attention_forward,
-                "flash_attention_bwd": fa.flash_attention_backward,
-                "rmsnorm_fwd": rn.rmsnorm_forward,
-                "rmsnorm_bwd": rn.rmsnorm_backward}
+    attn, norms, inner = launches_per_forward(cfg)
+    counters = {k: c for k, c in train_counters().items()
+                if k != "silent_compare"}
+    budget = 0.94 * torch.cuda.mem_get_info()[1]
     results = {}
+    gib = 2 ** 30
     for remat in ("none", "full", "dots"):
         model = build_model(cfg)
         step = make_train_step(model, TrainConfig(
             learning_rate=3e-4, total_steps=8, warmup_steps=1, remat=remat))
         state = TS.create(model, 0, device="cuda")
+        reckoned, parts = reckon_step_bytes(torch, model, state, batch, remat)
+        parts = ", ".join(f"{k} {v / gib:.2f}" for k, v in parts.items())
+        if reckoned > budget:
+            print(f"[remat] {arch} {remat}: not run: a step would reach "
+                  f"{reckoned / gib:.2f} GiB by the reckoning ({parts} GiB), "
+                  f"over the budget of {budget / gib:.2f} GiB (94% of the "
+                  f"card's memory)", flush=True)
+            del state, step, model
+            gc.collect()
+            torch.cuda.empty_cache()
+            continue
+        gc.collect()
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
@@ -1378,27 +1616,32 @@ def remat_check(torch, np):
         launches = {k: c.launches for k, c in counters.items()}
         loss, gnorm = m["loss"].cpu(), m["grad_norm"].cpu()
         results[remat] = (loss, gnorm, launches)
-        print(f"[remat] {remat}: one train step of {TB} x {TSEQ} tokens at "
-              f"full width, loss {float(loss)!r}, grad norm "
+        print(f"[remat] {arch} {remat}: one train step of {TB} x {TSEQ} "
+              f"tokens at full width, loss {float(loss)!r}, grad norm "
               f"{float(gnorm)!r}, launches {launches}, peak device memory "
-              f"{peak / 2**30:.2f} GiB ({(peak - held) / 2**30:.2f} GiB "
-              f"above the {held / 2**30:.2f} GiB of state held before the "
-              f"step), {wall * 1e3:.1f} ms including the first call's "
-              f"set-up", flush=True)
+              f"{peak / gib:.2f} GiB (reckoned {reckoned / gib:.2f} GiB: "
+              f"{parts} GiB; {(peak - held) / gib:.2f} GiB above the "
+              f"{held / gib:.2f} GiB of state held before the step), "
+              f"{wall * 1e3:.1f} ms including the first call's set-up",
+              flush=True)
         del state, m, step, model
+        gc.collect()
         torch.cuda.empty_cache()
-    want_loss, want_gnorm, _ = results["none"]
+    assert results, f"{arch}: no remat mode fits"
+    first = next(iter(results))
+    want_loss, want_gnorm, _ = results[first]
     for remat, (loss, gnorm, launches) in results.items():
         again = 0 if remat == "none" else 1
         assert torch.equal(loss, want_loss) and torch.equal(
             gnorm, want_gnorm), (remat, loss, gnorm, want_loss, want_gnorm)
         assert launches == {
-            "flash_attention_fwd": layers * (1 + again),
-            "flash_attention_bwd": layers,
-            "rmsnorm_fwd": norms + again * NORMS_PER_FORWARD * layers,
+            "flash_attention_fwd": attn * (1 + again),
+            "flash_attention_bwd": attn,
+            "rmsnorm_fwd": norms + again * inner,
             "rmsnorm_bwd": norms}, (remat, launches)
-    print("[remat] full and dots give none's loss and grad norm bit for "
-          "bit", flush=True)
+    print(f"[remat] {arch}: {', '.join(results)} give equal loss and grad "
+          f"norm bit for bit", flush=True)
+    return list(results)
 
 
 # ----------------------------------------------------------------------
@@ -1437,7 +1680,7 @@ def main_path(torch, np):
 
     cfg = registry.get_config("qwen3-1.7b")
     layers = cfg.num_layers
-    norms = NORMS_PER_FORWARD * layers + 1
+    norms = launches_per_forward(cfg)[1]
 
     pa.paged_decode_attention.launches = 0
     fp.paged_window_attention.launches = 0
@@ -1500,9 +1743,9 @@ def main_path(torch, np):
     assert prof.tiers == [3, 4] and prof.checked["kernel_dead_store"] > 0
     assert sum(prof.checked.get(k, 0) for k in
                ("dead_kv_store", "silent_kv_store", "silent_prefix_load")) > 0
-    trace_steps(torch, np, eng, cfg.vocab_size, Request)
     del eng, params, model
     torch.cuda.empty_cache()
+    engine_steps(torch, np, cfg)
     return launches, stats
 
 
@@ -1534,27 +1777,6 @@ def _kernel_kind(name: str) -> str:
     if "copy" in name:
         return "cast/copy"
     return "other"
-
-
-def trace_steps(torch, np, eng, vocab, Request):
-    """Where a full-width engine step spends its time: torch.profiler over
-    one admission step (prefill of 8 x 128 tokens and the first tick) and
-    one decode tick of 8 live slots; device time by kernel kind, and the
-    device's busy share of the step's wall time (profiled)."""
-    from torch.profiler import ProfilerActivity, profile
-    rng = np.random.default_rng(2)
-    for i in range(8):
-        eng.submit(Request(rid=f"t{i}", max_new_tokens=8, tokens=rng.integers(
-            0, vocab, size=128).astype(np.int32)))
-    for label in ("admission step", "decode tick"):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            eng.step()
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-        report_trace(torch, prof, label, wall_ms)
 
 
 # untimed kernels that open a trace whose kernels are counted: a trace
@@ -1593,6 +1815,54 @@ def report_trace(torch, prof, label, wall_ms):
     return counts
 
 
+# kernels a launch of a counted wrapper puts in a trace: B4's backward is
+# the delta, dK/dV and dQ kernels; every other wrapper launches one
+KERNELS_PER_LAUNCH = {"flash_attention_bwd": 3}
+
+
+def traced_step(torch, label, prepare, counters, want=None, tries=3):
+    """torch.profiler over one step: ``prepare()`` (untraced) returns the
+    step, a callable. The trace opens with LEAD_IN untimed spin kernels
+    (a trace can lose the first device records of its window: 14-16 of
+    them in this process), which ``report_trace`` leaves out. The kernels
+    of each counted kind in the trace must equal the launches the
+    counters (``{kind: wrapper}``, set to 0 before the step) saw, times
+    ``KERNELS_PER_LAUNCH``; with ``want``, the launches must equal it. A
+    trace that misses kernels the counters saw is printed and retaken, at
+    most ``tries`` times in all. Returns the launches."""
+    from torch.profiler import ProfilerActivity, profile
+    for attempt in range(tries):
+        step = prepare()
+        for c in counters.values():
+            c.launches = 0
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(LEAD_IN):
+                torch.cuda._sleep(100)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        counts = report_trace(torch, prof, label, wall_ms)
+        launched = {k: c.launches for k, c in counters.items()}
+        expect = {k: n * KERNELS_PER_LAUNCH.get(k, 1)
+                  for k, n in launched.items()}
+        got = {k: counts.get(k, 0) for k in counters}
+        print(f"[trace] {label}: kernels {got} in the trace, launches "
+              f"{launched}" + (f" (expected {want})" if want else ""),
+              flush=True)
+        if want is not None:
+            assert launched == want, (label, launched, want)
+        if got == expect:
+            return launched
+        if attempt + 1 < tries:
+            print(f"[trace] {label}: the trace missed kernels the counters "
+                  f"saw; retaken", flush=True)
+    raise AssertionError((label, got, expect))
+
+
 # ----------------------------------------------------------------------
 # phase 3b: the speculative-verify path
 # ----------------------------------------------------------------------
@@ -1612,7 +1882,7 @@ def spec_path(torch, np):
 
     cfg = registry.get_config("qwen3-1.7b")
     layers = cfg.num_layers
-    norms = NORMS_PER_FORWARD * layers + 1
+    norms = launches_per_forward(cfg)[1]
     counters = {"paged_decode": pa.paged_decode_attention,
                 "paged_window": fp.paged_window_attention,
                 "rmsnorm_fwd": rn.rmsnorm_forward}
@@ -1659,53 +1929,7 @@ def spec_path(torch, np):
         assert checked == stats["draft_proposed"] > 0, (checked, stats)
         assert flagged == (0 if rollback else rejected), (flagged, rejected)
         by_run[f"spec {mode}"] = launches
-    trace_verify_tick(torch, np, cfg)
     return by_run
-
-
-def trace_verify_tick(torch, np, cfg):
-    """torch.profiler over one verify tick at full width (8 live slots,
-    n-gram drafts, rollback, detectors and kernel counters on, as the
-    spec path runs), after an admission step."""
-    from torch.profiler import ProfilerActivity, profile
-    from repro_torch.configs.base import ProfilerConfig
-    from repro_torch.core.detectors import ServingDetectors
-    from repro_torch.data.synthetic import batch_at
-    from repro_torch.models.zoo import build_model
-    from repro_torch.serve.engine import Request, ServeEngine
-    from repro_torch.serve.spec import NGramDrafter
-
-    model = build_model(cfg)
-    params = model.init(0, device="cuda")
-    eng = ServeEngine(model, params, num_slots=8, max_len=MAX_LEN,
-                      detectors=ServingDetectors(ProfilerConfig(
-                          enabled=True, seed=0)),
-                      kv_dtype=torch.float32, kv_layout="paged",
-                      page_size=PS, kernel_counters=True,
-                      drafter=NGramDrafter(), spec_k=SPEC_K)
-    prompts = batch_at(cfg, 8, 128, seed=0, step=0)["tokens"]
-    for b in range(8):
-        eng.submit(Request(rid=f"v{b}", tokens=np.asarray(prompts[b]),
-                           max_new_tokens=32))
-    # admission and the first ticks: the continuations start to repeat,
-    # so the n-gram drafter proposes in the traced tick
-    for _ in range(4):
-        eng.step()
-    before = dict(eng.stats)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        eng.step()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    delta = {k: eng.stats[k] - before[k] for k in
-             ("prefills", "spec_ticks", "draft_proposed", "draft_accepted")}
-    print(f"[trace] verify tick: {delta}", flush=True)
-    assert delta["prefills"] == 0 and delta["spec_ticks"] == 1, delta
-    report_trace(torch, prof, "verify tick", wall_ms)
-    del eng, params, model
-    torch.cuda.empty_cache()
 
 
 def spec_smoke_check(torch, np):
@@ -1827,7 +2051,7 @@ def granite_path(torch, np):
     rollback and with overwrite. The serving kernels' launch counts are
     set to 0 just before each run and read just after: 32 B1 or B2 and 65
     B5 launches a forward. Then the MoE dispatch stats and traced steps
-    (granite_steps). Returns the launches per run."""
+    (engine_steps). Returns the launches per run."""
     import repro_torch.kernels.flash_prefill as fp
     import repro_torch.kernels.paged_attention as pa
     import repro_torch.kernels.rmsnorm as rn
@@ -1836,7 +2060,7 @@ def granite_path(torch, np):
 
     cfg = registry.get_config(GRANITE)
     layers = cfg.num_layers
-    norms = 2 * layers + 1                # ln1, ln2 per layer, final norm
+    norms = launches_per_forward(cfg)[1]
     counters = {"paged_decode": pa.paged_decode_attention,
                 "paged_window": fp.paged_window_attention,
                 "rmsnorm_fwd": rn.rmsnorm_forward}
@@ -1892,7 +2116,7 @@ def granite_path(torch, np):
           f"overwrite give equal tokens {np.array_equal(outs[2], outs[3])}",
           flush=True)
     assert same, "two runs of the same requests gave different tokens"
-    granite_steps(torch, np, cfg)
+    engine_steps(torch, np, cfg)
     return by_run
 
 
@@ -1936,20 +2160,16 @@ class MoEDispatchStats:
         assert st["dead_rows"] == 0 and st["rows_stored"] == st["rows_routed"]
 
 
-def granite_steps(torch, np, cfg):
-    """At full width, one set of weights: the dispatch stats of an
-    admission step (prefill 8 x 128 + first tick), a decode tick and a
-    verify tick (dead rows 0 under scatter); then torch.profiler over an
-    admission step, a decode tick and a verify tick (rollback), with the
-    kernels of each read from the trace: 32 B1 or B2 and 65 B5 a
-    forward. The launch counters must show them in every traced step. A
-    trace can lose the first device records of its window (in chip_smoke's
-    process, 14-16 of them: the step's first B5 kernel is its 7th-11th),
-    so each trace opens with LEAD_IN untimed spin kernels, which
-    ``report_trace`` leaves out; a trace that still misses kernels the
-    counters saw is printed and retaken, at most twice: a fresh engine's
-    admission step, the same engine's next tick."""
-    from torch.profiler import ProfilerActivity, profile
+def engine_steps(torch, np, cfg):
+    """At full width, one set of weights: for the MoE family the dispatch
+    stats of an admission step (prefill 8 x 128 + first tick), a decode
+    tick and a verify tick (dead rows 0 under scatter); then
+    torch.profiler over an admission step, a decode tick and a verify
+    tick (rollback), with the kernels of each read from the trace: per
+    forward one B1 or B2 a layer and ``launches_per_forward``'s B5
+    launches (``traced_step``: the launch counters must show them, and
+    the trace must hold them). A retaken admission step is a fresh
+    engine's, a retaken tick the same engine's next tick."""
     import repro_torch.kernels.flash_prefill as fp
     import repro_torch.kernels.paged_attention as pa
     import repro_torch.kernels.rmsnorm as rn
@@ -1963,7 +2183,9 @@ def granite_steps(torch, np, cfg):
     model = build_model(cfg)
     params = model.init(0, device="cuda")
     prompts = batch_at(cfg, 8, 128, seed=0, step=0)["tokens"]
-    layers, norms = cfg.num_layers, 2 * cfg.num_layers + 1
+    layers = cfg.num_layers
+    norms = launches_per_forward(cfg)[1]
+    moe = cfg.moe is not None
 
     def engine(spec):
         eng = ServeEngine(model, params, num_slots=8, max_len=MAX_LEN,
@@ -1981,72 +2203,46 @@ def granite_steps(torch, np, cfg):
     counters = {"paged_window": fp.paged_window_attention,
                 "paged_decode": pa.paged_decode_attention,
                 "rmsnorm_fwd": rn.rmsnorm_forward}
+    label = cfg.name
+    if moe:
+        eng = engine(False)
+        with MoEDispatchStats() as st:
+            eng.step()                        # admission: prefill + a tick
+        st.report("admission step (prefill 8 x 128, 4 groups of 256)")
+        with MoEDispatchStats() as st:
+            eng.step()
+        st.report("decode tick (8 tokens, one group)")
+        del eng
+    fresh = []
 
-    def traced(label, want, next_engine, tries=3):
-        """Trace one step of the engine `next_engine()` gives; returns the
-        engine and its stats' change over the kept step."""
-        for attempt in range(tries):
-            eng = next_engine()
-            for c in counters.values():
-                c.launches = 0
-            before = dict(eng.stats)
-            torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                for _ in range(LEAD_IN):
-                    torch.cuda._sleep(100)
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                eng.step()
-                torch.cuda.synchronize()
-                wall_ms = (time.perf_counter() - t0) * 1e3
-            counts = report_trace(torch, prof, f"{GRANITE} {label}", wall_ms)
-            got = {k: counts.get(k, 0) for k in want}
-            launched = {k: counters[k].launches for k in want}
-            print(f"[trace] {GRANITE} {label}: kernels {got} in the trace, "
-                  f"{launched} launched (expected {want})", flush=True)
-            assert launched == want, (label, launched, want)
-            if got == want:
-                break
-            if attempt + 1 < tries:
-                print(f"[trace] {GRANITE} {label}: the trace missed kernels "
-                      f"the counters saw; retaken", flush=True)
-        assert got == want, (label, got, want)
-        return eng, {k: eng.stats[k] - before[k] for k in before
-                     if isinstance(before[k], int)}
-
-    eng = engine(False)
-    with MoEDispatchStats() as st:
-        eng.step()                        # admission: prefill + a tick
-    st.report("admission step (prefill 8 x 128, 4 groups of 256)")
-    with MoEDispatchStats() as st:
-        eng.step()
-    st.report("decode tick (8 tokens, one group)")
-    del eng
-    # a retaken admission step is a fresh engine's; a retaken tick the
-    # same engine's next tick
-    eng, _ = traced("admission step", {"paged_window": layers,
-                                       "paged_decode": layers,
-                                       "rmsnorm_fwd": 2 * norms},
-                    lambda: engine(False))
-    traced("decode tick", {"paged_window": 0, "paged_decode": layers,
-                           "rmsnorm_fwd": norms}, lambda: eng)
+    def admission():
+        fresh[:] = [engine(False)]
+        return fresh[0].step
+    traced_step(torch, f"{label} admission step", admission, counters,
+                {"paged_window": layers, "paged_decode": layers,
+                 "rmsnorm_fwd": 2 * norms})
+    eng = fresh.pop()
+    traced_step(torch, f"{label} decode tick", lambda: eng.step, counters,
+                {"paged_window": 0, "paged_decode": layers,
+                 "rmsnorm_fwd": norms})
     del eng
     eng = engine(True)
     # admission and the first ticks: the continuations start to repeat,
     # so the n-gram drafter proposes in the measured ticks
     for _ in range(4):
         eng.step()
-    with MoEDispatchStats() as st:
-        eng.step()
-    st.report("verify tick (8 x 5 tokens, one group of 40)")
-    _, delta = traced("verify tick", {"paged_window": layers,
-                                      "paged_decode": 0,
-                                      "rmsnorm_fwd": norms}, lambda: eng)
-    delta = {k: delta[k] for k in
+    if moe:
+        with MoEDispatchStats() as st:
+            eng.step()
+        st.report("verify tick (8 x 5 tokens, one group of 40)")
+    before = dict(eng.stats)
+    traced_step(torch, f"{label} verify tick", lambda: eng.step, counters,
+                {"paged_window": layers, "paged_decode": 0,
+                 "rmsnorm_fwd": norms})
+    delta = {k: eng.stats[k] - before[k] for k in
              ("prefills", "spec_ticks", "draft_proposed", "draft_accepted")}
-    print(f"[trace] {GRANITE} verify tick: {delta}", flush=True)
-    assert delta["prefills"] == 0 and delta["spec_ticks"] == 1, delta
+    print(f"[trace] {label} verify tick(s): {delta}", flush=True)
+    assert delta["prefills"] == 0 and delta["spec_ticks"] >= 1, delta
     del eng, params, model
     torch.cuda.empty_cache()
 
@@ -2295,7 +2491,7 @@ def tier1_full_width(torch, np, card_line):
     from repro_torch.models.zoo import build_model
 
     cfg = registry.get_config("qwen3-1.7b")
-    norms = NORMS_PER_FORWARD * cfg.num_layers + 1
+    norms = launches_per_forward(cfg)[1]
     model = build_model(cfg)
     params = model.init(0, device="cuda")
     toks = torch.as_tensor(
@@ -2363,6 +2559,176 @@ def tier1_full_width(torch, np, card_line):
     del params, model
     torch.cuda.empty_cache()
     return {"rmsnorm_fwd": recorded}
+
+
+# ----------------------------------------------------------------------
+# phases 7 and 8: granite-moe-3b-a800m training, and zamba2-1.2b (the
+# hybrid family) served and trained, all at full width
+# ----------------------------------------------------------------------
+def check_slice_kernels(torch, timer, entries):
+    """Phases 7a and 8a. B4 at granite-moe-3b-a800m's training heads (Hq
+    24, Hkv 8, D 64: G 3) and zamba2-1.2b's (Hq 32, Hkv 32, D 64: G 1),
+    B 4, S 1024, in bfloat16 and float32, two backward calls
+    bit-identical, timed beside SDPA; B5 at zamba2's gate-norm width 4096
+    (the edge of the backward's wide route) and at 4104 (past it), and at
+    granite's training rows (4096 x 1536), in every dtype pair, strided
+    rows too; B5 forward and backward timed at
+    granite's training norm (4096 x 1536) and zamba2's gate norm (4096 x
+    4096), the forward at zamba2's decode norms. The numbers go into the
+    entries' ``by_shape``."""
+    for arch, heads in ((GRANITE, GRANITE_HEADS), (ZAMBA, ZAMBA_HEADS)):
+        nums = flash_on_training_inputs(torch, timer, arch, heads)
+        for key, num in nums.items():
+            entries[key]["by_shape"][f"{arch} train"] = num
+    seed = 900
+    for x_dtype, s_dtype in (("float32", "float32"), ("bfloat16", "float32"),
+                             ("bfloat16", "bfloat16")):
+        for rows, width, strided in ((8, 4096, False), (TB * TSEQ, 4096, False),
+                                     (131, 4096, True), (77, 4104, False),
+                                     (TB * TSEQ, 1536, False)):
+            seed += 1
+            rmsnorm_case(torch, rows, width, x_dtype, s_dtype, strided, seed)
+    norm_train_times(torch, timer, entries, f"{GRANITE} train", TB * TSEQ,
+                     1536)
+    norm_train_times(torch, timer, entries, f"{ZAMBA} train gate norm",
+                     TB * TSEQ, 4096)
+    norm_forward_times(torch, timer, entries, f"{ZAMBA} decode", B, 2048)
+    norm_forward_times(torch, timer, entries, f"{ZAMBA} decode gate norm",
+                       B, 4096)
+
+
+def train_family(torch, np, arch, **smoke_overrides):
+    """A family's training at full width: one step under each remat mode
+    that fits (``remat_check``), then ``launch.train.run`` (4 steps,
+    detectors on) under "none" if it fits, else "full"; timed steps and
+    one traced step; the smoke config in float32, card against CPU.
+    Returns the launches of the driver's run."""
+    modes = remat_check(torch, np, arch)
+    remat = "none" if "none" in modes else "full"
+    launches = train_path(torch, np, arch, remat)
+    train_timing_and_trace(torch, np, arch, remat)
+    train_smoke_check(torch, np, arch, **smoke_overrides)
+    torch.cuda.empty_cache()
+    return launches
+
+
+def zamba2_serve(torch, np):
+    """Phase 8b. ``launch.serve.run`` for zamba2-1.2b at full width (38
+    Mamba2 blocks and 6 uses of the shared block; random weights from
+    seed 0): the token-loop driver with the profiler on, batch 8, prompt
+    128 + 32, twice (equal tokens), B5's launches counted: 89 a step,
+    and 89 more in tier 1's recorded decode microstep; then one decode
+    step traced. Returns the launches per run."""
+    import repro_torch.kernels.flash_attention as fa
+    import repro_torch.kernels.rmsnorm as rn
+    from repro_torch.configs import registry
+    from repro_torch.launch.serve import run
+    from repro_torch.models.zoo import build_model
+    from repro_torch.serve.decode import make_serve_step
+
+    cfg = registry.get_config(ZAMBA)
+    norms = launches_per_forward(cfg)[1]
+    assert norms == 38 * 2 + 6 * 2 + 1, norms
+    by_run, outs = {}, []
+    for label in ("zamba2 serve", "zamba2 serve, again"):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        rn.rmsnorm_forward.launches = 0
+        fa.flash_attention_forward.launches = 0
+        t0 = time.perf_counter()
+        out, merged, stats = run(ZAMBA, smoke=False, profile=True, batch=8,
+                                 prompt_len=128, gen=32, device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {"rmsnorm_fwd": rn.rmsnorm_forward.launches}
+        print(f"[zamba2] {label}: full width, token loop, profile: "
+              f"{wall:.1f} s (tier 1 {tier1_seconds(stats)}); launches "
+              f"{launches}; {stats['steps']} steps; prefill "
+              f"{stats['prefill_tok_s']:.1f} tok/s, decode "
+              f"{stats['decode_tok_s']:.1f} tok/s; tiers {merged.tiers}; "
+              f"peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
+              flush=True)
+        assert stats["steps"] == 128 + 32 - 1, stats
+        # + 1: tier 1's recorded decode microstep
+        assert launches["rmsnorm_fwd"] == norms * (stats["steps"] + 1)
+        assert fa.flash_attention_forward.launches == 0
+        assert out.shape == (8, 32) and ((out >= 0)
+                                         & (out < cfg.vocab_size)).all()
+        assert merged.tiers == [1], merged.tiers
+        assert merged.total_load_events > 0 and merged.total_store_events > 0
+        outs.append(out)
+        by_run[label] = launches
+    same = np.array_equal(outs[0], outs[1])
+    print(f"[zamba2] two runs give equal tokens {same}", flush=True)
+    assert same, "two runs of the same prompts gave different tokens"
+
+    model = build_model(cfg)
+    params = model.init(0, device="cuda")
+    cache = model.init_cache(params, 8, MAX_LEN, kv_dtype=torch.float32)
+    step = make_serve_step(model)
+    tok = torch.as_tensor(outs[0][:, :1], device="cuda")
+    for _ in range(4):
+        tok, cache = step(params, cache, tok)
+
+    def decode_step():
+        def one():
+            step(params, cache, tok)[0].cpu()
+        return one
+    traced_step(torch, f"{ZAMBA} decode step (8 slots)", decode_step,
+                {"rmsnorm_fwd": rn.rmsnorm_forward}, {"rmsnorm_fwd": norms})
+    del cache, params, model
+    torch.cuda.empty_cache()
+    return by_run
+
+
+def zamba2_smoke_check(torch, np):
+    """Phase 8c. zamba2-1.2b's smoke config in float32 at 8 layers (a
+    superblock of six Mamba2 blocks and the shared block, then a tail of
+    two), the same weights on the card (kernels) and on the CPU: the
+    token-loop driver's greedy tokens (batch 4, prompt 16 + 8) equal, and
+    tier 1 on the decode microstep: totals, samples and checked counts
+    equal (flagged counts equal or each difference printed)."""
+    import dataclasses
+    from repro_torch.configs import registry
+    from repro_torch.launch.serve import _run_legacy, tier1_decode_profile
+    from repro_torch.models.params import tree_map
+    from repro_torch.models.zoo import build_model
+
+    cfg = dataclasses.replace(registry.get_config(ZAMBA).smoke(),
+                              dtype="float32", num_layers=8)
+    model = build_model(cfg)
+    cpu_params = model.init(0, device="cpu")
+    prompts = np.random.default_rng(4).integers(0, cfg.vocab_size, (4, 16))
+    toks = np.random.default_rng(2).integers(0, cfg.vocab_size, (4, 1))
+    res = {}
+    for dev in ("cpu", "cuda"):
+        params = tree_map(lambda t: t.to(dev), cpu_params)
+        out, _ = _run_legacy(model, params, torch.as_tensor(
+            prompts, dtype=torch.int32, device=dev), 8)
+        prof, interp = tier1_decode_profile(
+            model, params, torch.as_tensor(toks, dtype=torch.int32,
+                                           device=dev), 25, 0)
+        res[dev] = (out, prof, interp.stats)
+    (out_c, cpu, sc), (out_g, card, sg) = res["cpu"], res["cuda"]
+    same = {"tokens": np.array_equal(out_c, out_g),
+            "totals": card.totals == cpu.totals,
+            "samples": card.watchpoint_stats == cpu.watchpoint_stats,
+            "checked": card.checked == cpu.checked,
+            "flagged": card.flagged == cpu.flagged}
+    print(f"[check] {ZAMBA} smoke f32 ({cfg.num_layers} layers), the card vs "
+          f"the CPU: equal {same}; tokens {out_g[0].tolist()}; tier 1 "
+          f"{sg['ops']} ops ({sg['kernel_ops']} kernel), {sg['events']} "
+          f"events, totals {card.totals}, checked "
+          f"{dict(sorted(card.checked.items()))}, flagged "
+          f"{dict(sorted(card.flagged.items()))}", flush=True)
+    if not same["flagged"]:
+        for kind in sorted(set(cpu.flagged) | set(card.flagged)):
+            print(f"[check]   flagged {kind}: CPU {cpu.flagged.get(kind, 0)}, "
+                  f"card {card.flagged.get(kind, 0)}", flush=True)
+    assert (same["tokens"] and same["totals"] and same["samples"]
+            and same["checked"]), same
+    assert sg["events"] == sc["events"], (sg, sc)
 
 
 def kernel_label(mangled: str) -> str:
@@ -2456,8 +2822,10 @@ def main() -> int:
     check_granite_kernels(torch, np, timer, entries)
     entries.update(check_rmsnorm(torch, timer))
     check_rmsnorm_granite(torch, timer, entries)
+    check_rmsnorm_serving(torch, timer, entries)
     entries.update(check_flash(torch, timer))
     entries["silent_compare"] = check_silent(torch, timer)
+    check_slice_kernels(torch, timer, entries)
     # each main path is driven with the launch counts set to 0 just
     # before it and read just after
     by_path = {}
@@ -2477,6 +2845,11 @@ def main() -> int:
     tier1_smoke_check(torch, np)
     torch.cuda.empty_cache()
     by_path["tier1"] = tier1_full_width(torch, np, card)
+    torch.cuda.empty_cache()
+    by_path["granite train"] = train_family(torch, np, GRANITE)
+    by_path.update(zamba2_serve(torch, np))
+    zamba2_smoke_check(torch, np)
+    by_path["zamba2 train"] = train_family(torch, np, ZAMBA, num_layers=8)
 
     import math
     for key, e in entries.items():

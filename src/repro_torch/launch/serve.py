@@ -5,8 +5,13 @@ KV-cache waste detectors and prefill-vs-decode accounting, on the card.
 
 runs qwen3-1.7b at its published width from random weights (seeded) on
 the CUDA device; ``--arch granite-moe-3b-a800m`` serves the MoE family
-the same way. ``--device cpu`` runs on the CPU (with ``--smoke``, the
-reduced config). Without CUDA and without ``--device cpu`` it raises.
+the same way. The hybrid family (``--arch zamba2-1.2b``) has no indexed
+KV cache in every block, so it is served by the token-loop driver
+(``_run_legacy``: one greedy one-token step at a time over a dense f32
+cache, the prompt pushed token by token), as the reference serves every
+family outside the engine. ``--device cpu`` runs on the CPU (with
+``--smoke``, the reduced config). Without CUDA and without ``--device
+cpu`` it raises.
 
 ``--kv paged`` switches the engine to the block-paged KV heap
 (serve/kv_cache.py): refcounted pages + copy-on-write prefix reuse,
@@ -46,10 +51,14 @@ from repro_torch.core.report import dump_json
 from repro_torch.core.sarif import write_sarif
 from repro_torch.data.synthetic import batch_at
 from repro_torch.models.zoo import build_model
+from repro_torch.serve.decode import make_serve_step
 from repro_torch.serve.engine import ENGINE_FAMILIES, Request, ServeEngine
 from repro_torch.serve.spec import make_drafter
 
 NOT_PORTED_TIERS = "tier 2 (HLO waste analysis) is bound to JAX and not ported"
+# families served by the token-loop driver; the other families outside
+# the engine are not ported yet (ROADMAP A7)
+LEGACY_FAMILIES = ("hybrid",)
 
 
 def padding_waste_profile(stats) -> WasteProfile:
@@ -98,6 +107,47 @@ def tier1_decode_profile(model, params, tokens: torch.Tensor, max_len: int,
     return interp.profile(decode, tokens, epochs=2), interp
 
 
+def _sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _run_legacy(model, params, prompts: torch.Tensor, gen: int):
+    """Token-loop driver for families without an indexed KV cache: the
+    prompt pushed through the greedy one-token step token by token, then
+    ``gen - 1`` more greedy steps, over a dense f32 cache. Returns
+    ``(tokens (B, gen) int32, stats)``: prefill and decode tok/s (the
+    reference's definition: prompt tokens over the prompt loop's time,
+    generated tokens over the decode loop's), each timed span ending in
+    a device synchronization, and the steps taken."""
+    batch, prompt_len = prompts.shape
+    dev = prompts.device
+    cache = model.init_cache(params, batch, prompt_len + gen + 1,
+                             kv_dtype=torch.float32)
+    params = model.decode_params(params)
+    serve_step = make_serve_step(model)
+
+    _sync(dev)
+    t0 = time.perf_counter()
+    for t in range(prompt_len):
+        nxt, cache = serve_step(params, cache, prompts[:, t:t + 1])
+    _sync(dev)
+    t_prefill = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    generated = [nxt]
+    for _ in range(gen - 1):
+        nxt, cache = serve_step(params, cache, generated[-1])
+        generated.append(nxt)
+    _sync(dev)
+    t_decode = time.perf_counter() - t0
+
+    out = torch.cat(generated, dim=1).cpu().numpy()
+    return out, {"prefill_tok_s": batch * prompt_len / max(t_prefill, 1e-9),
+                 "decode_tok_s": batch * gen / max(t_decode, 1e-9),
+                 "steps": prompt_len + gen - 1}
+
+
 def resolve_device(device: str) -> torch.device:
     """The device to serve on; CUDA must be present unless the caller
     asked for the CPU."""
@@ -115,23 +165,49 @@ def run(arch: str, *, smoke: bool = False, batch: int = 4,
         page_size: int = 16, spec: bool = False, spec_k: int = 4,
         draft: str = "ngram", spec_rollback: bool = True,
         device: str = "cuda"):
-    """Serve `batch` seeded synthetic prompts through the engine.
+    """Serve `batch` seeded synthetic prompts through the engine (or,
+    for the hybrid family, the token-loop driver).
 
     Returns ``(tokens, merged profile or None, stats)``: the greedy
     continuations (batch, gen) int32 on the host, the merged waste
     profile when ``profile``, and the engine's counters with its
-    prefill/decode (and, with ``spec``, draft/verify) throughput."""
+    prefill/decode (and, with ``spec``, draft/verify) throughput (the
+    token loop's: its throughput and the steps it took)."""
     dev = resolve_device(device)
     cfg = registry.get_config(arch)
     if smoke:
         cfg = cfg.smoke()
-    if cfg.family not in ENGINE_FAMILIES:
+    if cfg.family not in ENGINE_FAMILIES + LEGACY_FAMILIES:
         raise NotImplementedError(
-            f"{arch}: family {cfg.family!r} is not ported yet "
-            f"(engine families: {ENGINE_FAMILIES})")
+            f"{arch}: family {cfg.family!r} is not ported yet (ROADMAP "
+            f"A7; engine families: {ENGINE_FAMILIES}, token loop: "
+            f"{LEGACY_FAMILIES})")
     model = build_model(cfg)
     params = model.init(seed, device=dev)
     prompts = batch_at(cfg, batch, prompt_len, seed=seed, step=0)["tokens"]
+    name = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
+            else "cpu")
+    if cfg.family not in ENGINE_FAMILIES:
+        if kv != "dense":
+            raise ValueError(f"--kv paged needs the engine families "
+                             f"{ENGINE_FAMILIES}, not {cfg.family!r}")
+        if spec:
+            raise ValueError(f"--spec needs the engine families "
+                             f"{ENGINE_FAMILIES}, not {cfg.family!r}")
+        out, stats = _run_legacy(
+            model, params, torch.as_tensor(np.asarray(prompts), device=dev),
+            gen)
+        print(f"[serve] {arch}: {batch} seqs, prompt {prompt_len} + gen "
+              f"{gen} [kv={kv}, token loop, {name}] | prefill "
+              f"{stats['prefill_tok_s']:.0f} tok/s, decode "
+              f"{stats['decode_tok_s']:.0f} tok/s (live slots)")
+        print("[serve] sample continuation:", out[0][:12])
+        merged = None
+        if profile:
+            tier1 = _tier1(model, params, out, prompt_len + gen + 1, seed,
+                           dev, stats)
+            merged = _finish_profile([tier1], profile_out, sarif_out)
+        return out, merged, stats
 
     def build_and_run(drafter, det):
         eng = ServeEngine(model, params, num_slots=batch,
@@ -178,8 +254,6 @@ def run(arch: str, *, smoke: bool = False, batch: int = 4,
     stats = {**eng.stats, **tp}
 
     # prompt tokens are NOT generated tokens: report the two rates apart
-    name = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
-            else "cpu")
     print(f"[serve] {arch}: {batch} seqs, prompt {prompt_len} + gen {gen} "
           f"[kv={kv}, {name}] | prefill {tp['prefill_tok_s']:.0f} tok/s, "
           f"decode {tp['decode_tok_s']:.0f} tok/s (live slots)")
@@ -201,33 +275,47 @@ def run(arch: str, *, smoke: bool = False, batch: int = 4,
 
     merged = None
     if profile:
-        t0 = time.perf_counter()
-        tier1, interp = tier1_decode_profile(
-            model, params, torch.as_tensor(out[:, -1:], device=dev),
-            prompt_len + gen + 1, seed)
-        ts = interp.stats
-        stats["tier1_s"] = time.perf_counter() - t0
-        stats["tier1_record_s"] = ts["record_s"]
-        stats["tier1_epoch_s"] = ts["epoch_s"]
-        print(f"[serve] tier 1 (decode microstep): {ts['ops']} ops "
-              f"({ts['kernel_ops']} kernel), {ts['events']} events, "
-              f"{ts['element_events']:,} element-events, "
-              f"{ts['snapshot_bytes']:,} bytes snapshotted; recording "
-              f"{ts['record_s']:.2f} s, epochs "
-              + " / ".join(f"{t:.2f}" for t in ts["epoch_s"])
-              + f" s, {stats['tier1_s']:.2f} s in all")
-        del interp
-        print(f"[serve] {NOT_PORTED_TIERS}")
-        merged = merge_profiles([tier1, det.combined(),
-                                 padding_waste_profile(stats)])
-        print(merged.render(top_k=3))
-        if profile_out:
-            dump_json(merged, profile_out)
-            print(f"[serve] waste profile written to {profile_out}")
-        if sarif_out:
-            write_sarif(merged, sarif_out)
-            print(f"[serve] SARIF findings written to {sarif_out}")
+        tier1 = _tier1(model, params, out, prompt_len + gen + 1, seed, dev,
+                       stats)
+        merged = _finish_profile([tier1, det.combined(),
+                                  padding_waste_profile(stats)],
+                                 profile_out, sarif_out)
     return out, merged, stats
+
+
+def _tier1(model, params, out, max_len: int, seed: int, dev, stats):
+    """Tier 1 on the decode microstep of the run's last tokens; its
+    seconds go into ``stats``."""
+    t0 = time.perf_counter()
+    tier1, interp = tier1_decode_profile(
+        model, params, torch.as_tensor(out[:, -1:], device=dev), max_len,
+        seed)
+    ts = interp.stats
+    stats["tier1_s"] = time.perf_counter() - t0
+    stats["tier1_record_s"] = ts["record_s"]
+    stats["tier1_epoch_s"] = ts["epoch_s"]
+    print(f"[serve] tier 1 (decode microstep): {ts['ops']} ops "
+          f"({ts['kernel_ops']} kernel), {ts['events']} events, "
+          f"{ts['element_events']:,} element-events, "
+          f"{ts['snapshot_bytes']:,} bytes snapshotted; recording "
+          f"{ts['record_s']:.2f} s, epochs "
+          + " / ".join(f"{t:.2f}" for t in ts["epoch_s"])
+          + f" s, {stats['tier1_s']:.2f} s in all")
+    return tier1
+
+
+def _finish_profile(profiles, profile_out, sarif_out) -> WasteProfile:
+    """Merge, print and write the serving profile."""
+    print(f"[serve] {NOT_PORTED_TIERS}")
+    merged = merge_profiles(profiles)
+    print(merged.render(top_k=3))
+    if profile_out:
+        dump_json(merged, profile_out)
+        print(f"[serve] waste profile written to {profile_out}")
+    if sarif_out:
+        write_sarif(merged, sarif_out)
+        print(f"[serve] SARIF findings written to {sarif_out}")
+    return merged
 
 
 def main():

@@ -1,7 +1,8 @@
-"""Decoder LM assembly, dense and moe families: parameter declaration and
-init, the cache-free training forward and loss, per-slot dense and paged
-KV caches, and the cached decode step that the serving engine's prefill
-and tick run.
+"""Decoder LM assembly, dense, moe and hybrid families: parameter
+declaration and init, the cache-free training forward and loss, per-slot
+dense and paged KV caches (and the hybrid family's Mamba2 states), and
+the cached decode step that the serving engine's prefill and tick and the
+token-loop serving driver run.
 
 Parameters and caches keep the reference's stacked per-layer storage,
 ``(n_layers, ...)`` under ``"main"``, so reference trees load 1:1; a
@@ -13,7 +14,11 @@ stacked leaf apart once with ``unbind``, so autograd assembles a stacked
 leaf's gradient from its layers in one stack. Under ``remat`` "full"
 or "dots" each superblock of the training forward runs under
 ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint`` around
-its scanned superblock).
+its scanned superblock). The hybrid family (zamba2) runs `attn_period`
+Mamba2 blocks and one use of a SHARED dense block per superblock, then
+the leftover Mamba2 blocks as an un-checkpointed tail (``"tail"``); the
+shared block has one parameter set (``"shared"``, its gradient summed
+over its uses) and one K/V cache per use.
 """
 from __future__ import annotations
 
@@ -29,6 +34,7 @@ from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 from repro_torch.models import params as P
+from repro_torch.models import ssm as SSM
 
 
 def _mask_pad_vocab(logits: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -50,6 +56,8 @@ def torch_dtype(name: str) -> torch.dtype:
 class Schedule:
     pattern: Tuple[str, ...]      # sub-block types within one superblock
     n_super: int
+    tail: Tuple[str, ...] = ()    # leftover blocks after the superblocks
+    has_shared: bool = False
 
 
 def make_schedule(cfg: ModelConfig) -> Schedule:
@@ -57,9 +65,14 @@ def make_schedule(cfg: ModelConfig) -> Schedule:
         return Schedule(("dense",), cfg.num_layers)
     if cfg.family == "moe":
         return Schedule(("moe",), cfg.num_layers)
+    if cfg.family == "hybrid":
+        p = cfg.attn_period
+        n, r = divmod(cfg.num_layers, p)
+        return Schedule(("mamba",) * p + ("shared",), n,
+                        tail=("mamba",) * r, has_shared=True)
     raise NotImplementedError(
-        f"family {cfg.family!r} is not ported yet (dense and moe only; the "
-        f"other block types are ROADMAP A7)")
+        f"family {cfg.family!r} is not ported yet (dense, moe and hybrid "
+        f"only; the other block types are ROADMAP A7)")
 
 
 # ----------------------------------------------------------------------
@@ -79,6 +92,10 @@ def _decl_sub(cfg: ModelConfig, typ: str) -> Dict[str, Any]:
         return L.decl_dense_block(cfg)
     if typ == "moe":
         return decl_moe_block(cfg)
+    if typ == "mamba":
+        return SSM.decl_mamba(cfg)
+    if typ == "shared":
+        return {}                     # params live outside the superblocks
     raise ValueError(typ)
 
 
@@ -86,8 +103,9 @@ def _apply_sub(p, cfg: ModelConfig, typ: str, x: torch.Tensor, *,
                cache=None, spec: Optional[str] = None):
     """One sub-block, cache-free or cached (as ``L.apply_attention``):
     (x, new cache, moe_aux or None). A moe block is attention, then the
-    MoE layer on ln2."""
-    if typ == "dense":
+    MoE layer on ln2; a mamba block writes a given state in place; a
+    shared block is a dense block on the shared parameters."""
+    if typ in ("dense", "shared"):
         x, nc = L.apply_dense_block(p, cfg, x, cache=cache, spec=spec)
         return x, nc, None
     if typ == "moe":
@@ -98,6 +116,9 @@ def _apply_sub(p, cfg: ModelConfig, typ: str, x: torch.Tensor, *,
         h, aux = M.apply_moe(p["moe"], cfg,
                              L.apply_rmsnorm(p["ln2"], x, cfg.norm_eps))
         return x + h, nc, aux
+    if typ == "mamba":
+        x, nc = SSM.apply_mamba(p, cfg, x, state=cache)
+        return x, nc, None
     raise ValueError(typ)
 
 
@@ -129,20 +150,21 @@ class LM:
         # forward: "none" | "full" | "dots" (set by the train-step factory)
         self.remat = "none"
 
-    def _superblock(self, p_l, x: torch.Tensor, aux: torch.Tensor
+    def _superblock(self, p_l, shared, x: torch.Tensor, aux: torch.Tensor
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
         for i, typ in enumerate(self.sched.pattern):
-            x, _, a = _apply_sub(p_l[f"b{i}_{typ}"], self.cfg, typ, x)
+            p = shared if typ == "shared" else p_l[f"b{i}_{typ}"]
+            x, _, a = _apply_sub(p, self.cfg, typ, x)
             if a is not None:
                 aux = aux + a
         return x, aux
 
-    def _maybe_remat(self, p_l, x: torch.Tensor, aux: torch.Tensor
+    def _maybe_remat(self, p_l, shared, x: torch.Tensor, aux: torch.Tensor
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
         """One superblock, recomputed in the backward under "full" (saves
         nothing inside) or "dots" (saves the projection matmuls)."""
         if self.remat == "none" or not torch.is_grad_enabled():
-            return self._superblock(p_l, x, aux)
+            return self._superblock(p_l, shared, x, aux)
         if self.remat == "full":
             ctx = ckpt.noop_context_fn
         elif self.remat == "dots":
@@ -150,7 +172,7 @@ class LM:
                                     _save_dots)
         else:
             raise ValueError(f"remat={self.remat!r}: none, full or dots")
-        return ckpt.checkpoint(self._superblock, p_l, x, aux,
+        return ckpt.checkpoint(self._superblock, p_l, shared, x, aux,
                                use_reentrant=False, context_fn=ctx)
 
     # -------------------------- declarations -------------------------
@@ -162,12 +184,18 @@ class LM:
             "final_norm": P.norm(cfg.d_model),
             "main": P.stack_decls(
                 {f"b{i}_{t}": _decl_sub(cfg, t)
-                 for i, t in enumerate(sch.pattern)}, sch.n_super),
+                 for i, t in enumerate(sch.pattern) if t != "shared"},
+                sch.n_super),
         }
         if not cfg.tie_embeddings:
             d["head"] = P.ParamDecl((cfg.padded_vocab, cfg.d_model),
                                     ("vocab", "embed"), "normal",
                                     1.0 / (cfg.d_model ** 0.5))
+        if sch.tail:
+            d["tail"] = P.stack_decls(_decl_sub(cfg, sch.tail[0]),
+                                      len(sch.tail))
+        if sch.has_shared:
+            d["shared"] = L.decl_dense_block(cfg)
         return d
 
     def init(self, seed: int = 0, *, device, dtype=None) -> Any:
@@ -177,6 +205,13 @@ class LM:
         gen = torch.Generator(device=device).manual_seed(seed)
         return P.init_tree(self.decl(), generator=gen, dtype=dtype,
                            device=device)
+
+    def decode_params(self, params) -> Any:
+        """The decode-path view of ``params``: the reference strips the
+        encoder and cross-attention K/V leaves that only its cache
+        precompute reads; no ported family has them, so ``params`` comes
+        back unchanged."""
+        return params
 
     def head_weight(self, params) -> torch.Tensor:
         """(V_padded, d) vocab-major head weight (embedding when tied)."""
@@ -194,9 +229,16 @@ class LM:
         x = params["embed"][tokens.long()].to(dt)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         layers = P.tree_map(lambda t: t.unbind(0), params["main"])
+        shared = params.get("shared")
         for li in range(sch.n_super):
             x, aux = self._maybe_remat(
-                P.tree_map(lambda ts: ts[li], layers), x, aux)
+                P.tree_map(lambda ts: ts[li], layers), shared, x, aux)
+        if sch.tail:
+            # the tail is not checkpointed, as in the reference
+            tail = P.tree_map(lambda t: t.unbind(0), params["tail"])
+            for li in range(len(sch.tail)):
+                x, _, _ = _apply_sub(P.tree_map(lambda ts: ts[li], tail),
+                                     cfg, sch.tail[li], x)
         x = L.apply_rmsnorm(params["final_norm"], x, cfg.norm_eps)
         return x, aux
 
@@ -219,21 +261,38 @@ class LM:
         return nll + aux, {"nll": nll, "moe_aux": aux}
 
     # ------------------------------ caches ---------------------------
-    def init_cache(self, params, batch: int, max_len: int, *,
-                   kv_dtype=torch.bfloat16) -> Any:
-        """Dense per-slot decode cache: (n_layers, batch, max_len, Hkv, D)
-        K/V rows and a write index per layer."""
-        cfg, sch = self.cfg, self.sched
-        dev = params["embed"].device
-        n, Hkv, D = sch.n_super, cfg.num_kv_heads, cfg.head_dim
-        main = {f"b{i}_{t}": {
+    def _init_sub_cache(self, typ: str, n: int, batch: int, max_len: int,
+                        kv_dtype, dev) -> Dict[str, torch.Tensor]:
+        """One sub-block's cache, stacked over ``n`` layers: K/V rows and
+        a write index (attention blocks, one per use of the shared
+        block), or the Mamba2 conv and SSM states."""
+        if typ == "mamba":
+            st = SSM.init_mamba_state(self.cfg, batch, kv_dtype, device=dev)
+            return {k: t.expand((n,) + t.shape).clone()
+                    for k, t in st.items()}
+        Hkv, D = self.cfg.num_kv_heads, self.cfg.head_dim
+        return {
             "k": torch.zeros((n, batch, max_len, Hkv, D), dtype=kv_dtype,
                              device=dev),
             "v": torch.zeros((n, batch, max_len, Hkv, D), dtype=kv_dtype,
                              device=dev),
             "idx": torch.zeros((n,), dtype=torch.int32, device=dev)}
-            for i, t in enumerate(sch.pattern)}
-        return {"main": main}
+
+    def init_cache(self, params, batch: int, max_len: int, *,
+                   kv_dtype=torch.bfloat16) -> Any:
+        """Dense per-slot decode cache: per layer (n_layers, batch,
+        max_len, Hkv, D) K/V rows and a write index, or a Mamba2 block's
+        states (``"tail"`` for the tail's)."""
+        sch = self.sched
+        dev = params["embed"].device
+        cache = {"main": {
+            f"b{i}_{t}": self._init_sub_cache(t, sch.n_super, batch,
+                                              max_len, kv_dtype, dev)
+            for i, t in enumerate(sch.pattern)}}
+        if sch.tail:
+            cache["tail"] = self._init_sub_cache(
+                sch.tail[0], len(sch.tail), batch, max_len, kv_dtype, dev)
+        return cache
 
     def init_paged_cache(self, params, num_slots: int, max_len: int, *,
                          page_size: int = 16,
@@ -257,6 +316,10 @@ class LM:
             num_pages = num_slots * max_pages
         main = {}
         for i, t in enumerate(sch.pattern):
+            if t not in ("dense", "moe"):
+                raise ValueError(
+                    f"paged cache needs indexed KV in every sub-block; "
+                    f"{t!r} blocks are unsupported")
             sub = {
                 "k": torch.zeros((n, num_pages, page_size, Hkv, D),
                                  dtype=kv_dtype, device=dev),
@@ -287,7 +350,7 @@ class LM:
         return any("pt" in sub for sub in cache["main"].values())
 
     def _set_leaf(self, cache, key: str, value) -> Any:
-        dev = next(iter(cache["main"].values()))["k"].device
+        dev = next(iter(next(iter(cache["main"].values())).values())).device
         value = torch.as_tensor(value, dtype=torch.int32, device=dev)
         n = self.sched.n_super
         return {**cache, "main": {
@@ -398,18 +461,26 @@ class LM:
             for i, typ in enumerate(sch.pattern):
                 name = f"b{i}_{typ}"
                 c = {key: t[li] for key, t in main[name].items()}
-                x, nc, _ = _apply_sub(p_l[name], cfg, typ, x, cache=c,
-                                      spec=spec)
+                p = params["shared"] if typ == "shared" else p_l[name]
+                x, nc, _ = _apply_sub(p, cfg, typ, x, cache=c, spec=spec)
                 for key in _PER_LAYER:
                     if key in nc:
                         per_layer[name].setdefault(key, []).append(nc[key])
-        new_main = {name: {**sub, **{key: torch.stack(ts) for key, ts in
-                                     per_layer[name].items()}}
-                    for name, sub in main.items()}
+        new_cache = {"main": {
+            name: {**sub, **{key: torch.stack(ts) for key, ts in
+                             per_layer[name].items()}}
+            for name, sub in main.items()}}
+        if sch.tail:
+            # the tail's Mamba2 states are written in place
+            for li, typ in enumerate(sch.tail):
+                x, _, _ = _apply_sub(
+                    _layer(params["tail"], li), cfg, typ, x,
+                    cache={key: t[li] for key, t in cache["tail"].items()})
+            new_cache["tail"] = cache["tail"]
 
         x = L.apply_rmsnorm(params["final_norm"], x, cfg.norm_eps)
         logits = L.lm_head(x, self.head_weight(params).to(dt))
-        return _mask_pad_vocab(logits, cfg), {"main": new_main}
+        return _mask_pad_vocab(logits, cfg), new_cache
 
 
 # the leaves a cached forward returns per layer, restacked over the

@@ -1,8 +1,10 @@
-"""The continuous-batching engine's steps: one decode tick over the whole
-slot batch, one speculative verify tick and the grouped admission
-prefill, over the dense or the paged KV layout. The reference jits these
-factories; here they are plain calls that queue the device work (the
-engine synchronizes once per step when it reads the tokens back).
+"""Serve-step factories: the greedy one-token step over a dense cache
+(the token-loop serving driver's), and the continuous-batching engine's
+steps: one decode tick over the whole slot batch, one speculative verify
+tick and the grouped admission prefill, over the dense or the paged KV
+layout. The reference jits these factories; here they are plain calls
+that queue the device work (the engine synchronizes once per step when
+it reads the tokens back).
 """
 from __future__ import annotations
 
@@ -36,6 +38,18 @@ class StepCache:
                 raise ValueError(f"unknown step kind {kind!r}")
             self._fns[key] = fn
         return fn
+
+
+def make_serve_step(model):
+    """serve_step(params, cache, tokens (B,1) int32) -> (greedy next
+    tokens (B,1) int32, new cache): one cached forward, no gradient."""
+
+    @torch.no_grad()
+    def serve_step(params, cache, tokens):
+        logits, new_cache = model.decode_step(params, cache, tokens)
+        nxt = logits[:, -1:].argmax(dim=-1).to(torch.int32)
+        return nxt, new_cache
+    return serve_step
 
 
 def make_engine_tick(model, *, paged: bool = False):

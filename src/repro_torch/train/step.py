@@ -3,10 +3,10 @@ accumulation, int8 gradient compression and global-norm clipping.
 
 Port of src/repro/train/step.py without a mesh (the sharded strategy is
 ROADMAP A11). Gradients are taken by autograd with respect to the
-compute params; the f32 master weights and moments are updated in place
-and the next compute params are FRESH tensors cast from the master, so a
-caller may hold the pre-step params (the training detectors compare
-them with the post-step ones).
+compute params and clipped in place; the f32 master weights and moments
+are updated in place and the next compute params are FRESH tensors cast
+from the master, so a caller may hold the pre-step params (the training
+detectors compare them with the post-step ones).
 """
 from __future__ import annotations
 
@@ -48,7 +48,8 @@ def make_train_step(model, tc: TrainConfig):
             loss, metrics = model.loss(live, batch, z_loss=tc.z_loss)
             leaves = tree_leaves(live)
             grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g
+        # dense (no expanded views), as the in-place clip writes them
+        grads = [torch.zeros_like(p) if g is None else g.contiguous()
                  for g, p in zip(grads, leaves)]
         metrics = {k: v.detach() for k, v in metrics.items()}
         return loss.detach(), metrics, _like(params, grads)
@@ -73,7 +74,8 @@ def make_train_step(model, tc: TrainConfig):
         loss, metrics, grads = compute_grads(state.params, batch)
         if tc.grad_compression == "int8_ef":
             grads = tree_map(_compress_int8_ef, grads)
-        grads, gnorm = adamw.clip_by_global_norm(grads, tc.grad_clip)
+        # in place: the clipped tree is not a second copy of the grads
+        gnorm = adamw.clip_by_global_norm_(grads, tc.grad_clip)
         lr = lr_at(tc, state.step)
         master, opt = adamw.update(tc, grads, state.opt, state.master, lr,
                                    state.step)

@@ -277,6 +277,9 @@ FLASH_TOL = {"float32": (1e-4, 2e-4), "bfloat16": (2e-2, 3e-2)}
     (64, 64, 4, 2, 64, True), (1, 130, 4, 2, 128, True),
     (1, 65, 4, 2, 64, False), (129, 129, 4, 2, 128, True),
     (129, 65, 4, 2, 64, False), (70, 65, 4, 2, 128, True),
+    # the training heads of granite-moe-3b-a800m (G 3: dK and dV gather
+    # three q heads) and zamba2-1.2b (G 1) at the training length
+    (1024, 1024, 24, 8, 64, True), (1024, 1024, 32, 32, 64, True),
 ])
 def test_flash_kernels_match_plain(cuda, dtype, sq, skv, hq, hkv, d, causal):
     g = torch.Generator(device=cuda).manual_seed(sq * 1000 + skv)
@@ -434,7 +437,10 @@ RMS_TOL = {"float32": (1e-5, 2e-4), "bfloat16": (2e-2, 3e-2)}
     (1, 128, False), (8, 2048, False), (517, 128, True), (131, 2048, True),
     (33, 1000, False), (700, 2048, False), (9, 64, False),
     (29, 999, False), (3, 10000, False), (1024, 1536, False),
-    (40, 1536, True)])
+    (40, 1536, True),
+    # zamba2-1.2b's gate norm: 4096 is the backward's widest wide-route
+    # width (WIDE_MAX_D), 4104 the next width of 8, on the general route
+    (64, 4096, False), (131, 4096, True), (33, 4104, False)])
 def test_rmsnorm_kernels_match_plain(cuda, x_dtype, s_dtype, rows, width,
                                      strided):
     g = torch.Generator(device=cuda).manual_seed(rows * 7 + width)

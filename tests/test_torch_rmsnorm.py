@@ -205,6 +205,11 @@ PLAN_CASES = [
     (5, 12, (0, 0, 24, 24), "narrow"),
     (5, 12, (0, 0, 24, 26), "general"),
     (3, 10000, (0, 0, 20000, 20000), "general"),
+    # zamba2-1.2b's gate norm (4096: the widest wide row), granite's
+    # training norm, and the next width of 8 past the wide route
+    (4096, 4096, (0, 0, 8192, 8192), "wide"),
+    (4096, 1536, (0, 0, 3072, 3072), "wide"),
+    (33, 4104, (0, 0, 8208, 8208), "general"),
 ]
 
 

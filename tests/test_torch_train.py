@@ -1,8 +1,13 @@
 """The PyTorch port's training slice against the reference on the CPU:
 the schedule, AdamW and clipping, the losses, the data stream, the smoke
-model's forward/loss/gradients with the reference's weights, whole train
+models' forward/loss/gradients with the reference's weights, whole train
 steps from one state carried across by ``train.state.from_reference``,
-the training detectors, the SARIF rules and ``launch.train``.
+the training detectors, the SARIF rules and ``launch.train``. The smoke
+models are qwen3-1.7b's (dense), granite-moe-3b-a800m's (moe: the router
+weight's gradient through the top-K, and at a capacity factor of 0.25
+the scatter dispatch's gradient where tokens drop) and zamba2-1.2b's
+(hybrid, at 14 layers: two superblocks of six Mamba2 blocks and the
+shared block, then a tail of two).
 
 Tolerances (float32 unless said otherwise):
 - lr: 1e-6 relative (the same f32 formula, libm cos vs XLA's);
@@ -23,9 +28,16 @@ Tolerances (float32 unless said otherwise):
   params after the last step within 2 * lr per step taken with an
   update: Adam moves an element whose gradient is near 0 by about +-lr
   whatever the gradient's size, so a sign that rounds the other way in
-  one framework differs by up to 2 * lr there;
-- detector findings, paths, steps and counters equal exactly.
+  one framework differs by up to 2 * lr there; the hybrid's grad norm
+  within 1e-3 relative: its gradient (norm ~50, clipped to 1) runs
+  through the SSD's exp of cumulative sums, so one step's f32 sums in
+  another order already give ~1e-5, and those sign flips then grow the
+  difference step over step (to ~4e-4 at the 5th step) while its losses
+  stay within 2e-6;
+- detector findings, paths, steps and counters equal exactly;
+- ``moe_aux`` as the loss (a sum of f32 means).
 """
+import dataclasses
 import json
 import sys
 
@@ -57,6 +69,7 @@ from repro_torch.data.pipeline import Prefetcher
 from repro_torch.data.synthetic import stream
 from repro_torch.launch import train as pt_train
 from repro_torch.models import layers
+from repro_torch.models import moe as pt_moe
 from repro_torch.models import params as P
 from repro_torch.optim import adamw
 from repro_torch.optim.schedule import lr_at
@@ -65,6 +78,27 @@ from repro_torch.train import state as pt_state
 from repro_torch.train import step as pt_step
 
 from _torch_parity import smoke_models, to_np
+
+GRANITE, ZAMBA = "granite-moe-3b-a800m", "zamba2-1.2b"
+
+
+def _models(case: str = "qwen3", dtype: str = "float32"):
+    """smoke_models of a named case: "qwen3" (dense), "granite" (moe),
+    "granite-drop" (moe at a capacity factor of 0.25, so tokens drop),
+    "granite-einsum" (moe through the one-hot einsum dispatch), "zamba2"
+    (hybrid, 8 layers: a superblock of six Mamba2 blocks and the shared
+    block, then a tail of two, as the full config has them)."""
+    if case == "qwen3":
+        return smoke_models(dtype)
+    if case.startswith("granite"):
+        from repro_torch.configs import registry
+        moe = registry.get_config(GRANITE).smoke().moe
+        over = {"granite": {}, "granite-drop": {"capacity_factor": 0.25},
+                "granite-einsum": {"dispatch": "einsum"}}[case]
+        return smoke_models(dtype, arch=GRANITE,
+                            moe=dataclasses.replace(moe, **over))
+    assert case == "zamba2", case
+    return smoke_models(dtype, arch=ZAMBA, num_layers=8)
 
 
 def _close(got, want, rtol=1e-6, atol=0.0):
@@ -100,7 +134,8 @@ def test_adamw_update_and_clip_match_reference(max_norm):
     m, v = _tree(2), P.tree_map(np.abs, _tree(3))
     want_g, want_norm = ref_adamw.clip_by_global_norm(
         jax.tree_util.tree_map(jnp.asarray, grads), max_norm)
-    got_g, got_norm = adamw.clip_by_global_norm(_torch_tree(grads), max_norm)
+    got_g = _torch_tree(grads)
+    got_norm = adamw.clip_by_global_norm_(got_g, max_norm)
     _close(got_norm, want_norm)
     want = dict(pt_detectors._leaf_paths(want_g))
     for path, g in pt_detectors._leaf_paths(got_g):
@@ -117,6 +152,36 @@ def test_adamw_update_and_clip_match_reference(max_norm):
         want = dict(pt_detectors._leaf_paths(want))
         for path, g in pt_detectors._leaf_paths(got):
             _close(g, want[path], atol=1e-7)
+
+
+def test_sliced_update_and_in_place_clip_equal_whole_leaves(monkeypatch):
+    """The update and the in-place clip take a leaf in slices of at most
+    ``SLICE`` elements along its first dimension (the f32 temporaries of
+    a stacked expert leaf stay small): every operation is elementwise,
+    so the values are the whole-leaf ones bit for bit."""
+    rng = np.random.default_rng(8)
+
+    def tree():
+        return {"w": torch.from_numpy(rng.standard_normal(
+                    (7, 5, 9)).astype(np.float32)),
+                "v": torch.from_numpy(rng.standard_normal(300).astype(
+                    np.float32)),
+                "s": torch.tensor(0.5)}
+    grads, master, m = tree(), tree(), tree()
+    v = P.tree_map(torch.abs, tree())
+    copy = lambda t: P.tree_map(torch.clone, t)       # noqa: E731
+    out = {}
+    for slice_ in (adamw.SLICE, 40):
+        monkeypatch.setattr(adamw, "SLICE", slice_)
+        g = copy(grads)
+        norm = adamw.clip_by_global_norm_(g, 1.0)
+        state = adamw.AdamWState(m=copy(m), v=copy(v))
+        p, state = adamw.update(TrainConfig(), g, state, copy(master),
+                                torch.tensor(1e-3), torch.tensor(2))
+        out[slice_] = [norm] + P.tree_leaves(g) + P.tree_leaves(p) + \
+            P.tree_leaves(state.m) + P.tree_leaves(state.v)
+    whole, sliced = out.values()
+    assert all(torch.equal(a, b) for a, b in zip(whole, sliced))
 
 
 def test_int8_gradient_compression_matches_reference():
@@ -164,20 +229,38 @@ def _batch(vocab, B, S, seed):
     return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
 
 
-@pytest.mark.parametrize("B,S", [(2, 16), (1, 1024)])
-def test_forward_loss_and_grads_match_reference(B, S):
+@pytest.mark.parametrize("case,B,S", [
+    pytest.param("qwen3", 2, 16, id="2-16"),
+    pytest.param("qwen3", 1, 1024, id="1-1024"),
+    pytest.param("granite", 2, 16, id="granite-2-16"),
+    pytest.param("granite-drop", 2, 32, id="granite-drop-2-32"),
+    pytest.param("zamba2", 2, 16, id="zamba2-2-16")])
+def test_forward_loss_and_grads_match_reference(case, B, S, monkeypatch):
     """At Skv >= 1024 the reference's attention is flash_xla (its
-    hand-written VJP), below it the masked softmax composition."""
-    ref_model, ref_params, pt_model, pt_params = smoke_models()
+    hand-written VJP), below it the masked softmax composition. The MoE
+    cases compare ``moe_aux`` and the router's gradient too; in
+    "granite-drop" tokens do drop at capacity."""
+    ref_model, ref_params, pt_model, pt_params = _models(case)
+    keeps = []
+    route = pt_moe._route
+
+    def watched(*args, **kwargs):
+        out = route(*args, **kwargs)
+        keeps.append(bool(out[3].all()))
+        return out
+    monkeypatch.setattr(pt_moe, "_route", watched)
     b = _batch(ref_model.cfg.vocab_size, B, S, seed=S)
     jb = {k: jnp.asarray(v) for k, v in b.items()}
     tb = {k: torch.from_numpy(v) for k, v in b.items()}
-    want_logits, _ = ref_model.forward(ref_params, jb["tokens"])
+    want_logits, want_aux = ref_model.forward(ref_params, jb["tokens"])
     got_logits, aux = pt_model.forward(pt_params, tb["tokens"])
     _close(got_logits, want_logits, rtol=1e-4, atol=1e-4)
-    assert float(aux) == 0.0
+    _close(aux, want_aux, rtol=1e-5)
+    assert (float(aux) == 0.0) == (pt_model.cfg.moe is None)
     eval_logits, _ = pt_step.make_eval_step(pt_model)(pt_params, tb)
     assert torch.equal(eval_logits, got_logits)
+    if case == "granite-drop":
+        assert not all(keeps), keeps
 
     (want_loss, want_m), want_g = jax.value_and_grad(
         ref_model.loss, has_aux=True)(ref_params, jb)
@@ -186,6 +269,7 @@ def test_forward_loss_and_grads_match_reference(B, S):
     got_g = torch.autograd.grad(got_loss, P.tree_leaves(live))
     _close(got_loss, want_loss, rtol=1e-5)
     _close(got_m["nll"], want_m["nll"], rtol=1e-5)
+    _close(got_m["moe_aux"], want_m["moe_aux"], rtol=1e-5)
     want_leaves = dict(pt_detectors._leaf_paths(want_g))
     got_leaves = dict(pt_detectors._leaf_paths(_like(live, got_g)))
     assert sorted(got_leaves) == sorted(want_leaves)
@@ -206,18 +290,29 @@ def _report(rep):
             dict(rep.checked), dict(rep.flagged))
 
 
+def _train_case(case, *values):
+    """A train-step case; qwen3's keep their ids of before."""
+    ident = "-".join(str(v) for v in values)
+    return pytest.param(case, *values, id=ident if case == "qwen3"
+                        else f"{case}-{ident}")
+
+
 @pytest.mark.parametrize(
-    "dtype,microbatches,compression,loss_rtol,gnorm_rtol",
-    [("float32", 1, "none", 1e-5, 1e-5), ("float32", 2, "none", 1e-5, 1e-5),
-     ("float32", 1, "int8_ef", 1e-5, 1e-4),
-     ("bfloat16", 1, "none", 1e-4, 1e-2)])
-def test_train_steps_match_reference(dtype, microbatches, compression,
+    "case,dtype,microbatches,compression,loss_rtol,gnorm_rtol",
+    [_train_case("qwen3", "float32", 1, "none", 1e-5, 1e-5),
+     _train_case("qwen3", "float32", 2, "none", 1e-5, 1e-5),
+     _train_case("qwen3", "float32", 1, "int8_ef", 1e-5, 1e-4),
+     _train_case("qwen3", "bfloat16", 1, "none", 1e-4, 1e-2),
+     _train_case("granite", "float32", 1, "none", 1e-5, 1e-5),
+     _train_case("granite-drop", "float32", 1, "none", 1e-5, 1e-5),
+     _train_case("zamba2", "float32", 1, "none", 1e-5, 1e-3)])
+def test_train_steps_match_reference(case, dtype, microbatches, compression,
                                      loss_rtol, gnorm_rtol):
     """>= 4 steps of the reference's jitted step and the port's step from
     one state (f32 master and moments, compute params in ``dtype``), on
     the same stream batches, with the training detectors watching both."""
     steps, lr = 5, 3e-4
-    ref_model, _, pt_model, _ = smoke_models(dtype)
+    ref_model, _, pt_model, _ = _models(case, dtype)
     kw = dict(learning_rate=lr, total_steps=steps, warmup_steps=1,
               microbatches=microbatches, remat="none",
               grad_compression=compression)
@@ -241,7 +336,8 @@ def test_train_steps_match_reference(dtype, microbatches, compression,
             _close(pm[key], rm[key], rtol=loss_rtol)
         _close(pm["grad_norm"], rm["grad_norm"], rtol=gnorm_rtol)
         _close(pm["lr"], rm["lr"])
-        assert float(pm["moe_aux"]) == float(rm["moe_aux"]) == 0.0
+        _close(pm["moe_aux"], rm["moe_aux"], rtol=loss_rtol)
+        assert (float(rm["moe_aux"]) == 0.0) == (pt_model.cfg.moe is None)
         ref_det.on_step(step, before_r, rs.params)
         pt_det.on_step(step, before_p, ps.params)
         moved += 2 * float(rm["lr"])
@@ -375,7 +471,8 @@ class _CountOps(TorchDispatchMode):
 
 def _remat_grads(model, params, remat, monkeypatch):
     """Loss and gradients of one batch with ``model.remat`` set, with the
-    norms and the 2-D matmuls run in the forward and backward counted."""
+    norms, the 2-D matmuls and the batched products run in the forward
+    and backward counted."""
     model.remat = remat
     b = next(stream(model.cfg, 4, 32, seed=1))
     live = P.tree_map(lambda t: t.detach().requires_grad_(True), params)
@@ -391,33 +488,52 @@ def _remat_grads(model, params, remat, monkeypatch):
                                     b.items()})
         grads = torch.autograd.grad(loss, P.tree_leaves(live))
     monkeypatch.setattr(layers, "apply_rmsnorm", apply_rmsnorm)
-    return loss, grads, norms[0], ops.n["aten.mm.default"]
+    return (loss, grads, norms[0], ops.n["aten.mm.default"],
+            ops.n.get("aten.bmm.default", 0))
 
 
-@pytest.mark.parametrize("remat", ["full", "dots"])
-def test_remat_equals_none_bit_for_bit(remat, monkeypatch):
+# per superblock: (norms, projection matmuls "full" recomputes). Dense:
+# ln1, ln2, q- and k-norm; q, k, v, o, gate, up (the down projection's
+# output is read by no backward, so recomputation stops before it).
+# MoE: ln1, ln2; q, k, v, o, router. Hybrid: per Mamba2 block ln and the
+# gate norm, in_proj and out_proj, then the shared dense block's ln1 and
+# ln2 and its q, k, v, o, gate, up. Outside them: the final norm, and
+# the hybrid tail's 2 blocks (not checkpointed, as in the reference).
+REMAT_COUNTS = {"qwen3": (4, 6), "granite": (2, 5), "granite-einsum": (2, 5),
+                "zamba2": (6 * 2 + 2, 6 * 2 + 6)}
+
+
+@pytest.mark.parametrize("case,remat", [
+    pytest.param(case, remat, id=remat if case == "qwen3"
+                 else f"{case}-{remat}")
+    for case in REMAT_COUNTS for remat in ("full", "dots")])
+def test_remat_equals_none_bit_for_bit(case, remat, monkeypatch):
     """Activation checkpointing recomputes each superblock's forward in
     the backward; the recomputation repeats the same float32 operations,
     so the loss and every gradient of a batch, and the losses, grad
     norms and master params of 3 train steps, equal those without it bit
-    for bit. Both modes recompute every norm inside the superblocks (the
-    final norm lies outside them); "full" recomputes the projection
-    matmuls too, up to the last one whose output the backward reads (the
-    down projection's is not: recomputation stops before it), "dots"
-    keeps them."""
-    _, _, model, params = smoke_models("float32")
-    want_loss, want_grads, want_norms, want_mm = _remat_grads(
+    for bit. Both modes recompute every norm inside the superblocks;
+    "full" recomputes the projection matmuls too, up to the last one
+    whose output the backward reads, "dots" keeps them (the reference's
+    ``checkpoint_dots_with_no_batch_dims``) and recomputes every batched
+    product as "full" does: attention's, the MoE experts' ``bmm``s and
+    the einsum dispatch's and combine's, the SSD's einsums."""
+    _, _, model, params = _models(case)
+    want_loss, want_grads, want_norms, want_mm, want_bmm = _remat_grads(
         model, params, "none", monkeypatch)
-    loss, grads, norms, mm = _remat_grads(model, params, remat, monkeypatch)
+    loss, grads, norms, mm, bmm = _remat_grads(model, params, remat,
+                                               monkeypatch)
     assert torch.equal(loss, want_loss)
     assert len(grads) == len(want_grads)
     for g, w in zip(grads, want_grads):
         assert torch.equal(g, w)
-    layers_n = model.cfg.num_layers
-    assert want_norms == 4 * layers_n + 1
-    assert norms == want_norms + 4 * layers_n
-    projections = 6 * layers_n          # q, k, v, o, gate, up
-    assert mm == want_mm + (projections if remat == "full" else 0)
+    n_super, tail = model.sched.n_super, len(model.sched.tail)
+    per_norms, per_mm = REMAT_COUNTS[case]
+    assert want_norms == per_norms * n_super + 2 * tail + 1
+    assert norms == want_norms + per_norms * n_super
+    assert mm == want_mm + (per_mm * n_super if remat == "full" else 0)
+    _, _, _, _, full_bmm = _remat_grads(model, params, "full", monkeypatch)
+    assert bmm == full_bmm > want_bmm
     s0 = pt_state.create(model, 0, compute_dtype=torch.float32,
                          device="cpu")
     want = _remat_steps(model, s0, "none")

@@ -9,8 +9,9 @@ training, and zamba2-1.2b's (the hybrid family's) serving and training.
 1. prints the card (nvidia-smi name and power limit), the torch, CUDA
    and nvcc versions, and builds the hand-written CUDA kernels from
    ``src/repro_torch/csrc`` (timed; ptxas registers and spills per
-   kernel, and the HMMA instructions of the flash attention and paged
-   window kernels from cuobjdump);
+   kernel, the HMMA instructions of the flash attention and paged
+   window kernels and the global stores of B5's forward kernels from
+   cuobjdump);
 2. holds every kernel of the serving path against its plain PyTorch
    version on the card, at the main path's shapes (qwen3-1.7b: Hq 16,
    Hkv 8, D 128, page 16, 8 slots, windows of 2, 3, 8, 9, 32, 33 and
@@ -30,17 +31,22 @@ training, and zamba2-1.2b's (the hybrid family's) serving and training.
    a call, history splits); then the same at a 2048-position history,
    and the window kernel's split and tensor-core routes side by side at
    windows of 1 to 32 rows (the measurement behind its route choice);
-   then the RMSNorm forward (Triton) and backward (CUDA) against their
-   plain versions at every norm shape of the three paths and on every
-   route of the backward, in each x/scale dtype pair, with rows read by
-   stride (out within 1e-5 relative at float32 and 2e-2 at bfloat16; dx
-   and dscale within 2e-4 / 3e-2 of the plain gradient's largest
-   magnitude; two backward calls bit-identical, dscale equal bit for bit
-   to the blocked plain version on the kernel's plan), timed at the
-   three training norms beside ``torch.nn.functional.rms_norm`` (the
+   then the RMSNorm forward and backward (CUDA) against their plain
+   versions at every norm shape of the three paths and on every route
+   of both, in each x/scale dtype pair, with rows read by stride (out
+   within 1e-5 relative at float32 and 2e-2 at bfloat16, rstd within
+   1e-5; dx and dscale within 2e-4 / 3e-2 of the plain gradient's
+   largest magnitude; two calls bit-identical each way, dscale equal bit
+   for bit to the blocked plain version on the kernel's plan), timed at
+   the three training norms beside ``torch.nn.functional.rms_norm`` (the
    library yardstick) by device time from CUPTI, CUDA-event times
-   printed beside it, with one backward launch a call and its grid read
-   from the trace, and the backward's blocks an SM swept over 1-8;
+   printed beside it, with one launch a call each way and its grid read
+   from the trace, the backward's blocks an SM swept over 1-8 and the
+   forward's rows a block over 1-64, an empty kernel's device time on
+   the forward's grid (the launch floor), and the host's part of a call
+   (the median of three loops of 1000 back-to-back calls: the forward,
+   its ctypes launch and its allocation apart, the backward,
+   ``F.rms_norm``);
    then B1 and B2 at granite-moe-3b-a800m's heads (Hq 24, Hkv 8, D 64:
    G 3, so a kv group's rows leave a slack row in the split kernel's
    4-row block and in the tensor-core route's 64 stacked rows) on the
@@ -50,7 +56,9 @@ training, and zamba2-1.2b's (the hybrid family's) serving and training.
    verify and prefill rows, strided rows, every dtype pair), its
    forward timed beside ``F.rms_norm``; and B5's forward at qwen3's
    serving shapes (decode 8 x 2048, prefill 1024 x 2048, the q- and
-   k-norms of both) timed beside ``F.rms_norm``;
+   k-norms of both) timed beside ``F.rms_norm`` with its grid from the
+   trace and the empty launch's floor, swept over rows a block at the
+   prefill rows, its host path measured at the decode rows;
 3. runs the main path at full width: ``repro_torch.launch.serve.run``
    for qwen3-1.7b with the paged KV heap and the profiler on (random
    weights from seed 0, 28 layers), with the kernels' launch counts set
@@ -214,8 +222,7 @@ class Timer:
         kernels and memsets the call launches, read from CUPTI through
         torch.profiler, L2 flushed before every call (the flush's own
         kernels left out). Unlike ``__call__`` it leaves out the host's
-        launch path, which for a Triton kernel (tens of microseconds)
-        exceeds a norm's device time."""
+        launch path, which can exceed a small kernel's device time."""
         from torch.profiler import ProfilerActivity, profile
         torch = self.torch
         cuda = torch.autograd.DeviceType.CUDA
@@ -726,7 +733,131 @@ def library_call(torch, q, kn, vn, pool_k, pool_v, pt, idx, S):
 # phase 2b: RMSNorm forward and backward against their plain versions
 # ----------------------------------------------------------------------
 RMS_TOL = {"float32": (1e-5, 2e-4), "bfloat16": (2e-2, 3e-2)}
+# rstd: f32 either way, another summation order over up to 4096 squares
+RMS_RSTD_TOL = 1e-5
 RMS_EPS = 1e-6                            # qwen3's norm_eps
+# host-path measurement: back-to-back calls, and the spin (GPU cycles)
+# that keeps the device busy while they are enqueued
+HOST_CALLS = 1000
+HOST_SPIN = 4_000_000
+
+
+def rms_tol(dtype):
+    """(output, gradient) tolerance of an RMSNorm output in ``dtype``:
+    float32's, or the 16-bit one (one rounding of the output)."""
+    return RMS_TOL["float32" if dtype == "float32" else "bfloat16"]
+
+
+def host_us(torch, fn, calls=HOST_CALLS, rounds=3):
+    """Host time of one call in microseconds: ``calls`` back-to-back
+    calls after a warm-up, no synchronisation inside the loop, behind a
+    spin kernel that keeps the device busy (the launches queue behind
+    it, so no call waits for the device); the median of ``rounds`` such
+    loops (the host's cores are shared, and one loop can catch another
+    process's burst)."""
+    for _ in range(20):
+        fn()
+    per = []
+    for _ in range(rounds):
+        torch.cuda.synchronize()
+        torch.cuda._sleep(HOST_SPIN)
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        per.append((time.perf_counter() - t0) / calls * 1e6)
+    torch.cuda.synchronize()
+    return sorted(per)[rounds // 2]
+
+
+def norm_host_path(torch, tag, x, scale, dy, rstd, want_rstd):
+    """B5's host path at one shape: the forward wrapper, and the parts
+    of it (the ctypes launch alone on prepared arguments, the
+    allocation alone), an empty kernel launched the same way, the
+    backward wrapper and ``F.rms_norm``, each in microseconds a call
+    (``host_us``). Returns {name: us}."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import rmsnorm as rn
+    width = x.shape[-1]
+    plan = rn.fwd_plan_for(x, scale)
+    t, n, d, xs = rn._rows(x, "x")
+    stream = torch.cuda.current_stream().cuda_stream
+    y = x.new_empty(x.shape)
+    r = x.new_empty(n, dtype=torch.float32) if want_rstd else None
+    args = (t.data_ptr(), scale.data_ptr(), y.data_ptr(),
+            r.data_ptr() if want_rstd else None, n, xs, RMS_EPS,
+            plan.word(d, x.dtype, scale.dtype), stream)
+    lib = rn._lib()
+
+    def alloc():                      # as the wrapper allocates
+        torch.empty_like(x) if t is x else x.new_empty(x.shape)
+        if want_rstd:
+            x.new_empty(n, dtype=torch.float32)
+    us = {"forward": host_us(torch, lambda: rn.rmsnorm_forward(
+              x, scale, RMS_EPS, want_rstd=want_rstd)),
+          "ctypes launch": host_us(torch, lambda: lib.rmsnorm_fwd(*args)),
+          "allocation": host_us(torch, alloc),
+          "empty kernel": host_us(torch, lambda: lib.launch_floor(
+              plan.blocks, plan.threads, stream)),
+          "backward": host_us(torch, lambda: rn.rmsnorm_backward(
+              x, scale, rstd, dy, RMS_EPS)),
+          "F.rms_norm": host_us(torch, lambda: F.rms_norm(
+              x, (width,), scale, RMS_EPS))}
+    rest = us["forward"] - us["ctypes launch"] - us["allocation"]
+    print(f"[host] rmsnorm {tag} ({tuple(x.shape)} {str(x.dtype)[6:]}, "
+          f"{str(scale.dtype)[6:]} scale{', rstd' if want_rstd else ''}), "
+          f"host us a call (median of 3 x {HOST_CALLS} calls, no sync, "
+          f"device busy): "
+          f"forward {us['forward']:.2f} (= ctypes launch "
+          f"{us['ctypes launch']:.2f} + allocation {us['allocation']:.2f} "
+          f"+ wrapper Python {rest:.2f}; target <= 15: "
+          f"{us['forward'] <= 15}) | empty kernel by ctypes "
+          f"{us['empty kernel']:.2f} | backward {us['backward']:.2f} | "
+          f"F.rms_norm {us['F.rms_norm']:.2f}", flush=True)
+    return us
+
+
+def norm_fwd_trace_and_floor(torch, timer, tag, x, scale, want_rstd):
+    """The forward's launch read from the trace (one kernel, the plan's
+    grid), and the device time of an empty kernel on the same grid and
+    block launched the same way (ctypes, current stream): the floor
+    under any launch. Returns (plan, floor ms)."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels import rmsnorm as rn
+    plan = rn.fwd_plan_for(x, scale)
+    grids = launch_grids(torch, lambda: rn.rmsnorm_forward(
+        x, scale, RMS_EPS, want_rstd=want_rstd), ("rmsnorm_fwd",))
+    assert len(grids) == 1 and grids[0][1] == (plan.blocks, 1, 1), \
+        (tag, grids, plan)
+    lib, stream = rn._lib(), torch.cuda.current_stream().cuda_stream
+    build.launched(lib.launch_floor(plan.blocks, plan.threads, stream),
+                   "empty")
+    floor = timer.device(lambda: lib.launch_floor(plan.blocks, plan.threads,
+                                                  stream))
+    print(f"[kernels] rmsnorm forward {tag}: one call in the trace "
+          f"{grids} ({plan.route} route, {plan.blocks} blocks of "
+          f"{plan.rows} rows, {plan.threads} threads, {plan.lanes} lanes a "
+          f"row) | an empty kernel "
+          f"on that grid, device time {floor:.4f} ms", flush=True)
+    return plan, floor
+
+
+def norm_fwd_sweep(torch, timer, tag, x, scale, want_rstd):
+    """The forward's device time by rows a block (every power of two its
+    route takes), the wrapper's choice marked. Returns {rows: ms}."""
+    from repro_torch.kernels import rmsnorm as rn
+    chosen = rn.fwd_plan_for(x, scale)
+    plans = {}
+    for k in (1, 2, 4, 8, 16, 32, 64):
+        p = rn.fwd_plan_for(x, scale, k)
+        plans.setdefault(p.rows, p)
+    sweep = {rows: timer.device(lambda rows=rows: rn.rmsnorm_forward(
+        x, scale, RMS_EPS, want_rstd=want_rstd, rows=rows))
+        for rows in plans}
+    print(f"[kernels] rmsnorm forward {tag} by rows a block (device ms; "
+          f"{chosen.rows} on the path): " + ", ".join(
+              f"{rows} ({plans[rows].blocks} blocks): {ms:.4f}"
+              for rows, ms in sweep.items()), flush=True)
+    return sweep
 
 
 def rmsnorm_case(torch, rows, width, x_dtype, s_dtype, strided, seed):
@@ -734,7 +865,8 @@ def rmsnorm_case(torch, rows, width, x_dtype, s_dtype, strided, seed):
     versions on one set of inputs. Returns (max |err| of y, max |err| of
     dx and dscale, relative errors, inputs)."""
     from repro_torch.kernels import ref
-    from repro_torch.kernels.rmsnorm import (plan_for, rmsnorm_backward,
+    from repro_torch.kernels.rmsnorm import (fwd_plan_for, plan_for,
+                                            rmsnorm_backward,
                                             rmsnorm_forward)
     g = torch.Generator(device="cuda").manual_seed(seed)
     xdt, sdt = getattr(torch, x_dtype), getattr(torch, s_dtype)
@@ -746,7 +878,11 @@ def rmsnorm_case(torch, rows, width, x_dtype, s_dtype, strided, seed):
                              device="cuda")).to(xdt)
     scale = torch.randn(width, generator=g, device="cuda").to(sdt)
     dy = torch.randn((rows, width), generator=g, device="cuda").to(xdt)
+    before_f = rmsnorm_forward.launches
     y, rstd = rmsnorm_forward(x, scale, RMS_EPS, want_rstd=True)
+    y2, rstd2 = rmsnorm_forward(x, scale, RMS_EPS, want_rstd=True)
+    assert rmsnorm_forward.launches == before_f + 2
+    fplan = fwd_plan_for(x, scale)
     before = rmsnorm_backward.launches
     dx, ds = rmsnorm_backward(x, scale, rstd, dy, RMS_EPS)
     dx2, ds2 = rmsnorm_backward(x, scale, rstd, dy, RMS_EPS)
@@ -756,29 +892,39 @@ def rmsnorm_case(torch, rows, width, x_dtype, s_dtype, strided, seed):
         group=plan.group)
     want = ref.rmsnorm_ref(x, scale, RMS_EPS)
     want_dx, want_ds = ref.rmsnorm_bwd_ref(x, scale, dy, RMS_EPS)
+    want_rstd = torch.rsqrt(x.float().square().mean(-1) + RMS_EPS)
     torch.cuda.synchronize()
     same = torch.equal(dx, dx2) and torch.equal(ds, ds2)
+    same_f = torch.equal(y, y2) and torch.equal(rstd, rstd2)
     blocked = torch.equal(ds, blocked_ds)
     err = float((y.float() - want.float()).abs().max())
     rel = float(((y.float() - want.float()).abs()
                  / want.float().abs().clamp_min(1e-3)).max())
+    rel_r = float(((rstd - want_rstd).abs() / want_rstd).max())
     err_g = max(float((a.float() - b.float()).abs().max())
                 for a, b in ((dx, want_dx), (ds, want_ds)))
-    rel_g = max(float((a.float() - b.float()).abs().max())
-                / max(float(b.float().abs().max()), 1e-30)
-                for a, b in ((dx, want_dx), (ds, want_ds)))
-    tol, tol_g = RMS_TOL["float32" if x_dtype == s_dtype == "float32"
-                         else "bfloat16"]
+    # each output at its own dtype's tolerance: y and dx in x's, dscale
+    # in scale's
+    tol, tol_dx = rms_tol(x_dtype)
+    tol_ds = rms_tol(s_dtype)[1]
+    rel_dx, rel_ds = (float((a.float() - b.float()).abs().max())
+                      / max(float(b.float().abs().max()), 1e-30)
+                      for a, b in ((dx, want_dx), (ds, want_ds)))
     print(f"[kernels] rmsnorm {rows:6d} x {width:5d} x {x_dtype:8s} scale "
           f"{s_dtype:8s}{' strided' if strided else '        '} | out max "
-          f"rel err {rel:.3e} (tol {tol}) | dx/dscale max rel err "
-          f"{rel_g:.3e} (tol {tol_g}) | backward {plan.route} route, "
-          f"{plan.blocks} blocks: two calls bit-identical {same}, dscale "
-          f"equal to the blocked plain version {blocked}", flush=True)
-    if not (rel <= tol and rel_g <= tol_g):
+          f"rel err {rel:.3e} (tol {tol}), rstd {rel_r:.3e} (tol "
+          f"{RMS_RSTD_TOL}) | dx max rel err {rel_dx:.3e} (tol {tol_dx}), "
+          f"dscale {rel_ds:.3e} (tol {tol_ds}) | forward {fplan.route} route, {fplan.blocks} blocks "
+          f"of {fplan.rows} rows: two calls bit-identical {same_f} | "
+          f"backward {plan.route} route, {plan.blocks} blocks: two calls "
+          f"bit-identical {same}, dscale equal to the blocked plain "
+          f"version {blocked}", flush=True)
+    if not (rel <= tol and rel_r <= RMS_RSTD_TOL and rel_dx <= tol_dx
+            and rel_ds <= tol_ds):
         raise AssertionError(f"rmsnorm ({rows}x{width}, {x_dtype}/"
                              f"{s_dtype}) disagrees with its plain version")
-    assert same and blocked, (rows, width, x_dtype, s_dtype, plan)
+    assert same and same_f and blocked, (rows, width, x_dtype, s_dtype,
+                                         fplan, plan)
     assert rmsnorm_backward.launches == before + 2
     return err, err_g, (x, scale, dy, rstd)
 
@@ -786,13 +932,14 @@ def rmsnorm_case(torch, rows, width, x_dtype, s_dtype, strided, seed):
 def check_rmsnorm(torch, timer):
     """Phase 2b. Every norm shape of the three main paths (decode tick,
     verify tick, prefill, training block/q/k norms) in each x/scale dtype
-    pair, strided rows, a ragged width, and widths that take the
-    backward's narrow (64) and general (999, 10000) routes; timed at the
-    three training norms (bf16, bf16 scale, rstd written), each backward
-    call's launches and grid read from the trace, and the backward's
-    blocks an SM swept over 1-8. Returns the forward and backward JSON
-    entries (the block norm's numbers, every shape's under
-    ``by_shape``)."""
+    pair, strided rows, a ragged width, and widths that take the narrow
+    (64) and general (999, 10000) routes; timed at the three training
+    norms (bf16, bf16 scale, rstd written), each call's launch and grid
+    read from the trace, the backward's blocks an SM swept over 1-8 and
+    the forward's rows a block, the empty launch's device time on the
+    forward's grid, and the host path of a call (``norm_host_path``).
+    Returns the forward and backward JSON entries (the block norm's
+    numbers, every shape's under ``by_shape``)."""
     import torch.nn.functional as F
     from repro_torch.kernels import ref
     from repro_torch.kernels.rmsnorm import (BLOCKS_PER_SM, plan_for,
@@ -812,8 +959,8 @@ def check_rmsnorm(torch, timer):
             rmsnorm_case(torch, rows, width, x_dtype, s_dtype, strided, seed)
 
     entries = {
-        "rmsnorm_fwd": {"name": "rmsnorm_fwd", "route": "triton",
-                        "source": "src/repro_torch/kernels/rmsnorm.py",
+        "rmsnorm_fwd": {"name": "rmsnorm_fwd", "route": "cuda",
+                        "source": "src/repro_torch/csrc/rmsnorm.cu",
                         "replaces": "src/repro/kernels/rmsnorm.py:23"},
         "rmsnorm_bwd": {"name": "rmsnorm_bwd", "route": "cuda",
                         "source": "src/repro_torch/csrc/rmsnorm.cu",
@@ -882,13 +1029,26 @@ def check_rmsnorm(torch, timer):
               flush=True)
         print(f"[kernels] rmsnorm {label}, CUDA events around each call "
               f"(host launch path included): "
-              + ", ".join(f"{k} {v:.4f} ms" for k, v in ev.items()),
+              + ", ".join(f"{k} {v:.4f} ms" for k, v in ev.items())
+              + f" | forward <= F.rms_norm: {ev['fwd'] <= ev['fwd_lib']}",
               flush=True)
-        for key, ms, plain_ms, lib_ms, e, (b_ms, by) in (
-                ("rmsnorm_fwd", fwd, fwd_plain, fwd_lib, err, fwd_b),
-                ("rmsnorm_bwd", bwd, bwd_plain, bwd_lib, err_g, bwd_b)):
+        fplan, floor = norm_fwd_trace_and_floor(torch, timer, label, x,
+                                                scale, True)
+        norm_fwd_sweep(torch, timer, label, x, scale, True)
+        us = norm_host_path(torch, label, x, scale, dy, rstd, True)
+        print(f"[kernels] rmsnorm forward {label}: {fplan.route} route, "
+              f"device {fwd:.4f} ms = {fwd_b[0] / fwd:.3f} of the bound "
+              f"(empty launch {floor:.4f} ms), host {us['forward']:.2f} "
+              f"us a call | F.rms_norm device {fwd_lib:.4f} ms, host "
+              f"{us['F.rms_norm']:.2f} us", flush=True)
+        for key, ms, plain_ms, lib_ms, e, (b_ms, by), host in (
+                ("rmsnorm_fwd", fwd, fwd_plain, fwd_lib, err, fwd_b,
+                 us["forward"]),
+                ("rmsnorm_bwd", bwd, bwd_plain, bwd_lib, err_g, bwd_b,
+                 us["backward"])):
             num = {"max_abs_err": e, "ms": ms, "plain_ms": plain_ms,
-                   "bound_ms": b_ms, "bound_by": by, "library_ms": lib_ms}
+                   "bound_ms": b_ms, "bound_by": by, "library_ms": lib_ms,
+                   "event_ms": ev[key[-3:]], "host_us": host}
             by_shape[key][label] = num
             if label == "block":
                 entries[key].update(num)
@@ -921,28 +1081,42 @@ def norm_forward_times(torch, timer, entries, tag, rows, width,
     """B5's forward at one serving shape (bf16 x, a scale in
     ``s_dtype``, no rstd) against its plain version (and its backward on
     the same rows, by ``rmsnorm_case``), timed by device time beside
-    ``F.rms_norm``; the numbers go into the forward entry's ``by_shape``
-    under ``tag``."""
+    ``F.rms_norm`` (CUDA-event times beside), its launch and grid read
+    from the trace beside an empty launch on that grid; at prefill rows
+    swept over rows a block, at decode rows its host path measured. The
+    numbers go into the forward entry's ``by_shape`` under ``tag``."""
     import torch.nn.functional as F
     from repro_torch.kernels import ref
     from repro_torch.kernels.rmsnorm import rmsnorm_forward
-    err, _, (x, scale, _, _) = rmsnorm_case(
+    err, _, (x, scale, dy, rstd) = rmsnorm_case(
         torch, rows, width, "bfloat16", s_dtype, False, seed=rows + width)
     calls = {"fwd": lambda: rmsnorm_forward(x, scale, RMS_EPS),
              "plain": lambda: ref.rmsnorm_ref(x, scale, RMS_EPS),
              "lib": lambda: F.rms_norm(x, (width,), scale, RMS_EPS)}
     dev = {k: timer.device(fn) for k, fn in calls.items()}
+    ev = {k: timer(calls[k]) for k in ("fwd", "lib")}
     n = rows * width
     b_ms, by = bound(2 * n * x.element_size() + width * scale.element_size(),
                      4 * n, PEAK_FLOPS["float32"])
+    plan, floor = norm_fwd_trace_and_floor(torch, timer, tag, x, scale,
+                                           False)
     print(f"[kernels] rmsnorm forward, {tag} ({rows} x {width} bf16, "
           f"{s_dtype} scale), device time: kernel {dev['fwd']:.4f} ms "
-          f"({b_ms / dev['fwd']:.3f} of the bound) | plain "
-          f"{dev['plain']:.4f} ms | F.rms_norm {dev['lib']:.4f} ms | bound "
-          f"{b_ms:.4f} ms ({by}: {(2 * n * 2) / 1e6:.3f} MB)", flush=True)
-    entries["rmsnorm_fwd"]["by_shape"][tag] = {
-        "max_abs_err": err, "ms": dev["fwd"], "plain_ms": dev["plain"],
-        "bound_ms": b_ms, "bound_by": by, "library_ms": dev["lib"]}
+          f"({b_ms / dev['fwd']:.3f} of the bound; {plan.route} route, "
+          f"{plan.blocks} blocks of {plan.rows} rows; an empty launch on "
+          f"that grid {floor:.4f} ms) | plain {dev['plain']:.4f} ms | "
+          f"F.rms_norm {dev['lib']:.4f} ms | bound {b_ms:.4f} ms ({by}: "
+          f"{(2 * n * 2) / 1e6:.3f} MB) | CUDA events: kernel "
+          f"{ev['fwd']:.4f} ms, F.rms_norm {ev['lib']:.4f} ms", flush=True)
+    num = {"max_abs_err": err, "ms": dev["fwd"], "plain_ms": dev["plain"],
+           "bound_ms": b_ms, "bound_by": by, "library_ms": dev["lib"],
+           "event_ms": ev["fwd"], "floor_ms": floor}
+    if rows >= 1024:          # prefill rows: what rows a block gives
+        norm_fwd_sweep(torch, timer, tag, x, scale, False)
+    else:                     # decode rows: the host's part of a call
+        us = norm_host_path(torch, tag, x, scale, dy, rstd, False)
+        num.update(host_us=us["forward"], lib_host_us=us["F.rms_norm"])
+    entries["rmsnorm_fwd"]["by_shape"][tag] = num
 
 
 def norm_train_times(torch, timer, entries, tag, rows, width):
@@ -1768,7 +1942,7 @@ def _kernel_kind(name: str) -> str:
         return "flash_attention_bwd"
     if "silent_count_kernel" in name:
         return "silent_compare"
-    if "rmsnorm_fwd_kernel" in name:
+    if "rmsnorm_fwd_" in name:
         return "rmsnorm_fwd"
     if "rmsnorm_bwd_" in name:
         return "rmsnorm_bwd"
@@ -2755,9 +2929,11 @@ def kernel_label(mangled: str) -> str:
     return f"{m.group(1)}<{','.join(args)}>"
 
 
-def sass_hmma(lib):
-    """Tensor-core (HMMA) instructions per kernel of a built library, from
-    ``cuobjdump -sass``; None where the toolkit has no cuobjdump."""
+def sass_counts(lib, patterns):
+    """Instructions matching each of ``patterns`` (name -> regex) per
+    kernel of a built library, from ``cuobjdump -sass``; None where the
+    toolkit has no cuobjdump."""
+    import re
     import shutil
     from repro_torch.kernels import build
     tool = shutil.which("cuobjdump") or os.path.join(
@@ -2768,9 +2944,15 @@ def sass_hmma(lib):
                           text=True, check=True, timeout=300).stdout
     counts = {}
     for sec in sass.split("Function : ")[1:]:
-        counts[kernel_label(sec.split("\n", 1)[0].strip())] = sec.count(
-            "HMMA")
+        counts[kernel_label(sec.split("\n", 1)[0].strip())] = {
+            k: len(re.findall(rx, sec)) for k, rx in patterns.items()}
     return counts
+
+
+# B5's forward stores: y by 16-byte (8-byte for 16-bit rows of 4 elements
+# a lane) vector stores, rstd by one 4-byte store a row
+FWD_STORES = {"16-byte": r"STG\.E\.128\s", "8-byte": r"STG\.E\.64\s",
+              "4-byte": r"STG\.E\s"}
 
 
 def build_kernels():
@@ -2790,12 +2972,29 @@ def build_kernels():
             elif "registers" in line or "spill" in line:
                 print(f"[build] {name}: {fn}: {line.strip()}")
     for name in ("flash_attention", "paged_window"):
-        hmma = sass_hmma(build.library_path(name))
+        hmma = sass_counts(build.library_path(name), {"HMMA": "HMMA"})
         print(f"[build] {name} HMMA instructions per kernel (cuobjdump "
               f"-sass): " + ("not measured (no cuobjdump)" if hmma is None
-                             else ", ".join(f"{k} {n}" for k, n
+                             else ", ".join(f"{k} {n['HMMA']}" for k, n
                                             in sorted(hmma.items()))),
               flush=True)
+    stores = sass_counts(build.library_path("rmsnorm"), FWD_STORES)
+    if stores is None:
+        print("[build] rmsnorm forward stores: not measured (no cuobjdump)")
+        return
+    fwd = {k: n for k, n in sorted(stores.items())
+           if k.startswith(("rmsnorm_fwd_narrow", "rmsnorm_fwd_wide"))}
+    print("[build] rmsnorm forward global stores per kernel (cuobjdump "
+          "-sass; 16-byte / 8-byte / 4-byte): " + ", ".join(
+              f"{k} {n['16-byte']}/{n['8-byte']}/{n['4-byte']}"
+              for k, n in fwd.items()), flush=True)
+    for k, n in fwd.items():
+        # no y store split into 4-byte stores: those are rstd's, one for
+        # each of a narrow lane's rows (the last template argument) and
+        # one for a wide row
+        rows = int(k[:-1].split(",")[-1]) if "narrow" in k else 1
+        assert n["4-byte"] <= rows and n["16-byte"] + n["8-byte"] >= rows, \
+            (k, n)
 
 
 def main() -> int:

@@ -3,7 +3,7 @@
 A CUDA tensor reaching ``paged_decode``, ``paged_window``, the cache-free
 ``attention``, ``rmsnorm``, ``silent_fraction`` or ``silent_count``
 launches the hand-written Hopper kernel (``csrc/*.cu``, or Triton for the
-norm and the silent compare) or raises; a CPU tensor takes the kernel's
+silent compare) or raises; a CPU tensor takes the kernel's
 plain version from ``ref.py``. There is no switch and no fallback. The
 paged scatter/gather and the masked attention of the dense per-slot cache
 are plain PyTorch on every device, as the reference left them to XLA.
@@ -57,7 +57,7 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
             eps: float = 1e-5) -> torch.Tensor:
     """Row RMSNorm of x (..., d) with scale (d,), differentiable. CPU
     tensors take ``ref.rmsnorm_ref`` (autograd through its ops); CUDA
-    tensors the Triton kernels, through ``RMSNorm`` when a gradient is
+    tensors the CUDA kernels, through ``RMSNorm`` when a gradient is
     needed, else the forward kernel alone, which saves nothing."""
     if x.device.type == "cpu":
         return _ref.rmsnorm_ref(x, scale, eps)

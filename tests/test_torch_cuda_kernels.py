@@ -26,14 +26,18 @@ of the plain gradient's largest magnitude, and within 1e-5 where every
 gradient is zero in exact arithmetic (dq and dk of a single key). Silent compare: counts equal
 exactly, on ragged sizes with NaN, +-0, infinities and subnormals.
 
-RMSNorm (Triton forward, CUDA backward): widths 128, 1536 and 2048 and every
-route of the backward (64; 999, 1000 and 10000 wide), ragged row counts,
-rows read by stride, every x/scale dtype pair of the main paths: out
-within 1e-5 relative (float32) or 2e-2 (bfloat16, one rounding of the
-output), rstd within 1e-5 relative; dx and dscale within 2e-4 (float32)
-or 3e-2 (bfloat16) of the plain gradient's largest magnitude; one
-backward launch a call, two calls bit-identical, and dscale equal bit
-for bit to the blocked plain version on the kernel's own plan. Speculative verify
+RMSNorm (CUDA forward and backward): widths 64, 128, 1000, 1536, 2048
+and 4096 and every route of both (narrow 64 and 128; wide 1000 to 4096;
+general 999, 4104, 10000 and misaligned strided rows), ragged row
+counts, rows read by stride, the main paths' x/scale dtype pairs and
+float16: out within 1e-5 relative (float32) or 2e-2 (16-bit, one
+rounding of the output), rstd within 1e-5 relative (another summation
+order over up to 4096 squares); dx and dscale from the kernel's rstd
+within 2e-4 (float32) or 3e-2 (16-bit) of the plain gradient's largest
+magnitude; one launch a call each way, two calls bit-identical each way,
+and dscale equal bit for bit to the blocked plain version on the
+kernel's own plan. The forward gives the same bits at every rows-a-block
+its route takes (a row's sum does not depend on the grid). Speculative verify
 (window kernel at W = 5 through the verify wrapper): both modes on a
 hostile table at head_dim 128, as the window kernel above; defer mode
 leaves the pools alone and gives store mode's outputs bit for bit on
@@ -49,7 +53,7 @@ from repro_torch.kernels.flash_attention import (
 from repro_torch.kernels.flash_prefill import paged_window_attention
 from repro_torch.kernels.paged_attention import paged_decode_attention
 from repro_torch.kernels.paged_verify import paged_verify_attention
-from repro_torch.kernels.rmsnorm import (RMSNorm, plan_for,
+from repro_torch.kernels.rmsnorm import (RMSNorm, fwd_plan_for, plan_for,
                                         rmsnorm_backward, rmsnorm_forward)
 from repro_torch.kernels.silent_compare import silent_compare
 
@@ -430,16 +434,25 @@ def test_verify_wrapper_w5_both_modes(cuda):
 RMS_TOL = {"float32": (1e-5, 2e-4), "bfloat16": (2e-2, 3e-2)}
 
 
-@pytest.mark.parametrize("x_dtype,s_dtype", [
-    ("float32", "float32"), ("bfloat16", "float32"),
-    ("bfloat16", "bfloat16")])
+def rms_tol(dtype):
+    """(output, gradient) tolerance of an RMSNorm output in ``dtype``:
+    float32's, or the 16-bit one (one rounding of the output)."""
+    return RMS_TOL["float32" if dtype == "float32" else "bfloat16"]
+RMS_PAIRS = [("float32", "float32"), ("bfloat16", "float32"),
+             ("bfloat16", "bfloat16"), ("float32", "bfloat16"),
+             ("float16", "float16")]
+
+
+@pytest.mark.parametrize("x_dtype,s_dtype", RMS_PAIRS)
 @pytest.mark.parametrize("rows,width,strided", [
     (1, 128, False), (8, 2048, False), (517, 128, True), (131, 2048, True),
-    (33, 1000, False), (700, 2048, False), (9, 64, False),
-    (29, 999, False), (3, 10000, False), (1024, 1536, False),
-    (40, 1536, True),
-    # zamba2-1.2b's gate norm: 4096 is the backward's widest wide-route
-    # width (WIDE_MAX_D), 4104 the next width of 8, on the general route
+    (33, 1000, False), (33, 1000, True), (700, 2048, False), (9, 64, False),
+    (77, 64, True), (29, 999, False), (3, 10000, False),
+    (1024, 1536, False), (40, 1536, True), (1024, 2048, False),
+    (8192, 128, False),
+    # zamba2-1.2b's gate norm: 4096 is the widest wide-route width
+    # (WIDE_MAX_D, two warps a row in the forward), 4104 the next width
+    # of 8, on the general route
     (64, 4096, False), (131, 4096, True), (33, 4104, False)])
 def test_rmsnorm_kernels_match_plain(cuda, x_dtype, s_dtype, rows, width,
                                      strided):
@@ -454,13 +467,15 @@ def test_rmsnorm_kernels_match_plain(cuda, x_dtype, s_dtype, rows, width,
     before = (rmsnorm_forward.launches, rmsnorm_backward.launches)
     y, rstd = rmsnorm_forward(x, scale, 1e-6, want_rstd=True)
     y_only, none = rmsnorm_forward(x, scale, 1e-6)
+    y2, rstd2 = rmsnorm_forward(x, scale, 1e-6, want_rstd=True)
     dx, ds = rmsnorm_backward(x, scale, rstd, dy, 1e-6)
     want = ref.rmsnorm_ref(x, scale, 1e-6)
     want_rstd = torch.rsqrt(x.float().square().mean(-1) + 1e-6)
     want_dx, want_ds = ref.rmsnorm_bwd_ref(x, scale, dy, 1e-6)
     torch.cuda.synchronize()
     assert (rmsnorm_forward.launches, rmsnorm_backward.launches) == \
-        (before[0] + 2, before[1] + 1)
+        (before[0] + 3, before[1] + 1)
+    assert torch.equal(y, y2) and torch.equal(rstd, rstd2)
     dx2, ds2 = rmsnorm_backward(x, scale, rstd, dy, 1e-6)
     assert torch.equal(dx, dx2) and torch.equal(ds, ds2)
     plan = plan_for(x, dy)
@@ -470,14 +485,44 @@ def test_rmsnorm_kernels_match_plain(cuda, x_dtype, s_dtype, rows, width,
     assert torch.equal(ds, blocked_ds), plan
     assert none is None and torch.equal(y, y_only)
     assert y.dtype == xdt and dx.dtype == xdt and ds.dtype == sdt
-    tol, tol_g = RMS_TOL[x_dtype if s_dtype == x_dtype else "bfloat16"]
+    # each output held at its own dtype's tolerance: y and dx in x's,
+    # dscale in scale's
     assert float(((y.float() - want.float()).abs()
-                  / want.float().abs().clamp_min(1e-3)).max()) <= tol
+                  / want.float().abs().clamp_min(1e-3)).max()) <= \
+        rms_tol(x_dtype)[0]
     assert float(((rstd - want_rstd).abs() / want_rstd).max()) <= 1e-5
-    for got, exp in ((dx, want_dx), (ds, want_ds)):
+    for got, exp, dt in ((dx, want_dx, x_dtype), (ds, want_ds, s_dtype)):
         scale_g = float(exp.float().abs().max())
         assert float((got.float() - exp.float()).abs().max()) <= \
-            tol_g * scale_g
+            rms_tol(dt)[1] * scale_g
+
+
+@pytest.mark.parametrize("x_dtype,s_dtype", RMS_PAIRS)
+@pytest.mark.parametrize("rows,width,strided,route", [
+    (8192, 128, False, "narrow"), (300, 64, False, "narrow"),
+    (1024, 1536, False, "wide"), (1024, 2048, False, "wide"),
+    (517, 4096, False, "wide"), (133, 1000, True, "general")])
+def test_rmsnorm_forward_same_bits_at_every_rows_a_block(
+        cuda, x_dtype, s_dtype, rows, width, strided, route):
+    """The forward on every rows-a-block its route takes (1 to 32):
+    the route, a launch a call, and y and rstd equal bit for bit to the
+    wrapper's own plan's."""
+    g = torch.Generator(device=cuda).manual_seed(rows + width)
+    xdt, sdt = getattr(torch, x_dtype), getattr(torch, s_dtype)
+    base = 3 * torch.randn((rows, 2 * width), generator=g, device=cuda)
+    x = base.to(xdt)[:, 1:1 + width] if strided else \
+        base[:, :width].to(xdt).contiguous()
+    scale = torch.randn(width, generator=g, device=cuda).to(sdt)
+    y, rstd = rmsnorm_forward(x, scale, 1e-6, want_rstd=True)
+    assert fwd_plan_for(x, scale).route == route
+    for k in (1, 2, 4, 8, 16, 32):
+        plan = fwd_plan_for(x, scale, k)
+        before = rmsnorm_forward.launches
+        yk, rk = rmsnorm_forward(x, scale, 1e-6, want_rstd=True, rows=k)
+        torch.cuda.synchronize()
+        assert rmsnorm_forward.launches == before + 1
+        assert plan.route == route
+        assert torch.equal(yk, y) and torch.equal(rk, rstd), plan
 
 
 def test_rmsnorm_autograd_on_qk_norm_layout(cuda):

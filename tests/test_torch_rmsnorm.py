@@ -13,9 +13,10 @@ plain version, bit for bit the inline formula the layers ran before it.
 The backward in the CUDA kernel's row partition and combine order
 (``ref.rmsnorm_bwd_blocked``) is held against both, within 1e-5 of the
 largest magnitude in float32, on every route's plan and on plans with
-more row workers than rows. The kernels themselves (Triton forward,
-CUDA backward) run only on the card
-(``tests/test_torch_cuda_kernels.py``, marked ``cuda``).
+more row workers than rows. The kernels themselves (CUDA forward and
+backward) run only on the card (``tests/test_torch_cuda_kernels.py``,
+marked ``cuda``); here their plans are held to the routes and grids
+they promise.
 """
 import jax
 import jax.numpy as jnp
@@ -165,8 +166,9 @@ def test_ops_rmsnorm_cpu_is_the_old_inline_formula(shape, x_dtype, s_dtype):
 def test_rmsnorm_wrapper_row_layout_and_dispatch():
     """What the wrappers hand the kernels: rows by stride without a copy
     where one row stride describes them (a column slice, a qk-norm head
-    reshape), an explicit copy where none does; the row tiling of both
-    main-path widths; and no path for a device other than CUDA or CPU."""
+    reshape), an explicit copy where none does; the forward's plan at
+    the main path's prefill widths and a misaligned width; and no path
+    for a device other than CUDA or CPU."""
     big = torch.randn(6, 256)
     rows = rn._as_rows(big[:, :128], "x")
     assert rows.data_ptr() == big.data_ptr() and rows.stride() == (256, 1)
@@ -176,11 +178,21 @@ def test_rmsnorm_wrapper_row_layout_and_dispatch():
     copied = rn._as_rows(gappy, "x")
     assert copied.is_contiguous() and torch.equal(copied,
                                                   gappy.reshape(-1, 32))
-    assert rn._tiling(128) == (128, 32)
-    assert rn._tiling(2048) == (2048, 2)
-    assert rn._tiling(1000) == (1024, 4)
+    sms = 132
+    rows = rn.FWD_ROWS["narrow"]
+    assert rn.fwd_plan(16384, 128, 2, (0, 256, 0), sms) == rn.FwdPlan(
+        "narrow", rows, 16384 // rows,
+        32 * min(rows // 2, rn.FWD_NARROW_WARPS), 16)
+    assert rn.fwd_plan(16384, 128, 4, (0, 512, 0), sms) == rn.FwdPlan(
+        "narrow", rows, 16384 // rows, 32 * min(rows, rn.FWD_NARROW_WARPS),
+        32)
+    rows = rn.FWD_ROWS["wide"]
+    assert rn.fwd_plan(1024, 2048, 2, (0, 4096, 0), sms) == rn.FwdPlan(
+        "wide", rows, 1024 // rows, 32 * rows, 32)
+    assert rn.fwd_plan(33, 1000, 2, (0, 2002, 0), sms) == rn.FwdPlan(
+        "general", 1, 33, rn.GENERAL_THREADS, rn.GENERAL_THREADS)
     with pytest.raises(ValueError):
-        rn._tiling(rn.MAX_D + 1)
+        rn.fwd_plan(4, rn.MAX_D + 1, 2, (0, 0, 0), sms)
     meta = torch.empty((4, 128), device="meta")
     with pytest.raises(ValueError):
         rn.rmsnorm_forward(meta, torch.empty(128, device="meta"))
@@ -226,6 +238,108 @@ def test_rmsnorm_bwd_plan_routes_and_grid(n, d, addresses, route):
         units = -(-n // (4 * rn.NARROW_WARPS)) if route == "narrow" else n
         assert plan.blocks == min(units, (k or rn.BLOCKS_PER_SM) * sms)
         assert (plan.group - 1) ** 2 < plan.blocks <= plan.group ** 2
+
+
+# (rows, width, x address and row stride and scale address in bytes of
+# 2-byte elements, expected route, rows a block (None: FWD_ROWS), lanes a
+# row): the training and prefill norms, the decode rows (spread over the
+# SMs: one row a block, two where a warp holds two 16-lane rows), ragged,
+# misaligned and widest rows
+FWD_PLAN_CASES = [
+    (4096, 2048, (0, 4096, 0), "wide", None, 32),
+    (65536, 128, (0, 256, 0), "narrow", None, 16),
+    (32768, 128, (0, 768, 0), "narrow", None, 16),
+    (8192, 128, (256, 256, 0), "narrow", None, 16),
+    (8192, 128, (8, 256, 0), "narrow", None, 32),
+    (1024, 2048, (0, 4096, 0), "wide", None, 32),
+    (1024, 1536, (0, 3072, 0), "wide", None, 32),
+    (4096, 1536, (0, 3072, 0), "wide", None, 32),
+    (8, 2048, (0, 4096, 0), "wide", 1, 32),
+    (8, 1536, (0, 3072, 0), "wide", 1, 32),
+    (128, 128, (0, 256, 0), "narrow", 2, 16),
+    (64, 128, (0, 256, 0), "narrow", 2, 16),
+    (300, 128, (0, 256, 0), "narrow", 4, 16),
+    (33, 1000, (0, 2000, 0), "wide", 1, 32),
+    (33, 1000, (2, 2000, 0), "general", 1, 256),
+    (33, 1000, (0, 2000, 8), "general", 1, 256),
+    (131, 2048, (4096, 12288, 0), "wide", 1, 32),
+    (131, 2048, (4098, 12288, 0), "general", 1, 256),
+    (517, 128, (256, 768, 0), "narrow", 4, 16),
+    (517, 128, (2, 768, 0), "general", 1, 256),
+    (9, 64, (0, 128, 0), "narrow", 2, 16),
+    (9, 130, (0, 260, 0), "general", 1, 256),
+    (5, 12, (0, 24, 0), "narrow", 1, 32),
+    (5, 12, (0, 26, 0), "general", 1, 256),
+    (3, 10000, (0, 20000, 0), "general", 1, 256),
+    (4096, 4096, (0, 8192, 0), "wide", None, 64),
+    (8, 4096, (0, 8192, 0), "wide", 1, 64),
+    (33, 4104, (0, 8208, 0), "general", 1, 256),
+]
+
+
+@pytest.mark.parametrize("n,d,addresses,route,rows,lanes", FWD_PLAN_CASES)
+def test_rmsnorm_fwd_plan_routes(n, d, addresses, route, rows, lanes):
+    """The forward kernel's plan: the backward's route by width,
+    divisibility, row stride and address alignment (the scale's too);
+    narrow rows in 16 lanes of 8 elements when they are 16-byte aligned,
+    else 32 of 4; ``FWD_ROWS`` rows a block where the blocks cover the
+    SMs, else the power of two that does (decode rows spread); a grid of
+    ceil(n / rows) blocks whose threads fit the route: a narrow block of
+    up to ``FWD_NARROW_WARPS`` warps of 1, 2 or 4 steps of rows, a
+    wide block of a warp a row (two above 2048), a general block of one
+    row. Every rows-a-block override keeps the route and the grid
+    covering the rows."""
+    sms = 132
+    plan = rn.fwd_plan(n, d, 2, addresses, sms)
+    assert plan.route == route == rn.row_route(d, 2, addresses)
+    assert plan.rows == (rows or rn.FWD_ROWS[route])
+    assert plan.lanes == lanes
+    assert plan.blocks == -(-n // plan.rows)
+    if route != "general" and rows is None:
+        assert plan.blocks >= sms
+    for k in (None, 1, 2, 3, 4, 8, 16, 32, 64):
+        p = rn.fwd_plan(n, d, 2, addresses, sms, k)
+        assert p.route == route and p.lanes == lanes
+        assert (p.blocks - 1) * p.rows < n <= p.blocks * p.rows
+        assert p.threads % 32 == 0 and p.threads <= 256
+        if route == "narrow":
+            steps, rem = divmod(p.rows * p.lanes, p.threads)
+            assert rem == 0 and steps in (1, 2, 4)
+            assert p.threads // 32 <= rn.FWD_NARROW_WARPS
+        elif route == "wide":
+            assert p.threads == p.rows * p.lanes
+        else:
+            assert (p.rows, p.threads) == (1, rn.GENERAL_THREADS)
+
+
+@pytest.mark.parametrize("plan,d", [
+    (rn.FwdPlan("narrow", 64, 128, 256, 16), 128),
+    (rn.FwdPlan("wide", 4, 1024, 256, 64), 4096),
+    (rn.FwdPlan("general", 1, 3, 256, 256), rn.MAX_D),
+    (rn.BwdPlan("wide", (1 << 24) - 1, 1, 4095), 4096),
+    (rn.BwdPlan("narrow", 264, 16, 17), 128)])
+def test_rmsnorm_plan_words_keep_every_field(plan, d):
+    """The one integer a plan reaches the C entry as holds each field in
+    its own bits (the layout ``csrc/rmsnorm.cu`` unpacks), for every
+    dtype pair, at the widest values the kernels take."""
+    for x_dt, xc in ((torch.float32, 0), (torch.bfloat16, 1),
+                     (torch.float16, 2)):
+        for s_dt, sc in ((torch.float32, 0), (torch.bfloat16, 1)):
+            w = plan.word(d, x_dt, s_dt)
+            assert (w & 0xffff, w >> 16 & 3, w >> 18 & 3, w >> 20 & 3) == \
+                (d, rn.ROUTES[plan.route], xc, sc)
+            if isinstance(plan, rn.FwdPlan):
+                assert (w >> 22 & 0x1ff, w >> 31 & 0x1ff, w >> 40) == \
+                    (plan.lanes, plan.threads, plan.rows)
+            else:
+                assert (w >> 22 & 0xfff, w >> 34) == (plan.group,
+                                                      plan.blocks)
+
+
+@pytest.mark.parametrize("d", [rn.MAX_D + 1, 2 * rn.MAX_D])
+def test_rmsnorm_fwd_plan_refuses_rows_past_max_d(d):
+    with pytest.raises(ValueError):
+        rn.fwd_plan(4, d, 2, (0, 2 * d, 0), 132)
 
 
 @pytest.mark.parametrize("shape,blocks,workers,group", [

@@ -2,7 +2,9 @@
 """Chip smoke test of the PyTorch port (``src/repro_torch``) on one
 NVIDIA GPU: the serving path, the speculative-verify serving path and
 the training path of qwen3-1.7b, granite-moe-3b-a800m's serving and
-training, and zamba2-1.2b's (the hybrid family's) serving and training.
+training, and the serving and training of zamba2-1.2b (the hybrid
+family), xlstm-1.3b (the ssm family) and whisper-large-v3 (the audio
+family).
 
     python3 chip_smoke.py
 
@@ -87,7 +89,8 @@ training, and zamba2-1.2b's (the hybrid family's) serving and training.
    tokens and spec counters;
 3c. runs granite-moe-3b-a800m (the MoE family: 32 layers, d_model 1536,
    40 experts top-8) at full width through ``launch.serve.run``: paged,
-   profile on, batch 8, prompt 128 + 32, twice (equal tokens), then with
+   profile on, batch 8, prompt 128 + 32, twice (equal tokens; the second
+   without the profiler), then with
    n-gram drafts under rollback and overwrite, launch counts set to 0
    before each run (32 B1 or B2 and 65 RMSNorm launches a forward); the
    dispatch buffer's dead rows of every MoE layer of an admission step,
@@ -155,13 +158,39 @@ training, and zamba2-1.2b's (the hybrid family's) serving and training.
    6 times) at full width: B4 at its heads (32, 32, 64: G 1) and B5 at
    4096 x 4096 (the gate norm, the backward's widest wide-route row)
    and 4104 against their plain versions (8a); ``launch.serve.run`` (the
-   token-loop driver, profile on, batch 8, prompt 128 + 32) twice, equal
+   token-loop driver, profile on, batch 8, prompt 128 + 32) twice (the
+   second without the profiler), equal
    tokens, 89 B5 launches a step, tier 1's line, prefill and decode
    tok/s, one decode step traced; the smoke config (8 layers) in float32,
    the card's tokens and tier-1 totals equal to the CPU's; then training
-   as in 7 (6 + 6 B4 and 89 + 89 B5 launches a step).
+   as in 7 (6 + 6 B4 and 89 + 89 B5 launches a step);
+9. runs xlstm-1.3b (42 mLSTM and 6 sLSTM blocks, d_model 2048) at full
+   width: B5 at its decode and training rows at widths 2048 and 4096
+   against its plain version and timed (9a, run with 10a before the
+   main paths); ``launch.serve.run`` (token loop, profile on, batch 8,
+   prompt 128 + 32) twice, equal tokens, 97 B5 launches a forward and
+   none of B4, one decode step traced; tier 1 on its decode microstep
+   as in 6c (the mLSTM states snapshotted before their in-place
+   writes); the smoke config in float32, tokens and tier-1 totals card
+   = CPU; training as in 7 (97 + 97 B5, no B4), last of all, with 2
+   driver steps and one timed step (a step is ~22 s, host-bound by the
+   sLSTM's token loop), the smoke check's card steps each from the
+   CPU's state;
+10. runs whisper-large-v3 (32 encoder and 32 decoder layers, d_model
+   1280, 20 heads of 64) at full width: B4 at its heads (G 1, D 64)
+   non-causal 1024 x 1024 and causal 1024 in both dtypes, two calls
+   bit-identical, timed beside SDPA, and ragged non-causal cases (1024
+   queries over 1500 frames, tier 1's one query over 128), B5 at 1280
+   (10a); ``launch.serve.run`` twice as in 9 (65 B5 launches in the
+   encoder, 97 a decode forward; B4 only in tier 1's cache and
+   microstep, which the reference builds from unmasked frames); frames
+   of (8, 1500, 1280) bucketed (extent 1024) against capacity (1500):
+   equal greedy tokens, the largest logit difference printed; the smoke
+   config in float32, card = CPU; training as in 7 (96 + 96 B4, 162 +
+   162 B5, no alignment copy).
 
-The line before the last lists the card; the last line is the JSON
+Each phase prints its seconds (``[phase]`` lines). The line before the
+last lists the card; the last line is the JSON
 result. Any failure exits non-zero; without CUDA, or without the rest of
 the repository beside it, it exits non-zero and prints no result.
 """
@@ -1313,47 +1342,51 @@ def check_flash(torch, timer):
     return entries
 
 
-def flash_on_training_inputs(torch, timer, arch, heads):
+def flash_on_training_inputs(torch, timer, arch, heads, causal=True):
     """Flash attention at a training path's inputs (B 4, S 1024, the
-    model's heads, bf16, causal) in bfloat16 and float32 against the
-    plain versions, two backward calls bit-identical, then timed by
-    device time (CUPTI) beside SDPA's forward, its backward alone and
-    its forward + backward, CUDA-event times printed beside. Returns the
-    forward's and the backward's numbers."""
+    model's heads, bf16, causal or not) in bfloat16 and float32 against
+    the plain versions, two forward and two backward calls bit-identical,
+    then timed by device time (CUPTI) beside SDPA's forward, its backward
+    alone and its forward + backward, CUDA-event times printed beside.
+    Returns the forward's and the backward's numbers."""
     import torch.nn.functional as F
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import (
         flash_attention_backward, flash_attention_forward)
     hq, hkv, d = heads
-    flash_case(torch, "float32", TSEQ, TSEQ, True, seed=3, d=d, hq=hq,
+    mask = "causal" if causal else "non-causal"
+    flash_case(torch, "float32", TSEQ, TSEQ, causal, seed=3, d=d, hq=hq,
                hkv=hkv)
     err, err_g, (q, k, v, out, lse, dout) = flash_case(
-        torch, "bfloat16", TSEQ, TSEQ, True, seed=1, d=d, hq=hq, hkv=hkv)
-    first = flash_attention_backward(q, k, v, out, lse, dout, True)
-    again = flash_attention_backward(q, k, v, out, lse, dout, True)
+        torch, "bfloat16", TSEQ, TSEQ, causal, seed=1, d=d, hq=hq, hkv=hkv)
+    fwd = [flash_attention_forward(q, k, v, causal) for _ in range(2)]
+    first = flash_attention_backward(q, k, v, out, lse, dout, causal)
+    again = flash_attention_backward(q, k, v, out, lse, dout, causal)
     torch.cuda.synchronize()
+    same_fwd = all(torch.equal(a, b) for a, b in zip(*fwd))
     same = all(torch.equal(a, b) for a, b in zip(first, again))
-    print(f"[kernels] flash attention backward, two calls on {arch}'s "
-          f"training inputs: dq, dk, dv bit-identical {same}", flush=True)
-    assert same, "flash attention backward is not deterministic"
-    del first, again
+    print(f"[kernels] flash attention, two calls on {arch}'s {mask} "
+          f"training inputs: out and lse bit-identical {same_fwd}, dq, dk, "
+          f"dv bit-identical {same}", flush=True)
+    assert same and same_fwd, "flash attention is not deterministic"
+    del first, again, fwd
 
     # SDPA on the (B, H, S, D) layout, transposed outside the timed call
     qt, kt, vt, dt_ = (x.transpose(1, 2).contiguous()
                        for x in (q, k, v, dout))
 
     def sdpa(a, b, c):
-        return F.scaled_dot_product_attention(a, b, c, is_causal=True,
+        return F.scaled_dot_product_attention(a, b, c, is_causal=causal,
                                               enable_gqa=True)
     leaves = [x.detach().requires_grad_(True) for x in (qt, kt, vt)]
     sdpa_out = sdpa(*leaves)           # the forward of "SDPA bwd", untimed
     calls = {
-        "fwd": lambda: flash_attention_forward(q, k, v, True),
+        "fwd": lambda: flash_attention_forward(q, k, v, causal),
         "bwd": lambda: flash_attention_backward(q, k, v, out, lse, dout,
-                                                True),
-        "fwd_plain": lambda: ref.flash_attention_ref(q, k, v, True),
+                                                causal),
+        "fwd_plain": lambda: ref.flash_attention_ref(q, k, v, causal),
         "bwd_plain": lambda: ref.flash_attention_bwd_ref(
-            q, k, v, out, lse, dout, True),
+            q, k, v, out, lse, dout, causal),
         "sdpa_fwd": lambda: sdpa(qt, kt, vt),
         # the backward alone: autograd.grad through the saved graph (no
         # accumulation into .grad)
@@ -1363,8 +1396,8 @@ def flash_on_training_inputs(torch, timer, arch, heads):
                                                     dt_)}
     dev = {k: timer.device(fn) for k, fn in calls.items()}
     ev = {k: timer(fn) for k, fn in calls.items()}
-    print(f"[kernels] flash attention on {arch}'s training inputs, CUDA "
-          f"events around each call (host launch path and flush tail "
+    print(f"[kernels] flash attention on {arch}'s {mask} training inputs, "
+          f"CUDA events around each call (host launch path and flush tail "
           f"included): " + ", ".join(f"{k} {v:.4f} ms" for k, v in
                                      ev.items()), flush=True)
     isz = q.element_size()
@@ -1373,7 +1406,8 @@ def flash_on_training_inputs(torch, timer, arch, heads):
                          ("flash_attention_bwd", True, err_g)):
         tag = "bwd" if back else "fwd"
         ms, plain_ms, lib_ms = dev[tag], dev[tag + "_plain"], dev["sdpa_" + tag]
-        nbytes, flops = flash_bytes_flops(TSEQ, TSEQ, isz, True, back, heads)
+        nbytes, flops = flash_bytes_flops(TSEQ, TSEQ, isz, causal, back,
+                                          heads)
         b_ms, by = bound(nbytes, flops, PEAK_FLOPS["bfloat16"])
         nums[key] = {"max_abs_err": e, "ms": ms, "plain_ms": plain_ms,
                      "bound_ms": b_ms, "bound_by": by, "library_ms": lib_ms,
@@ -1381,7 +1415,7 @@ def flash_on_training_inputs(torch, timer, arch, heads):
         extra = (f" | SDPA fwd+bwd {dev['sdpa_fwd_bwd']:.4f} ms" if back
                  else "")
         print(f"[kernels] {key} on {arch}'s training inputs (B {TB}, S "
-              f"{TSEQ}, Hq {hq}, Hkv {hkv}, D {d}, bf16, causal), device "
+              f"{TSEQ}, Hq {hq}, Hkv {hkv}, D {d}, bf16, {mask}), device "
               f"time: kernel {ms:.4f} ms = {flops / ms / 1e9:.1f} TFLOP/s at "
               f"the bound's flops, {b_ms / ms:.3f} of the bound | plain "
               f"{plain_ms:.4f} ms | {'SDPA bwd alone' if back else 'SDPA fwd'}"
@@ -1458,19 +1492,36 @@ ZAMBA_HEADS = (32, 32, 64)                # G 1, D 64
 
 
 def launches_per_forward(cfg):
-    """(B4 launches, B5 launches, B5 launches inside the superblocks) of
-    one cache-free forward, derived from the model's schedule: per
-    attention block (dense, moe, the hybrid's shared block) one B4 and
-    ln1, ln2 (and the q- and k-norm with qk-norm); per Mamba2 block its
-    ln and gate norm; the final norm outside every block."""
+    """(B4 launches, B5 launches, B4 launches inside the superblocks, B5
+    launches inside the superblocks) of one cache-free forward, derived
+    from the model's schedule: per attention block (dense, moe, the
+    hybrid's shared block) one B4 and ln1, ln2 (and the q- and k-norm
+    with qk-norm); per Mamba2 block its ln and gate norm, per mLSTM or
+    sLSTM block its ln and out_norm; per encdec block two B4 (its own
+    tokens, then across to the encoder's output) and ln1, lnx, ln2 (and
+    both attentions' q- and k-norms with qk-norm); the audio family's
+    encoder blocks (dense, never checkpointed) and the encoder's norm,
+    and the final norm, outside every superblock."""
     from repro_torch.models.lm import make_schedule
     sch = make_schedule(cfg)
-    attn_norms = 2 + (2 if cfg.qk_norm else 0)
-    norms = {"dense": attn_norms, "moe": attn_norms, "shared": attn_norms,
-             "mamba": 2}
+    qk = 2 if cfg.qk_norm else 0
+    norms = {"dense": 2 + qk, "moe": 2 + qk, "shared": 2 + qk, "mamba": 2,
+             "mlstm": 2, "slstm": 2, "encdec": 3 + 2 * qk}
+    attns = {"dense": 1, "moe": 1, "shared": 1, "encdec": 2}
     inner = sch.n_super * sum(norms[t] for t in sch.pattern)
-    attn = sch.n_super * sum(t != "mamba" for t in sch.pattern)
-    return attn, inner + sum(norms[t] for t in sch.tail) + 1, inner
+    attn = sch.n_super * sum(attns.get(t, 0) for t in sch.pattern)
+    outer = sum(norms[t] for t in sch.tail) + 1
+    outer_attn = 0
+    if sch.has_encoder:
+        outer += encoder_norms(cfg)
+        outer_attn += cfg.encoder_layers
+    return attn + outer_attn, inner + outer, attn, inner
+
+
+def encoder_norms(cfg):
+    """B5 launches of the audio family's encoder: ln1, ln2 (and the q-
+    and k-norm with qk-norm) a block, and the encoder's norm."""
+    return cfg.encoder_layers * (2 + (2 if cfg.qk_norm else 0)) + 1
 
 
 def train_counters():
@@ -1484,10 +1535,11 @@ def train_counters():
             "rmsnorm_bwd": rn.rmsnorm_backward}
 
 
-def train_path(torch, np, arch=QWEN3, remat="none"):
+def train_path(torch, np, arch=QWEN3, remat="none", steps=TRAIN_STEPS):
     """``launch.train.run`` for ``arch`` at full width with the detectors
-    on, under ``remat``; the training kernels' launch counts are set to 0
-    just before and read just after. Returns the launches."""
+    on, under ``remat``, ``steps`` steps; the training kernels' launch
+    counts are set to 0 just before and read just after. Returns the
+    launches."""
     import math
     import repro_torch.kernels.flash_attention as fa
     from repro_torch.configs import registry
@@ -1501,7 +1553,7 @@ def train_path(torch, np, arch=QWEN3, remat="none"):
     fa.flash_attention_backward.copies = 0
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    losses, merged = run(arch, smoke=False, steps=TRAIN_STEPS, batch=TB,
+    losses, merged = run(arch, smoke=False, steps=steps, batch=TB,
                          seq=TSEQ, profile=True, remat=remat, device="cuda")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -1509,7 +1561,7 @@ def train_path(torch, np, arch=QWEN3, remat="none"):
     copies = (fa.flash_attention_forward.copies,
               fa.flash_attention_backward.copies)
     checked = merged.checked.get("silent_param_store", 0)
-    print(f"[train] {arch} full width, {TRAIN_STEPS} steps of {TB} x {TSEQ} "
+    print(f"[train] {arch} full width, {steps} steps of {TB} x {TSEQ} "
           f"tokens, remat {remat}, detectors on: {wall:.1f} s including "
           f"set-up; launches {launches}; flash attention alignment copies "
           f"(forward, backward) {copies}; losses {losses}; profile tiers "
@@ -1517,20 +1569,23 @@ def train_path(torch, np, arch=QWEN3, remat="none"):
           f"flagged {dict(sorted(merged.flagged.items()))}; peak device "
           f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
           flush=True)
-    attn, norms, inner = launches_per_forward(cfg)
+    attn, norms, attn_in, inner = launches_per_forward(cfg)
     again = 0 if remat == "none" else 1
     assert launches["flash_attention_fwd"] == \
-        attn * (1 + again) * TRAIN_STEPS, launches
-    assert launches["flash_attention_bwd"] == attn * TRAIN_STEPS, launches
+        (attn + again * attn_in) * steps, launches
+    assert launches["flash_attention_bwd"] == attn * steps, launches
     assert copies == (0, 0), copies
     assert launches["rmsnorm_fwd"] == \
-        (norms + again * inner) * TRAIN_STEPS, launches
-    assert launches["rmsnorm_bwd"] == norms * TRAIN_STEPS, launches
+        (norms + again * inner) * steps, launches
+    assert launches["rmsnorm_bwd"] == norms * steps, launches
     assert launches["silent_compare"] == checked > 0, (launches, checked)
     assert all(math.isfinite(x) for x in losses), losses
     assert abs(losses[0] - math.log(cfg.padded_vocab)) < 3.0, losses
     assert merged.tiers == [3], merged.tiers
-    assert merged.checked.get("silent_data_load") == 2 * TRAIN_STEPS
+    # each step's batch leaves: tokens, labels (and the audio family's
+    # frames)
+    leaves = 3 if cfg.family == "audio" else 2
+    assert merged.checked.get("silent_data_load") == leaves * steps
     return launches
 
 
@@ -1550,12 +1605,13 @@ def _train_loop(torch, state, step_fn, det, batches, dev):
         yield state, metrics
 
 
-def train_timing_and_trace(torch, np, arch=QWEN3, remat="none"):
-    """Train tokens/s with the detectors on, full width: a first step
-    (warm-up, untimed), then steps timed on the host clock, each ending
-    in a device synchronization; then one step under torch.profiler
-    (device time by kernel kind, device busy share), its kernels checked
-    against the launch counters (``traced_step``)."""
+def train_timing_and_trace(torch, np, arch=QWEN3, remat="none", timed=3,
+                           warmup=1):
+    """Train tokens/s with the detectors on, full width: ``warmup`` first
+    steps (untimed), then ``timed`` steps timed on the host clock, each
+    ending in a device synchronization; then one step under
+    torch.profiler (device time by kernel kind, device busy share), its
+    kernels checked against the launch counters (``traced_step``)."""
     from repro_torch.configs import registry
     from repro_torch.configs.base import ProfilerConfig, TrainConfig
     from repro_torch.core.detectors import TrainingDetectors
@@ -1573,10 +1629,11 @@ def train_timing_and_trace(torch, np, arch=QWEN3, remat="none"):
     loop = _train_loop(torch, state, make_train_step(model, tc), det,
                        stream(cfg, TB, TSEQ, seed=0), "cuda")
     del state
-    state, m = next(loop)
-    float(m["loss"])
+    for _ in range(warmup):
+        state, m = next(loop)
+        float(m["loss"])
     times = []
-    for _ in range(3):
+    for _ in range(timed):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         state, m = next(loop)
@@ -1598,12 +1655,17 @@ def train_timing_and_trace(torch, np, arch=QWEN3, remat="none"):
     return times
 
 
-def train_smoke_check(torch, np, arch=QWEN3, **overrides):
+def train_smoke_check(torch, np, arch=QWEN3, resync=False, **overrides):
     """The smoke config in float32: 4 train steps with the detectors on,
     kernels on the card against plain versions on the CPU, from the same
     state and batches. Losses and grad norms within 1e-4 relative (the
     same f32 arithmetic in other summation orders, moved through 4 Adam
-    steps), detector findings and counters equal."""
+    steps), detector findings and counters equal. With ``resync`` each
+    card step starts from the CPU's state of that step: xLSTM's
+    exponential gates carry Adam's sign flips of near-zero gradients
+    (every parameter moves by about +-lr in the first steps) to 0.45% of
+    the grad norm by the third free step (``tests/test_torch_xlstm.py``),
+    while each step from one state agrees within 1e-5."""
     import dataclasses
     from repro_torch.configs import registry
     from repro_torch.configs.base import ProfilerConfig, TrainConfig
@@ -1621,20 +1683,33 @@ def train_smoke_check(torch, np, arch=QWEN3, **overrides):
     tc = TrainConfig(learning_rate=3e-4, total_steps=TRAIN_STEPS,
                      warmup_steps=1, remat="none")
     s0 = TS.create(model, 0, compute_dtype=torch.float32, device="cpu")
-    results = {}
-    for dev in ("cpu", "cuda"):
+
+    def copy_state(st, dev):
         def move(tree):
             return tree_map(lambda t: t.to(dev, copy=True), tree)
-        state = TS.TrainState(params=move(s0.params), master=move(s0.master),
-                              opt=AdamWState(m=move(s0.opt.m),
-                                             v=move(s0.opt.v)),
-                              step=s0.step.to(dev))
+        return TS.TrainState(params=move(st.params), master=move(st.master),
+                             opt=AdamWState(m=move(st.opt.m),
+                                            v=move(st.opt.v)),
+                             step=st.step.to(dev, copy=True))
+    results, starts = {}, []
+    for dev in ("cpu", "cuda"):
+        state = copy_state(s0, dev)
+        step_fn = make_train_step(model, tc)
         det = TrainingDetectors(ProfilerConfig(enabled=True))
-        loop = _train_loop(torch, state, make_train_step(model, tc), det,
-                           stream(cfg, 4, 64, seed=0), dev)
+        batches = stream(cfg, 4, 64, seed=0)
         rows = []
-        for _ in range(TRAIN_STEPS):
-            state, m = next(loop)
+        for step in range(TRAIN_STEPS):
+            if resync and dev == "cpu":
+                starts.append(copy_state(state, "cpu"))
+            elif resync:
+                state = copy_state(starts[step], dev)
+            b = next(batches)
+            det.on_batch(step, b)
+            before = state.params
+            state, m = step_fn(state, {k: torch.from_numpy(v).to(dev)
+                                       for k, v in b.items()})
+            det.on_step(step, before, state.params)
+            del before
             rows.append((float(m["loss"]), float(m["grad_norm"]),
                          float(m["moe_aux"])))
         rep = det.report
@@ -1644,12 +1719,15 @@ def train_smoke_check(torch, np, arch=QWEN3, **overrides):
     (rc, fc, cc, gc), (rg, fg, cg, gg) = results["cpu"], results["cuda"]
     rel = float(np.max(np.abs(rg - rc) / np.maximum(np.abs(rc), 1e-30)))
     same = (fc, cc, gc) == (fg, cg, gg)
-    print(f"[check] {arch} smoke f32 training ({cfg.num_layers} layers), "
+    print(f"[check] {arch} smoke f32 training ({cfg.num_layers} layers"
+          f"{', each card step from the CPU state' if resync else ''}), "
           f"kernels on the card vs plain on the CPU: losses "
           f"{rg[:, 0].tolist()} vs {rc[:, 0].tolist()}, max relative "
           f"difference of loss, grad norm and moe_aux {rel:.3e} (tol 1e-4); "
           f"detector findings and counters equal {same} (checked {cg})",
           flush=True)
+    if not same:
+        print(f"[check]   CPU flagged {gc}, card flagged {gg}", flush=True)
     assert rel <= 1e-4 and same, results
 
 
@@ -1688,19 +1766,31 @@ def reckon_step_bytes(torch, model, state, batch, remat):
         del out
         return n
 
+    dt = getattr(torch, cfg.dtype)
     with torch.no_grad():
-        x0 = params["embed"][batch["tokens"].long()].to(
-            getattr(torch, cfg.dtype))
+        x0 = params["embed"][batch["tokens"].long()].to(dt)
     layer = P.tree_map(lambda t: leaf(t[0]), params["main"])
     shared = (P.tree_map(leaf, params["shared"]) if "shared" in params
               else None)
+    enc0, per_enc = None, 0
+    if sch.has_encoder:
+        # the encoder's blocks are never checkpointed; the decoder's
+        # cross-attention reads the encoder's output
+        from repro_torch.models import layers as L
+        f0 = batch["frames"].to(dt)
+        with torch.no_grad():
+            enc0 = model.encode(params, f0)
+        blk = P.tree_map(lambda t: leaf(t[0]), params["enc"]["blocks"])
+        per_enc = kept(lambda: L.apply_dense_block(blk, cfg, leaf(f0),
+                                                   causal=False))
     aux = torch.zeros((), device=x0.device)
     saved_remat = model.remat
     per_super = {}
     for mode in {"none", remat}:
         model.remat = mode
         per_super[mode] = kept(lambda: model._maybe_remat(
-            layer, shared, leaf(x0), aux))
+            layer, shared, leaf(x0), aux,
+            None if enc0 is None else leaf(enc0)))
     model.remat = saved_remat
     recompute = per_super["none"] if remat != "none" else 0
     per_tail = 0
@@ -1722,11 +1812,13 @@ def reckon_step_bytes(torch, model, state, batch, remat):
     grads = sum(t.numel() * t.element_size() for t in leaves)
     clip = 8 * max(t.numel() for t in leaves)
     held = torch.cuda.memory_allocated()
+    enc_layers = cfg.encoder_layers if sch.has_encoder else 0
     acts = (sch.n_super * per_super[remat] + recompute
-            + len(sch.tail) * per_tail + head)
+            + len(sch.tail) * per_tail + enc_layers * per_enc + head)
     parts = {"state": held, "grads": grads, "superblock": per_super[remat],
              "recomputed superblock": recompute, "tail block": per_tail,
-             "head and loss": head, "activations": acts, "clip": clip}
+             "encoder block": per_enc, "head and loss": head,
+             "activations": acts, "clip": clip}
     return held + grads + max(acts, clip), parts
 
 
@@ -1753,7 +1845,7 @@ def remat_check(torch, np, arch=QWEN3):
     cfg = registry.get_config(arch)
     batch = {k: torch.from_numpy(v).to("cuda")
              for k, v in next(stream(cfg, TB, TSEQ, seed=0)).items()}
-    attn, norms, inner = launches_per_forward(cfg)
+    attn, norms, attn_in, inner = launches_per_forward(cfg)
     counters = {k: c for k, c in train_counters().items()
                 if k != "silent_compare"}
     budget = 0.94 * torch.cuda.mem_get_info()[1]
@@ -1809,7 +1901,7 @@ def remat_check(torch, np, arch=QWEN3):
         assert torch.equal(loss, want_loss) and torch.equal(
             gnorm, want_gnorm), (remat, loss, gnorm, want_loss, want_gnorm)
         assert launches == {
-            "flash_attention_fwd": attn * (1 + again),
+            "flash_attention_fwd": attn + again * attn_in,
             "flash_attention_bwd": attn,
             "rmsnorm_fwd": norms + again * inner,
             "rmsnorm_bwd": norms}, (remat, launches)
@@ -1961,18 +2053,23 @@ LEAD_IN = 256
 def report_trace(torch, prof, label, wall_ms):
     """Device time by kernel kind, kernel count and the device's busy
     share of a profiled step's wall time, the lead-in's spin kernels left
-    out. Returns the kernels by kind."""
+    out. The device records are read from the profiler's raw results:
+    parsing them into ``prof.events()`` took 291 s for a trace of 0.77 M
+    kernels (xlstm-1.3b's train step). Returns the kernels by kind."""
+    cuda = torch.autograd.DeviceType.CUDA
     kinds, others, counts, n = {}, {}, {}, 0
-    for e in prof.events():
-        if (e.device_type == torch.autograd.DeviceType.CUDA
-                and "spin_kernel" not in e.name):
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != cuda:
+            continue
+        name = e.name()
+        if "spin_kernel" not in name:
             n += 1
-            k = _kernel_kind(e.name)
-            ms = e.time_range.elapsed_us() / 1e3
+            k = _kernel_kind(name)
+            ms = e.duration_ns() / 1e6
             kinds[k] = kinds.get(k, 0.0) + ms
             counts[k] = counts.get(k, 0) + 1
             if k == "other":
-                others[e.name[:70]] = others.get(e.name[:70], 0.0) + ms
+                others[name[:70]] = others.get(name[:70], 0.0) + ms
     if not n:
         print(f"[trace] {label}: the profiler saw no device kernels; "
               f"device time not measured (wall {wall_ms:.2f} ms)")
@@ -2019,7 +2116,10 @@ def traced_step(torch, label, prepare, counters, want=None, tries=3):
             step()
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
         counts = report_trace(torch, prof, label, wall_ms)
+        print(f"[trace] {label}: the trace read in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
         launched = {k: c.launches for k, c in counters.items()}
         expect = {k: n * KERNELS_PER_LAUNCH.get(k, 1)
                   for k, n in launched.items()}
@@ -2221,11 +2321,13 @@ def granite_path(torch, np):
     """``launch.serve.run`` for granite-moe-3b-a800m at full width (32
     layers, d_model 1536, Hq 24, Hkv 8, D 64, 40 experts top-8; random
     weights from seed 0): paged, profile on, batch 8, prompt 128 + 32;
-    twice (equal tokens), then ``--spec on`` (n-gram drafts, k 4) with
-    rollback and with overwrite. The serving kernels' launch counts are
-    set to 0 just before each run and read just after: 32 B1 or B2 and 65
-    B5 launches a forward. Then the MoE dispatch stats and traced steps
-    (engine_steps). Returns the launches per run."""
+    again with the profiler off (equal tokens; tier 1 would take ~30 s
+    of the repeat), then ``--spec on`` (n-gram drafts, k 4) with rollback
+    and with overwrite. The serving kernels' launch counts are set to 0
+    just before each run and read just after: 32 B1 or B2 and 65 B5
+    launches a forward (and a forward more in a profiled run's tier 1).
+    Then the MoE dispatch stats and traced steps (engine_steps). Returns
+    the launches per run."""
     import repro_torch.kernels.flash_prefill as fp
     import repro_torch.kernels.paged_attention as pa
     import repro_torch.kernels.rmsnorm as rn
@@ -2239,18 +2341,20 @@ def granite_path(torch, np):
                 "paged_window": fp.paged_window_attention,
                 "rmsnorm_fwd": rn.rmsnorm_forward}
     by_run, outs = {}, []
-    for label, kw in (("granite serve", {}), ("granite serve, again", {}),
+    for label, kw in (("granite serve", {}),
+                      ("granite serve, again", {"profile": False}),
                       ("granite spec rollback",
                        {"spec": True, "spec_rollback": True}),
                       ("granite spec overwrite",
                        {"spec": True, "spec_rollback": False})):
-        spec = bool(kw)
+        spec = kw.get("spec", False)
+        profile = kw.setdefault("profile", True)
         for c in counters.values():
             c.launches = 0
         t0 = time.perf_counter()
         out, merged, stats = run(GRANITE, smoke=False, kv="paged",
-                                 profile=True, batch=8, prompt_len=128,
-                                 gen=32, spec_k=SPEC_K, draft="ngram",
+                                 batch=8, prompt_len=128, gen=32,
+                                 spec_k=SPEC_K, draft="ngram",
                                  device="cuda", **kw)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
@@ -2260,12 +2364,13 @@ def granite_path(torch, np):
         rates = (f"verify {stats['verify_tok_s']:.1f} tok/s over verified "
                  f"positions, drafts accepted {stats['draft_accepted']} of "
                  f"{stats['draft_proposed']}, " if spec else "")
-        print(f"[granite] {label}: full width, paged, profile: {wall:.1f} s "
-              f"(tier 1 {tier1_seconds(stats)}); launches {launches}; "
-              f"{ticks} ticks, {stats['prefills']} "
+        tier1 = (f"profile: {wall:.1f} s (tier 1 {tier1_seconds(stats)}); "
+                 f"tiers {merged.tiers}" if profile
+                 else f"no profile: {wall:.1f} s")
+        print(f"[granite] {label}: full width, paged, {tier1}; launches "
+              f"{launches}; {ticks} ticks, {stats['prefills']} "
               f"prefills; prefill {stats['prefill_tok_s']:.1f} tok/s, "
-              f"{rates}decode {stats['decode_tok_s']:.1f} tok/s; tiers "
-              f"{merged.tiers}", flush=True)
+              f"{rates}decode {stats['decode_tok_s']:.1f} tok/s", flush=True)
         if spec:
             assert stats["ticks"] == stats["spec_ticks"] > 0, stats
             assert launches["paged_decode"] == 0, launches
@@ -2279,10 +2384,11 @@ def granite_path(torch, np):
             assert launches["paged_decode"] == layers * ticks > 0, launches
             assert launches["paged_window"] == layers * stats["prefills"] > 0
         # + 1: tier 1's recorded decode microstep
-        assert launches["rmsnorm_fwd"] == norms * (forwards + 1), launches
+        assert launches["rmsnorm_fwd"] == norms * (forwards + profile), \
+            launches
         assert out.shape == (8, 32) and ((out >= 0)
                                          & (out < cfg.vocab_size)).all()
-        assert merged.tiers == [1, 2, 3, 4], merged.tiers
+        assert not profile or merged.tiers == [1, 2, 3, 4], merged.tiers
         outs.append(out)
         by_run[label] = launches
     same = np.array_equal(outs[0], outs[1])
@@ -2649,13 +2755,14 @@ def tier1_smoke_check(torch, np):
     assert icard.stats["events"] == ic.stats["events"]
 
 
-def tier1_full_width(torch, np, card_line):
-    """6c: tier 1 on qwen3-1.7b's decode microstep at full width (batch
-    8, cache 161, period 5000, 2 epochs; random weights from seed 0): the
-    recording's operations, events and element-events, B5 launches in
-    the recording and in the engine's passes, bytes snapshotted, the
-    seconds of each part, peak device memory with the trace held and
-    after it is dropped, the top findings. Returns the launches."""
+def tier1_full_width(torch, np, card_line, arch=QWEN3):
+    """6c (and 9c for xlstm-1.3b): tier 1 on ``arch``'s decode microstep
+    at full width (batch 8, cache 161, period 5000, 2 epochs; random
+    weights from seed 0): the recording's operations, events and
+    element-events, B5 launches in the recording and in the engine's
+    passes, bytes snapshotted, the seconds of each part, peak device
+    memory with the trace held and after it is dropped, the top
+    findings. Returns the launches."""
     import gc
     import repro_torch.kernels.rmsnorm as rn
     from repro_torch.configs import registry
@@ -2664,8 +2771,8 @@ def tier1_full_width(torch, np, card_line):
     from repro_torch.launch.serve import tier1_decode_subject
     from repro_torch.models.zoo import build_model
 
-    cfg = registry.get_config("qwen3-1.7b")
-    norms = launches_per_forward(cfg)[1]
+    cfg = registry.get_config(arch)
+    _, norms, attn_in, _ = launches_per_forward(cfg)
     model = build_model(cfg)
     params = model.init(0, device="cuda")
     toks = torch.as_tensor(
@@ -2702,7 +2809,7 @@ def tier1_full_width(torch, np, card_line):
     torch.cuda.empty_cache()
     after = torch.cuda.memory_allocated()
     gib = 2 ** 30
-    print(f"[tier1] qwen3-1.7b full width decode microstep (batch 8, cache "
+    print(f"[tier1] {arch} full width decode microstep (batch 8, cache "
           f"{MAX_LEN}, period 5000, 2 epochs) on {card_line}: "
           f"{st['ops']} ops ({st['kernel_ops']} kernel, {st['views']} "
           f"views), {st['events']} events, {st['element_events']:,} "
@@ -2727,7 +2834,8 @@ def tier1_full_width(torch, np, card_line):
               f"{' -> '.join(f.c1[-3:])} => {' -> '.join(f.c2[-3:])}",
               flush=True)
     assert recorded == norms and replayed == [0, 0], (recorded, replayed)
-    assert st["kernel_ops"] == norms + cfg.num_layers, st
+    # a decode's masked attention is one recorded kernel op a layer
+    assert st["kernel_ops"] == norms + attn_in, st
     assert prof.total_load_events > 0 and prof.total_store_events > 0
     assert after <= base + 2 ** 26, (after, base)
     del params, model
@@ -2771,28 +2879,51 @@ def check_slice_kernels(torch, timer, entries):
                        B, 4096)
 
 
-def train_family(torch, np, arch, **smoke_overrides):
+def train_family(torch, np, arch, steps=TRAIN_STEPS, timed=3, warmup=1,
+                 **smoke_overrides):
     """A family's training at full width: one step under each remat mode
-    that fits (``remat_check``), then ``launch.train.run`` (4 steps,
-    detectors on) under "none" if it fits, else "full"; timed steps and
-    one traced step; the smoke config in float32, card against CPU.
-    Returns the launches of the driver's run."""
+    that fits (``remat_check``), then ``launch.train.run`` (``steps``
+    steps, detectors on) under "none" if it fits, else "full"; ``warmup``
+    and ``timed`` timed steps and one traced step; the smoke config in
+    float32, card against CPU. Returns the launches of the driver's
+    run."""
     modes = remat_check(torch, np, arch)
     remat = "none" if "none" in modes else "full"
-    launches = train_path(torch, np, arch, remat)
-    train_timing_and_trace(torch, np, arch, remat)
+    launches = train_path(torch, np, arch, remat, steps)
+    train_timing_and_trace(torch, np, arch, remat, timed, warmup)
     train_smoke_check(torch, np, arch, **smoke_overrides)
     torch.cuda.empty_cache()
     return launches
 
 
-def zamba2_serve(torch, np):
-    """Phase 8b. ``launch.serve.run`` for zamba2-1.2b at full width (38
-    Mamba2 blocks and 6 uses of the shared block; random weights from
-    seed 0): the token-loop driver with the profiler on, batch 8, prompt
-    128 + 32, twice (equal tokens), B5's launches counted: 89 a step,
-    and 89 more in tier 1's recorded decode microstep; then one decode
-    step traced. Returns the launches per run."""
+def token_loop_inputs(cfg, model, batch, prompt_len, dev):
+    """The token-loop driver's cache arguments, as ``launch.serve.run``
+    makes them (``frame_inputs``, bucketed): for the audio family
+    ``(cache_kw, tier1_kw)``, for the other families ``(None, None)``."""
+    from repro_torch.data.synthetic import batch_at
+    from repro_torch.launch.serve import frame_inputs
+    if cfg.family != "audio":
+        return None, None
+    frames = batch_at(cfg, batch, prompt_len, seed=0, step=0)["frames"]
+    return frame_inputs(cfg, model, frames, seed=0, bucket_frames=True,
+                        device=dev)[:2]
+
+
+def token_loop_serve(torch, np, arch, profile_again=True):
+    """Phases 8b, 9b and 10b. ``launch.serve.run`` for ``arch`` at full
+    width (random weights from seed 0): the token-loop driver with the
+    profiler on, batch 8, prompt 128 + 32, twice (equal tokens; the
+    second without the profiler unless ``profile_again``), the
+    kernels' launches counted: a decode forward's B5 launches a step
+    (89 for zamba2-1.2b, 97 for xlstm-1.3b and whisper-large-v3) and one
+    forward more in tier 1's recorded decode microstep, and for the audio
+    family the encoder's (65) twice: in the run's ``init_cache`` and in
+    tier 1's. A decode's attention is masked (the plain composition, as
+    in the reference), so the run makes no B4 launch, except in the audio
+    family's tier 1: its cache is the reference driver's, built from the
+    frames as drawn without lengths, so its encoder (one non-causal B4 a
+    layer) and its microstep's cross-attention (one a layer, Sq 1) take
+    B4. Then one decode step traced. Returns the launches per run."""
     import repro_torch.kernels.flash_attention as fa
     import repro_torch.kernels.rmsnorm as rn
     from repro_torch.configs import registry
@@ -2800,46 +2931,66 @@ def zamba2_serve(torch, np):
     from repro_torch.models.zoo import build_model
     from repro_torch.serve.decode import make_serve_step
 
-    cfg = registry.get_config(ZAMBA)
-    norms = launches_per_forward(cfg)[1]
-    assert norms == 38 * 2 + 6 * 2 + 1, norms
+    cfg = registry.get_config(arch)
+    sch = build_model(cfg).sched
+    _, norms, _, _ = launches_per_forward(cfg)
+    enc = encoder_norms(cfg) if sch.has_encoder else 0
+    dec = norms - enc
+    b4 = cfg.encoder_layers + sch.n_super if sch.has_encoder else 0
     by_run, outs = {}, []
-    for label in ("zamba2 serve", "zamba2 serve, again"):
+    for label, profile in (("serve", True), ("serve, again", profile_again)):
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         rn.rmsnorm_forward.launches = 0
         fa.flash_attention_forward.launches = 0
         t0 = time.perf_counter()
-        out, merged, stats = run(ZAMBA, smoke=False, profile=True, batch=8,
+        out, merged, stats = run(arch, smoke=False, profile=profile, batch=8,
                                  prompt_len=128, gen=32, device="cuda")
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = {"rmsnorm_fwd": rn.rmsnorm_forward.launches}
-        print(f"[zamba2] {label}: full width, token loop, profile: "
-              f"{wall:.1f} s (tier 1 {tier1_seconds(stats)}); launches "
-              f"{launches}; {stats['steps']} steps; prefill "
+        launches = {"rmsnorm_fwd": rn.rmsnorm_forward.launches,
+                    "flash_attention_fwd": fa.flash_attention_forward.launches}
+        frames = ""
+        if sch.has_encoder:
+            frames = (f"; encoder frames: extent {stats['frames_run']}/"
+                      f"{stats['frames_capacity']}, {stats['true_frames']} "
+                      f"true + {stats['padded_frames']} padded")
+        tier1 = (f"profile: {wall:.1f} s (tier 1 {tier1_seconds(stats)}); "
+                 f"tiers {merged.tiers}" if profile
+                 else f"no profile: {wall:.1f} s")
+        print(f"[{arch}] {label}: full width, token loop, {tier1}; "
+              f"launches {launches}; {stats['steps']} steps; prefill "
               f"{stats['prefill_tok_s']:.1f} tok/s, decode "
-              f"{stats['decode_tok_s']:.1f} tok/s; tiers {merged.tiers}; "
-              f"peak device memory "
-              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
-              flush=True)
+              f"{stats['decode_tok_s']:.1f} tok/s{frames}; peak device "
+              f"memory over the run (with profile: tier 1's trace held at "
+              f"its end) {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+              f"GiB", flush=True)
         assert stats["steps"] == 128 + 32 - 1, stats
-        # + 1: tier 1's recorded decode microstep
-        assert launches["rmsnorm_fwd"] == norms * (stats["steps"] + 1)
-        assert fa.flash_attention_forward.launches == 0
+        # a profiled run adds tier 1's encoder (in its cache) and its
+        # recorded decode microstep
+        assert launches["rmsnorm_fwd"] == dec * (stats["steps"] + profile) \
+            + enc * (1 + profile), (launches, dec, enc)
+        assert launches["flash_attention_fwd"] == b4 * profile, \
+            (launches, b4)
         assert out.shape == (8, 32) and ((out >= 0)
                                          & (out < cfg.vocab_size)).all()
-        assert merged.tiers == [1], merged.tiers
-        assert merged.total_load_events > 0 and merged.total_store_events > 0
+        if profile:
+            assert merged.tiers == ([1, 2] if sch.has_encoder else [1]), \
+                merged.tiers
+            assert merged.total_load_events > 0 \
+                and merged.total_store_events > 0
         outs.append(out)
-        by_run[label] = launches
+        by_run[f"{arch} {label}"] = launches
     same = np.array_equal(outs[0], outs[1])
-    print(f"[zamba2] two runs give equal tokens {same}", flush=True)
+    print(f"[{arch}] two runs give equal tokens {same}", flush=True)
     assert same, "two runs of the same prompts gave different tokens"
 
     model = build_model(cfg)
     params = model.init(0, device="cuda")
-    cache = model.init_cache(params, 8, MAX_LEN, kv_dtype=torch.float32)
+    cache_kw, _ = token_loop_inputs(cfg, model, 8, 128, "cuda")
+    cache = model.init_cache(params, 8, MAX_LEN, kv_dtype=torch.float32,
+                             **(cache_kw or {}))
+    params = model.decode_params(params)
     step = make_serve_step(model)
     tok = torch.as_tensor(outs[0][:, :1], device="cuda")
     for _ in range(4):
@@ -2849,28 +3000,31 @@ def zamba2_serve(torch, np):
         def one():
             step(params, cache, tok)[0].cpu()
         return one
-    traced_step(torch, f"{ZAMBA} decode step (8 slots)", decode_step,
-                {"rmsnorm_fwd": rn.rmsnorm_forward}, {"rmsnorm_fwd": norms})
+    traced_step(torch, f"{arch} decode step (8 slots)", decode_step,
+                {"rmsnorm_fwd": rn.rmsnorm_forward,
+                 "flash_attention_fwd": fa.flash_attention_forward},
+                {"rmsnorm_fwd": dec, "flash_attention_fwd": 0})
     del cache, params, model
     torch.cuda.empty_cache()
     return by_run
 
 
-def zamba2_smoke_check(torch, np):
-    """Phase 8c. zamba2-1.2b's smoke config in float32 at 8 layers (a
-    superblock of six Mamba2 blocks and the shared block, then a tail of
-    two), the same weights on the card (kernels) and on the CPU: the
-    token-loop driver's greedy tokens (batch 4, prompt 16 + 8) equal, and
-    tier 1 on the decode microstep: totals, samples and checked counts
-    equal (flagged counts equal or each difference printed)."""
+def token_loop_smoke_check(torch, np, arch, **overrides):
+    """Phases 8c, 9d and 10d. ``arch``'s smoke config in float32 (with
+    ``overrides``), the same weights on the card (kernels) and on the
+    CPU: the token-loop driver's greedy tokens (batch 4, prompt 16 + 8;
+    for the audio family over the seeded frames, bucketed, and their
+    lengths) equal, and tier 1 on the decode microstep: totals, samples
+    and checked counts equal (flagged counts equal or each difference
+    printed)."""
     import dataclasses
     from repro_torch.configs import registry
     from repro_torch.launch.serve import _run_legacy, tier1_decode_profile
     from repro_torch.models.params import tree_map
     from repro_torch.models.zoo import build_model
 
-    cfg = dataclasses.replace(registry.get_config(ZAMBA).smoke(),
-                              dtype="float32", num_layers=8)
+    cfg = dataclasses.replace(registry.get_config(arch).smoke(),
+                              dtype="float32", **overrides)
     model = build_model(cfg)
     cpu_params = model.init(0, device="cpu")
     prompts = np.random.default_rng(4).integers(0, cfg.vocab_size, (4, 16))
@@ -2878,11 +3032,12 @@ def zamba2_smoke_check(torch, np):
     res = {}
     for dev in ("cpu", "cuda"):
         params = tree_map(lambda t: t.to(dev), cpu_params)
+        cache_kw, tier1_kw = token_loop_inputs(cfg, model, 4, 16, dev)
         out, _ = _run_legacy(model, params, torch.as_tensor(
-            prompts, dtype=torch.int32, device=dev), 8)
+            prompts, dtype=torch.int32, device=dev), 8, cache_kw)
         prof, interp = tier1_decode_profile(
             model, params, torch.as_tensor(toks, dtype=torch.int32,
-                                           device=dev), 25, 0)
+                                           device=dev), 25, 0, tier1_kw)
         res[dev] = (out, prof, interp.stats)
     (out_c, cpu, sc), (out_g, card, sg) = res["cpu"], res["cuda"]
     same = {"tokens": np.array_equal(out_c, out_g),
@@ -2890,7 +3045,7 @@ def zamba2_smoke_check(torch, np):
             "samples": card.watchpoint_stats == cpu.watchpoint_stats,
             "checked": card.checked == cpu.checked,
             "flagged": card.flagged == cpu.flagged}
-    print(f"[check] {ZAMBA} smoke f32 ({cfg.num_layers} layers), the card vs "
+    print(f"[check] {arch} smoke f32 ({cfg.num_layers} layers), the card vs "
           f"the CPU: equal {same}; tokens {out_g[0].tolist()}; tier 1 "
           f"{sg['ops']} ops ({sg['kernel_ops']} kernel), {sg['events']} "
           f"events, totals {card.totals}, checked "
@@ -2903,6 +3058,147 @@ def zamba2_smoke_check(torch, np):
     assert (same["tokens"] and same["totals"] and same["samples"]
             and same["checked"]), same
     assert sg["events"] == sc["events"], (sg, sc)
+
+
+# ----------------------------------------------------------------------
+# phases 9 and 10: xlstm-1.3b (the ssm family) and whisper-large-v3 (the
+# audio family), served and trained at full width
+# ----------------------------------------------------------------------
+XLSTM = "xlstm-1.3b"
+WHISPER = "whisper-large-v3"
+WHISPER_HEADS = (20, 20, 64)              # G 1, D 64
+
+
+def check_new_family_kernels(torch, timer, entries):
+    """Phases 9a and 10a. B4 at whisper-large-v3's heads (Hq 20, Hkv 20,
+    D 64: G 1), B 4, in bfloat16 and float32: non-causal 1024 x 1024 (the
+    encoder's self-attention and the decoder's cross-attention, 1024
+    queries over 1024 frames) and causal 1024 (the decoder's own tokens),
+    forward, lse and the three gradients against the plain versions, two
+    calls bit-identical, timed beside SDPA; ragged non-causal cases: 1024
+    queries over the capacity's 1500 frames, and tier 1's cross-attention
+    of one query over 128 frames and encoder of 128 frames. B5 at
+    whisper's width 1280 and xlstm's 2048 and 4096 (the mLSTM's out_norm)
+    at their decode rows (8) and training rows (4096), strided rows too,
+    in every dtype pair; B5's forward timed beside ``F.rms_norm`` at the
+    decode rows and whisper's serving encoder rows (8 x 128), forward and
+    backward at the training rows. The numbers go into the entries'
+    ``by_shape``."""
+    hq, hkv, d = WHISPER_HEADS
+    for causal in (False, True):
+        nums = flash_on_training_inputs(torch, timer, WHISPER, WHISPER_HEADS,
+                                        causal)
+        mask = "causal" if causal else "non-causal"
+        for key, num in nums.items():
+            entries[key]["by_shape"][f"{WHISPER} train {mask}"] = num
+    for dtype, sq, skv in (("float32", TSEQ, 1500), ("bfloat16", TSEQ, 1500),
+                           ("bfloat16", 1, 128), ("bfloat16", 128, 128)):
+        flash_case(torch, dtype, sq, skv, False, seed=sq + skv, d=d, hq=hq,
+                   hkv=hkv)
+    seed = 1300
+    for x_dtype, s_dtype in (("float32", "float32"), ("bfloat16", "float32"),
+                             ("bfloat16", "bfloat16")):
+        for rows, width, strided in ((8, 1280, False), (1024, 1280, False),
+                                     (TB * TSEQ, 1280, False),
+                                     (131, 1280, True), (8, 2048, False),
+                                     (TB * TSEQ, 2048, False),
+                                     (TB * TSEQ, 4096, False)):
+            seed += 1
+            rmsnorm_case(torch, rows, width, x_dtype, s_dtype, strided, seed)
+    norm_forward_times(torch, timer, entries, f"{WHISPER} decode", B, 1280)
+    norm_forward_times(torch, timer, entries, f"{WHISPER} encoder",
+                       B * 128, 1280)
+    norm_train_times(torch, timer, entries, f"{WHISPER} train", TB * TSEQ,
+                     1280)
+    norm_forward_times(torch, timer, entries, f"{XLSTM} decode", B, 2048)
+    norm_forward_times(torch, timer, entries, f"{XLSTM} decode out_norm", B,
+                       4096)
+    norm_train_times(torch, timer, entries, f"{XLSTM} train", TB * TSEQ,
+                     2048)
+    norm_train_times(torch, timer, entries, f"{XLSTM} train out_norm",
+                     TB * TSEQ, 4096)
+
+
+def whisper_bucketing(torch, np):
+    """Phase 10c. whisper-large-v3 at full width: frames (8, 1500, 1280)
+    from the seeded stream, lengths from ``frame_lengths`` (187 to 750),
+    right-padded to the bucket (1024) and to capacity (1500), each through
+    ``init_cache`` (the masked encoder, the cross K/V and ``xvalid``) and
+    the one-token step over a 16-token prompt and 8 greedy tokens, in
+    float32 (the gate: equal greedy tokens, as every token-parity check
+    of the port is made in float32) and in the config's bfloat16
+    (reported: masked keys add exact zeros, but a row's sums depend on
+    the extent through cuBLAS's choice of kernel and the softmax's
+    blocking, and bfloat16 rounding carries a last-bit difference through
+    32 layers); prints the largest logit difference and whether the cross
+    K/V rows below each length are the same bits."""
+    import dataclasses
+    from repro_torch.configs import registry
+    from repro_torch.data.synthetic import batch_at, frame_lengths
+    from repro_torch.launch.serve import _prep_frames
+    from repro_torch.models.zoo import build_model
+
+    base = registry.get_config(WHISPER)
+    data = batch_at(base, 8, base.encoder_frames, seed=0, step=0)
+    lens = frame_lengths(base, 8, seed=0)
+    prompts = torch.as_tensor(data["tokens"][:, :16], device="cuda")
+    params = build_model(base).init(0, device="cuda")
+    for dtype in ("float32", "bfloat16"):
+        cfg = dataclasses.replace(base, dtype=dtype)
+        model = build_model(cfg)
+        dparams = model.decode_params(params)
+        res = {}
+        for bucket in (True, False):
+            frames, lens_c, st = _prep_frames(cfg, model, data["frames"],
+                                              lens, bucket)
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                cache = model.init_cache(
+                    params, 8, 16 + 8 + 1, kv_dtype=torch.float32,
+                    frames=torch.as_tensor(frames, device="cuda"),
+                    frame_lengths=torch.as_tensor(lens_c, device="cuda"))
+                toks, logits = [], []
+                for t in range(16 + 8 - 1):
+                    inp = prompts[:, t:t + 1] if t < 16 else toks[-1]
+                    lg, cache = model.decode_step(dparams, cache, inp)
+                    if t >= 15:
+                        toks.append(lg[:, -1:].argmax(dim=-1)
+                                    .to(torch.int32))
+                        logits.append(lg[:, -1].float())
+            torch.cuda.synchronize()
+            sub = cache["main"]["b0_encdec"]
+            res[bucket] = (torch.cat(toks, 1).cpu().numpy(),
+                           torch.stack(logits), sub["xk"], sub["xv"], st,
+                           time.perf_counter() - t0)
+            del cache, sub
+        (tb, lb, kb, vb, sb, wb), (tc, lc, kc, vc, sc, wc) = \
+            res[True], res[False]
+        same = np.array_equal(tb, tc)
+        diff = float((lb - lc).abs().max())
+        kv_diff, kv_same = 0.0, True
+        for b, n in enumerate(lens_c):
+            for x, y in ((kb, kc), (vb, vc)):
+                kv_diff = max(kv_diff, float(
+                    (x[:, b, :n] - y[:, b, :n]).abs().max()))
+                kv_same = kv_same and torch.equal(x[:, b, :n], y[:, b, :n])
+        print(f"[whisper] bucketing at full width, {dtype}: lengths "
+              f"{lens_c.tolist()}; extent {sb['frames_run']} "
+              f"({sb['padded_frames']} padded rows, {sb['padded_bytes']} "
+              f"padded bytes, {wb:.2f} s) against {sc['frames_run']} "
+              f"({sc['padded_frames']} padded rows, {sc['padded_bytes']} "
+              f"padded bytes, {wc:.2f} s); greedy tokens equal {same} "
+              f"(bucketed {tb[0].tolist()}, capacity {tc[0].tolist()}); "
+              f"largest logit difference {diff:.3e}; cross K/V rows below "
+              f"each length bit-identical {kv_same} (largest difference "
+              f"{kv_diff:.3e})", flush=True)
+        assert sb["frames_run"] == 1024 and sc["frames_run"] == 1500, \
+            (sb, sc)
+        if dtype == "float32":
+            assert same, "bucketed and capacity frames gave other tokens"
+        del res, kb, vb, kc, vc, dparams, model
+        torch.cuda.empty_cache()
+    del params
+    torch.cuda.empty_cache()
 
 
 def kernel_label(mangled: str) -> str:
@@ -3017,38 +3313,75 @@ def main() -> int:
     build_kernels()
 
     timer = Timer(torch)
-    entries = check_kernels(torch, np, timer)
-    check_granite_kernels(torch, np, timer, entries)
-    entries.update(check_rmsnorm(torch, timer))
-    check_rmsnorm_granite(torch, timer, entries)
-    check_rmsnorm_serving(torch, timer, entries)
-    entries.update(check_flash(torch, timer))
-    entries["silent_compare"] = check_silent(torch, timer)
-    check_slice_kernels(torch, timer, entries)
+    t_start = time.perf_counter()
+
+    def phase(name, fn, *args, **kwargs):
+        """Run one phase, printing its seconds."""
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        print(f"[phase] {name}: {time.perf_counter() - t0:.1f} s "
+              f"({time.perf_counter() - t_start:.1f} s since the build)",
+              flush=True)
+        return out
+
+    entries = phase("2 serving kernels", check_kernels, torch, np, timer)
+    phase("2c granite kernels", check_granite_kernels, torch, np, timer,
+          entries)
+    entries.update(phase("2b rmsnorm", check_rmsnorm, torch, timer))
+    phase("2d rmsnorm granite", check_rmsnorm_granite, torch, timer, entries)
+    phase("2e rmsnorm serving", check_rmsnorm_serving, torch, timer, entries)
+    entries.update(phase("4a flash attention", check_flash, torch, timer))
+    entries["silent_compare"] = phase("4b silent compare", check_silent,
+                                      torch, timer)
+    phase("7a/8a slice kernels", check_slice_kernels, torch, timer, entries)
+    phase("9a/10a new families' kernels", check_new_family_kernels, torch,
+          timer, entries)
     # each main path is driven with the launch counts set to 0 just
     # before it and read just after
     by_path = {}
-    by_path["serve"], stats = main_path(torch, np)
-    small_reference_check(torch, np)
-    by_path.update(spec_path(torch, np))
-    spec_smoke_check(torch, np)
-    by_path.update(granite_path(torch, np))
-    granite_smoke_check(torch, np)
+    by_path["serve"], stats = phase("3 main path", main_path, torch, np)
+    phase("3 smoke", small_reference_check, torch, np)
+    by_path.update(phase("3b spec", spec_path, torch, np))
+    phase("3b smoke", spec_smoke_check, torch, np)
+    by_path.update(phase("3c granite serve", granite_path, torch, np))
+    phase("3c smoke", granite_smoke_check, torch, np)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    by_path["train"] = train_path(torch, np)
-    train_timing_and_trace(torch, np)
-    train_smoke_check(torch, np)
-    remat_check(torch, np)
-    tier1_corpus(torch)
-    tier1_smoke_check(torch, np)
+    by_path["train"] = phase("5 train", train_path, torch, np)
+    phase("5 timing", train_timing_and_trace, torch, np)
+    phase("5 smoke", train_smoke_check, torch, np)
+    phase("5 remat", remat_check, torch, np)
+    phase("6a corpus", tier1_corpus, torch)
+    phase("6b smoke", tier1_smoke_check, torch, np)
     torch.cuda.empty_cache()
-    by_path["tier1"] = tier1_full_width(torch, np, card)
+    by_path["tier1"] = phase("6c tier 1", tier1_full_width, torch, np, card)
     torch.cuda.empty_cache()
-    by_path["granite train"] = train_family(torch, np, GRANITE)
-    by_path.update(zamba2_serve(torch, np))
-    zamba2_smoke_check(torch, np)
-    by_path["zamba2 train"] = train_family(torch, np, ZAMBA, num_layers=8)
+    by_path["granite train"] = phase("7 granite train", train_family, torch,
+                                     np, GRANITE)
+    by_path.update(phase("8b zamba2 serve", token_loop_serve, torch, np,
+                         ZAMBA, profile_again=False))
+    phase("8c zamba2 smoke", token_loop_smoke_check, torch, np, ZAMBA,
+          num_layers=8)
+    by_path["zamba2 train"] = phase("8 zamba2 train", train_family, torch,
+                                    np, ZAMBA, num_layers=8)
+    by_path.update(phase("9b xlstm serve", token_loop_serve, torch, np,
+                         XLSTM))
+    by_path["xlstm tier1"] = phase("9c xlstm tier 1", tier1_full_width,
+                                   torch, np, card, XLSTM)
+    phase("9d xlstm smoke", token_loop_smoke_check, torch, np, XLSTM)
+    by_path.update(phase("10b whisper serve", token_loop_serve, torch, np,
+                         WHISPER))
+    phase("10c whisper bucketing", whisper_bucketing, torch, np)
+    phase("10d whisper smoke", token_loop_smoke_check, torch, np, WHISPER)
+    by_path["whisper train"] = phase("10e whisper train", train_family,
+                                     torch, np, WHISPER)
+    # last: its traced step holds ~0.9 M kernels, after which this
+    # process's profiler traces were seen to come back empty
+    # xlstm's steps are host-bound (~22 s: the sLSTM's token loop), so its
+    # driver takes 2 steps and one step is timed, without a warm-up
+    by_path["xlstm train"] = phase("9e xlstm train", train_family, torch,
+                                   np, XLSTM, steps=2, timed=1, warmup=0,
+                                   resync=True)
 
     import math
     for key, e in entries.items():

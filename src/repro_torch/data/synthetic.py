@@ -43,6 +43,20 @@ def batch_at(cfg: ModelConfig, batch: int, seq: int, *, seed: int,
     return out
 
 
+def frame_lengths(cfg: ModelConfig, batch: int, *, seed: int,
+                  step: int = 0) -> np.ndarray:
+    """Per-request true encoder frame counts for the audio family,
+    seeded, in [max(1, F // 8), F // 2] where F = cfg.encoder_frames
+    (a capacity window is sized for the longest clip; typical utterances
+    fill a fraction of it)."""
+    F = cfg.encoder_frames
+    rng = np.random.Generator(np.random.Philox(
+        key=seed, counter=[step, 0, 1, 0]))
+    lo = max(1, F // 8)
+    hi = max(lo + 1, F // 2)
+    return rng.integers(lo, hi + 1, size=batch).astype(np.int32)
+
+
 def stream(cfg: ModelConfig, batch: int, seq: int, *, seed: int = 0,
            start_step: int = 0, host: int = 0,
            num_hosts: int = 1) -> Iterator[Dict[str, np.ndarray]]:

@@ -1,8 +1,8 @@
-"""Core transformer layers: norms, RoPE, GQA attention (qk-norm;
-cache-free, or a per-slot dense or paged KV cache), gated/plain MLP, the
-LM head. Functional style: ``decl_*`` builds the parameter declaration
-tree, ``apply_*`` consumes the materialized parameters (nested dicts of
-tensors).
+"""Core transformer layers: norms, RoPE, GQA attention (qk-norm; self-
+or cross-attention; cache-free, or a per-slot dense or paged KV cache),
+gated/plain MLP, the LM head. Functional style: ``decl_*`` builds the
+parameter declaration tree, ``apply_*`` consumes the materialized
+parameters (nested dicts of tensors).
 
 Every weight is cast to the activation dtype at its use, as in the
 reference.
@@ -52,7 +52,9 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 # ----------------------------------------------------------------------
 # Attention
 # ----------------------------------------------------------------------
-def decl_attention(cfg: ModelConfig) -> Dict[str, Any]:
+def decl_attention(cfg: ModelConfig, cross: bool = False) -> Dict[str, Any]:
+    """Attention projections; a cross-attention (``cross``) declares the
+    same leaves, its K/V projections reading the source instead."""
     d = cfg.d_model
     decl = {
         "wq": P.linear(d, cfg.q_dim, "embed", "q_feat"),
@@ -67,14 +69,25 @@ def decl_attention(cfg: ModelConfig) -> Dict[str, Any]:
 
 
 def apply_attention(p, cfg: ModelConfig, x: torch.Tensor, *,
+                    kv_src: Optional[torch.Tensor] = None,
+                    positions: Optional[torch.Tensor] = None,
+                    causal: bool = True,
                     cache: Optional[Dict[str, torch.Tensor]] = None,
-                    spec: Optional[str] = None
+                    use_rope: bool = True,
+                    spec: Optional[str] = None,
+                    kv_valid: Optional[torch.Tensor] = None
                     ) -> Tuple[torch.Tensor, Optional[Dict[str, Any]]]:
-    """Self-attention of S tokens: cache-free (the training forward) or
-    against a KV cache.
+    """Attention of S tokens: cache-free (the training forward, the
+    encoder) or self-attention against a KV cache.
 
-    cache None: RoPE at positions 0..S-1 and causal attention over the S
-      tokens themselves (the flash kernel); returns (out, None).
+    cache None: the K/V come from the tokens themselves or, for a
+      cross-attention, from ``kv_src`` (B,Skv,d); RoPE (``use_rope``, self-
+      attention only) at ``positions`` (default 0..S-1); ``causal``
+      applies to self-attention only; ``kv_valid`` ((B,Skv) bool) masks
+      keys out, so rows of valid keys do not depend on how far the keys
+      were padded. Unmasked, this is the flash kernel (causal or not,
+      Sq != Skv for a cross-attention); masked, the plain composition,
+      as in the reference. Returns (out, None).
     cache (one layer's views of the stacked cache), one of:
       paged — {"k","v": (P,page,Hkv,D) pool, "pt": (B,M) page table,
                "idx": (B,) write positions[, "kcnt": (B,3) counters]}:
@@ -104,17 +117,22 @@ def apply_attention(p, cfg: ModelConfig, x: torch.Tensor, *,
     dt = x.dtype
 
     q = (x @ p["wq"]["w"].to(dt)).reshape(B, S, H, D)
-    k = (x @ p["wk"]["w"].to(dt)).reshape(B, S, Hkv, D)
-    v = (x @ p["wv"]["w"].to(dt)).reshape(B, S, Hkv, D)
+    src = x if kv_src is None else kv_src
+    Bk, Skv = src.shape[:2]
+    k = (src @ p["wk"]["w"].to(dt)).reshape(Bk, Skv, Hkv, D)
+    v = (src @ p["wv"]["w"].to(dt)).reshape(Bk, Skv, Hkv, D)
     if cfg.qk_norm:
         q = apply_rmsnorm(p["q_norm"], q, cfg.norm_eps)
         k = apply_rmsnorm(p["k_norm"], k, cfg.norm_eps)
 
     if cache is None:
-        pos = torch.arange(S, device=x.device)
-        q = apply_rope(q, pos, cfg.rope_theta)
-        k = apply_rope(k, pos, cfg.rope_theta)
-        out = ops.attention(q, k, v, causal=True)
+        if use_rope and kv_src is None:
+            pos = (positions if positions is not None
+                   else torch.arange(S, device=x.device))
+            q = apply_rope(q, pos, cfg.rope_theta)
+            k = apply_rope(k, pos, cfg.rope_theta)
+        out = ops.attention(q, k, v, causal=causal and kv_src is None,
+                            kv_valid=kv_valid)
         return out.reshape(B, S, H * D) @ p["wo"]["w"].to(dt), None
 
     idx = cache["idx"]
@@ -203,11 +221,15 @@ def decl_dense_block(cfg: ModelConfig) -> Dict[str, Any]:
     }
 
 
-def apply_dense_block(p, cfg: ModelConfig, x: torch.Tensor, *, cache=None,
-                      spec: Optional[str] = None):
+def apply_dense_block(p, cfg: ModelConfig, x: torch.Tensor, *,
+                      causal: bool = True, cache=None,
+                      positions: Optional[torch.Tensor] = None,
+                      use_rope: bool = True, spec: Optional[str] = None,
+                      kv_valid: Optional[torch.Tensor] = None):
     h, new_cache = apply_attention(
         p["attn"], cfg, apply_rmsnorm(p["ln1"], x, cfg.norm_eps),
-        cache=cache, spec=spec)
+        causal=causal, cache=cache, positions=positions, use_rope=use_rope,
+        spec=spec, kv_valid=kv_valid)
     x = x + h
     x = x + apply_mlp(p["mlp"], cfg, apply_rmsnorm(p["ln2"], x, cfg.norm_eps))
     return x, new_cache

@@ -1,8 +1,9 @@
-"""Decoder LM assembly, dense, moe and hybrid families: parameter
-declaration and init, the cache-free training forward and loss, per-slot
-dense and paged KV caches (and the hybrid family's Mamba2 states), and
-the cached decode step that the serving engine's prefill and tick and the
-token-loop serving driver run.
+"""Decoder LM assembly, dense, moe, hybrid, ssm and audio families:
+parameter declaration and init, the cache-free training forward and
+loss, per-slot dense and paged KV caches (and the hybrid family's Mamba2
+states, the ssm family's mLSTM and sLSTM states, the audio family's
+cross-attention K/V), and the cached decode step that the serving
+engine's prefill and tick and the token-loop serving driver run.
 
 Parameters and caches keep the reference's stacked per-layer storage,
 ``(n_layers, ...)`` under ``"main"``, so reference trees load 1:1; a
@@ -18,7 +19,12 @@ its scanned superblock). The hybrid family (zamba2) runs `attn_period`
 Mamba2 blocks and one use of a SHARED dense block per superblock, then
 the leftover Mamba2 blocks as an un-checkpointed tail (``"tail"``); the
 shared block has one parameter set (``"shared"``, its gradient summed
-over its uses) and one K/V cache per use.
+over its uses) and one K/V cache per use. The ssm family (xlstm) runs
+superblocks of mLSTM blocks and one sLSTM block. The audio family
+(whisper) runs an encoder over the frame embeddings (``"enc"``, never
+checkpointed, as in the reference), then decoder blocks that attend
+their own tokens and, across, the encoder's output; a decode reads the
+cross-attention K/V that ``init_cache`` precomputed per layer.
 """
 from __future__ import annotations
 
@@ -35,6 +41,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 from repro_torch.models import params as P
 from repro_torch.models import ssm as SSM
+from repro_torch.models import xlstm as XL
 
 
 def _mask_pad_vocab(logits: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -58,6 +65,7 @@ class Schedule:
     n_super: int
     tail: Tuple[str, ...] = ()    # leftover blocks after the superblocks
     has_shared: bool = False
+    has_encoder: bool = False
 
 
 def make_schedule(cfg: ModelConfig) -> Schedule:
@@ -70,9 +78,18 @@ def make_schedule(cfg: ModelConfig) -> Schedule:
         n, r = divmod(cfg.num_layers, p)
         return Schedule(("mamba",) * p + ("shared",), n,
                         tail=("mamba",) * r, has_shared=True)
+    if cfg.family == "ssm":
+        sp = cfg.xlstm.slstm_period
+        if cfg.num_layers % sp:
+            raise ValueError(f"ssm layers ({cfg.num_layers}) must be a "
+                             f"multiple of the sLSTM period ({sp})")
+        return Schedule(("mlstm",) * (sp - 1) + ("slstm",),
+                        cfg.num_layers // sp)
+    if cfg.family == "audio":
+        return Schedule(("encdec",), cfg.num_layers, has_encoder=True)
     raise NotImplementedError(
-        f"family {cfg.family!r} is not ported yet (dense, moe and hybrid "
-        f"only; the other block types are ROADMAP A7)")
+        f"family {cfg.family!r} is not ported yet (dense, moe, hybrid, "
+        f"ssm and audio only; the vlm blocks are ROADMAP A7)")
 
 
 # ----------------------------------------------------------------------
@@ -87,6 +104,17 @@ def decl_moe_block(cfg: ModelConfig) -> Dict[str, Any]:
     }
 
 
+def decl_encdec_block(cfg: ModelConfig) -> Dict[str, Any]:
+    return {
+        "ln1": P.norm(cfg.d_model),
+        "attn": L.decl_attention(cfg),
+        "lnx": P.norm(cfg.d_model),
+        "xattn": L.decl_attention(cfg, cross=True),
+        "ln2": P.norm(cfg.d_model),
+        "mlp": L.decl_mlp(cfg),
+    }
+
+
 def _decl_sub(cfg: ModelConfig, typ: str) -> Dict[str, Any]:
     if typ == "dense":
         return L.decl_dense_block(cfg)
@@ -94,17 +122,43 @@ def _decl_sub(cfg: ModelConfig, typ: str) -> Dict[str, Any]:
         return decl_moe_block(cfg)
     if typ == "mamba":
         return SSM.decl_mamba(cfg)
+    if typ == "mlstm":
+        return XL.decl_mlstm(cfg)
+    if typ == "slstm":
+        return XL.decl_slstm(cfg)
+    if typ == "encdec":
+        return decl_encdec_block(cfg)
     if typ == "shared":
         return {}                     # params live outside the superblocks
     raise ValueError(typ)
 
 
+def _cached_xattn(p_attn, cfg: ModelConfig, x: torch.Tensor,
+                  c: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """Cross-attention of x (B,S,d) against one layer's precomputed
+    cross K/V (``xk``/``xv``, masked by ``xvalid`` where the frames were
+    right-padded). Unsharded: the sequence-sharded branch is ROADMAP
+    A11."""
+    B, S, _ = x.shape
+    H, D = cfg.num_heads, cfg.head_dim
+    q = (x @ p_attn["wq"]["w"].to(x.dtype)).reshape(B, S, H, D)
+    if cfg.qk_norm:
+        q = L.apply_rmsnorm(p_attn["q_norm"], q, cfg.norm_eps)
+    out = ops.attention(q, c["xk"].to(x.dtype), c["xv"].to(x.dtype),
+                        causal=False, kv_valid=c.get("xvalid"))
+    return out.reshape(B, S, H * D) @ p_attn["wo"]["w"].to(x.dtype)
+
+
 def _apply_sub(p, cfg: ModelConfig, typ: str, x: torch.Tensor, *,
-               cache=None, spec: Optional[str] = None):
+               cache=None, spec: Optional[str] = None,
+               enc: Optional[torch.Tensor] = None):
     """One sub-block, cache-free or cached (as ``L.apply_attention``):
     (x, new cache, moe_aux or None). A moe block is attention, then the
-    MoE layer on ln2; a mamba block writes a given state in place; a
-    shared block is a dense block on the shared parameters."""
+    MoE layer on ln2; a mamba, mlstm or slstm block writes a given state
+    in place; a shared block is a dense block on the shared parameters;
+    an encdec block attends its tokens, then across to the encoder's
+    output ``enc`` (cache-free) or to the cache's cross K/V, then runs
+    its MLP."""
     if typ in ("dense", "shared"):
         x, nc = L.apply_dense_block(p, cfg, x, cache=cache, spec=spec)
         return x, nc, None
@@ -118,6 +172,27 @@ def _apply_sub(p, cfg: ModelConfig, typ: str, x: torch.Tensor, *,
         return x + h, nc, aux
     if typ == "mamba":
         x, nc = SSM.apply_mamba(p, cfg, x, state=cache)
+        return x, nc, None
+    if typ == "mlstm":
+        x, nc = XL.apply_mlstm(p, cfg, x, state=cache)
+        return x, nc, None
+    if typ == "slstm":
+        x, nc = XL.apply_slstm(p, cfg, x, state=cache)
+        return x, nc, None
+    if typ == "encdec":
+        h, nc = L.apply_attention(
+            p["attn"], cfg, L.apply_rmsnorm(p["ln1"], x, cfg.norm_eps),
+            cache=cache)
+        x = x + h
+        h = L.apply_rmsnorm(p["lnx"], x, cfg.norm_eps)
+        if cache is None:
+            h, _ = L.apply_attention(p["xattn"], cfg, h, kv_src=enc,
+                                     causal=False, use_rope=False)
+        else:
+            h = _cached_xattn(p["xattn"], cfg, h, cache)
+        x = x + h
+        x = x + L.apply_mlp(p["mlp"], cfg,
+                            L.apply_rmsnorm(p["ln2"], x, cfg.norm_eps))
         return x, nc, None
     raise ValueError(typ)
 
@@ -150,21 +225,25 @@ class LM:
         # forward: "none" | "full" | "dots" (set by the train-step factory)
         self.remat = "none"
 
-    def _superblock(self, p_l, shared, x: torch.Tensor, aux: torch.Tensor
+    def _superblock(self, p_l, shared, x: torch.Tensor, aux: torch.Tensor,
+                    enc: Optional[torch.Tensor] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
         for i, typ in enumerate(self.sched.pattern):
             p = shared if typ == "shared" else p_l[f"b{i}_{typ}"]
-            x, _, a = _apply_sub(p, self.cfg, typ, x)
+            x, _, a = _apply_sub(p, self.cfg, typ, x, enc=enc)
             if a is not None:
                 aux = aux + a
         return x, aux
 
-    def _maybe_remat(self, p_l, shared, x: torch.Tensor, aux: torch.Tensor
+    def _maybe_remat(self, p_l, shared, x: torch.Tensor, aux: torch.Tensor,
+                     enc: Optional[torch.Tensor] = None
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """One superblock, recomputed in the backward under "full" (saves
-        nothing inside) or "dots" (saves the projection matmuls)."""
+        """One superblock (with the encoder's output ``enc`` for the
+        audio family's cross-attention), recomputed in the backward under
+        "full" (saves nothing inside) or "dots" (saves the projection
+        matmuls)."""
         if self.remat == "none" or not torch.is_grad_enabled():
-            return self._superblock(p_l, shared, x, aux)
+            return self._superblock(p_l, shared, x, aux, enc)
         if self.remat == "full":
             ctx = ckpt.noop_context_fn
         elif self.remat == "dots":
@@ -172,7 +251,7 @@ class LM:
                                     _save_dots)
         else:
             raise ValueError(f"remat={self.remat!r}: none, full or dots")
-        return ckpt.checkpoint(self._superblock, p_l, shared, x, aux,
+        return ckpt.checkpoint(self._superblock, p_l, shared, x, aux, enc,
                                use_reentrant=False, context_fn=ctx)
 
     # -------------------------- declarations -------------------------
@@ -196,6 +275,12 @@ class LM:
                                       len(sch.tail))
         if sch.has_shared:
             d["shared"] = L.decl_dense_block(cfg)
+        if sch.has_encoder:
+            d["enc"] = {
+                "blocks": P.stack_decls(L.decl_dense_block(cfg),
+                                        cfg.encoder_layers),
+                "norm": P.norm(cfg.d_model),
+            }
         return d
 
     def init(self, seed: int = 0, *, device, dtype=None) -> Any:
@@ -207,32 +292,73 @@ class LM:
                            device=device)
 
     def decode_params(self, params) -> Any:
-        """The decode-path view of ``params``: the reference strips the
-        encoder and cross-attention K/V leaves that only its cache
-        precompute reads; no ported family has them, so ``params`` comes
-        back unchanged."""
-        return params
+        """The decode-path view of ``params``: without the encoder and
+        each cross-attention's ``wk``/``wv``/``k_norm``, which only
+        ``init_cache``'s cross-K/V precompute reads (the reference's
+        view). Families without cross-attention get ``params`` back."""
+        if not self.sched.has_encoder:
+            return params
+        out = {k: v for k, v in params.items() if k != "enc"}
+        main = dict(out["main"])
+        for name in (f"b{i}_{t}" for i, t in enumerate(self.sched.pattern)
+                     if t == "encdec"):
+            blk = dict(main[name])
+            blk["xattn"] = {k: v for k, v in blk["xattn"].items()
+                            if k not in ("wk", "wv", "k_norm")}
+            main[name] = blk
+        out["main"] = main
+        return out
 
     def head_weight(self, params) -> torch.Tensor:
         """(V_padded, d) vocab-major head weight (embedding when tied)."""
         return (params["embed"] if self.cfg.tie_embeddings
                 else params["head"])
 
+    # ----------------------------- encoder ---------------------------
+    def encode(self, params, frames: torch.Tensor,
+               frame_lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The audio family's encoder over frame embeddings (B,F,d):
+        non-causal self-attention with RoPE in every block, then the
+        encoder's norm. With ``frame_lengths`` ((B,) true frame counts of
+        right-padded frames) padded keys are masked out of every
+        self-attention, so rows below each true length do not depend on
+        how far the batch was padded (what lets serving bucket the
+        extent)."""
+        cfg = self.cfg
+        x = frames.to(torch_dtype(cfg.dtype))
+        valid = None
+        if frame_lengths is not None:
+            valid = (torch.arange(x.shape[1], device=x.device)[None, :]
+                     < frame_lengths.to(x.device)[:, None])
+        blocks = P.tree_map(lambda t: t.unbind(0), params["enc"]["blocks"])
+        for li in range(cfg.encoder_layers):
+            x, _ = L.apply_dense_block(
+                P.tree_map(lambda ts: ts[li], blocks), cfg, x, causal=False,
+                kv_valid=valid)
+        return L.apply_rmsnorm(params["enc"]["norm"], x, cfg.norm_eps)
+
     # ----------------------------- forward ---------------------------
-    def backbone(self, params, tokens: torch.Tensor
+    def backbone(self, params, tokens: torch.Tensor, *,
+                 frames: Optional[torch.Tensor] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Everything up to (and incl.) the final norm, cache-free:
         (hidden (B,S,d), moe_aux f32 scalar: the MoE layers' aux losses
-        summed over the layers, 0 for the dense family)."""
+        summed over the layers, 0 for the dense family). The audio family
+        needs ``frames`` (B,F,d), which its encoder runs over first."""
         cfg, sch = self.cfg, self.sched
         dt = torch_dtype(cfg.dtype)
         x = params["embed"][tokens.long()].to(dt)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        enc = None
+        if sch.has_encoder:
+            if frames is None:
+                raise ValueError("the audio family needs frame embeddings")
+            enc = self.encode(params, frames)
         layers = P.tree_map(lambda t: t.unbind(0), params["main"])
         shared = params.get("shared")
         for li in range(sch.n_super):
             x, aux = self._maybe_remat(
-                P.tree_map(lambda ts: ts[li], layers), shared, x, aux)
+                P.tree_map(lambda ts: ts[li], layers), shared, x, aux, enc)
         if sch.tail:
             # the tail is not checkpointed, as in the reference
             tail = P.tree_map(lambda t: t.unbind(0), params["tail"])
@@ -242,20 +368,23 @@ class LM:
         x = L.apply_rmsnorm(params["final_norm"], x, cfg.norm_eps)
         return x, aux
 
-    def forward(self, params, tokens: torch.Tensor
+    def forward(self, params, tokens: torch.Tensor, *,
+                frames: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Train/prefill forward: (logits (B,S,V_padded) with the padded
         vocab masked, moe_aux)."""
-        x, aux = self.backbone(params, tokens)
+        x, aux = self.backbone(params, tokens, frames=frames)
         logits = L.lm_head(x, self.head_weight(params).to(x.dtype))
         return _mask_pad_vocab(logits, self.cfg), aux
 
     def loss(self, params, batch: Dict[str, torch.Tensor], *,
              z_loss: float = 0.0) -> Tuple[torch.Tensor, Dict[str, Any]]:
-        """LM loss of a batch {"tokens", "labels"} (B,S) int tensors:
-        (nll + moe_aux, {"nll", "moe_aux"})."""
+        """LM loss of a batch {"tokens", "labels"} (B,S) int tensors (and
+        "frames" (B,F,d) for the audio family): (nll + moe_aux, {"nll",
+        "moe_aux"})."""
         from repro_torch.train.fused_xent import lm_loss
-        x, aux = self.backbone(params, batch["tokens"])
+        x, aux = self.backbone(params, batch["tokens"],
+                               frames=batch.get("frames"))
         w = self.head_weight(params)
         nll = lm_loss(x, w.to(x.dtype), batch["labels"], z_loss=z_loss)
         return nll + aux, {"nll": nll, "moe_aux": aux}
@@ -265,9 +394,14 @@ class LM:
                         kv_dtype, dev) -> Dict[str, torch.Tensor]:
         """One sub-block's cache, stacked over ``n`` layers: K/V rows and
         a write index (attention blocks, one per use of the shared
-        block), or the Mamba2 conv and SSM states."""
-        if typ == "mamba":
-            st = SSM.init_mamba_state(self.cfg, batch, kv_dtype, device=dev)
+        block; an encdec block's self-attention), or the Mamba2 conv and
+        SSM states, or the mLSTM or sLSTM states."""
+        init_state = {"mamba": functools.partial(SSM.init_mamba_state,
+                                                 dtype=kv_dtype),
+                      "mlstm": XL.init_mlstm_state,
+                      "slstm": XL.init_slstm_state}.get(typ)
+        if init_state is not None:
+            st = init_state(self.cfg, batch, device=dev)
             return {k: t.expand((n,) + t.shape).clone()
                     for k, t in st.items()}
         Hkv, D = self.cfg.num_kv_heads, self.cfg.head_dim
@@ -279,10 +413,20 @@ class LM:
             "idx": torch.zeros((n,), dtype=torch.int32, device=dev)}
 
     def init_cache(self, params, batch: int, max_len: int, *,
+                   frames: Optional[torch.Tensor] = None,
+                   frame_lengths: Optional[torch.Tensor] = None,
                    kv_dtype=torch.bfloat16) -> Any:
         """Dense per-slot decode cache: per layer (n_layers, batch,
-        max_len, Hkv, D) K/V rows and a write index, or a Mamba2 block's
-        states (``"tail"`` for the tail's)."""
+        max_len, Hkv, D) K/V rows and a write index, or a recurrent
+        block's states (``"tail"`` for the tail's).
+
+        The audio family's blocks also carry the cross-attention K/V
+        (``xk``/``xv``, (n_layers, batch, F, Hkv, D)), computed here
+        from the encoder's output over ``frames`` (zeros of the
+        capacity extent without frames). With ``frame_lengths`` ((B,)
+        true counts of right-padded frames) the encoder masks padded
+        keys and the cache carries ``xvalid`` ((n_layers, batch, F)), so
+        a decode's cross-attention ignores them too."""
         sch = self.sched
         dev = params["embed"].device
         cache = {"main": {
@@ -292,7 +436,53 @@ class LM:
         if sch.tail:
             cache["tail"] = self._init_sub_cache(
                 sch.tail[0], len(sch.tail), batch, max_len, kv_dtype, dev)
+        if sch.has_encoder:
+            if frames is None:
+                cfg = self.cfg
+                shape = (sch.n_super, batch, cfg.encoder_frames,
+                         cfg.num_kv_heads, cfg.head_dim)
+                for sub in cache["main"].values():
+                    sub["xk"] = torch.zeros(shape, dtype=kv_dtype, device=dev)
+                    sub["xv"] = torch.zeros(shape, dtype=kv_dtype, device=dev)
+            else:
+                enc = self.encode(params, frames, frame_lengths)
+                self._fill_cross_kv(params, cache, enc, frame_lengths,
+                                    kv_dtype)
         return cache
+
+    def _fill_cross_kv(self, params, cache, src: torch.Tensor,
+                       src_lengths: Optional[torch.Tensor], kv_dtype
+                       ) -> None:
+        """Every encdec layer's cross K/V of ``src`` (B,F,d) into
+        ``cache`` (a loop over the stacked layers in place of the
+        reference's ``vmap``), and ``xvalid`` when ``src_lengths`` is
+        given."""
+        cfg, sch = self.cfg, self.sched
+        Hkv, D = cfg.num_kv_heads, cfg.head_dim
+        B, Skv = src.shape[:2]
+        for i, t in enumerate(sch.pattern):
+            if t != "encdec":
+                continue
+            name = f"b{i}_{t}"
+            ap = params["main"][name]["xattn"]
+            sub = cache["main"][name]
+            xk = torch.empty((sch.n_super, B, Skv, Hkv, D), dtype=kv_dtype,
+                             device=src.device)
+            xv = torch.empty_like(xk)
+            for li in range(sch.n_super):
+                k = (src @ ap["wk"]["w"][li].to(src.dtype)).reshape(
+                    B, Skv, Hkv, D)
+                if cfg.qk_norm:
+                    k = L.apply_rmsnorm(_layer(ap["k_norm"], li), k,
+                                        cfg.norm_eps)
+                xk[li] = k
+                xv[li] = (src @ ap["wv"]["w"][li].to(src.dtype)).reshape(
+                    B, Skv, Hkv, D)
+            sub["xk"], sub["xv"] = xk, xv
+            if src_lengths is not None:
+                valid = (torch.arange(Skv, device=src.device)[None, :]
+                         < src_lengths.to(src.device)[:, None])
+                sub["xvalid"] = valid.expand((sch.n_super,) + valid.shape)
 
     def init_paged_cache(self, params, num_slots: int, max_len: int, *,
                          page_size: int = 16,

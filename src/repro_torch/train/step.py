@@ -39,7 +39,9 @@ def _compress_int8_ef(g: torch.Tensor) -> torch.Tensor:
 
 def make_train_step(model, tc: TrainConfig):
     """Returns train_step(state, batch) -> (new_state, metrics); batch is
-    {"tokens", "labels"} (B,S) int tensors on the params' device."""
+    {"tokens", "labels"} (B,S) int tensors on the params' device (and
+    "frames" (B,F,d) for the audio family; microbatches split every
+    entry along the batch)."""
     model.remat = tc.remat
 
     def value_and_grad(params, batch):
@@ -96,5 +98,6 @@ def make_eval_step(model):
     """Forward-only step (prefill / eval): batch -> (logits, aux)."""
     def eval_step(params, batch):
         with torch.no_grad():
-            return model.forward(params, batch["tokens"])
+            return model.forward(params, batch["tokens"],
+                                 frames=batch.get("frames"))
     return eval_step

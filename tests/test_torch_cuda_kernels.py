@@ -284,6 +284,12 @@ FLASH_TOL = {"float32": (1e-4, 2e-4), "bfloat16": (2e-2, 3e-2)}
     # the training heads of granite-moe-3b-a800m (G 3: dK and dV gather
     # three q heads) and zamba2-1.2b (G 1) at the training length
     (1024, 1024, 24, 8, 64, True), (1024, 1024, 32, 32, 64, True),
+    # whisper-large-v3's heads (G 1, D 64): the encoder's and the
+    # cross-attention's non-causal tiles, the decoder's causal ones, 1024
+    # queries over the capacity's 1500 frames, and tier 1's one-query
+    # cross-attention over 128 frames
+    (1024, 1024, 20, 20, 64, False), (1024, 1024, 20, 20, 64, True),
+    (1024, 1500, 20, 20, 64, False), (1, 128, 20, 20, 64, False),
 ])
 def test_flash_kernels_match_plain(cuda, dtype, sq, skv, hq, hkv, d, causal):
     g = torch.Generator(device=cuda).manual_seed(sq * 1000 + skv)
@@ -453,7 +459,11 @@ RMS_PAIRS = [("float32", "float32"), ("bfloat16", "float32"),
     # zamba2-1.2b's gate norm: 4096 is the widest wide-route width
     # (WIDE_MAX_D, two warps a row in the forward), 4104 the next width
     # of 8, on the general route
-    (64, 4096, False), (131, 4096, True), (33, 4104, False)])
+    (64, 4096, False), (131, 4096, True), (33, 4104, False),
+    # whisper-large-v3's width (decode, serving encoder, training rows),
+    # xlstm-1.3b's mLSTM out_norm at its decode rows
+    (8, 1280, False), (1024, 1280, False), (4096, 1280, False),
+    (131, 1280, True), (8, 4096, False)])
 def test_rmsnorm_kernels_match_plain(cuda, x_dtype, s_dtype, rows, width,
                                      strided):
     g = torch.Generator(device=cuda).manual_seed(rows * 7 + width)

@@ -187,7 +187,28 @@ family).
    of (8, 1500, 1280) bucketed (extent 1024) against capacity (1500):
    equal greedy tokens, the largest logit difference printed; the smoke
    config in float32, card = CPU; training as in 7 (96 + 96 B4, 162 +
-   162 B5, no alignment copy).
+   162 B5, no alignment copy);
+11. runs the fleet and object tiers: ``repro_torch.launch.fleet.run``
+   for qwen3-1.7b at full width (two replicas of 2 slots over one
+   parameter tree, bf16 activations, f32 pools, the driver's default
+   trace: 12 requests, prompt 48 with a 40-token shared prefix, gen 4),
+   prefix routing with ``--compare`` (random), ``--profile`` and
+   ``--objects``, then the same with ``--dedup``: at least one
+   cross-replica prefix route, fleet silent-prefix-load bytes 0 under
+   prefix and above 0 under random, the replica_param bytes equal to
+   one copy of the tree plus its within-tree duplicates (reckoned with
+   torch.equal), the object scan's seconds, TTFT/TPOT p50/p99 and the
+   prefix-hit fraction per policy, bf16 tokens against one engine's
+   printed; the same-burst trace without and with ``--dedup``
+   (cross-replica KV replica bytes above 0, then 0, with content-dedup
+   routes and deferrals); the defaults in float32 with
+   ``--check-single`` (tokens equal to one engine's, asserted); launches
+   28 B1 a decode tick, 28 B2 a prefill and 113 B5 a forward over every
+   fleet and single engine; one traced fleet tick per policy (kernels by
+   kind, busy share, the same launches); and the smoke config in
+   float32, card against CPU: router stats, routes, tokens, engine
+   stats, the merged fleet profile's findings, the object scan's replica
+   groups and bytes, and the training driver's ``--objects`` scan.
 
 Each phase prints its seconds (``[phase]`` lines). The line before the
 last lists the card; the last line is the JSON
@@ -3201,6 +3222,347 @@ def whisper_bucketing(torch, np):
     torch.cuda.empty_cache()
 
 
+# ----------------------------------------------------------------------
+# phase 11: the fleet and object tiers (qwen3-1.7b, two replicas)
+# ----------------------------------------------------------------------
+# the same-burst trace of tests/test_torch_objects.py: duplicate pairs
+# land on one tick before either publishes its prefix, which ends
+# mid-page, so the replicas compute bit-identical KV pages
+SAME_BURST = dict(requests=6, arrival="bursty", burst_size=2, burst_gap=4,
+                  dup_rate=1.0, prefix_len=36)
+
+
+def serving_counters():
+    import repro_torch.kernels.flash_prefill as fp
+    import repro_torch.kernels.paged_attention as pa
+    import repro_torch.kernels.rmsnorm as rn
+    return {"paged_decode": pa.paged_decode_attention,
+            "paged_window": fp.paged_window_attention,
+            "rmsnorm_fwd": rn.rmsnorm_forward}
+
+
+def fleet_forwards(fleets):
+    """(decode ticks, prefills) over every replica of ``fleets``."""
+    return (sum(e.stats["ticks"] for f in fleets for e in f.engines),
+            sum(e.stats["prefills"] for f in fleets for e in f.engines))
+
+
+def fleet_latency_line(tag, fleet):
+    lat = fleet.latency_summary()
+    return (f"{tag}: TTFT p50 {lat['ttft_p50'] * 1e3:.2f} / p99 "
+            f"{lat['ttft_p99'] * 1e3:.2f} ms, TPOT p50 "
+            f"{lat['tpot_p50'] * 1e3:.2f} / p99 {lat['tpot_p99'] * 1e3:.2f} "
+            f"ms, prefix-hit fraction {fleet.prefix_hit_fraction():.4f}, "
+            f"fleet silent-prefix-load {fleet.fleet_waste_bytes():.0f} "
+            f"bytes")
+
+
+def distinct_leaf_bytes(torch, params):
+    """(bytes of the tree, bytes of its distinct-content leaves): leaves
+    of one shape and dtype compared with torch.equal on the card, apart
+    from the digest the replica scan uses."""
+    from repro_torch.models.params import tree_leaves
+    leaves = tree_leaves(params)
+    reps = []
+    for t in leaves:
+        if not any(r.shape == t.shape and r.dtype == t.dtype
+                   and torch.equal(r, t) for r in reps):
+            reps.append(t)
+    return (sum(t.nbytes for t in leaves), sum(t.nbytes for t in reps))
+
+
+def fleet_path(torch, np, card_line):
+    """``launch.fleet.run`` for qwen3-1.7b at full width (bf16
+    activations, f32 pools), two replicas of 2 slots over one parameter
+    tree, at the driver's defaults: the prefix policy with ``--compare``
+    (random), ``--profile`` and ``--objects``, then the same with
+    ``--dedup``; the same-burst trace without and with ``--dedup`` (the
+    object gate); the defaults in float32 with ``--check-single``. The
+    serving kernels' launch counts are set to 0 before the first run and
+    read after the last; every fleet runs a warm-up pass and a measured
+    pass with the same ticks, so the launches are 28 B1 a decode tick,
+    28 B2 a prefill and 113 B5 a forward of the measured fleets, twice,
+    plus the single engines'. Returns the launches."""
+    import repro_torch.launch.fleet as fl
+    from repro_torch.configs import registry
+    from repro_torch.core.replicas import cross_replica_bytes
+    from repro_torch.serve.decode import StepCache
+
+    cfg = registry.get_config(QWEN3)
+    layers = cfg.num_layers
+    norms = launches_per_forward(cfg)[1]
+    counters = serving_counters()
+    for c in counters.values():
+        c.launches = 0
+    fleets, singles = [], 0
+
+    # the driver's defaults, bf16: prefix vs random, profile, objects
+    t0 = time.perf_counter()
+    fleet, merged, info = fl.run(QWEN3, replicas=2, policy="prefix",
+                                 compare=True, profile=True, objects=True,
+                                 device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    other = info["compared"]
+    fleets += [fleet, other]
+    scan = info["scan"]
+    s = fleet.stats
+    print(f"[fleet] qwen3-1.7b full width, bf16, 2 x 2 slots, prefix "
+          f"--compare --profile --objects: {wall:.1f} s; routes {dict(s)}; "
+          f"{card_line}", flush=True)
+    for tag, f in (("prefix", fleet), ("random", other)):
+        print(f"[fleet] {fleet_latency_line(tag, f)}; {card_line}",
+              flush=True)
+    assert s["cross_replica_prefix_routes"] >= 1, s
+    assert fleet.fleet_waste_bytes() == 0 < other.fleet_waste_bytes()
+    assert len(fleet.finished) == len(info["trace"])
+    # bf16 bit-identity to one engine is printed, not gated (the float32
+    # run below is gated)
+    model, params = fleet.engines[0].model, fleet.engines[0].params
+    trace = info["trace"]
+    max_len = trace.max_prompt_len + trace.max_new_tokens + 1
+    single = fl._single_engine_outputs(model, params, trace, slots=4,
+                                       max_len=max_len, page_size=8,
+                                       step_cache=StepCache(model))
+    singles += 1
+    ours = {rid: list(r.generated) for rid, r in fleet.finished.items()}
+    differ = sorted(rid for rid in ours if ours[rid] != single[rid])
+    print(f"[fleet] bf16 fleet tokens equal to one engine's: "
+          f"{not differ} ({len(differ)} of {len(ours)} requests differ"
+          + (f": {differ}" if differ else "") + "; not gated)", flush=True)
+    # the object scan: one weight copy a replica
+    total, distinct = distinct_leaf_bytes(torch, params)
+    par = sum(f.bytes for f in scan.findings if f.kind == "replica_param")
+    kv_x = cross_replica_bytes(scan, "replica_kv_page")
+    print(f"[fleet] object scan: {len(info['registry'])} live objects, "
+          f"{len(scan.findings)} replica groups, {info['scan_s']:.4f} s; "
+          f"replica_param {par:.0f} bytes = one tree copy {total} + "
+          f"within-tree duplicates {total - distinct}; cross-replica kv "
+          f"bytes {kv_x:.0f} (spaced arrivals); merged profile tiers "
+          f"{merged.tiers}, checked {dict(sorted(merged.checked.items()))}, "
+          f"flagged {dict(sorted(merged.flagged.items()))}; {card_line}",
+          flush=True)
+    assert par == total + (total - distinct), (par, total, distinct)
+    assert merged.tiers == [3, 4, 5], merged.tiers
+    del params, model
+
+    # the same with --dedup
+    fleet, merged, info = fl.run(QWEN3, replicas=2, policy="prefix",
+                                 compare=True, profile=True, objects=True,
+                                 dedup=True, device="cuda")
+    fleets += [fleet, info["compared"]]
+    print(f"[fleet] --dedup: routes {dict(fleet.stats)}; cross-replica kv "
+          f"bytes {cross_replica_bytes(info['scan'], 'replica_kv_page'):.0f}"
+          f"; object scan {info['scan_s']:.4f} s", flush=True)
+    assert fleet.fleet_waste_bytes() == 0 < info["compared"].fleet_waste_bytes()
+
+    # the object gate on the same-burst trace
+    kv = {}
+    for dedup in (False, True):
+        fleet, _, info = fl.run(QWEN3, replicas=2, policy="prefix",
+                                objects=True, dedup=dedup, device="cuda",
+                                **SAME_BURST)
+        fleets.append(fleet)
+        kv[dedup] = cross_replica_bytes(info["scan"], "replica_kv_page")
+        st = fleet.stats
+        deferred = sum(e.stats["dedup_deferred"] for e in fleet.engines)
+        print(f"[fleet] same-burst trace, dedup {dedup}: cross-replica kv "
+              f"bytes {kv[dedup]:.0f}, content-dedup routes "
+              f"{st['content_dedup_routes']}, dedup deferrals {deferred}, "
+              f"object scan {info['scan_s']:.4f} s", flush=True)
+        if dedup:
+            assert st["content_dedup_routes"] >= 1 and deferred >= 1
+    assert kv[False] > 0 and kv[True] == 0, kv
+
+    # float32 compute at full width: the fleet's tokens are one engine's
+    t0 = time.perf_counter()
+    fleet, _, info = fl.run(QWEN3, replicas=2, policy="prefix",
+                            check_single=True, dtype="float32",
+                            device="cuda")
+    fleets.append(fleet)
+    singles += 1
+    print(f"[fleet] float32 full width --check-single: bit-identical "
+          f"(asserted) in {time.perf_counter() - t0:.1f} s", flush=True)
+
+    torch.cuda.synchronize()
+    launches = {k: c.launches for k, c in counters.items()}
+    ticks, prefills = fleet_forwards(fleets)
+    print(f"[fleet] launches {launches}; measured fleets' decode ticks "
+          f"{ticks}, prefills {prefills} (x2 with the warm-ups), plus "
+          f"{singles} single-engine runs", flush=True)
+    # each single engine served its trace: its ticks and prefills are
+    # the launches left over, checked per kernel below
+    rest = {k: launches[k] - 2 * n for k, n in
+            (("paged_decode", layers * ticks),
+             ("paged_window", layers * prefills),
+             ("rmsnorm_fwd", norms * (ticks + prefills)))}
+    assert rest["paged_decode"] % layers == 0 and rest["paged_window"] \
+        % layers == 0, rest
+    assert rest["rmsnorm_fwd"] == norms * (rest["paged_decode"]
+                                           + rest["paged_window"]) // layers
+    assert all(v > 0 for v in rest.values()), rest
+    fleet_traced_ticks(torch, np)
+    return {"fleet": launches}
+
+
+def fleet_traced_ticks(torch, np):
+    """One traced fleet tick at full width per policy (bf16), on bursts of
+    4 requests 3 ticks apart: a fresh fleet stepped past its first burst
+    (3 ticks), then the tick that dispatches and admits the second. The
+    kernels of the tick, read from the trace, equal the launch counters:
+    28 B1 a decode tick, 28 B2 a prefill and 113 B5 a forward over the
+    replicas that stepped."""
+    import repro_torch.launch.fleet as fl
+    from repro_torch.configs import registry
+    from repro_torch.models.zoo import build_model
+    from repro_torch.serve.decode import StepCache
+    from repro_torch.serve.workload import make_trace
+
+    cfg = registry.get_config(QWEN3)
+    layers = cfg.num_layers
+    norms = launches_per_forward(cfg)[1]
+    model = build_model(cfg)
+    params = model.init(0, device="cuda")
+    d = fl.DEF
+    trace = make_trace(n_requests=d["requests"], vocab_size=cfg.vocab_size,
+                       seed=0, arrival="bursty", burst_size=4, burst_gap=3,
+                       prompt_len=(d["prompt_len"], d["prompt_len"]),
+                       gen_len=(d["gen"], d["gen"]), dup_rate=d["dup_rate"],
+                       n_prefixes=1, prefix_len=d["prefix_len"])
+    max_len = trace.max_prompt_len + trace.max_new_tokens + 1
+    sc = StepCache(model)
+    for policy in ("prefix", "random"):
+        held = []
+
+        def prepare():
+            fleet, _ = fl._build_fleet(
+                model, params, replicas=2, slots=2, max_len=max_len,
+                page_size=d["page_size"], num_pages=None, policy=policy,
+                seed=0, step_cache=sc, profile=False)
+            fleet.submit_trace(trace)
+            for _ in range(3):          # past the first burst's prefills
+                fleet.step()
+            held[:] = [fleet, fleet_forwards([fleet])]
+            return fleet.step
+        launched = traced_step(torch, f"qwen3-1.7b fleet tick ({policy})",
+                               prepare, serving_counters())
+        fleet, (t0, p0) = held
+        ticks, prefills = fleet_forwards([fleet])
+        ticks, prefills = ticks - t0, prefills - p0
+        want = {"paged_decode": layers * ticks,
+                "paged_window": layers * prefills,
+                "rmsnorm_fwd": norms * (ticks + prefills)}
+        print(f"[trace] qwen3-1.7b fleet tick ({policy}): {ticks} decode "
+              f"ticks and {prefills} prefills over the replicas, "
+              f"{fleet.pending} requests pending", flush=True)
+        assert launched == want and ticks >= 1, (launched, want)
+        del fleet, held
+    del params, model
+    torch.cuda.empty_cache()
+
+
+def fleet_smoke_check(torch, np):
+    """qwen3-1.7b's smoke config in float32, one set of weights, on the
+    card (kernels) and on the CPU (plain versions): the fleet at the
+    driver's defaults (prefix, random) and on the same-burst trace
+    without and with dedup, with detectors and the object registry on
+    the measured fleets. Router stats, routes, tokens, the merged fleet
+    profile's finding counts and bytes, and the object scan's replica
+    groups and bytes must be equal; and the training driver's
+    ``--objects`` scan at init (replica groups and bytes) too."""
+    import dataclasses
+    import io
+    from contextlib import redirect_stdout
+    import repro_torch.launch.fleet as fl
+    from repro_torch.configs import registry
+    from repro_torch.core.findings import merge_fleet
+    from repro_torch.core.objects import ObjectRegistry
+    from repro_torch.core.replicas import ReplicaDetector, cross_replica_bytes
+    from repro_torch.launch import train as train_driver
+    from repro_torch.models.params import tree_map
+    from repro_torch.models.zoo import build_model
+    from repro_torch.serve.decode import StepCache
+    from repro_torch.serve.workload import make_trace
+
+    cfg = dataclasses.replace(registry.get_config(QWEN3).smoke(),
+                              dtype="float32")
+    model = build_model(cfg)
+    cpu_params = model.init(0, device="cpu")
+    d = fl.DEF
+    traces = {
+        "defaults": make_trace(
+            n_requests=d["requests"], vocab_size=cfg.vocab_size, seed=0,
+            arrival=d["arrival"], rate=d["rate"],
+            prompt_len=(d["prompt_len"], d["prompt_len"]),
+            gen_len=(d["gen"], d["gen"]), dup_rate=d["dup_rate"],
+            n_prefixes=1, prefix_len=d["prefix_len"]),
+        "same-burst": make_trace(
+            n_requests=6, vocab_size=cfg.vocab_size, seed=0,
+            arrival="bursty", burst_size=2, burst_gap=4,
+            prompt_len=(48, 48), gen_len=(4, 4), dup_rate=1.0,
+            n_prefixes=1, prefix_len=36)}
+    runs = [("defaults", "prefix", False), ("defaults", "random", False),
+            ("same-burst", "prefix", False), ("same-burst", "prefix", True)]
+
+    def findings(prof):
+        return sorted((f.kind, f.tier, f.c1, f.c2, f.count, f.bytes)
+                      for f in prof.findings)
+    results = {}
+    for dev in ("cpu", "cuda"):
+        params = tree_map(lambda t: t.to(dev), cpu_params)
+        sc = StepCache(model)
+        for name, policy, dedup in runs:
+            trace = traces[name]
+            max_len = trace.max_prompt_len + trace.max_new_tokens + 1
+            reg = ObjectRegistry()
+            fleet, dets = fl._run_policy(
+                model, params, trace, policy=policy, replicas=2, slots=2,
+                max_len=max_len, page_size=8, num_pages=None, seed=0,
+                step_cache=sc, profile=True, obj_registry=reg,
+                content_dedup=dedup)
+            scan = ReplicaDetector(reg).scan()
+            members = {f"replica{i}": det.combined()
+                       for i, det in enumerate(dets)}
+            members["router"] = fleet.profile
+            members["objects"] = scan
+            merged = merge_fleet(members)
+            results[(dev, name, policy, dedup)] = (
+                dict(fleet.stats),
+                {rid: m["replica"] for rid, m in fleet.metrics.items()},
+                {rid: list(r.generated) for rid, r in fleet.finished.items()},
+                [{k: v for k, v in e.stats.items() if not k.endswith("_s")}
+                 for e in fleet.engines],
+                fleet.fleet_waste_bytes(), findings(merged),
+                dict(merged.checked), dict(merged.flagged),
+                findings(scan), cross_replica_bytes(scan, "replica_kv_page"))
+        with redirect_stdout(io.StringIO()):
+            _, prof = train_driver.run(QWEN3, smoke=True, steps=1, batch=2,
+                                       seq=16, objects=True, device=dev)
+        results[(dev, "train --objects")] = (findings(prof),
+                                             dict(prof.checked),
+                                             dict(prof.flagged))
+    same = {key[1:]: results[key] == results[("cpu",) + key[1:]]
+            for key in results if key[0] == "cuda"}
+    for key, ok in same.items():
+        r = results[("cuda",) + key]
+        if key == ("train --objects",):
+            print(f"[check] smoke f32 train --objects, card vs CPU: replica "
+                  f"groups {len(r[0])}, bytes "
+                  f"{sum(f[5] for f in r[0]):.0f}, equal {ok}", flush=True)
+        else:
+            print(f"[check] smoke f32 fleet {key}, card vs CPU: stats, "
+                  f"routes, tokens, engine stats, fleet waste "
+                  f"{r[4]:.0f} bytes, merged findings {len(r[5])}, replica "
+                  f"groups {len(r[8])} ({sum(f[5] for f in r[8]):.0f} "
+                  f"bytes) equal {ok}", flush=True)
+    assert all(same.values()), same
+    cross = {dedup: results[("cuda", "same-burst", "prefix", dedup)][9]
+             for dedup in (False, True)}
+    print(f"[check] smoke f32 same-burst kv replica bytes on the card: "
+          f"{cross}", flush=True)
+    assert cross[False] > 0 and cross[True] == 0, cross
+
+
 def kernel_label(mangled: str) -> str:
     """A kernel's readable name and template arguments (element types,
     then numbers) from its mangled name: ``window_split_kernel<bf16,f32,4>``
@@ -3375,6 +3737,9 @@ def main() -> int:
     phase("10d whisper smoke", token_loop_smoke_check, torch, np, WHISPER)
     by_path["whisper train"] = phase("10e whisper train", train_family,
                                      torch, np, WHISPER)
+    torch.cuda.empty_cache()
+    by_path.update(phase("11 fleet", fleet_path, torch, np, card))
+    phase("11 smoke", fleet_smoke_check, torch, np)
     # last: its traced step holds ~0.9 M kernels, after which this
     # process's profiler traces were seen to come back empty
     # xlstm's steps are host-bound (~22 s: the sLSTM's token loop), so its

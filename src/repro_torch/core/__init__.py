@@ -12,6 +12,11 @@ that run without JAX.
                   replayed through the engine (``profile_fn``)
   detectors.py    tier 3 serving/training detectors (+ tier 4 kernel
                   counters)
+  objects.py      the object tier's registry: allocation-site provenance
+                  of KV pages, parameter and optimizer leaves, draft
+                  windows
+  replicas.py     the object tier's replica detector (content digests
+                  taken on the objects' device)
   report.py       rendering, JSON round-trip and post-mortem merges
   sarif.py        SARIF v2.1.0 export
 

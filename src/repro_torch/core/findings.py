@@ -30,6 +30,12 @@ SCHEMA_VERSION = 1
 # kinds whose fraction estimator is meaningful per-access (Defs. 1-3)
 TIER1_KINDS = ("dead_store", "silent_store", "silent_load")
 
+# the object tier (DESIGN.md § Object tier): DJXPerf-style aggregation
+# by allocation (core/objects.py registry) and OJXPerf-style replica
+# findings (core/replicas.py) — replica_kv_page / replica_param /
+# replica_opt_state, each naming the dedup that eliminates it.
+TIER_OBJECT = 5
+
 
 def _fmax(a: float, b: float) -> float:
     """NaN-robust max: prefer the non-NaN operand (both NaN -> NaN).
@@ -114,11 +120,12 @@ class WasteProfile:
         self.totals: Dict[str, float] = {}
         self.watchpoint_stats: Dict[str, Dict[str, int]] = {}
         self.meta: Dict[str, Any] = {}
-        # the reference's object table (object_key -> {"kind", "name",
-        # "site", "nbytes", "count", "waste": {waste_kind: bytes}}): no
-        # tier of the port bills objects yet, but rows from a reference
-        # profile survive JSON round trips and merges (waste/count add,
-        # nbytes takes the NaN-robust max)
+        # DJXPerf object table: object_key (kind|name|alloc-site, see
+        # core/objects.py) -> {"kind","name","site","nbytes","count",
+        # "waste": {waste_kind: bytes}}. Any tier can bill waste bytes
+        # to an object; rows merge additively (waste/count add, nbytes
+        # is a size so merge takes the NaN-robust max) which keeps the
+        # §5.6 merge associative and commutative over objects too.
         self.objects: Dict[str, Dict[str, Any]] = {}
 
     # -- findings ------------------------------------------------------
@@ -150,6 +157,37 @@ class WasteProfile:
 
     def bump_total(self, key: str, amount: float) -> None:
         self.totals[key] = self.totals.get(key, 0) + amount
+
+    # -- object table (DJXPerf aggregation) ----------------------------
+    def bill_object(self, obj, waste_kind: str, nbytes: float,
+                    count: int = 1) -> Dict[str, Any]:
+        """Bill ``nbytes`` of ``waste_kind`` waste to an object.
+
+        ``obj`` is an ``ObjectRecord`` (core/objects.py) or a row dict
+        from another profile's object table; either way the row is keyed
+        by the stable object key so repeated bills and cross-profile
+        merges coalesce."""
+        if isinstance(obj, dict):
+            key, kind, name, site = (obj["key"], obj["kind"], obj["name"],
+                                     obj["site"])
+        else:
+            key, kind, name, site = (obj.object_key, obj.kind, obj.name,
+                                     obj.site)
+        size = float(obj["nbytes"] if isinstance(obj, dict) else obj.nbytes)
+        row = self.objects.setdefault(key, {
+            "key": key, "kind": kind, "name": name, "site": site,
+            "nbytes": size, "count": 0, "waste": {}})
+        row["nbytes"] = _fmax(row["nbytes"], size)
+        row["count"] += int(count)
+        row["waste"][waste_kind] = (row["waste"].get(waste_kind, 0.0)
+                                    + float(nbytes))
+        return row
+
+    def top_objects(self, k: int = 10) -> List[Dict[str, Any]]:
+        """Object rows by total attributed waste bytes, descending."""
+        rows = sorted(self.objects.values(),
+                      key=lambda r: (-sum(r["waste"].values()), r["key"]))
+        return rows[:k]
 
     def _absorb_object(self, row: Dict[str, Any]) -> None:
         cur = self.objects.get(row["key"])
@@ -305,7 +343,12 @@ class WasteProfile:
                 f"fractions={self.fractions()})")
 
     # -- rendering -----------------------------------------------------
-    def render(self, top_k: int = 5) -> str:
+    def render(self, top_k: int = 5, by: str = "kind") -> str:
+        if by == "object":
+            return self._render_objects(top_k)
+        if by != "kind":
+            raise ValueError(f"render(by=...) wants 'kind' or 'object', "
+                             f"not {by!r}")
         fr = self.fractions()
         tiers = ",".join(str(t) for t in self.tiers) or "-"
         lines = [f"== JXPerf-JAX waste profile (tiers {tiers}) =="]
@@ -335,6 +378,30 @@ class WasteProfile:
                 lines.append(f"    x{f.count:<5d} {cost:>10s}  {f.path}")
         return "\n".join(lines)
 
+    def _render_objects(self, top_k: int) -> str:
+        """DJXPerf-style top-objects table: waste billed per allocation,
+        ranked by attributed bytes, with the allocation site inline. An
+        empty or waste-free table renders zero rows (an object's nbytes
+        can be 0, so no fraction divides by it)."""
+        lines = [f"== top objects by attributed waste "
+                 f"({len(self.objects)} registered) =="]
+        rows = [r for r in self.top_objects(top_k)
+                if sum(r["waste"].values()) > 0]
+        if not rows:
+            lines.append("  (no object-attributed waste)")
+            return "\n".join(lines)
+        for r in rows:
+            waste = sum(r["waste"].values())
+            nbytes = r["nbytes"]
+            frac = (f"{waste / nbytes:7.1%}"
+                    if nbytes and not math.isnan(nbytes) else "      -")
+            kinds = ", ".join(f"{k} {v / 1e3:.1f}KB"
+                              for k, v in sorted(r["waste"].items()))
+            lines.append(f"  {waste / 1e3:10.1f} KB {frac} "
+                         f"{r['kind']:13s} {r['name']}")
+            lines.append(f"      @ {r['site']}  [{kinds}] x{r['count']}")
+        return "\n".join(lines)
+
 
 def merge(*profiles: WasteProfile) -> WasteProfile:
     """Pure n-way merge: cross-shard, cross-epoch and cross-tier profiles
@@ -347,3 +414,25 @@ def merge(*profiles: WasteProfile) -> WasteProfile:
 
 def merge_profiles(profiles: Iterable[WasteProfile]) -> WasteProfile:
     return merge(*profiles)
+
+
+def merge_fleet(profiles: Dict[str, WasteProfile]) -> WasteProfile:
+    """§5.6 merge across serving-fleet members (replica engines + the
+    router's own fleet-level findings), keyed by member name.
+
+    Findings coalesce exactly as in `merge`, but replica attribution is
+    kept: ``meta["fleet"]`` records each member's finding count and
+    checked/flagged totals. The result round-trips through JSON and
+    SARIF like any profile."""
+    out = WasteProfile()
+    summary: Dict[str, Dict[str, int]] = {}
+    for name in sorted(profiles):
+        p = profiles[name]
+        out.merge(p)
+        summary[name] = {
+            "findings": len(p.findings),
+            "checked": int(sum(p.checked.values())),
+            "flagged": int(sum(p.flagged.values())),
+        }
+    out.meta["fleet"] = summary
+    return out

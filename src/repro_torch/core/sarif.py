@@ -2,11 +2,14 @@
 tier, "SARIF contract").
 
 Findings of the serving and training tiers — detectors (3), kernel
-counters (4), the prefill padding accounting — render as code-scanning
-annotations: each waste kind becomes a SARIF *rule* carrying its paper definition as help
-text, each finding becomes a *result* at a logical location built from
-its ⟨C1,C2⟩ contexts. (The reference's tier-0 lint findings carry a
-source ``file:line``; that tier is bound to JAX and not ported.)
+counters (4), object replicas (5), the prefill padding accounting —
+render as code-scanning annotations: each waste kind becomes a SARIF
+*rule* carrying its paper definition as help text, each finding becomes
+a *result*. A finding whose ``meta`` names a source ``file`` (and
+``line``), as an object finding names its allocation site, gets that
+``physicalLocation``; the others a logical location built from their
+⟨C1,C2⟩ contexts. (The reference's tier-0 lint findings carry a source
+``file:line`` too; that tier is bound to JAX and not ported.)
 
 Contract details tooling relies on:
 
@@ -14,6 +17,8 @@ Contract details tooling relies on:
   coalescing key ``kind|tier|C1|C2`` — byte counts and fractions are
   deliberately excluded, so the fingerprint is stable run-to-run and a
   committed baseline can suppress pre-existing findings.
+* file URIs under ``src_root`` are emitted relative with
+  ``uriBaseId: SRCROOT``; anything else stays absolute.
 * ``rank`` orders results by wasted bytes (log scale; flops, then
   fraction as fallbacks) so viewers sort the biggest waste first.
 """
@@ -22,7 +27,8 @@ from __future__ import annotations
 import hashlib
 import json
 import math
-from typing import Any, Dict, List
+import os
+from typing import Any, Dict, List, Optional
 
 from repro_torch.core.context import fmt_context
 from repro_torch.core.findings import Finding, WasteProfile
@@ -98,6 +104,47 @@ _RULES: Dict[str, Dict[str, str]] = {
         "help": "Tier 4: verify-kernel store counters; equals 1-accept "
                 "under overwrite and is provably 0 under rollback.",
     },
+    "fleet_silent_prefix_load": {
+        "short": "Fleet-level silent prefix load: prefix re-prefilled on "
+                 "one replica while resident on another",
+        "help": "Paper Def. 3 measured across serving replicas (the "
+                "redundancy fraction of Su et al.'s Redundant Loads, "
+                "OJXPerf's replica-detection framing): at dispatch time "
+                "some replica already held this prompt prefix's KV "
+                "pages, but the routed replica recomputed them. "
+                "Prefix-aware routing through the global prefix tier "
+                "(serve/global_prefix.py) turns the finding into a "
+                "cross-replica cache hit.",
+    },
+    "replica_kv_page": {
+        "short": "Bit-identical KV pool pages (dedup opportunity)",
+        "help": "Object tier (OJXPerf replica detection): content "
+                "digests of live KV pages collide across the fleet — "
+                "duplicated prefixes the PrefixIndex missed (same-burst "
+                "admissions registered after prefill, or reuse cut at "
+                "mismatched page-granularity boundaries). The result's "
+                "location is the duplicate page's allocation site "
+                "(PageAllocator.alloc). Fix: content-addressed page "
+                "dedup (content_dedup on router + engine).",
+    },
+    "replica_param": {
+        "short": "Weight tensors replicated across serving replicas",
+        "help": "Object tier (OJXPerf replica detection): the same "
+                "parameter bytes live once per replica. Fix: a shared "
+                "weight arena mapped once per host, replicas get views.",
+    },
+    "replica_opt_state": {
+        "short": "Bit-identical optimizer-state leaves",
+        "help": "Object tier (OJXPerf replica detection): optimizer "
+                "moments that are byte-equal (typically still "
+                "zero-initialized). Fix: dedup or lazy-materialize on "
+                "first nonzero update.",
+    },
+    "replica_draft_window": {
+        "short": "Bit-identical speculative draft windows",
+        "help": "Object tier (OJXPerf replica detection): per-slot "
+                "draft windows holding the same proposal bytes.",
+    },
 }
 
 _TIER_NAMES = {0: "static jaxpr lint", 1: "interpreter", 2: "HLO",
@@ -162,7 +209,22 @@ def _message(f: Finding) -> str:
     return ". ".join(bits)
 
 
-def _location(f: Finding) -> Dict[str, Any]:
+def _location(f: Finding, src_root: Optional[str]) -> Dict[str, Any]:
+    file = f.meta.get("file")
+    line = int(f.meta.get("line", 0) or 0)
+    if file:
+        uri = str(file).replace(os.sep, "/")
+        loc: Dict[str, Any] = {"artifactLocation": {"uri": uri}}
+        if src_root:
+            rootu = str(src_root).rstrip("/\\").replace(os.sep, "/") + "/"
+            if uri.startswith(rootu):
+                loc["artifactLocation"] = {
+                    "uri": uri[len(rootu):], "uriBaseId": "SRCROOT"}
+        if line > 0:
+            loc["region"] = {"startLine": line}
+        return {"physicalLocation": loc}
+    # no source file (a tier-3 finding names a leaf path): a logical
+    # location keeps the result addressable
     name = f.meta.get("path") or fmt_context(f.c1[-2:]) or f.kind
     return {"logicalLocations": [
         {"name": str(name), "kind": "member",
@@ -187,6 +249,7 @@ def _rule_for(kind: str) -> Dict[str, Any]:
 
 
 def to_sarif(profile: WasteProfile, *,
+             src_root: Optional[str] = None,
              tool_version: str = "0") -> Dict[str, Any]:
     """Render a WasteProfile (any tier or merged) as a SARIF 2.1.0 doc."""
     findings = sorted(profile.findings,
@@ -214,7 +277,7 @@ def to_sarif(profile: WasteProfile, *,
             "level": "warning",
             "rank": _rank(f),
             "message": {"text": _message(f)},
-            "locations": [_location(f)],
+            "locations": [_location(f, src_root)],
             "partialFingerprints": {"wasteKey/v1": finding_fingerprint(f)},
             "properties": props,
         })
@@ -236,13 +299,19 @@ def to_sarif(profile: WasteProfile, *,
             "flagged": dict(profile.flagged),
         },
     }
+    if src_root:
+        run["originalUriBaseIds"] = {
+            "SRCROOT": {"uri": "file://"
+                        + str(src_root).replace(os.sep, "/").rstrip("/")
+                        + "/"}}
     return {"$schema": SARIF_SCHEMA, "version": SARIF_VERSION,
             "runs": [run]}
 
 
 def write_sarif(profile: WasteProfile, path: str, *,
+                src_root: Optional[str] = None,
                 tool_version: str = "0") -> Dict[str, Any]:
-    doc = to_sarif(profile, tool_version=tool_version)
+    doc = to_sarif(profile, src_root=src_root, tool_version=tool_version)
     with open(path, "w") as fh:
         json.dump(doc, fh, indent=2, sort_keys=True)
         fh.write("\n")

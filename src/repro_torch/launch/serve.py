@@ -37,10 +37,17 @@ Rejected drafts are Def.-1 dead KV stores, measured at the
 ``--spec-rollback on`` (only the accepted prefix is stored). ``--draft
 oracle`` runs a plain pass first, replays its continuations (accept rate
 1.0) and asserts that the speculative outputs equal it.
+
+``--objects`` registers the parameter tree (``serve/params``) and the
+measured engine's KV pages and draft window in an object registry
+(core/objects.py), runs the replica scan (core/replicas.py) after
+serving, prints the ``[serve] object scan:`` line and the top objects,
+and merges the scan into the ``--profile`` report.
 """
 from __future__ import annotations
 
 import argparse
+import os
 import time
 from typing import Optional
 
@@ -52,6 +59,8 @@ from repro_torch.configs.base import ProfilerConfig
 from repro_torch.core.detectors import ServingDetectors
 from repro_torch.core.findings import Finding, WasteProfile, merge_profiles
 from repro_torch.core.interpreter import JxInterpreter
+from repro_torch.core.objects import ObjectRegistry, register_tree
+from repro_torch.core.replicas import ReplicaDetector
 from repro_torch.core.report import dump_json
 from repro_torch.core.sarif import write_sarif
 from repro_torch.data.synthetic import batch_at, frame_lengths
@@ -255,7 +264,8 @@ def run(arch: str, *, smoke: bool = False, batch: int = 4,
         sarif_out: Optional[str] = None, kv: str = "dense",
         page_size: int = 16, spec: bool = False, spec_k: int = 4,
         draft: str = "ngram", spec_rollback: bool = True,
-        bucket_frames: bool = True, device: str = "cuda"):
+        bucket_frames: bool = True, objects: bool = False,
+        device: str = "cuda"):
     """Serve `batch` seeded synthetic prompts through the engine (or,
     for the hybrid, ssm and audio families, the token-loop driver).
 
@@ -276,6 +286,10 @@ def run(arch: str, *, smoke: bool = False, batch: int = 4,
             f"{LEGACY_FAMILIES})")
     model = build_model(cfg)
     params = model.init(seed, device=dev)
+    obj_registry = None
+    if objects:
+        obj_registry = ObjectRegistry()
+        register_tree(obj_registry, "serve/params", params)
     data = batch_at(cfg, batch, prompt_len, seed=seed, step=0)
     prompts = data["tokens"]
     name = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
@@ -308,22 +322,26 @@ def run(arch: str, *, smoke: bool = False, batch: int = 4,
               f"{stats['prefill_tok_s']:.0f} tok/s, decode "
               f"{stats['decode_tok_s']:.0f} tok/s (live slots)")
         print("[serve] sample continuation:", out[0][:12])
+        obj_scan = _object_scan(obj_registry)
         merged = None
         if profile:
             tier1 = _tier1(model, params, out, prompt_len + gen + 1, seed,
                            dev, stats, tier1_kw)
             profs = [tier1] + ([encoder_padding_profile(enc_stats)]
                                if enc_stats is not None else [])
+            if obj_scan is not None:
+                profs.append(obj_scan)
             merged = _finish_profile(profs, profile_out, sarif_out)
         return out, merged, stats
 
-    def build_and_run(drafter, det):
+    def build_and_run(drafter, det, reg=None):
         eng = ServeEngine(model, params, num_slots=batch,
                           max_len=prompt_len + gen + 1, detectors=det,
                           kv_dtype=torch.float32, kv_layout=kv,
                           page_size=page_size, drafter=drafter,
                           spec_k=spec_k, spec_rollback=spec_rollback,
-                          kernel_counters=det is not None and kv == "paged")
+                          kernel_counters=det is not None and kv == "paged",
+                          registry=reg, owner="serve")
         for b in range(batch):
             eng.submit(Request(rid=f"r{b}", tokens=np.asarray(prompts[b]),
                                max_new_tokens=gen))
@@ -347,7 +365,9 @@ def run(arch: str, *, smoke: bool = False, batch: int = 4,
             drafter = make_drafter(draft, model=model, params=params)
     det = ServingDetectors(ProfilerConfig(enabled=True, seed=seed)) \
         if profile else None
-    eng, out = build_and_run(drafter, det)
+    # only the measured engine registers objects: the oracle's plain
+    # pre-pass would otherwise leave a dead engine's pages in the scan
+    eng, out = build_and_run(drafter, det, obj_registry)
     if plain_out is not None and not np.array_equal(out, plain_out):
         diff = out != plain_out
         first = np.where(diff.any(axis=1), diff.argmax(axis=1), gen)
@@ -380,15 +400,31 @@ def run(arch: str, *, smoke: bool = False, batch: int = 4,
               f"verify {tp['verify_tok_s']:.0f} tok/s over "
               f"{stats['spec_ticks']} verify ticks")
     print("[serve] sample continuation:", out[0][:12])
+    obj_scan = _object_scan(obj_registry)
 
     merged = None
     if profile:
         tier1 = _tier1(model, params, out, prompt_len + gen + 1, seed, dev,
                        stats)
         merged = _finish_profile([tier1, det.combined(),
-                                  padding_waste_profile(stats)],
+                                  padding_waste_profile(stats)]
+                                 + ([obj_scan] if obj_scan is not None
+                                    else []),
                                  profile_out, sarif_out)
     return out, merged, stats
+
+
+def _object_scan(obj_registry) -> Optional[WasteProfile]:
+    """The replica scan of the run's live objects (``--objects``); None
+    without a registry."""
+    if obj_registry is None:
+        return None
+    scan = ReplicaDetector(obj_registry).scan()
+    print(f"[serve] object scan: {len(obj_registry)} live objects, "
+          f"{len(scan.findings)} replica groups, "
+          f"{sum(f.bytes for f in scan.findings):.0f} duplicate bytes")
+    print(scan.render(top_k=5, by="object"))
+    return scan
 
 
 def _tier1(model, params, out, max_len: int, seed: int, dev, stats,
@@ -422,7 +458,7 @@ def _finish_profile(profiles, profile_out, sarif_out) -> WasteProfile:
         dump_json(merged, profile_out)
         print(f"[serve] waste profile written to {profile_out}")
     if sarif_out:
-        write_sarif(merged, sarif_out)
+        write_sarif(merged, sarif_out, src_root=os.getcwd())
         print(f"[serve] SARIF findings written to {sarif_out}")
     return merged
 
@@ -457,6 +493,9 @@ def main():
                          "bucket of the batch's longest true frame length "
                          "instead of the frames' full extent (the same "
                          "outputs; fewer padded bytes)")
+    ap.add_argument("--objects", action="store_true",
+                    help="register params, KV pages and draft window in "
+                         "the object registry and run the replica scan")
     ap.add_argument("--device", default="cuda",
                     help="torch device to serve on (default: cuda)")
     a = ap.parse_args()
@@ -465,7 +504,8 @@ def main():
         sarif_out=a.sarif_out, kv=a.kv, page_size=a.page_size,
         spec=a.spec == "on", spec_k=a.spec_k, draft=a.draft,
         spec_rollback=a.spec_rollback == "on",
-        bucket_frames=a.bucket_frames == "on", device=a.device)
+        bucket_frames=a.bucket_frames == "on", objects=a.objects,
+        device=a.device)
 
 
 if __name__ == "__main__":

@@ -7,14 +7,19 @@ trains qwen3-1.7b at its published width from random weights (seeded) on
 the CUDA device; ``--device cpu`` runs on the CPU (with ``--smoke``, the
 reduced config). Without CUDA and without ``--device cpu`` it raises.
 
+``--objects`` registers the master, compute and moment trees in an
+object registry (core/objects.py) and runs the replica scan at init
+(core/replicas.py), where the zero moments are bit-identical.
+
 Port of src/repro/launch/train.py. Not ported yet (ROADMAP A6): the
 checkpoint options ``--ckpt-dir``/``--resume`` and the ``FleetMonitor``
-heartbeat (A11), ``--waste-report`` (tier 2, A10), ``--objects`` (A9),
-and ``--strategy`` (A11).
+heartbeat (A11), ``--waste-report`` (tier 2, A10), and ``--strategy``
+(A11).
 """
 from __future__ import annotations
 
 import argparse
+import os
 import time
 from typing import Optional
 
@@ -24,6 +29,8 @@ from repro_torch.configs import registry
 from repro_torch.configs.base import ProfilerConfig, TrainConfig
 from repro_torch.core.detectors import TrainingDetectors
 from repro_torch.core.findings import merge_profiles
+from repro_torch.core.objects import ObjectRegistry
+from repro_torch.core.replicas import ReplicaDetector
 from repro_torch.core.report import dump_json
 from repro_torch.core.sarif import write_sarif
 from repro_torch.data.pipeline import Prefetcher
@@ -41,10 +48,11 @@ def run(arch: str, *, smoke: bool = True, steps: int = 50, batch: int = 8,
         seq: int = 128, lr: float = 3e-4, profile: bool = False,
         microbatches: int = 1, remat: str = "none", seed: int = 0,
         profile_out: Optional[str] = None, sarif_out: Optional[str] = None,
-        device: str = "cuda"):
+        objects: bool = False, device: str = "cuda"):
     """Train ``steps`` steps on seeded synthetic batches. Returns
     ``(losses, merged profile or None)``: the per-step losses as floats,
-    and with ``profile`` the tier-3 training findings."""
+    and with ``profile`` the tier-3 training findings (with ``objects``
+    the replica scan at init, merged in)."""
     dev = resolve_device(device)
     cfg = registry.get_config(arch)
     if smoke:
@@ -54,7 +62,17 @@ def run(arch: str, *, smoke: bool = True, steps: int = 50, batch: int = 8,
                      warmup_steps=max(steps // 10, 1),
                      microbatches=microbatches, remat=remat, seed=seed)
     step_fn = make_train_step(model, tc)
-    state = TS.create(model, seed, device=dev)
+    obj_registry = ObjectRegistry() if objects else None
+    state = TS.create(model, seed, device=dev, registry=obj_registry)
+    obj_scan = None
+    if obj_registry is not None:
+        # scan AT INIT: the moments are all bit-identical zeros here (the
+        # in-place updates make them differ after the first step)
+        obj_scan = ReplicaDetector(obj_registry).scan()
+        print(f"[train] object scan: {len(obj_registry)} live objects, "
+              f"{len(obj_scan.findings)} replica groups, "
+              f"{sum(f.bytes for f in obj_scan.findings):.0f} "
+              f"duplicate bytes")
     detectors = (TrainingDetectors(ProfilerConfig(enabled=True))
                  if profile else None)
     data = Prefetcher(stream(cfg, batch, seq, seed=seed))
@@ -81,14 +99,16 @@ def run(arch: str, *, smoke: bool = True, steps: int = 50, batch: int = 8,
     dt = time.time() - t_start
     print(f"[train] done: {steps} steps in {dt:.1f}s; "
           f"loss {losses[0]:.3f} -> {losses[-1]:.3f}")
-    merged = merge_profiles([detectors.report]) if detectors else None
+    parts = [p for p in (detectors.report if detectors else None, obj_scan)
+             if p is not None]
+    merged = merge_profiles(parts) if parts else None
     if merged is not None:
         print(merged.render(top_k=5))
         if profile_out:
             dump_json(merged, profile_out)
             print(f"[train] waste profile written to {profile_out}")
         if sarif_out:
-            write_sarif(merged, sarif_out)
+            write_sarif(merged, sarif_out, src_root=os.getcwd())
             print(f"[train] SARIF findings written to {sarif_out}")
     return losses, merged
 
@@ -111,13 +131,16 @@ def main():
                     help="write the merged waste profile as JSON")
     ap.add_argument("--sarif-out", default=None,
                     help="write the merged waste profile as SARIF 2.1.0")
+    ap.add_argument("--objects", action="store_true",
+                    help="register params/opt state in the object "
+                         "registry and run the replica scan at init")
     ap.add_argument("--device", default="cuda",
                     help="torch device to train on (default: cuda)")
     a = ap.parse_args()
     run(a.arch, smoke=a.smoke, steps=a.steps, batch=a.batch, seq=a.seq,
         lr=a.lr, profile=a.profile, microbatches=a.microbatches,
         remat=a.remat, seed=a.seed, profile_out=a.profile_out,
-        sarif_out=a.sarif_out, device=a.device)
+        sarif_out=a.sarif_out, objects=a.objects, device=a.device)
 
 
 if __name__ == "__main__":

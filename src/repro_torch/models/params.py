@@ -66,10 +66,18 @@ def _leaf_init(decl: ParamDecl, generator: torch.Generator, dtype,
 
 
 def init_tree(decls: Any, *, generator: torch.Generator, dtype,
-              device) -> Any:
+              device, registry=None, owner: str = "params") -> Any:
     """Materialize a declaration tree on ``device``, drawing every normal
-    leaf from ``generator`` (which must live on that device)."""
-    return tree_map(lambda d: _leaf_init(d, generator, dtype, device), decls)
+    leaf from ``generator`` (which must live on that device).
+
+    With an `ObjectRegistry` (core/objects.py) every leaf registers as a
+    live ``param`` object under ``owner/<path>``; THIS call is the
+    allocation site the object tier reports."""
+    tree = tree_map(lambda d: _leaf_init(d, generator, dtype, device), decls)
+    if registry is not None:
+        from repro_torch.core.objects import register_tree
+        register_tree(registry, owner, tree, kind="param")
+    return tree
 
 
 def count_tree(decls: Any) -> int:

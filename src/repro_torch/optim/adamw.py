@@ -10,8 +10,8 @@ granite-moe-3b-a800m is 4 GB in f32, and an update of it whole would
 hold several such temporaries at once); ``clip_by_global_norm_`` scales
 the gradients in place, slice by slice, for the same reason (the
 reference returns a clipped copy). Slicing changes no value: every
-operation is elementwise. The object-registry
-hook of ``init`` comes with the object tier.
+operation is elementwise. With an object registry, ``init`` registers
+every moment leaf (core/objects.py), as the reference's does.
 """
 from __future__ import annotations
 
@@ -44,11 +44,19 @@ class AdamWState(NamedTuple):
     v: Any
 
 
-def init(params: Any) -> AdamWState:
-    """Zero f32 moments shaped like ``params``."""
+def init(params: Any, registry=None, owner: str = "opt") -> AdamWState:
+    """Zero f32 moments shaped like ``params``. With an `ObjectRegistry`
+    (core/objects.py) every moment leaf registers as a live
+    ``opt_state`` object: all bit-identical zeros at init, the state the
+    replica detector reports as lazy-materializable."""
     def zeros(p):
         return torch.zeros_like(p, dtype=torch.float32)
-    return AdamWState(m=tree_map(zeros, params), v=tree_map(zeros, params))
+    state = AdamWState(m=tree_map(zeros, params), v=tree_map(zeros, params))
+    if registry is not None:
+        from repro_torch.core.objects import register_tree
+        register_tree(registry, f"{owner}/m", state.m, kind="opt_state")
+        register_tree(registry, f"{owner}/v", state.v, kind="opt_state")
+    return state
 
 
 @torch.no_grad()

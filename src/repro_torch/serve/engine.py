@@ -33,6 +33,12 @@ Production-shaped serving over a fixed-size decode batch:
     (``ServingDetectors.rejected_draft_store``); with ``spec_rollback``
     on the paged layout only the accepted prefix is stored
     (``LM.commit_verify``) and they never reach the pool.
+  * **Fleet and object hooks** — a request may carry a ``prefix_hint``
+    (pages of this pool leased by the fleet router, serve/router.py);
+    with a ``registry`` (core/objects.py) every allocated page and the
+    drafter's window register as live objects under ``owner``; with
+    ``content_dedup`` a same-burst duplicate prefix waits one tick and
+    admits as a prefix hit.
 
 The engine serves the dense and moe families (every block carries an
 indexed KV cache). An MoE layer routes with capacity per group of up to
@@ -54,7 +60,8 @@ from repro_torch.core.detectors import (ServingDetectors, SlotWrite,
                                         VerifyWrite)
 from repro_torch.serve.decode import (make_engine_prefill, make_engine_tick,
                                       make_engine_verify)
-from repro_torch.serve.kv_cache import PagedKV, PoolExhausted, make_page_copy
+from repro_torch.serve.kv_cache import (PagedKV, PoolExhausted, _digest,
+                                        make_page_copy)
 
 ENGINE_FAMILIES = ("dense", "moe")
 KV_LAYOUTS = ("dense", "paged")
@@ -67,6 +74,11 @@ class Request:
     tokens: np.ndarray                 # (L,) int32 prompt
     max_new_tokens: int = 16
     arrival: int = 0                   # earliest engine step for admission
+    # (length, pages) of this prompt's prefix in THIS replica's pool,
+    # leased by the fleet router from the global prefix tier at dispatch
+    # (serve/global_prefix.py); the engine consumes it at admission and
+    # releases the lease
+    prefix_hint: Optional[Any] = None
     # filled by the engine:
     generated: List[int] = field(default_factory=list)
     prefill_step: int = -1
@@ -111,7 +123,9 @@ class ServeEngine:
                  drafter=None, spec_k: int = 4,
                  spec_rollback: bool = True,
                  kernel_counters: bool = False,
-                 step_cache=None):
+                 step_cache=None,
+                 registry=None, owner: str = "engine",
+                 content_dedup: bool = False):
         if model.cfg.family not in ENGINE_FAMILIES:
             raise ValueError(
                 f"ServeEngine needs an indexed KV cache in every block; "
@@ -141,17 +155,39 @@ class ServeEngine:
         if kernel_counters and not self.paged:
             raise ValueError("kernel_counters needs kv_layout='paged'")
         self.kernel_counters = bool(kernel_counters)
+        # object tier (DESIGN.md § Object tier): every allocated page
+        # registers as a live kv_page object under this engine's owner
+        # name, so the fleet's ReplicaDetector can content-hash pools
+        # across replicas
+        self.registry = registry
+        self.owner = owner
+        # same-burst content dedup: an admission group member whose
+        # page-aligned prefix duplicates an earlier member's is deferred
+        # one tick, so the leader's register_prefix turns the duplicate
+        # into an ordinary PrefixIndex hit (see _admit)
+        self.content_dedup = bool(content_dedup) and self.paged
 
         if self.paged:
             max_pages = -(-max_len // page_size)
             if num_pages is None:
                 num_pages = num_slots * max_pages
             self.kv = PagedKV(num_slots, page_size, num_pages, max_pages,
-                              prefix_window=prefix_window)
+                              prefix_window=prefix_window,
+                              registry=registry, owner=f"{owner}/kv")
             cache = model.init_paged_cache(
                 params, num_slots, max_len, page_size=page_size,
                 num_pages=num_pages, kv_dtype=kv_dtype,
                 kernel_counters=self.kernel_counters)
+            if registry is not None:
+                # the allocator registers pages; it needs the pool's
+                # per-page byte size and a live-content reader, both
+                # only known once the device cache exists
+                a = self.kv.alloc
+                a.page_bytes = sum(
+                    sub[key].nbytes // num_pages
+                    for sub in cache["main"].values() if "pt" in sub
+                    for key in ("k", "v"))
+                a.page_reader = self._read_page
             self._copy_fn = (step_cache.get("page_copy")
                              if step_cache is not None else make_page_copy())
         else:
@@ -163,6 +199,14 @@ class ServeEngine:
                                device=self.device))
         self.tokens = torch.zeros((num_slots, 1), dtype=torch.int32,
                                   device=self.device)
+        if self.spec and registry is not None:
+            # the drafter's corpus is the engine's long-lived draft
+            # window: replicas that served the same traffic hold
+            # bit-identical copies (replica_draft_window)
+            registry.register(
+                f"{owner}/draft/window", "draft_window",
+                num_slots * (self.spec_k + 1) * 4,
+                reader=self._read_draft_window)
 
         self.slots: List[Optional[Request]] = [None] * num_slots
         self._lengths = np.zeros(num_slots, np.int64)  # host mirror of idx
@@ -180,8 +224,12 @@ class ServeEngine:
              "padded_prefill_tokens": 0,
              "prefix_hits": 0, "prefix_hit_tokens": 0,
              "cow_copies": 0, "pages_freed": 0,
-             # admissions pushed back by pool pressure
+             # admissions pushed back by pool pressure (the router's
+             # preemption signal)
              "admit_deferred": 0,
+             # admissions pushed back ONE tick by content dedup so a
+             # same-burst duplicate prefix admits as an index hit
+             "dedup_deferred": 0,
              # speculative decode accounting
              "spec_ticks": 0, "draft_proposed": 0,
              "draft_accepted": 0, "draft_s": 0.0,
@@ -232,6 +280,28 @@ class ServeEngine:
             outs.append(sub["v"][layer, page, off].reshape(-1))
         return torch.cat(outs).float().cpu().numpy()
 
+    # --------------------------- object tier ---------------------------
+    def _read_page(self, p: int) -> torch.Tensor:
+        """Live contents of pool page `p` across every paged KV
+        sub-block (k, then v, each (L, page_size, Hkv, D)), as one flat
+        uint8 tensor on the pool's device: the replica detector's
+        content reader, in the reference's byte order."""
+        chunks = []
+        for sub in self.cache["main"].values():
+            if "pt" not in sub:
+                continue
+            for key in ("k", "v"):
+                chunks.append(sub[key][:, p].contiguous().reshape(-1)
+                              .view(torch.uint8))
+        return (torch.cat(chunks) if chunks
+                else torch.zeros(0, dtype=torch.uint8))
+
+    def _read_draft_window(self) -> np.ndarray:
+        corpus = (getattr(self.drafter, "_corpus", None)
+                  or getattr(self.drafter, "_seqs", None) or [])
+        arrs = [np.asarray(a, np.int32).ravel() for a in corpus]
+        return (np.concatenate(arrs) if arrs else np.zeros(0, np.int32))
+
     def _read_kernel_counts(self):
         """The last forward's in-kernel [stored, silent, dropped] element
         counts, per KV sub-block, as (L, B, 3) host arrays — or None when
@@ -264,12 +334,26 @@ class ServeEngine:
     def pending(self) -> int:
         return len(self._queue) + sum(r is not None for r in self.slots)
 
+    @property
+    def queue_depth(self) -> int:
+        return len(self._queue)
+
+    @property
+    def live_slots(self) -> int:
+        return sum(r is not None for r in self.slots)
+
     def _note_freed(self, freed: List[int]) -> None:
         """Every page-freeing path goes through here: count the frees
         AND disarm the detectors' now-stale traps on them."""
         self.stats["pages_freed"] += len(freed)
         if self.detectors is not None and freed:
             self.detectors.on_page_free(freed)
+
+    def note_freed(self, freed: List[int]) -> None:
+        """Pages freed by an EXTERNAL holder of this replica's pool (the
+        fleet's global prefix tier dropping its pins) still need their
+        frees counted and their stale traps disarmed here."""
+        self._note_freed([int(p) for p in freed])
 
     def _accept_token(self, slot: int, req: Request, tok: int) -> None:
         req.generated.append(int(tok))
@@ -292,12 +376,49 @@ class ServeEngine:
             if self.detectors is not None:
                 self.detectors.on_finish(self.step_no, slot, req.rid)
 
+    def _dedup_group(self, group: List[Request]) -> List[Request]:
+        """Content-addressed same-burst dedup (the OJXPerf replica fix).
+
+        Requests admitted in ONE group share a single prefill and only
+        register their prefixes after it, so two same-tick arrivals with
+        a common prompt prefix each compute it into their own pages.
+        Defer every member whose page-aligned prefix digest duplicates an
+        earlier member's beyond what the index (or a fleet lease) already
+        covers: next tick the leader's register_prefix has landed and the
+        duplicate admits as an ordinary prefix hit. Outputs stay the
+        same; the follower starts one tick later."""
+        ps = self.kv.page_size
+        keep: List[Request] = []
+        deferred: List[Request] = []
+        seen: Dict[str, int] = {}      # page-aligned prefix digest key
+        for req in group:
+            toks = np.asarray(req.tokens)
+            lens = range(ps, int(toks.size), ps)
+            keys = [f"{m}:{_digest(toks[:m])}" for m in lens]
+            best = max((m for m, k in zip(lens, keys) if k in seen),
+                       default=0)
+            have = self.kv.index.match(toks)[0]
+            if req.prefix_hint is not None:
+                have = max(have, int(req.prefix_hint[0]))
+            if best > have:
+                req.arrival = self.step_no + 1
+                deferred.append(req)
+                self.stats["dedup_deferred"] += 1
+            else:
+                keep.append(req)
+                seen.update((k, 1) for k in keys)
+        if deferred:
+            self._queue.extendleft(reversed(deferred))
+        return keep
+
     def _admit(self) -> None:
         free = [b for b, r in enumerate(self.slots) if r is None]
         group: List[Request] = []
         while free[len(group):] and self._queue \
                 and self._queue[0].arrival <= self.step_no:
             group.append(self._queue.popleft())
+        if self.content_dedup and len(group) > 1:
+            group = self._dedup_group(group)
         if not group:
             return
         B = self.num_slots
@@ -312,16 +433,23 @@ class ServeEngine:
             if self.paged:
                 budget = min(req.max_new_tokens, self.max_len - L)
                 try:
-                    plan = self.kv.admit(b, req.tokens, budget)
+                    plan = self.kv.admit(b, req.tokens, budget,
+                                         hint=req.prefix_hint)
                 except PoolExhausted as e:
                     # pool pressure: defer this (and following) requests;
                     # pages the failed eviction pass did free still need
-                    # their stale traps disarmed
+                    # their stale traps disarmed. The dispatch lease (if
+                    # any) stays held for the retry.
                     self._note_freed(e.freed)
                     self.stats["admit_deferred"] += 1
                     self._queue.extendleft(
                         reversed(group[len(admitted):]))
                     break
+                if req.prefix_hint is not None:
+                    # admit pinned whatever it mapped; the dispatch-time
+                    # lease has done its job
+                    self._note_freed(self.kv.release(req.prefix_hint[1]))
+                    req.prefix_hint = None
                 plans[b] = plan
                 starts[b] = plan.reuse_len
                 req.reuse_len = plan.reuse_len

@@ -56,17 +56,34 @@ class PageAllocator:
     their page table plus prefix-index entries pinning it. `alloc`
     returns pages at refcount 1 (the caller is the first holder);
     sharing bumps it via `incref`; `decref` returns the pages that
-    reached zero (freed back to the list)."""
+    reached zero (freed back to the list).
 
-    def __init__(self, num_pages: int):
+    With an `ObjectRegistry` attached (core/objects.py) every alloc
+    registers the page as a live ``kv_page`` object (its allocation site
+    is THIS allocator's alloc) and the zero-refcount free retires it, so
+    replica scans only see pages some holder still maps. The engine
+    installs `page_bytes` / `page_reader` once it has built the device
+    pool."""
+
+    def __init__(self, num_pages: int, *, registry=None, owner: str = "kv",
+                 page_bytes: int = 0, page_reader=None):
         assert num_pages >= 1
         self.num_pages = num_pages
         self.refcount = np.zeros(num_pages, np.int32)
         self._free: List[int] = list(range(num_pages - 1, -1, -1))
+        self.registry = registry
+        self.owner = owner
+        self.page_bytes = page_bytes
+        self.page_reader = page_reader
+        self._oids: Dict[int, int] = {}    # page -> registry oid (live)
 
     @property
     def free_count(self) -> int:
         return len(self._free)
+
+    @property
+    def used_count(self) -> int:
+        return self.num_pages - len(self._free)
 
     def alloc(self, n: int) -> List[int]:
         if n > len(self._free):
@@ -76,6 +93,13 @@ class PageAllocator:
         for p in out:
             assert self.refcount[p] == 0, f"free page {p} had refs"
             self.refcount[p] = 1
+            if self.registry is not None:
+                rd = self.page_reader
+                rec = self.registry.register(
+                    f"{self.owner}/page{p}", "kv_page", self.page_bytes,
+                    reader=(lambda p=p, rd=rd: rd(p))
+                    if rd is not None else None)
+                self._oids[p] = rec.oid
         return out
 
     def incref(self, pages: Sequence[int]) -> None:
@@ -92,6 +116,10 @@ class PageAllocator:
             if self.refcount[p] == 0:
                 self._free.append(int(p))
                 freed.append(int(p))
+                if self.registry is not None:
+                    oid = self._oids.pop(int(p), None)
+                    if oid is not None:
+                        self.registry.release(oid)
         return freed
 
     def check(self) -> None:
@@ -176,6 +204,14 @@ class PrefixIndex:
                 self._entries.move_to_end(key)
         return best_len, best_pages
 
+    def lookup(self, tokens: np.ndarray,
+               length: int) -> Optional[Tuple[int, ...]]:
+        """Pages of the exact-length entry for tokens[:length], or None
+        (no LRU touch). The fleet's global tier mirrors local entries
+        through this."""
+        e = self._entries.get(self._key(length, np.asarray(tokens)))
+        return e.pages if e is not None else None
+
     def register(self, tokens: np.ndarray,
                  pages: Sequence[int]) -> List[int]:
         """Index the prompt's prefixes against the slot's page row.
@@ -246,30 +282,49 @@ class PagedKV:
     prompts into page mappings."""
 
     def __init__(self, num_slots: int, page_size: int, num_pages: int,
-                 max_pages_per_slot: int, prefix_window: int = 32):
+                 max_pages_per_slot: int, prefix_window: int = 32,
+                 registry=None, owner: str = "kv"):
         self.num_slots = num_slots
         self.page_size = page_size
         self.num_pages = num_pages
         self.max_pages_per_slot = max_pages_per_slot
-        self.alloc = PageAllocator(num_pages)
+        self.alloc = PageAllocator(num_pages, registry=registry,
+                                   owner=owner)
         self.index = PrefixIndex(self.alloc, page_size, prefix_window)
         self.pt = np.full((num_slots, max_pages_per_slot), -1, np.int32)
 
     # ------------------------------------------------------------------
-    def admit(self, slot: int, tokens: np.ndarray, budget: int) -> AdmitPlan:
+    def admit(self, slot: int, tokens: np.ndarray, budget: int,
+              hint: Optional[Tuple[int, Tuple[int, ...]]] = None
+              ) -> AdmitPlan:
         """Map a new request into `slot`: longest cached prefix shared
         page-for-page, a partially reused page copied-on-write, fresh
         pages for the rest of [0, len(tokens)+budget).
 
         `budget` is the request's generation allowance; pages covering
         prompt+budget are allocated up front so decode never faults.
-        Raises PoolExhausted when eviction cannot free enough pages."""
+        Raises PoolExhausted when eviction cannot free enough pages.
+
+        `hint` is a (length, pages) prefix mapping from the fleet's
+        global prefix tier (serve/global_prefix.py): pages of THIS pool
+        holding tokens[:length], leased (incref'd) by the router at
+        dispatch so they stay live and immutable even if the local LRU
+        index has since forgotten the entry. Used when it beats the
+        local match (an unreferenced page means the lease protocol was
+        violated, so that is asserted)."""
         tokens = np.asarray(tokens)
         L = int(tokens.size)
         ps = self.page_size
         assert np.all(self.pt[slot] < 0), f"slot {slot} still mapped"
 
         match_len, donor = self.index.match(tokens)
+        if hint is not None:
+            h_len, h_pages = int(hint[0]), tuple(int(p) for p in hint[1])
+            h_len = min(h_len, L)
+            if h_len > match_len and h_len <= len(h_pages) * ps:
+                assert all(self.alloc.refcount[p] > 0 for p in h_pages), \
+                    "global-prefix hint maps an unreferenced page"
+                match_len, donor = h_len, h_pages
         # the last prompt position is always recomputed: its logits seed
         # the continuation and hidden states are not cached
         reuse = min(match_len, L - 1)
@@ -345,10 +400,13 @@ class PagedKV:
             return -1, off
         return int(self.pt[slot, page_i]), off
 
-    def check(self) -> None:
-        """Cross-structure invariants: refcounts equal holders."""
+    def check(self, extra_holders: Optional[Dict[int, int]] = None) -> None:
+        """Cross-structure invariants: refcounts equal holders.
+
+        `extra_holders` maps page -> references held outside this heap
+        (the fleet's global prefix pins and in-flight dispatch leases)."""
         self.alloc.check()
-        refs: Dict[int, int] = {}
+        refs: Dict[int, int] = dict(extra_holders or {})
         for b in range(self.num_slots):
             for p in self.pt[b]:
                 if p >= 0:

@@ -22,12 +22,20 @@ class TrainState(NamedTuple):
 
 
 def create(model, seed: int = 0, compute_dtype=torch.bfloat16, *,
-           device) -> TrainState:
+           device, registry=None) -> TrainState:
     """Random f32 master weights from a seeded generator on ``device``,
-    compute params cast from them, zero moments, step 0."""
+    compute params cast from them, zero moments, step 0. With an object
+    registry (core/objects.py) the master and compute trees register as
+    ``param`` objects here (``train/master``, ``train/params``) and the
+    moments inside `adamw.init`."""
     master = model.init(seed, device=device, dtype=torch.float32)
     params = P.tree_map(lambda p: p.to(compute_dtype, copy=True), master)
-    return TrainState(params=params, master=master, opt=adamw.init(master),
+    if registry is not None:
+        from repro_torch.core.objects import register_tree
+        register_tree(registry, "train/master", master, kind="param")
+        register_tree(registry, "train/params", params, kind="param")
+    return TrainState(params=params, master=master,
+                      opt=adamw.init(master, registry=registry),
                       step=torch.zeros((), dtype=torch.int32, device=device))
 
 

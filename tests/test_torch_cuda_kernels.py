@@ -41,7 +41,10 @@ its route takes (a row's sum does not depend on the grid). Speculative verify
 (window kernel at W = 5 through the verify wrapper): both modes on a
 hostile table at head_dim 128, as the window kernel above; defer mode
 leaves the pools alone and gives store mode's outputs bit for bit on
-slots whose window is mapped.
+slots whose window is mapped. Object tier: the replica digest of a CUDA
+tensor (chunks gathered on the card) equals its CPU copy's, float32,
+bfloat16 and int32, whole and sampled; the engine's kv_page reader gives
+the host copy's bytes.
 """
 import numpy as np
 import pytest
@@ -554,3 +557,68 @@ def test_rmsnorm_autograd_on_qk_norm_layout(cuda):
     for got, want in zip(*outs):
         assert float((got - want).abs().max()) <= \
             3e-2 * float(want.abs().max())
+
+
+# ----------------------------------------------------------------------
+# Object tier: the replica digest and the KV page reader on the card
+# ----------------------------------------------------------------------
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int32"])
+@pytest.mark.parametrize("shape", [(96,), (8, 12), (1 << 14,), (256, 256),
+                                   (50001,), (3, 1000, 37)])
+def test_object_digest_on_card_equals_cpu(cuda, dtype, shape):
+    """A CUDA tensor's digest (its sampled chunks gathered on the card)
+    equals its CPU copy's: whole below 64 KiB, sampled above."""
+    from repro_torch.core.replicas import object_digest
+    g = torch.Generator(device=cuda).manual_seed(len(shape))
+    if dtype == "int32":
+        t = torch.randint(-2**31, 2**31 - 1, shape, generator=g,
+                          device=cuda, dtype=torch.int32)
+    else:
+        t = torch.randn(shape, generator=g, device=cuda).to(
+            getattr(torch, dtype))
+    want = object_digest(t.cpu())
+    assert object_digest(t) == want
+    if t.ndim == 2:
+        assert object_digest(t.t()) == object_digest(t.t().cpu())
+    other = t.clone()
+    other.view(-1)[-1] += 1
+    assert object_digest(other) != want
+
+
+def test_kv_page_reader_on_card(cuda):
+    """The engine's kv_page reader on the card: the pool's page p of every
+    layer, k then v, as flat bytes equal to the host copy's, and a digest
+    equal to the host copy's."""
+    import dataclasses
+    from repro_torch.configs import registry as cfgs
+    from repro_torch.core.objects import ObjectRegistry
+    from repro_torch.core.replicas import object_digest
+    from repro_torch.models.zoo import build_model
+    from repro_torch.serve.engine import Request, ServeEngine
+    cfg = dataclasses.replace(cfgs.get_config("qwen3-1.7b").smoke(),
+                              dtype="float32")
+    model = build_model(cfg)
+    params = model.init(0, device=cuda)
+    reg = ObjectRegistry()
+    eng = ServeEngine(model, params, num_slots=2, max_len=40,
+                      kv_layout="paged", page_size=8, registry=reg,
+                      owner="replica0")
+    rng = np.random.RandomState(0)
+    for i in range(3):
+        eng.submit(Request(rid=f"r{i}", max_new_tokens=4,
+                           tokens=rng.randint(0, cfg.vocab_size, 20)
+                           .astype(np.int32)))
+    eng.run()
+    pages = reg.live("kv_page")
+    assert pages
+    for rec in pages:
+        p = int(rec.name.rsplit("page", 1)[1])
+        got = rec.reader()
+        assert got.device.type == "cuda" and got.dtype == torch.uint8
+        host = b"".join(
+            np.ascontiguousarray(sub[key][:, p].cpu().numpy()).tobytes()
+            for sub in eng.cache["main"].values() if "pt" in sub
+            for key in ("k", "v"))
+        assert got.cpu().numpy().tobytes() == host
+        assert got.numel() == rec.nbytes
+        assert object_digest(got) == object_digest(got.cpu())

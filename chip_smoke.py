@@ -2,9 +2,10 @@
 """Chip smoke test of the PyTorch port (``src/repro_torch``) on one
 NVIDIA GPU: the serving path, the speculative-verify serving path and
 the training path of qwen3-1.7b, granite-moe-3b-a800m's serving and
-training, and the serving and training of zamba2-1.2b (the hybrid
-family), xlstm-1.3b (the ssm family) and whisper-large-v3 (the audio
-family).
+training, the serving and training of zamba2-1.2b (the hybrid family),
+xlstm-1.3b (the ssm family) and whisper-large-v3 (the audio family), the
+fleet, and one period of llama-3.2-vision-90b (the vlm family) served
+and trained at full layer width.
 
     python3 chip_smoke.py
 
@@ -172,10 +173,11 @@ family).
    none of B4, one decode step traced; tier 1 on its decode microstep
    as in 6c (the mLSTM states snapshotted before their in-place
    writes); the smoke config in float32, tokens and tier-1 totals card
-   = CPU; training as in 7 (97 + 97 B5, no B4), last of all, with 2
-   driver steps and one timed step (a step is ~22 s, host-bound by the
-   sLSTM's token loop), the smoke check's card steps each from the
-   CPU's state;
+   = CPU; training as in 7, last of all, at full width cut to 2 of its
+   6 superblocks (16 layers: 33 + 33 B5, no B4; a step at 48 layers is
+   ~22 s, host-bound by the sLSTM's token loop), with 2 driver steps and
+   one timed step, the smoke check's card steps each from the CPU's
+   state;
 10. runs whisper-large-v3 (32 encoder and 32 decoder layers, d_model
    1280, 20 heads of 64) at full width: B4 at its heads (G 1, D 64)
    non-causal 1024 x 1024 and causal 1024 in both dtypes, two calls
@@ -208,13 +210,33 @@ family).
    kind, busy share, the same launches); and the smoke config in
    float32, card against CPU: router stats, routes, tokens, engine
    stats, the merged fleet profile's findings, the object scan's replica
-   groups and bytes, and the training driver's ``--objects`` scan.
+   groups and bytes, and the training driver's ``--objects`` scan;
+12. runs llama-3.2-vision-90b (the vlm family: 20 periods of 4 dense
+   blocks and one gated cross-attention block over 1024 image tokens,
+   d_model 8192, 64 heads over 8 kv heads of 128) at full layer width,
+   cut to one period (6.38 B parameters): B4 at its heads (G 8) causal
+   and non-causal 1024 x 1024 in both dtypes and a decode step's one
+   query over the 1024 image tokens, B5 at width 8192 (the general
+   route) at decode and training rows, each against its plain version,
+   two calls bit-identical, kernels and grids from the trace, timed
+   beside SDPA or ``F.rms_norm`` (12a, run with the other kernel
+   phases); the token-loop serving driver's functions (batch 8, prompt
+   128 + 32, tier 1 once): 11 B5 and 1 B4 launches a decode forward and
+   one forward more in tier 1's microstep, prefill and decode tok/s, a
+   traced decode step (12b); the loss and every gradient at 4 x 1024
+   tokens with the image, under the remat mode the reckoning fits (a full
+   AdamW step, 102 GB of state, does not fit): 5 + 5 B4 and 11 + 11 B5
+   launches, timed and traced (12c); and the smoke config in float32
+   with non-zero gates, card against CPU: forward logits, a second image
+   moving them, the token loop's tokens and tier 1, three steps of
+   ``launch.train.run`` (12d).
 
 Each phase prints its seconds (``[phase]`` lines). The line before the
 last lists the card; the last line is the JSON
 result. Any failure exits non-zero; without CUDA, or without the rest of
 the repository beside it, it exits non-zero and prints no result.
 """
+import contextlib
 import json
 import os
 import subprocess
@@ -558,27 +580,43 @@ def time_paged(torch, np, timer, name, S, pos, pt_np, pages, seed,
     return err, dev, ev, nbytes, flops
 
 
-def launch_grids(torch, fn, kinds=("paged_decode", "paged_window")):
+def launch_grids(torch, fn, kinds=("paged_decode", "paged_window"),
+                 want=1, tries=3):
     """The kernels of ``kinds`` one call of fn launches, with their grids,
-    from the profiler's trace: [(kernel, (x, y, z))]."""
+    from the profiler's trace: [(kernel, (x, y, z))]. The call stands
+    between LEAD_IN untimed spin kernels on each side, since a trace can
+    lose device records of its window (on one H100 run, the one kernel of
+    a call behind the lead-in): a trace with other than ``want`` kernels of
+    ``kinds`` is printed and retaken, at most ``tries`` times in all; the
+    caller checks what the last one saw."""
     import tempfile
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(LEAD_IN):        # a trace can miss its first kernels
-            torch.cuda._sleep(100)
-        torch.cuda.synchronize()
-        fn()
-        torch.cuda.synchronize()
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "trace.json")
-        prof.export_chrome_trace(path)
-        with open(path) as f:
-            events = json.load(f)["traceEvents"]
-    return [(kernel_label_demangled(e["name"]),
-             tuple(e.get("args", {}).get("grid", ())))
-            for e in events if e.get("cat") == "kernel"
-            and _kernel_kind(e["name"]) in kinds]
+    for attempt in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(LEAD_IN):    # a trace can miss its first kernels
+                torch.cuda._sleep(100)
+            torch.cuda.synchronize()
+            fn()
+            for _ in range(LEAD_IN):    # and the last ones of its window
+                torch.cuda._sleep(100)
+            torch.cuda.synchronize()
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "trace.json")
+            prof.export_chrome_trace(path)
+            with open(path) as f:
+                events = json.load(f)["traceEvents"]
+        grids = [(kernel_label_demangled(e["name"]),
+                  tuple(e.get("args", {}).get("grid", ())))
+                 for e in events if e.get("cat") == "kernel"
+                 and _kernel_kind(e["name"]) in kinds]
+        if len(grids) == want or attempt + 1 == tries:
+            return grids
+        spins = sum(e.get("cat") == "kernel" and "spin_kernel" in e["name"]
+                    for e in events)
+        print(f"[trace] {kinds}: {len(grids)} kernels of {want} in the "
+              f"trace of one call ({spins} of {2 * LEAD_IN} spin kernels "
+              f"seen); retaken", flush=True)
 
 
 def kernel_label_demangled(name: str) -> str:
@@ -1172,12 +1210,14 @@ def norm_forward_times(torch, timer, entries, tag, rows, width,
 def norm_train_times(torch, timer, entries, tag, rows, width):
     """B5's forward (rstd written) and backward at a training shape (bf16
     x and scale, as the compute params are) against their plain versions
-    (two backward calls bit-identical, one backward launch a call in the
-    trace), timed by device time beside ``F.rms_norm``; the numbers go
-    into both entries' ``by_shape`` under ``tag``."""
+    (two backward calls bit-identical, one launch a call each way in the
+    trace, on the plans' grids), timed by device time beside
+    ``F.rms_norm``; the numbers go into both entries' ``by_shape`` under
+    ``tag``."""
     import torch.nn.functional as F
     from repro_torch.kernels import ref
-    from repro_torch.kernels.rmsnorm import (plan_for, rmsnorm_backward,
+    from repro_torch.kernels.rmsnorm import (fwd_plan_for, plan_for,
+                                            rmsnorm_backward,
                                             rmsnorm_forward)
     err, err_g, (x, scale, dy, rstd) = rmsnorm_case(
         torch, rows, width, "bfloat16", "bfloat16", False, seed=rows + width)
@@ -1192,9 +1232,12 @@ def norm_train_times(torch, timer, entries, tag, rows, width):
         "bwd_lib": lambda: torch.autograd.backward(
             F.rms_norm(xl, (width,), sl, RMS_EPS), dy)}
     dev = {k: timer.device(fn) for k, fn in calls.items()}
-    plan = plan_for(x, dy)
+    plan, fplan = plan_for(x, dy), fwd_plan_for(x, scale)
     grids = launch_grids(torch, calls["bwd"], ("rmsnorm_bwd",))
     assert len(grids) == 1 and grids[0][1] == (plan.blocks, 1, 1), grids
+    fgrids = launch_grids(torch, calls["fwd"], ("rmsnorm_fwd",))
+    assert len(fgrids) == 1 and fgrids[0][1] == (fplan.blocks, 1, 1), \
+        fgrids
     n, isz = rows * width, x.element_size()
     fwd_b = bound(2 * n * isz + width * isz + rows * 4, 4 * n,
                   PEAK_FLOPS["float32"])
@@ -1202,7 +1245,8 @@ def norm_train_times(torch, timer, entries, tag, rows, width):
                   PEAK_FLOPS["float32"])
     print(f"[kernels] rmsnorm {tag} ({rows} x {width} bf16, bf16 scale), "
           f"device time: forward kernel {dev['fwd']:.4f} ms ("
-          f"{fwd_b[0] / dev['fwd']:.3f} of the bound) | plain "
+          f"{fwd_b[0] / dev['fwd']:.3f} of the bound; {fplan.route} route, "
+          f"{fplan.blocks} blocks, one launch in the trace) | plain "
           f"{dev['fwd_plain']:.4f} ms | F.rms_norm {dev['fwd_lib']:.4f} ms | "
           f"bound {fwd_b[0]:.4f} ms ({fwd_b[1]}); backward kernel "
           f"{dev['bwd']:.4f} ms ({bwd_b[0] / dev['bwd']:.3f} of the bound; "
@@ -1244,10 +1288,10 @@ TB, TSEQ = 4, 1024                        # the training path's batch
 
 
 def flash_case(torch, dtype, sq, skv, causal, seed, d=D, layout="plain",
-               hq=HQ, hkv=HKV):
+               hq=HQ, hkv=HKV, batch=TB):
     """Forward and backward kernels against their plain versions on one
-    set of inputs (the backward versions both get the kernel's out and
-    lse). ``layout``: "plain" (contiguous q, k, v), "fused" (views of
+    set of inputs of ``batch`` rows (the backward versions both get the
+    kernel's out and lse). ``layout``: "plain" (contiguous q, k, v), "fused" (views of
     one fused (B, S, Hq + 2 Hkv, d) projection, Sq == Skv) or
     "misaligned" (views one element into a wider buffer, which the
     bfloat16 kernels take only through the wrapper's counted copy).
@@ -1261,15 +1305,15 @@ def flash_case(torch, dtype, sq, skv, causal, seed, d=D, layout="plain",
     def randn(*shape):
         return torch.randn(shape, generator=g, device="cuda").to(dt)
     if layout == "fused":
-        qkv = randn(TB, sq, hq + 2 * hkv, d)
+        qkv = randn(batch, sq, hq + 2 * hkv, d)
         q, k, v = qkv[:, :, :hq], qkv[:, :, hq:hq + hkv], qkv[:, :, hq + hkv:]
     elif layout == "misaligned":
-        q, k, v = (randn(TB, s, h, d + 2)[..., 1:d + 1]
+        q, k, v = (randn(batch, s, h, d + 2)[..., 1:d + 1]
                    for s, h in ((sq, hq), (skv, hkv), (skv, hkv)))
     else:
-        q, k, v = (randn(TB, sq, hq, d), randn(TB, skv, hkv, d),
-                   randn(TB, skv, hkv, d))
-    dout = randn(TB, sq, hq, d)
+        q, k, v = (randn(batch, sq, hq, d), randn(batch, skv, hkv, d),
+                   randn(batch, skv, hkv, d))
+    dout = randn(batch, sq, hq, d)
     copies = (flash_attention_forward.copies,
               flash_attention_backward.copies)
     out, lse = flash_attention_forward(q, k, v, causal)
@@ -1289,8 +1333,8 @@ def flash_case(torch, dtype, sq, skv, causal, seed, d=D, layout="plain",
     # sees a single key) is rounding noise on both sides: held within
     # ZERO_GRAD_ATOL, as in tests/test_torch_cuda_kernels.py
     ok_g = all(e <= max(tol_g * m, ZERO_GRAD_ATOL) for e, m in diffs)
-    print(f"[kernels] flash attention {dtype:8s} Sq {sq:4d} Skv {skv:4d} "
-          f"Hq {hq:2d} Hkv {hkv:2d} D {d:3d} causal {causal!s:5s} "
+    print(f"[kernels] flash attention {dtype:8s} B {batch} Sq {sq:4d} Skv "
+          f"{skv:4d} Hq {hq:2d} Hkv {hkv:2d} D {d:3d} causal {causal!s:5s} "
           f"{layout:10s} | out/lse max |err| "
           f"{err:.3e} (tol {tol}) | dq/dk/dv max rel err {err_g:.3e} (tol "
           f"{tol_g}; max |err| {max(e for e, _ in diffs):.3e}, largest "
@@ -1367,9 +1411,11 @@ def flash_on_training_inputs(torch, timer, arch, heads, causal=True):
     """Flash attention at a training path's inputs (B 4, S 1024, the
     model's heads, bf16, causal or not) in bfloat16 and float32 against
     the plain versions, two forward and two backward calls bit-identical,
-    then timed by device time (CUPTI) beside SDPA's forward, its backward
-    alone and its forward + backward, CUDA-event times printed beside.
-    Returns the forward's and the backward's numbers."""
+    each call's kernels and grids read from the trace (one forward
+    kernel, the backward's three), then timed by device time (CUPTI)
+    beside SDPA's forward, its backward alone and its forward + backward,
+    CUDA-event times printed beside. Returns the forward's and the
+    backward's numbers."""
     import torch.nn.functional as F
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import (
@@ -1391,6 +1437,8 @@ def flash_on_training_inputs(torch, timer, arch, heads, causal=True):
           f"dv bit-identical {same}", flush=True)
     assert same and same_fwd, "flash attention is not deterministic"
     del first, again, fwd
+    flash_grids(torch, f"{arch}'s {mask} training inputs", q, k, v, out,
+                lse, dout, causal)
 
     # SDPA on the (B, H, S, D) layout, transposed outside the timed call
     qt, kt, vt, dt_ = (x.transpose(1, 2).contiguous()
@@ -1444,6 +1492,23 @@ def flash_on_training_inputs(torch, timer, arch, heads, causal=True):
               f"bound {b_ms:.4f} ms ({by}: {nbytes / 1e6:.2f} MB, "
               f"{flops / 1e9:.3f} GFLOP)", flush=True)
     return nums
+
+
+def flash_grids(torch, label, q, k, v, out, lse, dout, causal):
+    """Each wrapper's kernels and grids from the trace of one call: one
+    forward kernel, and the backward's three (delta, dK/dV, dQ)."""
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_backward, flash_attention_forward)
+    fwd = launch_grids(torch, lambda: flash_attention_forward(q, k, v,
+                                                              causal),
+                       ("flash_attention_fwd",))
+    bwd = launch_grids(torch, lambda: flash_attention_backward(
+        q, k, v, out, lse, dout, causal), ("flash_attention_bwd",),
+        KERNELS_PER_LAUNCH["flash_attention_bwd"])
+    print(f"[kernels] flash attention on {label}, from the trace of one "
+          f"call: forward {fwd}; backward {bwd}", flush=True)
+    assert len(fwd) == 1 and len(bwd) == KERNELS_PER_LAUNCH[
+        "flash_attention_bwd"], (fwd, bwd)
 
 
 def check_silent(torch, timer):
@@ -1520,15 +1585,17 @@ def launches_per_forward(cfg):
     with qk-norm); per Mamba2 block its ln and gate norm, per mLSTM or
     sLSTM block its ln and out_norm; per encdec block two B4 (its own
     tokens, then across to the encoder's output) and ln1, lnx, ln2 (and
-    both attentions' q- and k-norms with qk-norm); the audio family's
+    both attentions' q- and k-norms with qk-norm); per xattn block one B4
+    (across to the image tokens) and ln1, ln2 (and the q- and k-norm with
+    qk-norm); the audio family's
     encoder blocks (dense, never checkpointed) and the encoder's norm,
     and the final norm, outside every superblock."""
     from repro_torch.models.lm import make_schedule
     sch = make_schedule(cfg)
     qk = 2 if cfg.qk_norm else 0
     norms = {"dense": 2 + qk, "moe": 2 + qk, "shared": 2 + qk, "mamba": 2,
-             "mlstm": 2, "slstm": 2, "encdec": 3 + 2 * qk}
-    attns = {"dense": 1, "moe": 1, "shared": 1, "encdec": 2}
+             "mlstm": 2, "slstm": 2, "encdec": 3 + 2 * qk, "xattn": 2 + qk}
+    attns = {"dense": 1, "moe": 1, "shared": 1, "encdec": 2, "xattn": 1}
     inner = sch.n_super * sum(norms[t] for t in sch.pattern)
     attn = sch.n_super * sum(attns.get(t, 0) for t in sch.pattern)
     outer = sum(norms[t] for t in sch.tail) + 1
@@ -1793,17 +1860,19 @@ def reckon_step_bytes(torch, model, state, batch, remat):
     layer = P.tree_map(lambda t: leaf(t[0]), params["main"])
     shared = (P.tree_map(leaf, params["shared"]) if "shared" in params
               else None)
-    enc0, per_enc = None, 0
+    src0, per_enc = None, 0
     if sch.has_encoder:
         # the encoder's blocks are never checkpointed; the decoder's
         # cross-attention reads the encoder's output
         from repro_torch.models import layers as L
         f0 = batch["frames"].to(dt)
         with torch.no_grad():
-            enc0 = model.encode(params, f0)
+            src0 = model.encode(params, f0)
         blk = P.tree_map(lambda t: leaf(t[0]), params["enc"]["blocks"])
         per_enc = kept(lambda: L.apply_dense_block(blk, cfg, leaf(f0),
                                                    causal=False))
+    elif cfg.family == "vlm":
+        src0 = batch["img"].to(dt)     # the image tokens the blocks attend
     aux = torch.zeros((), device=x0.device)
     saved_remat = model.remat
     per_super = {}
@@ -1811,7 +1880,7 @@ def reckon_step_bytes(torch, model, state, batch, remat):
         model.remat = mode
         per_super[mode] = kept(lambda: model._maybe_remat(
             layer, shared, leaf(x0), aux,
-            None if enc0 is None else leaf(enc0)))
+            None if src0 is None else leaf(src0)))
     model.remat = saved_remat
     recompute = per_super["none"] if remat != "none" else 0
     per_tail = 0
@@ -2919,15 +2988,14 @@ def train_family(torch, np, arch, steps=TRAIN_STEPS, timed=3, warmup=1,
 
 def token_loop_inputs(cfg, model, batch, prompt_len, dev):
     """The token-loop driver's cache arguments, as ``launch.serve.run``
-    makes them (``frame_inputs``, bucketed): for the audio family
-    ``(cache_kw, tier1_kw)``, for the other families ``(None, None)``."""
+    makes them (``legacy_cache_inputs``, frames bucketed): ``(cache_kw,
+    tier1_kw)``, the audio family's frames, the vlm family's image
+    tokens, ``(None, None)`` for the other families."""
     from repro_torch.data.synthetic import batch_at
-    from repro_torch.launch.serve import frame_inputs
-    if cfg.family != "audio":
-        return None, None
-    frames = batch_at(cfg, batch, prompt_len, seed=0, step=0)["frames"]
-    return frame_inputs(cfg, model, frames, seed=0, bucket_frames=True,
-                        device=dev)[:2]
+    from repro_torch.launch.serve import legacy_cache_inputs
+    data = batch_at(cfg, batch, prompt_len, seed=0, step=0)
+    return legacy_cache_inputs(cfg, model, data, seed=0, bucket_frames=True,
+                               device=dev)[:2]
 
 
 def token_loop_serve(torch, np, arch, profile_again=True):
@@ -3086,6 +3154,7 @@ def token_loop_smoke_check(torch, np, arch, **overrides):
 # audio family), served and trained at full width
 # ----------------------------------------------------------------------
 XLSTM = "xlstm-1.3b"
+XLSTM_TRAIN_LAYERS = 16                   # 2 of its 6 superblocks
 WHISPER = "whisper-large-v3"
 WHISPER_HEADS = (20, 20, 64)              # G 1, D 64
 
@@ -3563,6 +3632,449 @@ def fleet_smoke_check(torch, np):
     assert cross[False] > 0 and cross[True] == 0, cross
 
 
+# ----------------------------------------------------------------------
+# phase 12: llama-3.2-vision-90b (the vlm family), one period at full
+# layer width
+# ----------------------------------------------------------------------
+VLM = "llama-3.2-vision-90b"
+VLM_HEADS = (64, 8, 128)                  # G 8, D 128
+VLM_WIDTH = 8192
+VLM_IMAGE = 1024                          # image tokens
+
+
+def vlm_period_config():
+    """llama-3.2-vision-90b at its published layer width, cut to one
+    period of its schedule (4 dense blocks and one cross-attention block:
+    6.38 B parameters, 25.5 GB in f32; the 100 layers hold 87.7 B)."""
+    import dataclasses
+    from repro_torch.configs import registry
+    return dataclasses.replace(registry.get_config(VLM), num_layers=5)
+
+
+@contextlib.contextmanager
+def registry_override(arch, **fields):
+    """The registry's config of ``arch`` with ``fields`` replaced, where
+    every driver and phase reads it; restored on exit."""
+    import dataclasses
+    from repro_torch.configs import registry
+    get_config = registry.get_config
+    registry.get_config = lambda name: (
+        dataclasses.replace(get_config(name), **fields) if name == arch
+        else get_config(name))
+    try:
+        yield
+    finally:
+        registry.get_config = get_config
+
+
+@contextlib.contextmanager
+def vlm_weights(torch, on_cpu=False):
+    """``LM.init`` with both gates of every cross-attention block at
+    seeded non-zero values (|g| in [0.3, 1.2], either sign): the
+    reference's init makes them zero, which leaves the image without
+    effect on any logit and every gradient of the cross path at 0. With
+    ``on_cpu`` the weights are drawn on the CPU and moved, so a driver on
+    the card and one on the CPU start from the same weights. The drivers'
+    own init is restored on exit."""
+    from repro_torch.models import lm
+    from repro_torch.models.params import tree_map
+    init = lm.LM.init
+
+    def gated(self, seed=0, *, device, dtype=None):
+        params = init(self, seed, device="cpu" if on_cpu else device,
+                      dtype=dtype)
+        g = torch.Generator().manual_seed(seed + 11)
+        for name, blk in params["main"].items():
+            for key in (("gate_attn", "gate_mlp") if name.endswith("_xattn")
+                        else ()):
+                n = blk[key].shape
+                mag = 0.3 + 0.9 * torch.rand(n, generator=g)
+                blk[key].copy_(mag * (2 * torch.randint(0, 2, n, generator=g)
+                                      - 1))
+        return tree_map(lambda t: t.to(device), params) if on_cpu else params
+
+    lm.LM.init = gated
+    try:
+        yield
+    finally:
+        lm.LM.init = init
+
+
+def flash_decode_cross(torch, timer):
+    """B4 at a decode step's cross-attention: B 8, one query of Hq 64
+    over the 1024 image tokens' K/V (Hkv 8, D 128), non-causal, bf16 (the
+    cached f32 K/V cast to the activations' dtype, as ``_cached_xattn``
+    does). Against the plain version in float32 and bfloat16, two calls
+    bit-identical, one kernel in the trace; timed by device time beside
+    SDPA and the plain version. Returns the forward's numbers."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention_forward
+    hq, hkv, d = VLM_HEADS
+    flash_case(torch, "float32", 1, VLM_IMAGE, False, seed=11, d=d, hq=hq,
+               hkv=hkv, batch=B)
+    err, _, (q, k, v, _, _, _) = flash_case(
+        torch, "bfloat16", 1, VLM_IMAGE, False, seed=12, d=d, hq=hq,
+        hkv=hkv, batch=B)
+    a, b = (flash_attention_forward(q, k, v, False) for _ in range(2))
+    grids = launch_grids(torch, lambda: flash_attention_forward(q, k, v,
+                                                                False),
+                         ("flash_attention_fwd",))
+    torch.cuda.synchronize()
+    same = torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    print(f"[kernels] flash attention, {VLM} decode cross-attention: two "
+          f"calls bit-identical {same}; one call in the trace {grids}",
+          flush=True)
+    assert same and len(grids) == 1, (same, grids)
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    calls = {"fwd": lambda: flash_attention_forward(q, k, v, False),
+             "plain": lambda: ref.flash_attention_ref(q, k, v, False),
+             "sdpa": lambda: F.scaled_dot_product_attention(
+                 qt, kt, vt, enable_gqa=True)}
+    dev = {key: timer.device(fn) for key, fn in calls.items()}
+    ev = {key: timer(calls[key]) for key in ("fwd", "sdpa")}
+    isz = q.element_size()
+    # q and out, K and V, lse; 4 D flops a (query, key) pair
+    nbytes = 2 * B * hq * d * isz + 2 * B * VLM_IMAGE * hkv * d * isz \
+        + B * hq * 4
+    flops = 4 * d * B * hq * VLM_IMAGE
+    b_ms, by = bound(nbytes, flops, PEAK_FLOPS["bfloat16"])
+    ms = dev["fwd"]
+    print(f"[kernels] flash_attention_fwd on {VLM}'s decode cross-attention "
+          f"(B {B}, Sq 1, Skv {VLM_IMAGE}, Hq {hq}, Hkv {hkv}, D {d}, bf16, "
+          f"non-causal), device time: kernel {ms:.4f} ms ({b_ms / ms:.3f} "
+          f"of the bound) | plain {dev['plain']:.4f} ms | SDPA "
+          f"{dev['sdpa']:.4f} ms (kernel / SDPA {ms / dev['sdpa']:.2f}) | "
+          f"bound {b_ms:.4f} ms ({by}: {nbytes / 1e6:.2f} MB, "
+          f"{flops / 1e9:.3f} GFLOP) | CUDA events: kernel {ev['fwd']:.4f} "
+          f"ms, SDPA {ev['sdpa']:.4f} ms", flush=True)
+    return {"max_abs_err": err, "ms": ms, "plain_ms": dev["plain"],
+            "bound_ms": b_ms, "bound_by": by, "library_ms": dev["sdpa"],
+            "event_ms": ev["fwd"]}
+
+
+def check_vlm_kernels(torch, timer, entries):
+    """Phase 12a. B4 at llama-3.2-vision-90b's heads (Hq 64, Hkv 8, D
+    128: G 8, dK and dV gather eight q heads), B 4, S 1024: the training
+    forward's causal self-attention and its 1024 x 1024 image
+    cross-attention (non-causal), in bfloat16 and float32 against the
+    plain versions, two calls bit-identical, each call's kernels and
+    grids from the trace, timed beside SDPA; a decode step's
+    cross-attention (``flash_decode_cross``). B5 at width 8192 (the
+    general route) at the decode rows (8) and the training rows (4096),
+    strided rows too, in every dtype pair; the forward timed beside
+    ``F.rms_norm`` at the decode rows (f32 scale), forward and backward
+    at the training rows (bf16 scale). The numbers go into the entries'
+    ``by_shape``."""
+    for causal, tag in ((True, "train causal"),
+                        (False, f"train cross {TSEQ} x {VLM_IMAGE}")):
+        nums = flash_on_training_inputs(torch, timer, VLM, VLM_HEADS, causal)
+        for key, num in nums.items():
+            entries[key]["by_shape"][f"{VLM} {tag}"] = num
+    entries["flash_attention_fwd"]["by_shape"][
+        f"{VLM} decode cross 1 x {VLM_IMAGE}"] = flash_decode_cross(
+            torch, timer)
+    seed = 1700
+    for x_dtype, s_dtype in (("float32", "float32"), ("bfloat16", "float32"),
+                             ("bfloat16", "bfloat16")):
+        for rows, strided in ((B, False), (TB * TSEQ, False), (131, True)):
+            seed += 1
+            rmsnorm_case(torch, rows, VLM_WIDTH, x_dtype, s_dtype, strided,
+                         seed)
+    norm_forward_times(torch, timer, entries, f"{VLM} decode", B, VLM_WIDTH)
+    norm_train_times(torch, timer, entries, f"{VLM} train", TB * TSEQ,
+                     VLM_WIDTH)
+
+
+def vlm_serve(torch, np):
+    """Phase 12b. One period of llama-3.2-vision-90b at full layer width
+    (``vlm_period_config``, random weights from seed 0, the gates zero as
+    init makes them) through the functions ``launch.serve.run`` calls for
+    the vlm family: ``legacy_cache_inputs`` (the seeded image tokens, (8,
+    1024, 8192)), ``_run_legacy`` (the token loop: batch 8, prompt 128 +
+    32, bf16 activations, f32 cache) and ``_tier1`` (tier 1 on the decode
+    microstep, once), the launches counted: per decode forward 11 B5 (ln1
+    and ln2 of 5 blocks, the final norm) and 1 B4 (the cross-attention,
+    one query over the 1024 image tokens; the dense blocks' attention over
+    the cache is masked, the plain composition), and one forward more in
+    tier 1's microstep; then one decode step traced (kernels by kind,
+    busy share, the same launches). Returns the launches."""
+    import repro_torch.kernels.flash_attention as fa
+    import repro_torch.kernels.rmsnorm as rn
+    from repro_torch.data.synthetic import batch_at
+    from repro_torch.launch.serve import (_run_legacy, _tier1,
+                                          legacy_cache_inputs)
+    from repro_torch.models.zoo import build_model
+    from repro_torch.serve.decode import make_serve_step
+
+    cfg = vlm_period_config()
+    model = build_model(cfg)
+    _, norms, _, _ = launches_per_forward(cfg)
+    attn = model.sched.n_super            # one cross-attention a period
+    counters = {"rmsnorm_fwd": rn.rmsnorm_forward,
+                "flash_attention_fwd": fa.flash_attention_forward}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(0, device="cuda")
+    data = batch_at(cfg, B, 128, seed=0, step=0)
+    cache_kw, tier1_kw, _ = legacy_cache_inputs(
+        cfg, model, data, seed=0, bucket_frames=True, device="cuda")
+    prompts = torch.as_tensor(data["tokens"], device="cuda")
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    for c in counters.values():
+        c.launches = 0
+    t0 = time.perf_counter()
+    out, stats = _run_legacy(model, params, prompts, 32, cache_kw)
+    run = {k: c.launches for k, c in counters.items()}
+    wall = time.perf_counter() - t0
+    _tier1(model, params, out, MAX_LEN, 0, "cuda", stats, tier1_kw)
+    launches = {k: c.launches for k, c in counters.items()}
+    steps = stats["steps"]
+    print(f"[{VLM}] one period at full width (6.38 B f32 parameters, "
+          f"weights drawn in {t_init:.1f} s), token loop, batch {B}, prompt "
+          f"128 + 32, image tokens {tuple(cache_kw['img'].shape)}: "
+          f"{wall:.1f} s, {steps} steps; prefill "
+          f"{stats['prefill_tok_s']:.1f} tok/s, decode "
+          f"{stats['decode_tok_s']:.1f} tok/s; tier 1 "
+          f"{tier1_seconds(stats)}; launches {run} in the run, {launches} "
+          f"with tier 1's microstep; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB (tier 1's "
+          f"trace held at its end); tokens {out[0][:12].tolist()}",
+          flush=True)
+    assert steps == 128 + 32 - 1, stats
+    assert run == {"rmsnorm_fwd": norms * steps,
+                   "flash_attention_fwd": attn * steps}, run
+    assert launches == {"rmsnorm_fwd": norms * (steps + 1),
+                        "flash_attention_fwd": attn * (steps + 1)}, launches
+    assert out.shape == (B, 32) and ((out >= 0)
+                                     & (out < cfg.vocab_size)).all()
+
+    cache = model.init_cache(params, B, MAX_LEN, kv_dtype=torch.float32,
+                             **cache_kw)
+    dparams = model.decode_params(params)
+    step = make_serve_step(model)
+    tok = torch.as_tensor(out[:, :1], device="cuda")
+    for _ in range(4):
+        tok, cache = step(dparams, cache, tok)
+
+    def decode_step():
+        def one():
+            step(dparams, cache, tok)[0].cpu()
+        return one
+    traced_step(torch, f"{VLM} one period, decode step ({B} slots)",
+                decode_step, counters,
+                {"rmsnorm_fwd": norms, "flash_attention_fwd": attn})
+    del cache, dparams, params, model
+    torch.cuda.empty_cache()
+    return {f"{VLM} serve": launches}
+
+
+def vlm_train(torch, np):
+    """Phase 12c. One period of llama-3.2-vision-90b at full layer width:
+    the loss and every gradient (what a train step's ``value_and_grad``
+    computes: autograd through ``LM.loss``) at 4 x 1024 tokens with the
+    image tokens (4, 1024, 8192), the params in bf16 (the train state's
+    compute params; the gates at seeded non-zero values, ``vlm_weights``).
+    A full AdamW step does not fit the card: its state is reckoned from
+    the parameter count and printed. The remat mode is "none" if
+    ``reckon_step_bytes`` fits the loss and gradients in 94% of the card,
+    else "full". Launches counted (B4 5 + 5, B5 11 + 11 under "none"),
+    the gradients checked finite (the gates' and the cross-attention's
+    non-zero), then timed steps and one traced. Returns the launches of
+    the first step."""
+    import gc
+    import math
+    import types
+    from repro_torch.data.synthetic import stream
+    from repro_torch.models.params import tree_leaves, tree_map
+    from repro_torch.models.zoo import build_model
+
+    cfg = vlm_period_config()
+    model = build_model(cfg)
+    torch.cuda.empty_cache()
+    with vlm_weights(torch):
+        params = model.init(0, device="cuda", dtype=torch.bfloat16)
+    batch = {k: torch.from_numpy(v).to("cuda")
+             for k, v in next(stream(cfg, TB, TSEQ, seed=0)).items()}
+    n = sum(t.numel() for t in tree_leaves(params))
+    total = torch.cuda.mem_get_info()[1]
+    budget = 0.94 * total
+    gb = 1e9
+    # f32 master and two moments, bf16 compute params and gradients
+    state = {"master": 4 * n, "moments": 8 * n, "params": 2 * n,
+             "grads": 2 * n}
+    print(f"[{VLM} train] one period, {n} parameters: a full AdamW step "
+          f"would hold " + " + ".join(f"{k} {v / gb:.1f}" for k, v in
+                                      state.items())
+          + f" = {sum(state.values()) / gb:.1f} GB before any activation, "
+          f"over the card's {total / gb:.1f} GB: the card runs the loss and "
+          f"the gradients", flush=True)
+    assert sum(state.values()) > total
+    remat = None
+    gib = 2 ** 30
+    for mode in ("none", "full"):
+        reckoned, parts = reckon_step_bytes(
+            torch, model, types.SimpleNamespace(params=params), batch, mode)
+        fits = reckoned <= budget
+        print(f"[{VLM} train] remat {mode}: the loss and gradients would "
+              f"reach {reckoned / gib:.2f} GiB by the reckoning ("
+              + ", ".join(f"{k} {v / gib:.2f}" for k, v in parts.items())
+              + f" GiB) against a budget of {budget / gib:.2f} GiB: "
+              f"{'fits' if fits else 'does not fit'}", flush=True)
+        if fits:
+            remat = mode
+            break
+    assert remat is not None, "no remat mode fits one period's gradients"
+    model.remat = remat
+    leaves = tree_leaves(params)
+
+    def step():
+        live = [t.detach().requires_grad_(True) for t in leaves]
+        it = iter(live)
+        with torch.enable_grad():
+            loss, _ = model.loss(tree_map(lambda _: next(it), params), batch)
+            grads = torch.autograd.grad(loss, live)
+        return loss.detach(), grads
+
+    counters = {k: c for k, c in train_counters().items()
+                if k != "silent_compare"}
+    for c in counters.values():
+        c.launches = 0
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    loss, grads = step()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = {k: c.launches for k, c in counters.items()}
+    gnorm = math.sqrt(sum(float(g.float().square().sum()) for g in grads))
+    finite = all(bool(torch.isfinite(g).all()) for g in grads)
+    it = iter(grads)
+    xb = tree_map(lambda _: next(it), params)["main"]["b4_xattn"]
+    cross = {k: float(g.float().abs().max()) for k, g in (
+        ("gate_attn", xb["gate_attn"]), ("gate_mlp", xb["gate_mlp"]),
+        ("xattn wk", xb["xattn"]["wk"]["w"]),
+        ("xattn wq", xb["xattn"]["wq"]["w"]),
+        ("mlp down", xb["mlp"]["down"]["w"]))}
+    print(f"[{VLM} train] one period at full width, {TB} x {TSEQ} tokens "
+          f"with image tokens {tuple(batch['img'].shape)}, remat {remat}: "
+          f"loss {float(loss)!r}, gradient norm {gnorm!r}, every gradient "
+          f"finite {finite}; the cross block's largest gradients {cross}; "
+          f"launches {launches}; {wall * 1e3:.1f} ms including the first "
+          f"call's set-up; peak device memory {peak / gib:.2f} GiB ("
+          f"{(peak - held) / gib:.2f} GiB above the {held / gib:.2f} GiB of "
+          f"params and batch)", flush=True)
+    attn, norms, attn_in, inner = launches_per_forward(cfg)
+    again = 0 if remat == "none" else 1
+    want = {"flash_attention_fwd": attn + again * attn_in,
+            "flash_attention_bwd": attn,
+            "rmsnorm_fwd": norms + again * inner, "rmsnorm_bwd": norms}
+    assert launches == want, (launches, want)
+    assert finite and math.isfinite(float(loss)), loss
+    assert abs(float(loss) - math.log(cfg.padded_vocab)) < 3.0, loss
+    assert all(v > 0 for v in cross.values()), cross
+    del grads, loss, xb, it
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, grads = step()
+        float(loss)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        del grads, loss
+    tok = TB * TSEQ
+    print(f"[{VLM} train] timed loss-and-gradient steps (remat {remat}): "
+          f"{', '.join(f'{t * 1e3:.1f}' for t in times)} ms = "
+          f"{', '.join(f'{tok / t:.1f}' for t in times)} tok/s", flush=True)
+
+    def traced():
+        def one():
+            float(step()[0])
+        return one
+    traced_step(torch, f"{VLM} one period, loss and gradients", traced,
+                counters, want)
+    del params, leaves, batch, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {f"{VLM} train": launches}
+
+
+def vlm_smoke_check(torch, np):
+    """Phase 12d. llama-3.2-vision-90b's smoke config (10 layers, 8 image
+    tokens: the cross-attention has 16 queries over 8 keys) in float32,
+    both gates of every cross block at seeded non-zero values
+    (``vlm_weights``), the same weights on the card (kernels) and on the
+    CPU (plain versions): forward logits within 1e-4 of the largest, and
+    a second image moves the card's logits; the token loop's greedy
+    tokens and tier 1 on its decode microstep (``token_loop_smoke_check``,
+    the image in both caches); three train steps through
+    ``launch.train.run`` (detectors on, so B3 runs on the card) from
+    weights drawn on the CPU: losses within 1e-4 relative, the tier-3
+    profile's checked and flagged counts equal."""
+    import dataclasses
+    import repro_torch.kernels.silent_compare as sc
+    from repro_torch.configs import registry
+    from repro_torch.data.synthetic import batch_at
+    from repro_torch.launch.train import run as train_run
+    from repro_torch.models.params import tree_map
+    from repro_torch.models.zoo import build_model
+
+    cfg = dataclasses.replace(registry.get_config(VLM).smoke(),
+                              dtype="float32")
+    model = build_model(cfg)
+    with vlm_weights(torch):
+        cpu_params = model.init(0, device="cpu")
+    data = batch_at(cfg, 2, 16, seed=0, step=0)
+    other = np.random.default_rng(5).standard_normal(
+        data["img"].shape).astype(np.float32)
+    logits = {}
+    for dev in ("cpu", "cuda"):
+        params = tree_map(lambda t: t.to(dev), cpu_params)
+        toks = torch.as_tensor(data["tokens"], device=dev)
+        with torch.no_grad():
+            logits[dev] = [model.forward(params, toks, img=torch.as_tensor(
+                im, device=dev))[0][..., :cfg.vocab_size].cpu()
+                for im in (data["img"], other)]
+    scale = float(logits["cpu"][0].abs().max())
+    diff = max(float((a - b).abs().max())
+               for a, b in zip(logits["cpu"], logits["cuda"]))
+    moved = float((logits["cuda"][1] - logits["cuda"][0]).abs().max())
+    print(f"[check] {VLM} smoke f32 forward ({cfg.num_layers} layers, "
+          f"{cfg.num_image_tokens} image tokens, gates non-zero), the card "
+          f"vs the CPU: largest logit difference {diff:.3e} (tol 1e-4 of "
+          f"{scale:.3e}); a second image moves the card's logits by up to "
+          f"{moved:.3e}", flush=True)
+    assert diff <= 1e-4 * scale and moved > 1e-3, (diff, scale, moved)
+    with vlm_weights(torch):
+        token_loop_smoke_check(torch, np, VLM)
+    res = {}
+    with vlm_weights(torch, on_cpu=True), registry_override(
+            VLM, dtype="float32"):
+        for dev in ("cpu", "cuda"):
+            sc.silent_compare.launches = 0
+            losses, merged = train_run(VLM, smoke=True, steps=3, batch=4,
+                                       seq=64, profile=True, device=dev)
+            res[dev] = (np.array(losses), dict(merged.checked),
+                        dict(merged.flagged), sc.silent_compare.launches)
+    (lc, cc, fc, _), (lg, cg, fg, b3) = res["cpu"], res["cuda"]
+    rel = float(np.max(np.abs(lg - lc) / np.abs(lc)))
+    print(f"[check] {VLM} smoke f32 launch.train.run, 3 steps, detectors "
+          f"on: losses {lg.tolist()} on the card vs {lc.tolist()} on the "
+          f"CPU, max relative difference {rel:.3e} (tol 1e-4); checked "
+          f"{cg} and flagged {fg} on the card, equal to the CPU's "
+          f"{(cc, fc) == (cg, fg)}; B3 launches on the card {b3}",
+          flush=True)
+    assert rel <= 1e-4 and (cc, fc) == (cg, fg) and b3 > 0, res
+    # tokens, labels and img, each step
+    assert cg["silent_data_load"] == 3 * 3, cg
+
+
 def kernel_label(mangled: str) -> str:
     """A kernel's readable name and template arguments (element types,
     then numbers) from its mangled name: ``window_split_kernel<bf16,f32,4>``
@@ -3698,6 +4210,7 @@ def main() -> int:
     phase("7a/8a slice kernels", check_slice_kernels, torch, timer, entries)
     phase("9a/10a new families' kernels", check_new_family_kernels, torch,
           timer, entries)
+    phase("12a vlm kernels", check_vlm_kernels, torch, timer, entries)
     # each main path is driven with the launch counts set to 0 just
     # before it and read just after
     by_path = {}
@@ -3740,13 +4253,19 @@ def main() -> int:
     torch.cuda.empty_cache()
     by_path.update(phase("11 fleet", fleet_path, torch, np, card))
     phase("11 smoke", fleet_smoke_check, torch, np)
-    # last: its traced step holds ~0.9 M kernels, after which this
-    # process's profiler traces were seen to come back empty
-    # xlstm's steps are host-bound (~22 s: the sLSTM's token loop), so its
-    # driver takes 2 steps and one step is timed, without a warm-up
-    by_path["xlstm train"] = phase("9e xlstm train", train_family, torch,
-                                   np, XLSTM, steps=2, timed=1, warmup=0,
-                                   resync=True)
+    by_path.update(phase("12b vlm serve", vlm_serve, torch, np))
+    by_path.update(phase("12c vlm train", vlm_train, torch, np))
+    phase("12d vlm smoke", vlm_smoke_check, torch, np)
+    # last: its traced step holds ~0.3 M kernels (~0.9 M at 48 layers),
+    # after which this process's profiler traces were seen to come back
+    # empty. xlstm's steps are host-bound (~22 s at its 48 layers: the
+    # sLSTM's token loop), so its training runs 2 of its 6 superblocks
+    # (16 layers at full width, ~7 s a step), its driver takes 2 steps and
+    # one step is timed, without a warm-up
+    with registry_override(XLSTM, num_layers=XLSTM_TRAIN_LAYERS):
+        by_path["xlstm train"] = phase(
+            "9e xlstm train", train_family, torch, np, XLSTM, steps=2,
+            timed=1, warmup=0, resync=True)
 
     import math
     for key, e in entries.items():

@@ -5,12 +5,15 @@ KV-cache waste detectors and prefill-vs-decode accounting, on the card.
 
 runs qwen3-1.7b at its published width from random weights (seeded) on
 the CUDA device; ``--arch granite-moe-3b-a800m`` serves the MoE family
-the same way. The hybrid, ssm and audio families (``--arch zamba2-1.2b``,
-``xlstm-1.3b``, ``whisper-large-v3``) have no indexed KV cache in every
-block, so they are served by the token-loop driver (``_run_legacy``: one
-greedy one-token step at a time over a dense f32 cache, the prompt
-pushed token by token), as the reference serves every family outside
-the engine. The audio family's encoder runs once, in ``init_cache``,
+the same way. The vlm, hybrid, ssm and audio families (``--arch
+llama-3.2-vision-90b``, ``zamba2-1.2b``, ``xlstm-1.3b``,
+``whisper-large-v3``) have no indexed KV cache in every block, so they
+are served by the token-loop driver (``_run_legacy``: one greedy
+one-token step at a time over a dense f32 cache, the prompt pushed token
+by token), as the reference serves every family outside the engine. The
+vlm family's image tokens (seeded stubbed patch embeddings) go into the
+run's ``init_cache`` and tier 1's, whose cross K/V they fill once. The
+audio family's encoder runs once, in ``init_cache``,
 over the seeded frames right-padded to the power-of-two bucket of the
 batch's longest true length (``--bucket-frames on``, the default) or to
 the frames' full extent (``off``); its padding is accounted as the
@@ -70,9 +73,9 @@ from repro_torch.serve.engine import ENGINE_FAMILIES, Request, ServeEngine
 from repro_torch.serve.spec import make_drafter
 
 NOT_PORTED_TIERS = "tier 2 (HLO waste analysis) is bound to JAX and not ported"
-# families served by the token-loop driver; the vlm family is not ported
-# yet (ROADMAP A7)
-LEGACY_FAMILIES = ("hybrid", "ssm", "audio")
+# families served by the token-loop driver (every family outside the
+# engine's)
+LEGACY_FAMILIES = ("vlm", "hybrid", "ssm", "audio")
 
 
 def padding_waste_profile(stats) -> WasteProfile:
@@ -173,12 +176,28 @@ def frame_inputs(cfg, model, frames, *, seed: int, bucket_frames: bool,
             stats)
 
 
+def legacy_cache_inputs(cfg, model, data, *, seed: int, bucket_frames: bool,
+                        device):
+    """The token-loop driver's cache arguments for ``data`` (a
+    ``batch_at`` batch): ``(cache_kw, tier1_kw, enc_stats)``, the run's
+    and tier 1's ``init_cache`` arguments and the audio family's
+    encoder-frames stats (``frame_inputs``). The vlm family's image
+    tokens go to both caches as drawn; the other families take none."""
+    if cfg.family == "audio":
+        return frame_inputs(cfg, model, data["frames"], seed=seed,
+                            bucket_frames=bucket_frames, device=device)
+    if cfg.family == "vlm":
+        kw = {"img": torch.as_tensor(np.asarray(data["img"]), device=device)}
+        return kw, kw, None
+    return None, None, None
+
+
 def tier1_decode_subject(model, params, batch: int, max_len: int,
                          cache_kw=None):
     """Tier 1's serving subject, the reference driver's: the greedy next
     token of one cached forward of (batch, 1) tokens over a fresh dense
     f32 cache of `max_len` positions (built with ``cache_kw``: the audio
-    family's frames)."""
+    family's frames, the vlm family's image tokens)."""
     cache1 = model.init_cache(params, batch, max_len, kv_dtype=torch.float32,
                               **(cache_kw or {}))
     dparams = model.decode_params(params)
@@ -215,7 +234,8 @@ def _run_legacy(model, params, prompts: torch.Tensor, gen: int,
     prompt pushed through the greedy one-token step token by token, then
     ``gen - 1`` more greedy steps, over a dense f32 cache (built with
     ``cache_kw``: the audio family's frames and frame lengths, whose
-    encoder runs in ``init_cache``, outside the timed loops). Returns
+    encoder runs in ``init_cache``, outside the timed loops, or the vlm
+    family's image tokens, whose cross K/V it fills there). Returns
     ``(tokens (B, gen) int32, stats)``: prefill and decode tok/s (the
     reference's definition: prompt tokens over the prompt loop's time,
     generated tokens over the decode loop's), each timed span ending in
@@ -267,7 +287,7 @@ def run(arch: str, *, smoke: bool = False, batch: int = 4,
         bucket_frames: bool = True, objects: bool = False,
         device: str = "cuda"):
     """Serve `batch` seeded synthetic prompts through the engine (or,
-    for the hybrid, ssm and audio families, the token-loop driver).
+    for the vlm, hybrid, ssm and audio families, the token-loop driver).
 
     Returns ``(tokens, merged profile or None, stats)``: the greedy
     continuations (batch, gen) int32 on the host, the merged waste
@@ -279,11 +299,6 @@ def run(arch: str, *, smoke: bool = False, batch: int = 4,
     cfg = registry.get_config(arch)
     if smoke:
         cfg = cfg.smoke()
-    if cfg.family not in ENGINE_FAMILIES + LEGACY_FAMILIES:
-        raise NotImplementedError(
-            f"{arch}: family {cfg.family!r} is not ported yet (ROADMAP "
-            f"A7; engine families: {ENGINE_FAMILIES}, token loop: "
-            f"{LEGACY_FAMILIES})")
     model = build_model(cfg)
     params = model.init(seed, device=dev)
     obj_registry = None
@@ -294,18 +309,16 @@ def run(arch: str, *, smoke: bool = False, batch: int = 4,
     prompts = data["tokens"]
     name = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
             else "cpu")
-    if cfg.family not in ENGINE_FAMILIES:
+    if cfg.family in LEGACY_FAMILIES:
         if kv != "dense":
             raise ValueError(f"--kv paged needs the engine families "
                              f"{ENGINE_FAMILIES}, not {cfg.family!r}")
         if spec:
             raise ValueError(f"--spec needs the engine families "
                              f"{ENGINE_FAMILIES}, not {cfg.family!r}")
-        cache_kw, tier1_kw, enc_stats = None, None, None
-        if cfg.family == "audio":
-            cache_kw, tier1_kw, enc_stats = frame_inputs(
-                cfg, model, data["frames"], seed=seed,
-                bucket_frames=bucket_frames, device=dev)
+        cache_kw, tier1_kw, enc_stats = legacy_cache_inputs(
+            cfg, model, data, seed=seed, bucket_frames=bucket_frames,
+            device=dev)
         out, stats = _run_legacy(
             model, params, torch.as_tensor(np.asarray(prompts), device=dev),
             gen, cache_kw)

@@ -1,6 +1,7 @@
 """Core transformer layers: norms, RoPE, GQA attention (qk-norm; self-
 or cross-attention; cache-free, or a per-slot dense or paged KV cache),
-gated/plain MLP, the LM head. Functional style: ``decl_*`` builds the
+gated/plain MLP, the dense and the gated cross-attention blocks, the LM
+head. Functional style: ``decl_*`` builds the
 parameter declaration tree, ``apply_*`` consumes the materialized
 parameters (nested dicts of tensors).
 
@@ -233,6 +234,41 @@ def apply_dense_block(p, cfg: ModelConfig, x: torch.Tensor, *,
     x = x + h
     x = x + apply_mlp(p["mlp"], cfg, apply_rmsnorm(p["ln2"], x, cfg.norm_eps))
     return x, new_cache
+
+
+# ----------------------------------------------------------------------
+# Cross-attention block (the vlm family's image layers): (rmsnorm ->
+# cross-attn -> tanh-gated +res) (rmsnorm -> mlp -> tanh-gated +res)
+# ----------------------------------------------------------------------
+def decl_xattn_block(cfg: ModelConfig) -> Dict[str, Any]:
+    """The gates are scalars initialised to zero, as in the reference: a
+    freshly initialised block passes x through unchanged."""
+    return {
+        "ln1": P.norm(cfg.d_model),
+        "xattn": decl_attention(cfg, cross=True),
+        "gate_attn": P.ParamDecl((), (), "zeros"),
+        "ln2": P.norm(cfg.d_model),
+        "mlp": decl_mlp(cfg),
+        "gate_mlp": P.ParamDecl((), (), "zeros"),
+    }
+
+
+def gated_residual(x: torch.Tensor, gate: torch.Tensor,
+                   h: torch.Tensor) -> torch.Tensor:
+    """x + tanh(gate) * h, the gate cast to x's dtype first."""
+    return x + torch.tanh(gate.to(x.dtype)) * h
+
+
+def apply_xattn_block(p, cfg: ModelConfig, x: torch.Tensor,
+                      kv_src: torch.Tensor) -> torch.Tensor:
+    """Cache-free: the tokens x (B,S,d) attend the image tokens kv_src
+    (B,Skv,d), non-causal, without RoPE."""
+    h, _ = apply_attention(p["xattn"], cfg,
+                           apply_rmsnorm(p["ln1"], x, cfg.norm_eps),
+                           kv_src=kv_src, causal=False, use_rope=False)
+    x = gated_residual(x, p["gate_attn"], h)
+    h = apply_mlp(p["mlp"], cfg, apply_rmsnorm(p["ln2"], x, cfg.norm_eps))
+    return gated_residual(x, p["gate_mlp"], h)
 
 
 # ----------------------------------------------------------------------

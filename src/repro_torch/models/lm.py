@@ -1,9 +1,9 @@
-"""Decoder LM assembly, dense, moe, hybrid, ssm and audio families:
+"""Decoder LM assembly, dense, moe, vlm, hybrid, ssm and audio families:
 parameter declaration and init, the cache-free training forward and
 loss, per-slot dense and paged KV caches (and the hybrid family's Mamba2
-states, the ssm family's mLSTM and sLSTM states, the audio family's
-cross-attention K/V), and the cached decode step that the serving
-engine's prefill and tick and the token-loop serving driver run.
+states, the ssm family's mLSTM and sLSTM states, the vlm and audio
+families' cross-attention K/V), and the cached decode step that the
+serving engine's prefill and tick and the token-loop serving driver run.
 
 Parameters and caches keep the reference's stacked per-layer storage,
 ``(n_layers, ...)`` under ``"main"``, so reference trees load 1:1; a
@@ -24,7 +24,11 @@ superblocks of mLSTM blocks and one sLSTM block. The audio family
 (whisper) runs an encoder over the frame embeddings (``"enc"``, never
 checkpointed, as in the reference), then decoder blocks that attend
 their own tokens and, across, the encoder's output; a decode reads the
-cross-attention K/V that ``init_cache`` precomputed per layer.
+cross-attention K/V that ``init_cache`` precomputed per layer. The vlm
+family (llama-3.2-vision) runs superblocks of `cross_attn_period - 1`
+dense blocks and one gated cross-attention block over the image tokens
+(``img``, stubbed patch embeddings); its cross K/V are precomputed the
+same way, and its cache holds nothing else for those blocks.
 """
 from __future__ import annotations
 
@@ -73,6 +77,13 @@ def make_schedule(cfg: ModelConfig) -> Schedule:
         return Schedule(("dense",), cfg.num_layers)
     if cfg.family == "moe":
         return Schedule(("moe",), cfg.num_layers)
+    if cfg.family == "vlm":
+        p = cfg.cross_attn_period
+        if p < 1 or cfg.num_layers % p:
+            raise ValueError(f"vlm layers ({cfg.num_layers}) must be a "
+                             f"multiple of the cross-attention period ({p})")
+        return Schedule(("dense",) * (p - 1) + ("xattn",),
+                        cfg.num_layers // p)
     if cfg.family == "hybrid":
         p = cfg.attn_period
         n, r = divmod(cfg.num_layers, p)
@@ -87,9 +98,7 @@ def make_schedule(cfg: ModelConfig) -> Schedule:
                         cfg.num_layers // sp)
     if cfg.family == "audio":
         return Schedule(("encdec",), cfg.num_layers, has_encoder=True)
-    raise NotImplementedError(
-        f"family {cfg.family!r} is not ported yet (dense, moe, hybrid, "
-        f"ssm and audio only; the vlm blocks are ROADMAP A7)")
+    raise ValueError(f"unknown family {cfg.family!r}")
 
 
 # ----------------------------------------------------------------------
@@ -120,6 +129,8 @@ def _decl_sub(cfg: ModelConfig, typ: str) -> Dict[str, Any]:
         return L.decl_dense_block(cfg)
     if typ == "moe":
         return decl_moe_block(cfg)
+    if typ == "xattn":
+        return L.decl_xattn_block(cfg)
     if typ == "mamba":
         return SSM.decl_mamba(cfg)
     if typ == "mlstm":
@@ -151,14 +162,16 @@ def _cached_xattn(p_attn, cfg: ModelConfig, x: torch.Tensor,
 
 def _apply_sub(p, cfg: ModelConfig, typ: str, x: torch.Tensor, *,
                cache=None, spec: Optional[str] = None,
-               enc: Optional[torch.Tensor] = None):
+               src: Optional[torch.Tensor] = None):
     """One sub-block, cache-free or cached (as ``L.apply_attention``):
     (x, new cache, moe_aux or None). A moe block is attention, then the
     MoE layer on ln2; a mamba, mlstm or slstm block writes a given state
     in place; a shared block is a dense block on the shared parameters;
     an encdec block attends its tokens, then across to the encoder's
-    output ``enc`` (cache-free) or to the cache's cross K/V, then runs
-    its MLP."""
+    output ``src`` (cache-free) or to the cache's cross K/V, then runs
+    its MLP; an xattn block attends across to the image tokens ``src``
+    (cache-free) or to the cache's cross K/V, each half behind its tanh
+    gate, and leaves the cache as it was."""
     if typ in ("dense", "shared"):
         x, nc = L.apply_dense_block(p, cfg, x, cache=cache, spec=spec)
         return x, nc, None
@@ -170,6 +183,15 @@ def _apply_sub(p, cfg: ModelConfig, typ: str, x: torch.Tensor, *,
         h, aux = M.apply_moe(p["moe"], cfg,
                              L.apply_rmsnorm(p["ln2"], x, cfg.norm_eps))
         return x + h, nc, aux
+    if typ == "xattn":
+        if cache is None:
+            return L.apply_xattn_block(p, cfg, x, src), None, None
+        h = _cached_xattn(p["xattn"], cfg,
+                          L.apply_rmsnorm(p["ln1"], x, cfg.norm_eps), cache)
+        x = L.gated_residual(x, p["gate_attn"], h)
+        h = L.apply_mlp(p["mlp"], cfg,
+                        L.apply_rmsnorm(p["ln2"], x, cfg.norm_eps))
+        return L.gated_residual(x, p["gate_mlp"], h), cache, None
     if typ == "mamba":
         x, nc = SSM.apply_mamba(p, cfg, x, state=cache)
         return x, nc, None
@@ -186,7 +208,7 @@ def _apply_sub(p, cfg: ModelConfig, typ: str, x: torch.Tensor, *,
         x = x + h
         h = L.apply_rmsnorm(p["lnx"], x, cfg.norm_eps)
         if cache is None:
-            h, _ = L.apply_attention(p["xattn"], cfg, h, kv_src=enc,
+            h, _ = L.apply_attention(p["xattn"], cfg, h, kv_src=src,
                                      causal=False, use_rope=False)
         else:
             h = _cached_xattn(p["xattn"], cfg, h, cache)
@@ -226,24 +248,24 @@ class LM:
         self.remat = "none"
 
     def _superblock(self, p_l, shared, x: torch.Tensor, aux: torch.Tensor,
-                    enc: Optional[torch.Tensor] = None
+                    src: Optional[torch.Tensor] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
         for i, typ in enumerate(self.sched.pattern):
             p = shared if typ == "shared" else p_l[f"b{i}_{typ}"]
-            x, _, a = _apply_sub(p, self.cfg, typ, x, enc=enc)
+            x, _, a = _apply_sub(p, self.cfg, typ, x, src=src)
             if a is not None:
                 aux = aux + a
         return x, aux
 
     def _maybe_remat(self, p_l, shared, x: torch.Tensor, aux: torch.Tensor,
-                     enc: Optional[torch.Tensor] = None
+                     src: Optional[torch.Tensor] = None
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """One superblock (with the encoder's output ``enc`` for the
-        audio family's cross-attention), recomputed in the backward under
-        "full" (saves nothing inside) or "dots" (saves the projection
-        matmuls)."""
+        """One superblock (with its cross-attention's source ``src``: the
+        audio family's encoder output, the vlm family's image tokens),
+        recomputed in the backward under "full" (saves nothing inside) or
+        "dots" (saves the projection matmuls)."""
         if self.remat == "none" or not torch.is_grad_enabled():
-            return self._superblock(p_l, shared, x, aux, enc)
+            return self._superblock(p_l, shared, x, aux, src)
         if self.remat == "full":
             ctx = ckpt.noop_context_fn
         elif self.remat == "dots":
@@ -251,7 +273,7 @@ class LM:
                                     _save_dots)
         else:
             raise ValueError(f"remat={self.remat!r}: none, full or dots")
-        return ckpt.checkpoint(self._superblock, p_l, shared, x, aux, enc,
+        return ckpt.checkpoint(self._superblock, p_l, shared, x, aux, src,
                                use_reentrant=False, context_fn=ctx)
 
     # -------------------------- declarations -------------------------
@@ -291,17 +313,22 @@ class LM:
         return P.init_tree(self.decl(), generator=gen, dtype=dtype,
                            device=device)
 
+    def _cross_blocks(self):
+        """Names of the sub-blocks that attend across (encdec, xattn)."""
+        return [f"b{i}_{t}" for i, t in enumerate(self.sched.pattern)
+                if t in ("encdec", "xattn")]
+
     def decode_params(self, params) -> Any:
         """The decode-path view of ``params``: without the encoder and
         each cross-attention's ``wk``/``wv``/``k_norm``, which only
         ``init_cache``'s cross-K/V precompute reads (the reference's
         view). Families without cross-attention get ``params`` back."""
-        if not self.sched.has_encoder:
+        cross = self._cross_blocks()
+        if not cross and not self.sched.has_encoder:
             return params
         out = {k: v for k, v in params.items() if k != "enc"}
         main = dict(out["main"])
-        for name in (f"b{i}_{t}" for i, t in enumerate(self.sched.pattern)
-                     if t == "encdec"):
+        for name in cross:
             blk = dict(main[name])
             blk["xattn"] = {k: v for k, v in blk["xattn"].items()
                             if k not in ("wk", "wv", "k_norm")}
@@ -339,26 +366,34 @@ class LM:
 
     # ----------------------------- forward ---------------------------
     def backbone(self, params, tokens: torch.Tensor, *,
+                 img: Optional[torch.Tensor] = None,
                  frames: Optional[torch.Tensor] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Everything up to (and incl.) the final norm, cache-free:
         (hidden (B,S,d), moe_aux f32 scalar: the MoE layers' aux losses
         summed over the layers, 0 for the dense family). The audio family
-        needs ``frames`` (B,F,d), which its encoder runs over first."""
+        needs ``frames`` (B,F,d), which its encoder runs over first; the
+        vlm family needs ``img`` (B,N_img,d), cast to the activation
+        dtype."""
         cfg, sch = self.cfg, self.sched
         dt = torch_dtype(cfg.dtype)
         x = params["embed"][tokens.long()].to(dt)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        enc = None
+        src = None
         if sch.has_encoder:
             if frames is None:
                 raise ValueError("the audio family needs frame embeddings")
-            enc = self.encode(params, frames)
+            src = self.encode(params, frames)
+        if cfg.family == "vlm":
+            if img is None:
+                raise ValueError("the vlm family needs image patch "
+                                 "embeddings")
+            src = img.to(dt)
         layers = P.tree_map(lambda t: t.unbind(0), params["main"])
         shared = params.get("shared")
         for li in range(sch.n_super):
             x, aux = self._maybe_remat(
-                P.tree_map(lambda ts: ts[li], layers), shared, x, aux, enc)
+                P.tree_map(lambda ts: ts[li], layers), shared, x, aux, src)
         if sch.tail:
             # the tail is not checkpointed, as in the reference
             tail = P.tree_map(lambda t: t.unbind(0), params["tail"])
@@ -369,21 +404,23 @@ class LM:
         return x, aux
 
     def forward(self, params, tokens: torch.Tensor, *,
+                img: Optional[torch.Tensor] = None,
                 frames: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Train/prefill forward: (logits (B,S,V_padded) with the padded
         vocab masked, moe_aux)."""
-        x, aux = self.backbone(params, tokens, frames=frames)
+        x, aux = self.backbone(params, tokens, img=img, frames=frames)
         logits = L.lm_head(x, self.head_weight(params).to(x.dtype))
         return _mask_pad_vocab(logits, self.cfg), aux
 
     def loss(self, params, batch: Dict[str, torch.Tensor], *,
              z_loss: float = 0.0) -> Tuple[torch.Tensor, Dict[str, Any]]:
         """LM loss of a batch {"tokens", "labels"} (B,S) int tensors (and
-        "frames" (B,F,d) for the audio family): (nll + moe_aux, {"nll",
-        "moe_aux"})."""
+        "frames" (B,F,d) for the audio family, "img" (B,N_img,d) for the
+        vlm family): (nll + moe_aux, {"nll", "moe_aux"})."""
         from repro_torch.train.fused_xent import lm_loss
         x, aux = self.backbone(params, batch["tokens"],
+                               img=batch.get("img"),
                                frames=batch.get("frames"))
         w = self.head_weight(params)
         nll = lm_loss(x, w.to(x.dtype), batch["labels"], z_loss=z_loss)
@@ -395,7 +432,10 @@ class LM:
         """One sub-block's cache, stacked over ``n`` layers: K/V rows and
         a write index (attention blocks, one per use of the shared
         block; an encdec block's self-attention), or the Mamba2 conv and
-        SSM states, or the mLSTM or sLSTM states."""
+        SSM states, or the mLSTM or sLSTM states, or nothing for an
+        xattn block (``init_cache`` adds its cross K/V)."""
+        if typ == "xattn":
+            return {}
         init_state = {"mamba": functools.partial(SSM.init_mamba_state,
                                                  dtype=kv_dtype),
                       "mlstm": XL.init_mlstm_state,
@@ -413,6 +453,7 @@ class LM:
             "idx": torch.zeros((n,), dtype=torch.int32, device=dev)}
 
     def init_cache(self, params, batch: int, max_len: int, *,
+                   img: Optional[torch.Tensor] = None,
                    frames: Optional[torch.Tensor] = None,
                    frame_lengths: Optional[torch.Tensor] = None,
                    kv_dtype=torch.bfloat16) -> Any:
@@ -420,14 +461,17 @@ class LM:
         max_len, Hkv, D) K/V rows and a write index, or a recurrent
         block's states (``"tail"`` for the tail's).
 
-        The audio family's blocks also carry the cross-attention K/V
-        (``xk``/``xv``, (n_layers, batch, F, Hkv, D)), computed here
-        from the encoder's output over ``frames`` (zeros of the
-        capacity extent without frames). With ``frame_lengths`` ((B,)
-        true counts of right-padded frames) the encoder masks padded
-        keys and the cache carries ``xvalid`` ((n_layers, batch, F)), so
-        a decode's cross-attention ignores them too."""
-        sch = self.sched
+        The audio and vlm families' cross blocks also carry the
+        cross-attention K/V (``xk``/``xv``, (n_layers, batch, F, Hkv,
+        D)), computed here from the encoder's output over ``frames`` or
+        from the image tokens ``img`` (B,N_img,d), cast to the activation
+        dtype (zeros of the capacity extent without them). With
+        ``frame_lengths`` ((B,) true counts of right-padded frames) the
+        encoder masks padded keys and the cache carries ``xvalid``
+        ((n_layers, batch, F)), so a decode's cross-attention ignores
+        them too. The vlm family has no ``xvalid``: every image token is
+        a key."""
+        cfg, sch = self.cfg, self.sched
         dev = params["embed"].device
         cache = {"main": {
             f"b{i}_{t}": self._init_sub_cache(t, sch.n_super, batch,
@@ -436,34 +480,35 @@ class LM:
         if sch.tail:
             cache["tail"] = self._init_sub_cache(
                 sch.tail[0], len(sch.tail), batch, max_len, kv_dtype, dev)
-        if sch.has_encoder:
-            if frames is None:
-                cfg = self.cfg
-                shape = (sch.n_super, batch, cfg.encoder_frames,
-                         cfg.num_kv_heads, cfg.head_dim)
-                for sub in cache["main"].values():
-                    sub["xk"] = torch.zeros(shape, dtype=kv_dtype, device=dev)
-                    sub["xv"] = torch.zeros(shape, dtype=kv_dtype, device=dev)
-            else:
-                enc = self.encode(params, frames, frame_lengths)
-                self._fill_cross_kv(params, cache, enc, frame_lengths,
-                                    kv_dtype)
+        src = None
+        if sch.has_encoder and frames is not None:
+            src = self.encode(params, frames, frame_lengths)
+        elif cfg.family == "vlm" and img is not None:
+            src = img.to(device=dev, dtype=torch_dtype(cfg.dtype))
+        if src is not None:
+            self._fill_cross_kv(params, cache, src, frame_lengths, kv_dtype)
+        else:
+            extent = (cfg.encoder_frames if sch.has_encoder
+                      else cfg.num_image_tokens)
+            shape = (sch.n_super, batch, extent, cfg.num_kv_heads,
+                     cfg.head_dim)
+            for name in self._cross_blocks():
+                sub = cache["main"][name]
+                sub["xk"] = torch.zeros(shape, dtype=kv_dtype, device=dev)
+                sub["xv"] = torch.zeros(shape, dtype=kv_dtype, device=dev)
         return cache
 
     def _fill_cross_kv(self, params, cache, src: torch.Tensor,
                        src_lengths: Optional[torch.Tensor], kv_dtype
                        ) -> None:
-        """Every encdec layer's cross K/V of ``src`` (B,F,d) into
-        ``cache`` (a loop over the stacked layers in place of the
-        reference's ``vmap``), and ``xvalid`` when ``src_lengths`` is
+        """Every cross block's (encdec or xattn) cross K/V of ``src``
+        (B,F,d) into ``cache`` (a loop over the stacked layers in place of
+        the reference's ``vmap``), and ``xvalid`` when ``src_lengths`` is
         given."""
         cfg, sch = self.cfg, self.sched
         Hkv, D = cfg.num_kv_heads, cfg.head_dim
         B, Skv = src.shape[:2]
-        for i, t in enumerate(sch.pattern):
-            if t != "encdec":
-                continue
-            name = f"b{i}_{t}"
+        for name in self._cross_blocks():
             ap = params["main"][name]["xattn"]
             sub = cache["main"][name]
             xk = torch.empty((sch.n_super, B, Skv, Hkv, D), dtype=kv_dtype,

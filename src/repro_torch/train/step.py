@@ -40,8 +40,8 @@ def _compress_int8_ef(g: torch.Tensor) -> torch.Tensor:
 def make_train_step(model, tc: TrainConfig):
     """Returns train_step(state, batch) -> (new_state, metrics); batch is
     {"tokens", "labels"} (B,S) int tensors on the params' device (and
-    "frames" (B,F,d) for the audio family; microbatches split every
-    entry along the batch)."""
+    "frames" (B,F,d) for the audio family, "img" (B,N_img,d) for the vlm
+    family; microbatches split every entry along the batch)."""
     model.remat = tc.remat
 
     def value_and_grad(params, batch):
@@ -99,5 +99,6 @@ def make_eval_step(model):
     def eval_step(params, batch):
         with torch.no_grad():
             return model.forward(params, batch["tokens"],
+                                 img=batch.get("img"),
                                  frames=batch.get("frames"))
     return eval_step

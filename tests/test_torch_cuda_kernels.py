@@ -293,6 +293,12 @@ FLASH_TOL = {"float32": (1e-4, 2e-4), "bfloat16": (2e-2, 3e-2)}
     # cross-attention over 128 frames
     (1024, 1024, 20, 20, 64, False), (1024, 1024, 20, 20, 64, True),
     (1024, 1500, 20, 20, 64, False), (1, 128, 20, 20, 64, False),
+    # llama-3.2-vision-90b's heads (G 8, D 128: dK and dV gather eight q
+    # heads): training's causal self-attention and 1024 x 1024 image
+    # cross-attention, and a decode step's one query over the 1024 image
+    # tokens
+    (1024, 1024, 64, 8, 128, True), (1024, 1024, 64, 8, 128, False),
+    (1, 1024, 64, 8, 128, False),
 ])
 def test_flash_kernels_match_plain(cuda, dtype, sq, skv, hq, hkv, d, causal):
     g = torch.Generator(device=cuda).manual_seed(sq * 1000 + skv)
@@ -466,7 +472,10 @@ RMS_PAIRS = [("float32", "float32"), ("bfloat16", "float32"),
     # whisper-large-v3's width (decode, serving encoder, training rows),
     # xlstm-1.3b's mLSTM out_norm at its decode rows
     (8, 1280, False), (1024, 1280, False), (4096, 1280, False),
-    (131, 1280, True), (8, 4096, False)])
+    (131, 1280, True), (8, 4096, False),
+    # llama-3.2-vision-90b's width 8192 (the general route): decode and
+    # training rows
+    (8, 8192, False), (4096, 8192, False), (131, 8192, True)])
 def test_rmsnorm_kernels_match_plain(cuda, x_dtype, s_dtype, rows, width,
                                      strided):
     g = torch.Generator(device=cuda).manual_seed(rows * 7 + width)

@@ -71,7 +71,8 @@ def _rand(rng, *shape, scale=1.0):
 
 def test_schedule_and_param_count_match_reference():
     """The hybrid schedule (6 superblocks of 6 Mamba2 blocks + the shared
-    block, a tail of 2) and zamba2-1.2b's parameter count at full width."""
+    block, a tail of 2) and zamba2-1.2b's parameter count at full width;
+    llama-3.2-vision-90b's vlm schedule beside it."""
     full = pt_registry.get_config(ZAMBA)
     sch = pt_lm.make_schedule(full)
     assert sch.pattern == ("mamba",) * 6 + ("shared",)
@@ -79,8 +80,10 @@ def test_schedule_and_param_count_match_reference():
                                                        True)
     assert pt_count(full) == ref_count(ref_registry.get_config(ZAMBA)) \
         == 1_170_473_856
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        pt_lm.make_schedule(pt_registry.get_config("llama-3.2-vision-90b"))
+    # the vlm family is ported too: 20 periods of 4 dense blocks and one
+    # cross-attention block
+    vlm = pt_lm.make_schedule(pt_registry.get_config("llama-3.2-vision-90b"))
+    assert (vlm.pattern, vlm.n_super) == (("dense",) * 4 + ("xattn",), 20)
 
 
 def test_param_tree_loads_one_to_one():
@@ -270,7 +273,8 @@ def test_launch_serve_matches_reference(monkeypatch):
     token loop) gives the reference driver's greedy tokens on the same
     weights and prompts, with a tier-1 profile; ``--kv paged`` and
     ``--spec on`` raise as in the reference, and the paged cache is
-    refused."""
+    refused; llama-3.2-vision-90b's smoke config serves on the same
+    driver."""
     from repro.launch import serve as ref_serve
     from repro_torch.launch import serve as pt_serve
 
@@ -296,5 +300,7 @@ def test_launch_serve_matches_reference(monkeypatch):
     with pytest.raises(ValueError, match="'mamba' blocks"):
         pt_model.init_paged_cache(pt_params, 2, 16)
     monkeypatch.undo()
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        pt_serve.run("llama-3.2-vision-90b", smoke=True, device="cpu")
+    # the vlm family is served by the token loop too
+    vlm_out, _, _ = pt_serve.run("llama-3.2-vision-90b", smoke=True, batch=2,
+                                 prompt_len=8, gen=4, device="cpu")
+    assert vlm_out.shape == (2, 4) and vlm_out.dtype == np.int32

@@ -231,6 +231,22 @@ and trained at full layer width.
    moving them, the token loop's tokens and tier 1, three steps of
    ``launch.train.run`` (12d).
 
+Phase 13 runs the static and traced-step tiers (tiers 0 and 2, which
+trace a step on fake tensors: no allocation, no launch). (13a) The main
+path's ``--profile`` run of phase 3 merges tier 2 of the traced decode
+tick: its kernel nodes are one tick's launches (28 B1, 113 B5), no tier
+is reported as not ported. (13b) ``launch.train --waste-report`` at full
+width under remat none and dots, one step each: the traced step's kernel
+nodes equal that step's launches (28 + 28 B4 and 113 + 113 B5 under
+none). (13c) ``launch.lint --all-configs --full-size --baseline
+lint_baseline_torch.json`` on fake CUDA tensors, every config at its
+published widths cut to one period of its schedule (65 k nodes; full
+depth would trace ~1 M, ~5 min of host time): exit 0,
+``max_memory_allocated`` unchanged. (13d)
+``launch.matrix --toy`` over granite-moe-3b-a800m, zamba2-1.2b and
+whisper-large-v3 on the card with the dead-expert gate at 0.0: exit 0.
+It also times B5's decode host path through ``kernels/ops.py``.
+
 Each phase prints its seconds (``[phase]`` lines). The line before the
 last lists the card; the last line is the JSON
 result. Any failure exits non-zero; without CUDA, or without the rest of
@@ -263,6 +279,20 @@ def smi_line() -> str:
 # ----------------------------------------------------------------------
 # timing
 # ----------------------------------------------------------------------
+# A torch.profiler trace can lose device records: the first few of its
+# window, or now and then all of them (on the H100, about 1 trace in 100
+# after the first phases, and up to three traces in a row). A trace that
+# missed records is retaken, at most TRACE_TRIES times in all, each retake
+# after a pause that doubles (retake_pause), so that a burst can pass.
+TRACE_TRIES = 8
+
+
+def retake_pause(attempt: int) -> None:
+    """Sleep before retake ``attempt`` (1, 2, ...): 0.25 s, doubling, at
+    most 4 s (15.75 s before the last of TRACE_TRIES)."""
+    time.sleep(min(0.25 * 2 ** (attempt - 1), 4.0))
+
+
 class Timer:
     """Mean time of one call in ms from CUDA events around each call,
     with the 50 MB L2 flushed before every call (each layer's pool is
@@ -308,8 +338,10 @@ class Timer:
         # A trace can miss the first kernel of its window: the flush's
         # names come from a trace of three flushes, and each timed trace
         # opens with an untimed flush. A trace in which fewer flushes than
-        # calls were seen is retaken.
-        for _ in range(5):
+        # calls were seen is retaken (TRACE_TRIES).
+        for attempt in range(TRACE_TRIES):
+            if attempt:
+                retake_pause(attempt)
             if not self.flush_names:
                 with profile(activities=acts) as prof:
                     for _ in range(3):
@@ -581,17 +613,20 @@ def time_paged(torch, np, timer, name, S, pos, pt_np, pages, seed,
 
 
 def launch_grids(torch, fn, kinds=("paged_decode", "paged_window"),
-                 want=1, tries=3):
+                 want=1, tries=TRACE_TRIES):
     """The kernels of ``kinds`` one call of fn launches, with their grids,
     from the profiler's trace: [(kernel, (x, y, z))]. The call stands
     between LEAD_IN untimed spin kernels on each side, since a trace can
     lose device records of its window (on one H100 run, the one kernel of
-    a call behind the lead-in): a trace with other than ``want`` kernels of
-    ``kinds`` is printed and retaken, at most ``tries`` times in all; the
-    caller checks what the last one saw."""
+    a call behind the lead-in; on others, every record of three traces in
+    a row): a trace with other than ``want`` kernels of ``kinds`` is
+    printed and retaken after ``retake_pause``, at most ``tries`` times in
+    all; the caller checks what the last one saw."""
     import tempfile
     from torch.profiler import ProfilerActivity, profile
     for attempt in range(tries):
+        if attempt:
+            retake_pause(attempt)
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(LEAD_IN):    # a trace can miss its first kernels
@@ -2042,9 +2077,10 @@ def main_path(torch, np):
     fp.paged_window_attention.launches = 0
     rn.rmsnorm_forward.launches = 0
     t0 = time.perf_counter()
-    out, merged, stats = run("qwen3-1.7b", smoke=False, kv="paged",
-                             profile=True, batch=8, prompt_len=128, gen=32,
-                             device="cuda")
+    with captured_stdout() as printed:
+        out, merged, stats = run("qwen3-1.7b", smoke=False, kv="paged",
+                                 profile=True, batch=8, prompt_len=128,
+                                 gen=32, device="cuda")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {"paged_decode": pa.paged_decode_attention.launches,
@@ -2063,6 +2099,24 @@ def main_path(torch, np):
     assert out.shape == (8, 32) and ((out >= 0) & (out < cfg.vocab_size)).all()
     assert merged.tiers == [1, 2, 3, 4], merged.tiers
     assert merged.checked.get("kernel_dead_store", 0) > 0
+    # 13a: tier 2 of the traced decode tick, merged into the profile
+    kernel_nodes = stats["tier2_kernel_nodes"]
+    tier2 = [f for f in merged.findings if f.tier == 2]
+    print(f"[13a] main path tier 2 (traced decode tick, full width): "
+          f"{stats['tier2_nodes']} nodes, kernel nodes {kernel_nodes}; "
+          f"traced in {stats['tier2_trace_s']:.2f} s, "
+          f"{stats['tier2_s']:.2f} s with the analysis; tier-2 counters "
+          f"checked recompute {merged.checked.get('recompute', 0)}, "
+          f"dot_padding {merged.checked.get('dot_padding', 0)}, "
+          f"reshard_copy {merged.checked.get('reshard_copy', 0)}; "
+          f"{len(tier2)} tier-2 findings "
+          f"{sorted((f.kind, f.count) for f in tier2)}", flush=True)
+    text = printed.getvalue()
+    assert "not ported" not in text.lower() and "NOT_PORTED" not in text
+    assert "[serve] tier 2 (decode tick)" in text
+    assert kernel_nodes == {"ops.paged_decode": layers,
+                            "ops.rmsnorm": norms}, kernel_nodes
+    assert merged.checked.get("recompute", 0) > 0, merged.checked
 
     # duplicated-prefix traffic through one engine with kernel counters
     model = build_model(cfg)
@@ -2181,7 +2235,8 @@ def report_trace(torch, prof, label, wall_ms):
 KERNELS_PER_LAUNCH = {"flash_attention_bwd": 3}
 
 
-def traced_step(torch, label, prepare, counters, want=None, tries=3):
+def traced_step(torch, label, prepare, counters, want=None,
+                tries=TRACE_TRIES):
     """torch.profiler over one step: ``prepare()`` (untraced) returns the
     step, a callable. The trace opens with LEAD_IN untimed spin kernels
     (a trace can lose the first device records of its window: 14-16 of
@@ -2189,10 +2244,13 @@ def traced_step(torch, label, prepare, counters, want=None, tries=3):
     of each counted kind in the trace must equal the launches the
     counters (``{kind: wrapper}``, set to 0 before the step) saw, times
     ``KERNELS_PER_LAUNCH``; with ``want``, the launches must equal it. A
-    trace that misses kernels the counters saw is printed and retaken, at
-    most ``tries`` times in all. Returns the launches."""
+    trace that misses kernels the counters saw is printed and retaken
+    after ``retake_pause``, at most ``tries`` times in all. Returns the
+    launches."""
     from torch.profiler import ProfilerActivity, profile
     for attempt in range(tries):
+        if attempt:
+            retake_pause(attempt)
         step = prepare()
         for c in counters.values():
             c.launches = 0
@@ -3064,8 +3122,9 @@ def token_loop_serve(torch, np, arch, profile_again=True):
         assert out.shape == (8, 32) and ((out >= 0)
                                          & (out < cfg.vocab_size)).all()
         if profile:
-            assert merged.tiers == ([1, 2] if sch.has_encoder else [1]), \
-                merged.tiers
+            # tier 2: the traced decode step (and the encoder's padding)
+            assert merged.tiers == [1, 2], merged.tiers
+            assert stats["tier2_nodes"] > 0, stats
             assert merged.total_load_events > 0 \
                 and merged.total_store_events > 0
         outs.append(out)
@@ -4075,6 +4134,165 @@ def vlm_smoke_check(torch, np):
     assert cg["silent_data_load"] == 3 * 3, cg
 
 
+@contextlib.contextmanager
+def captured_stdout():
+    """What is printed inside, kept in a buffer while it still prints."""
+    import io
+    buf, real = io.StringIO(), sys.stdout
+
+    class Tee:
+        def write(self, text):
+            buf.write(text)
+            return real.write(text)
+
+        def flush(self):
+            real.flush()
+    sys.stdout = Tee()
+    try:
+        yield buf
+    finally:
+        sys.stdout = real
+
+
+def waste_report_path(torch, np):
+    """13b: ``launch.train.run(..., waste_report=True)`` for qwen3-1.7b
+    at full width, one step under remat none and one under dots. The
+    traced step's kernel nodes equal the launches of the step that then
+    runs (the trace launches nothing). Returns the launches."""
+    from repro_torch.configs import registry
+    from repro_torch.launch.train import run
+
+    cfg = registry.get_config(QWEN3)
+    attn, norms, _, _ = launches_per_forward(cfg)
+    counters = train_counters()
+    total = {k: 0 for k in counters}
+    for remat in ("none", "dots"):
+        for c in counters.values():
+            c.launches = 0
+        t0 = time.perf_counter()
+        losses, merged = run(QWEN3, smoke=False, steps=1, batch=TB,
+                             seq=TSEQ, waste_report=True, remat=remat,
+                             device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: c.launches for k, c in counters.items()}
+        for k, v in launches.items():
+            total[k] += v
+        nodes = merged.meta["kernel_nodes"]
+        top = merged.top(1)
+        first = (f"{top[0].kind} x{top[0].count} {top[0].flops:.4g} flops "
+                 f"| {top[0].c1[0][:70]}" if top else "none")
+        print(f"[13b] launch.train --waste-report, qwen3-1.7b full width, "
+              f"{TB} x {TSEQ} tokens, remat {remat}: {wall:.1f} s with "
+              f"set-up and one step; traced step {merged.meta['nodes']} "
+              f"nodes in {merged.meta['trace_s']:.2f} s, kernel nodes "
+              f"{nodes}; the step's launches {launches}; recompute flops "
+              f"{merged.totals.get('recompute_flops', 0.0):.6g}; "
+              f"{len(merged.findings)} tier-2 findings, first: {first}",
+              flush=True)
+        assert merged.tiers == [2], merged.tiers
+        assert nodes == {
+            "ops.attention": launches["flash_attention_fwd"],
+            "ops.attention.bwd": launches["flash_attention_bwd"],
+            "ops.rmsnorm": launches["rmsnorm_fwd"],
+            "ops.rmsnorm.bwd": launches["rmsnorm_bwd"]}, (nodes, launches)
+        if remat == "none":
+            assert nodes == {"ops.attention": attn, "ops.attention.bwd": attn,
+                             "ops.rmsnorm": norms,
+                             "ops.rmsnorm.bwd": norms}, nodes
+        del merged
+        torch.cuda.empty_cache()
+    return total
+
+
+@contextlib.contextmanager
+def one_period_zoo():
+    """Every registry config at its published widths, cut to one period
+    of its schedule (an encoder cut to one block), where every driver
+    reads it; restored on exit."""
+    import dataclasses
+    from repro_torch.configs import registry
+    get_config = registry.get_config
+
+    def cut(name):
+        cfg = get_config(name)
+        fields = {"num_layers": cfg.smoke().num_layers // 2 or 1}
+        if cfg.encoder_layers:
+            fields["encoder_layers"] = 1
+        return dataclasses.replace(cfg, **fields)
+    registry.get_config = cut
+    try:
+        yield
+    finally:
+        registry.get_config = get_config
+
+
+def lint_zoo(torch):
+    """13c: the zoo lint on fake CUDA tensors against the committed
+    baseline; nothing is allocated on the card."""
+    from repro_torch.core.graph_trace import abstract_mode
+    from repro_torch.launch import lint
+
+    # torch's first fake CUDA tensor in a process initializes the device
+    # context with a one-element tensor of its own: let that happen first
+    with abstract_mode():
+        torch.empty(1, device="cuda")
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with one_period_zoo():
+        code = lint.main(["--all-configs", "--full-size", "--device", "cuda",
+                          "--baseline", "lint_baseline_torch.json"])
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[13c] launch.lint --all-configs --full-size (one period each) on "
+          f"fake CUDA tensors: exit {code} in {time.perf_counter() - t0:.1f} "
+          f"s; device memory allocated {before} B before, peak {peak} B "
+          f"during", flush=True)
+    assert code == 0, code
+    assert peak == before, (peak, before)
+
+
+def matrix_on_card(torch):
+    """13d: the waste matrix's CI gate at toy size on the card. Returns
+    the launches of its train and serve cells."""
+    import tempfile
+    from repro_torch.launch import matrix
+
+    counters = {**train_counters(), **serving_counters()}
+    for c in counters.values():
+        c.launches = 0
+    out = os.path.join(tempfile.mkdtemp(), "matrix_report.json")
+    t0 = time.perf_counter()
+    code = matrix.main(["--toy", "--configs",
+                        "granite-moe-3b-a800m,zamba2-1.2b,whisper-large-v3",
+                        "--max-moe-dead-expert-fraction", "0.0", "--out",
+                        out, "--top-k", "5", "--device", "cuda"])
+    launches = {k: c.launches for k, c in counters.items()}
+    with open(out) as fh:
+        report = json.load(fh)
+    print(f"[13d] launch.matrix --toy on the card: exit {code} in "
+          f"{time.perf_counter() - t0:.1f} s; {len(report['cells'])} cells, "
+          f"launches {launches}; first rows "
+          f"{[(r['arch'], r['shape'], r['kind'], r['site'], r['fraction']) for r in report['ranking'][:3]]}",
+          flush=True)
+    assert code == 0, code
+    assert sum(launches.values()) > 0, launches
+    return launches
+
+
+def b5_decode_host_path(torch):
+    """B5's host path at the decode shape (8 x 2048 bf16) through the
+    kernel entry point, whose trace hook adds one isinstance check."""
+    from repro_torch.kernels import ops
+    x = torch.randn(8, 1, 2048, device="cuda", dtype=torch.bfloat16)
+    s = torch.randn(2048, device="cuda", dtype=torch.bfloat16)
+    us = host_us(torch, lambda: ops.rmsnorm(x, s))
+    print(f"[13] B5 decode (8 x 2048 bf16) through ops.rmsnorm: {us:.1f} "
+          f"host us a call (median of 3 x {HOST_CALLS} calls)", flush=True)
+
+
 def kernel_label(mangled: str) -> str:
     """A kernel's readable name and template arguments (element types,
     then numbers) from its mangled name: ``window_split_kernel<bf16,f32,4>``
@@ -4256,6 +4474,12 @@ def main() -> int:
     by_path.update(phase("12b vlm serve", vlm_serve, torch, np))
     by_path.update(phase("12c vlm train", vlm_train, torch, np))
     phase("12d vlm smoke", vlm_smoke_check, torch, np)
+    torch.cuda.empty_cache()
+    phase("13 B5 host path", b5_decode_host_path, torch)
+    by_path["waste report"] = phase("13b waste report", waste_report_path,
+                                    torch, np)
+    phase("13c zoo lint", lint_zoo, torch)
+    by_path["matrix"] = phase("13d matrix", matrix_on_card, torch)
     # last: its traced step holds ~0.3 M kernels (~0.9 M at 48 layers),
     # after which this process's profiler traces were seen to come back
     # empty. xlstm's steps are host-bound (~22 s at its 48 layers: the

@@ -172,6 +172,7 @@ SHAPES: Tuple[ShapeConfig, ...] = (
     ShapeConfig("decode_32k", 32768, 128, "decode"),
     ShapeConfig("long_500k", 524288, 1, "decode"),
 )
+SHAPES_BY_NAME = {s.name: s for s in SHAPES}
 
 
 @dataclass(frozen=True)

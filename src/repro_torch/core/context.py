@@ -15,18 +15,26 @@ from __future__ import annotations
 import os
 import sys
 from dataclasses import dataclass
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
-# frames of torch itself and of the tier-1 recorder are not user frames;
-# the recorder's ``record`` is where the profiled function was entered
+# frames of torch itself, of this file, of the tier-1 recorder, of the
+# abstract tracer and of the kernels' trace-time twins are not user
+# frames; the recorder's ``record`` and the tracer's ``_traced`` are
+# where the profiled function was entered
 _TORCH = os.path.dirname(torch.__file__) + os.sep
-_RECORDER = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                         "interpreter.py")
-_ENTRY = "record"
+_HERE = os.path.dirname(os.path.abspath(__file__))
+_INTERNAL = frozenset({
+    os.path.join(_HERE, "context.py"),
+    os.path.join(_HERE, "interpreter.py"),
+    os.path.join(_HERE, "graph_trace.py"),
+    os.path.join(os.path.dirname(_HERE), "kernels", "traced.py")})
+_ENTRIES = frozenset({(os.path.join(_HERE, "interpreter.py"), "record"),
+                      (os.path.join(_HERE, "graph_trace.py"), "_traced")})
+_ENTRY = "<entry>"
 # (code object, line) -> "file:line:function", None for an internal
-# frame, or _ENTRY for the recorder's entry frame
+# frame, or _ENTRY for an entry frame
 _LABELS: Dict[Tuple[object, int], Optional[str]] = {}
 
 
@@ -38,9 +46,9 @@ def _label(frame) -> Optional[str]:
     except KeyError:
         pass
     path = code.co_filename
-    if path == _RECORDER:
-        label = _ENTRY if code.co_name == _ENTRY else None
-    elif path.startswith(_TORCH):
+    if (path, code.co_name) in _ENTRIES:
+        label = _ENTRY
+    elif path in _INTERNAL or path.startswith(_TORCH):
         label = None
     else:
         label = f"{os.path.basename(path)}:{frame.f_lineno}:{code.co_name}"
@@ -48,12 +56,11 @@ def _label(frame) -> Optional[str]:
     return label
 
 
-def context_of_op(op: str, max_frames: int = 12) -> Tuple[str, ...]:
-    """Calling context of an operation dispatched now: the innermost
-    `max_frames` user frames (``file:line:function``, outermost first)
-    inside the recorded function, then `op`. Frames are walked with
-    ``sys._getframe`` (no source file is read) and their labels cached by
-    (code object, line)."""
+def user_frames(max_frames: int = 12) -> List[Tuple[str, str, int]]:
+    """The innermost `max_frames` user frames on the stack now, innermost
+    first, inside the profiled function: ``(label, path, line)``. Frames
+    are walked with ``sys._getframe`` (no source file is read) and their
+    labels cached by (code object, line)."""
     frames = []
     f = sys._getframe(1)
     while f is not None and len(frames) < max_frames:
@@ -61,11 +68,32 @@ def context_of_op(op: str, max_frames: int = 12) -> Tuple[str, ...]:
         if label is _ENTRY:
             break
         if label is not None:
-            frames.append(label)
+            frames.append((label, f.f_code.co_filename, f.f_lineno))
         f = f.f_back
-    frames.reverse()                      # outermost -> innermost
-    frames.append(op)
-    return tuple(frames)
+    return frames
+
+
+def context_of_op(op: str, max_frames: int = 12) -> Tuple[str, ...]:
+    """Calling context of an operation dispatched now: the innermost
+    `max_frames` user frames (``file:line:function``, outermost first)
+    inside the recorded function, then `op`."""
+    return context_of_frames(user_frames(max_frames), op)
+
+
+def context_of_frames(frames, op: str) -> Tuple[str, ...]:
+    """A context from ``user_frames``' list and the operation's name."""
+    return tuple([label for label, _, _ in reversed(frames)] + [op])
+
+
+def context_of_node(node) -> Tuple[str, ...]:
+    """Calling context of a node of an abstract trace
+    (``core/graph_trace.py``), the counterpart of the reference's
+    ``context_of_eqn``: the user frames the tracer stamped on it, then
+    its operation (``ops.<name>`` for a kernel node)."""
+    ctx = node.meta.get("context")
+    if ctx is not None:
+        return ctx
+    return (getattr(node.target, "__name__", str(node.target)),)
 
 
 def fmt_context(ctx: Tuple[str, ...]) -> str:

@@ -30,6 +30,13 @@ SCHEMA_VERSION = 1
 # kinds whose fraction estimator is meaningful per-access (Defs. 1-3)
 TIER1_KINDS = ("dead_store", "silent_store", "silent_load")
 
+# the static tier (DESIGN.md § Static tier): findings proven on an
+# abstract trace of a step BEFORE it runs by core/graph_lint.py
+# (dead_store, silent_store, redundant_load, dead_param). Checked/flagged
+# counters count candidate nodes, so Eq. (1) here estimates the fraction
+# of store/load SITES that are wasteful rather than dynamic accesses.
+TIER_STATIC = 0
+
 # the object tier (DESIGN.md § Object tier): DJXPerf-style aggregation
 # by allocation (core/objects.py registry) and OJXPerf-style replica
 # findings (core/replicas.py) — replica_kv_page / replica_param /

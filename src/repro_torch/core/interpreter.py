@@ -22,7 +22,9 @@ Triton, which the dispatcher never sees; under a recording each records
 itself as ONE operation (``recorded``): a LOAD per tensor input, a STORE
 per output and per pool written in place, the recording paused inside —
 as the reference treats a ``pallas_call`` as one equation. Contexts are
-the user frames at dispatch (``context.context_of_op``).
+the user frames at dispatch (``context.context_of_op``). Under an
+abstract trace (tiers 0 and 2, ``core/graph_trace.py``) the same
+decorator makes each entry point one graph node instead.
 
 Buffers are storages. After the run, a second pass places each storage
 in a modeled flat address space (the reference's size-class-recycling
@@ -54,6 +56,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 import torch.utils._pytree as pytree
+from torch._subclasses.fake_tensor import FakeTensor
 from torch.utils._python_dispatch import (TorchDispatchMode,
                                           _disable_current_modes,
                                           _get_current_dispatch_mode)
@@ -297,16 +300,22 @@ def active_recorder() -> Optional[Recorder]:
     return mode if isinstance(mode, Recorder) else None
 
 
-def recorded(name: str, writes: Optional[Callable[[Dict], Tuple]] = None):
+def recorded(name: str, writes: Optional[Callable[[Dict], Tuple]] = None,
+             traced: Optional[Callable] = None):
     """Decorate a kernel entry point so that under a recording it records
     as one operation ``ops.<name>``; `writes` maps its bound arguments to
-    the tensors it writes in place. Outside a recording the entry point
-    runs as it is."""
+    the tensors it writes in place. Under an abstract trace (its first
+    argument a fake tensor, ``core/graph_trace.py``) it calls `traced`,
+    its one-node twin (``kernels/traced.py``), with the same arguments.
+    Otherwise the entry point runs as it is."""
     def deco(fn):
         sig = inspect.signature(fn)
 
         @functools.wraps(fn)
         def entry(*args, **kwargs):
+            if traced is not None and args and isinstance(args[0],
+                                                          FakeTensor):
+                return traced(*args, **kwargs)
             rec = active_recorder()
             if rec is None:
                 return fn(*args, **kwargs)

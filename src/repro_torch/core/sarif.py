@@ -1,22 +1,23 @@
 """SARIF v2.1.0 export for any :class:`WasteProfile` (DESIGN.md § Static
 tier, "SARIF contract").
 
-Findings of the serving and training tiers — detectors (3), kernel
-counters (4), object replicas (5), the prefill padding accounting —
-render as code-scanning annotations: each waste kind becomes a SARIF
-*rule* carrying its paper definition as help text, each finding becomes
-a *result*. A finding whose ``meta`` names a source ``file`` (and
-``line``), as an object finding names its allocation site, gets that
-``physicalLocation``; the others a logical location built from their
-⟨C1,C2⟩ contexts. (The reference's tier-0 lint findings carry a source
-``file:line`` too; that tier is bound to JAX and not ported.)
+Findings from every tier — the static graph lint (0), the concrete-run
+recorder (1), the traced-step analysis (2), detectors (3), kernel
+counters (4), object replicas (5) — render as code-scanning annotations:
+each waste kind becomes a SARIF *rule* carrying its paper definition as
+help text, each finding becomes a *result*. A finding whose ``meta``
+names a source ``file`` (and ``line``) gets that ``physicalLocation``:
+a tier-0 finding the Python ``file:line`` of the offending node, an
+object finding its allocation site. The others get a logical location
+built from their ⟨C1,C2⟩ contexts.
 
 Contract details tooling relies on:
 
 * ``partialFingerprints["wasteKey/v1"]`` is a sha256 over the §5.6
   coalescing key ``kind|tier|C1|C2`` — byte counts and fractions are
   deliberately excluded, so the fingerprint is stable run-to-run and a
-  committed baseline can suppress pre-existing findings.
+  committed baseline (``lint_baseline_torch.json``) can suppress
+  pre-existing findings.
 * file URIs under ``src_root`` are emitted relative with
   ``uriBaseId: SRCROOT``; anything else stays absolute.
 * ``rank`` orders results by wasted bytes (log scale; flops, then
@@ -45,18 +46,41 @@ _RULES: Dict[str, Dict[str, str]] = {
     "dead_store": {
         "short": "Dead store: a write that is overwritten before any read",
         "help": "Paper Def. 1: two successive stores S1, S2 to memory "
-                "location M with no intervening load make S1 dead.",
+                "location M with no intervening load make S1 dead. "
+                "Statically (tier 0): an in-place store (copy_ into a "
+                "view, index_put_, index_copy_, scatter_) whose region is "
+                "fully overwritten before a read, or whose buffer is never "
+                "read again.",
     },
     "silent_store": {
         "short": "Silent store: rewriting the value already resident",
         "help": "Paper Def. 2: a store S2 writing value V2 to location M "
-                "holding V1 is silent iff V1 == V2.",
+                "holding V1 is silent iff V1 == V2. Statically (tier 0): "
+                "storing a region loaded from the same buffer at the same "
+                "indices, or an identity chain (x+0, x*1) whose result "
+                "provably equals its operand.",
     },
     "silent_load": {
         "short": "Silent load: re-reading an unchanged value",
         "help": "Paper Def. 3: two successive loads L1, L2 from location "
                 "M are silent iff they observe the same value with no "
                 "intervening store changing it.",
+    },
+    "redundant_load": {
+        "short": "Redundant load: same buffer read at identical indices "
+                 "more than once",
+        "help": "Paper Def. 3 at the operation level: the same unmutated "
+                "buffer gathered or sliced into a new buffer with "
+                "identical index chains more than once, or a "
+                "loop-invariant load re-executed on every loop trip.",
+    },
+    "dead_param": {
+        "short": "Dead parameter: a buffer marshalled in but never read",
+        "help": "Paper Def. 1 at allocation granularity: a traced step's "
+                "input that reaches no output and no store into an "
+                "argument — e.g. dead expert weights in MoE dispatch, "
+                "unused cache leaves. The buffer is allocated, "
+                "transferred and held live for nothing.",
     },
     "silent_param_store": {
         "short": "Silent parameter update: optimizer wrote back unchanged "
@@ -74,6 +98,32 @@ _RULES: Dict[str, Dict[str, str]] = {
         "short": "Silent data load: an input batch re-read unchanged",
         "help": "Paper Def. 3 applied to input pipelines: the same batch "
                 "content loaded repeatedly (duplicate epochs/shards).",
+    },
+    "redundant_collective": {
+        "short": "Redundant collective: identical collective issued twice",
+        "help": "Tier-2 traced-step analysis: two collectives of the same "
+                "kind over the same operand shape and producer move the "
+                "same bytes twice.",
+    },
+    "recompute": {
+        "short": "Recompute: identical expensive op executed twice",
+        "help": "Tier-2 traced-step analysis: a matrix product, "
+                "convolution or large reduction computed twice over the "
+                "same operand values — the same flops spent twice "
+                "(a missed reuse, or intentional remat; rank tells you if "
+                "it matters).",
+    },
+    "reshard_copy": {
+        "short": "Reshard copy: large layout change materialized",
+        "help": "Tier-2 traced-step analysis: a copy of a permuted view or "
+                "a copy_ over the reshard threshold that only rearranges "
+                "bytes.",
+    },
+    "dot_padding": {
+        "short": "Padded product: flops spent on padding",
+        "help": "Tier-2 traced-step analysis: a matrix product whose "
+                "operand was padded (constant_pad_nd); the padded rows' "
+                "flops compute values that are discarded.",
     },
     "prefill_padding": {
         "short": "Prefill padding burn: tokens computed then masked away",
@@ -147,7 +197,8 @@ _RULES: Dict[str, Dict[str, str]] = {
     },
 }
 
-_TIER_NAMES = {0: "static jaxpr lint", 1: "interpreter", 2: "HLO",
+_TIER_NAMES = {0: "static graph lint", 1: "interpreter",
+               2: "traced step",
                3: "detectors", 4: "kernel counters",
                5: "object replicas"}
 
@@ -223,8 +274,8 @@ def _location(f: Finding, src_root: Optional[str]) -> Dict[str, Any]:
         if line > 0:
             loc["region"] = {"startLine": line}
         return {"physicalLocation": loc}
-    # no source file (a tier-3 finding names a leaf path): a logical
-    # location keeps the result addressable
+    # no source file (e.g. dead_param names a buffer, tier-3 names a
+    # leaf path): a logical location keeps the result addressable
     name = f.meta.get("path") or fmt_context(f.c1[-2:]) or f.kind
     return {"logicalLocations": [
         {"name": str(name), "kind": "member",

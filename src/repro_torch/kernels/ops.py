@@ -11,7 +11,9 @@ are plain PyTorch on every device, as the reference left them to XLA.
 Under a tier-1 recording (``core/interpreter.py``) each entry point
 records itself as one operation ``ops.<name>`` on every device: a LOAD
 per tensor input, a STORE per output and per pool written in place.
-Outside a recording it runs as it is.
+Under an abstract trace on fake tensors (tiers 0 and 2,
+``core/graph_trace.py``) each calls its twin in ``kernels/traced.py``:
+one graph node, shapes only. Outside both it runs as it is.
 """
 from __future__ import annotations
 
@@ -22,6 +24,7 @@ import torch
 
 from repro_torch.core.interpreter import recorded
 from repro_torch.kernels import ref as _ref
+from repro_torch.kernels import traced as _traced
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.flash_prefill import paged_window_attention
 from repro_torch.kernels.paged_attention import paged_decode_attention
@@ -37,7 +40,7 @@ paged_gather = _ref.paged_gather
 paged_store_counts = _ref.paged_store_counts
 
 
-@recorded("attention")
+@recorded("attention", traced=_traced.attention)
 def attention(q, k, v, *, causal: bool = True, q_offset=0,
               kv_len: Optional[torch.Tensor] = None,
               kv_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -45,14 +48,13 @@ def attention(q, k, v, *, causal: bool = True, q_offset=0,
     ``kv_len``/``kv_valid``, offset 0: the training forward) is the flash
     kernel's whatever Sq is; masked attention over a cache is the plain
     composition on every device, as in the reference."""
-    if (kv_len is None and kv_valid is None and isinstance(q_offset, int)
-            and q_offset == 0):
+    if _traced.cache_free(q_offset, kv_len, kv_valid):
         return flash_attention(q, k, v, causal=causal)
     return _ref.attention_ref(q, k, v, causal=causal, q_offset=q_offset,
                               kv_len=kv_len, kv_valid=kv_valid)
 
 
-@recorded("rmsnorm")
+@recorded("rmsnorm", traced=_traced.rmsnorm)
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
             eps: float = 1e-5) -> torch.Tensor:
     """Row RMSNorm of x (..., d) with scale (d,), differentiable. CPU
@@ -66,7 +68,8 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
     return rmsnorm_forward(x, scale, eps)[0]
 
 
-@recorded("paged_decode", writes=lambda a: (a["pool_k"], a["pool_v"]))
+@recorded("paged_decode", writes=lambda a: (a["pool_k"], a["pool_v"]),
+          traced=_traced.paged_decode)
 def paged_decode(q, k_new, v_new, pool_k, pool_v, pt, idx, *,
                  counters: bool = False):
     """One-token paged decode: attend the slot history + the new K/V row
@@ -81,7 +84,8 @@ def paged_decode(q, k_new, v_new, pool_k, pool_v, pt, idx, *,
 
 
 @recorded("paged_window", writes=lambda a: (
-    (a["pool_k"], a["pool_v"]) if a["store"] else ()))
+    (a["pool_k"], a["pool_v"]) if a["store"] else ()),
+    traced=_traced.paged_window)
 def paged_window(q, k_win, v_win, pool_k, pool_v, pt, idx, *,
                  store: bool = True, counters: bool = False):
     """S-token paged window forward (prefill chunk / verify window): the
@@ -94,7 +98,7 @@ def paged_window(q, k_win, v_win, pool_k, pool_v, pt, idx, *,
     return out, ck, cv, (cnt if counters else None)
 
 
-@recorded("silent_count")
+@recorded("silent_count", traced=_traced.silent_count)
 def silent_count(a, b, tol: float = 0.01) -> torch.Tensor:
     """Count of silent (unchanged within tol) elements between a and b, a
     0-d int32 tensor: the silent-compare kernel on CUDA tensors, its

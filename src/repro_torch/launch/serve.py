@@ -25,11 +25,13 @@ without ``--device cpu`` it raises.
 (serve/kv_cache.py): refcounted pages + copy-on-write prefix reuse,
 eliminating the waste the detectors flag in dense mode. ``--profile``
 merges the tier-3 serving detectors, the tier-4 in-kernel store
-counters (paged layout), the prefill padding accounting and tier 1 (the
+counters (paged layout), the prefill padding accounting, tier 2 (the
+waste analysis of an abstract trace of one decode tick, or of the token
+loop's decode step: ``core/graph_waste.py``) and tier 1 (the
 concrete-run recorder, trace→replay, period 5000, 2 epochs) on one
 single-token decode microstep over a dense f32 cache into one
-``WasteProfile``, as the reference does. The reference's tier 2 (HLO
-analysis) is bound to JAX and is not ported.
+``WasteProfile``, as the reference does. A ``[serve] tier 2`` line gives
+the trace's nodes, its kernel nodes and seconds.
 
 ``--spec on`` adds speculative decoding (serve/spec.py): a host-side
 drafter proposes up to ``--spec-k`` tokens per tick and ONE width-(k+1)
@@ -61,18 +63,20 @@ from repro_torch.configs import registry
 from repro_torch.configs.base import ProfilerConfig
 from repro_torch.core.detectors import ServingDetectors
 from repro_torch.core.findings import Finding, WasteProfile, merge_profiles
+from repro_torch.core.graph_trace import abstract_mode, trace_step
+from repro_torch.core.graph_waste import analyze_waste
 from repro_torch.core.interpreter import JxInterpreter
 from repro_torch.core.objects import ObjectRegistry, register_tree
 from repro_torch.core.replicas import ReplicaDetector
 from repro_torch.core.report import dump_json
 from repro_torch.core.sarif import write_sarif
 from repro_torch.data.synthetic import batch_at, frame_lengths
+from repro_torch.models.params import tree_map
 from repro_torch.models.zoo import build_model
 from repro_torch.serve.decode import make_serve_step
 from repro_torch.serve.engine import ENGINE_FAMILIES, Request, ServeEngine
 from repro_torch.serve.spec import make_drafter
 
-NOT_PORTED_TIERS = "tier 2 (HLO waste analysis) is bound to JAX and not ported"
 # families served by the token-loop driver (every family outside the
 # engine's)
 LEGACY_FAMILIES = ("vlm", "hybrid", "ssm", "audio")
@@ -340,7 +344,9 @@ def run(arch: str, *, smoke: bool = False, batch: int = 4,
         if profile:
             tier1 = _tier1(model, params, out, prompt_len + gen + 1, seed,
                            dev, stats, tier1_kw)
-            profs = [tier1] + ([encoder_padding_profile(enc_stats)]
+            tier2 = _tier2("decode step", legacy_tier2_subject(
+                model, params, batch, prompt_len + gen + 1, cache_kw), stats)
+            profs = [tier1, tier2] + ([encoder_padding_profile(enc_stats)]
                                if enc_stats is not None else [])
             if obj_scan is not None:
                 profs.append(obj_scan)
@@ -419,7 +425,8 @@ def run(arch: str, *, smoke: bool = False, batch: int = 4,
     if profile:
         tier1 = _tier1(model, params, out, prompt_len + gen + 1, seed, dev,
                        stats)
-        merged = _finish_profile([tier1, det.combined(),
+        tier2 = _tier2("decode tick", eng.traced_tick(), stats)
+        merged = _finish_profile([tier1, tier2, det.combined(),
                                   padding_waste_profile(stats)]
                                  + ([obj_scan] if obj_scan is not None
                                     else []),
@@ -438,6 +445,43 @@ def _object_scan(obj_registry) -> Optional[WasteProfile]:
           f"{sum(f.bytes for f in scan.findings):.0f} duplicate bytes")
     print(scan.render(top_k=5, by="object"))
     return scan
+
+
+def legacy_tier2_subject(model, params, batch: int, max_len: int,
+                         cache_kw=None):
+    """Abstract trace of the token loop's decode step (the reference
+    lowers the jitted step at its last cache): ``make_serve_step`` over
+    a dense f32 cache of `max_len` positions made under a fake-tensor
+    mode from ``params`` and ``cache_kw`` (no storage; the audio
+    family's encoder runs as fake kernel nodes)."""
+    mode = abstract_mode()
+    fake = tree_map(mode.from_tensor, params)
+    kw = {k: mode.from_tensor(v) for k, v in (cache_kw or {}).items()}
+    dev = params["embed"].device
+    with mode:
+        cache = model.init_cache(fake, batch, max_len,
+                                 kv_dtype=torch.float32, **kw)
+        tokens = torch.empty((batch, 1), dtype=torch.int32, device=dev)
+    return trace_step(make_serve_step(model), model.decode_params(fake),
+                      cache, tokens)
+
+
+def _tier2(what: str, traced, stats) -> WasteProfile:
+    """Tier 2 of an abstract trace; its nodes, kernel nodes and seconds
+    go into ``stats``."""
+    t0 = time.perf_counter()
+    rep = analyze_waste(traced)
+    kernels = dict(sorted(traced.kernel_nodes().items()))
+    stats["tier2_trace_s"] = traced.seconds
+    stats["tier2_s"] = traced.seconds + time.perf_counter() - t0
+    stats["tier2_nodes"] = traced.nodes
+    stats["tier2_kernel_nodes"] = kernels
+    print(f"[serve] tier 2 ({what}): {traced.nodes} nodes, kernel nodes "
+          f"{kernels}; traced in {traced.seconds:.2f} s, "
+          f"{stats['tier2_s']:.2f} s in all; "
+          f"{len(rep.profile.findings)} findings")
+    print(rep.summary())
+    return rep.profile
 
 
 def _tier1(model, params, out, max_len: int, seed: int, dev, stats,
@@ -464,7 +508,6 @@ def _tier1(model, params, out, max_len: int, seed: int, dev, stats,
 
 def _finish_profile(profiles, profile_out, sarif_out) -> WasteProfile:
     """Merge, print and write the serving profile."""
-    print(f"[serve] {NOT_PORTED_TIERS}")
     merged = merge_profiles(profiles)
     print(merged.render(top_k=3))
     if profile_out:

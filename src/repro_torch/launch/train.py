@@ -11,10 +11,15 @@ reduced config). Without CUDA and without ``--device cpu`` it raises.
 object registry (core/objects.py) and runs the replica scan at init
 (core/replicas.py), where the zero moments are bit-identical.
 
+``--waste-report`` traces one train step abstractly before training
+(``core/graph_trace.py``: fake tensors of the state's and the batch's
+shapes; the forward, the backward and, under remat, the recompute),
+prints its tier-2 ``summary()`` and merges the tier-2 profile into the
+report (``--profile-out``).
+
 Port of src/repro/launch/train.py. Not ported yet (ROADMAP A6): the
 checkpoint options ``--ckpt-dir``/``--resume`` and the ``FleetMonitor``
-heartbeat (A11), ``--waste-report`` (tier 2, A10), and ``--strategy``
-(A11).
+heartbeat (A11), and ``--strategy`` (A11).
 """
 from __future__ import annotations
 
@@ -29,6 +34,8 @@ from repro_torch.configs import registry
 from repro_torch.configs.base import ProfilerConfig, TrainConfig
 from repro_torch.core.detectors import TrainingDetectors
 from repro_torch.core.findings import merge_profiles
+from repro_torch.core.graph_trace import abstract_mode, trace_step
+from repro_torch.core.graph_waste import analyze_waste
 from repro_torch.core.objects import ObjectRegistry
 from repro_torch.core.replicas import ReplicaDetector
 from repro_torch.core.report import dump_json
@@ -46,13 +53,15 @@ LOG_EVERY = 10
 
 def run(arch: str, *, smoke: bool = True, steps: int = 50, batch: int = 8,
         seq: int = 128, lr: float = 3e-4, profile: bool = False,
-        microbatches: int = 1, remat: str = "none", seed: int = 0,
+        waste_report: bool = False, microbatches: int = 1,
+        remat: str = "none", seed: int = 0,
         profile_out: Optional[str] = None, sarif_out: Optional[str] = None,
         objects: bool = False, device: str = "cuda"):
     """Train ``steps`` steps on seeded synthetic batches. Returns
     ``(losses, merged profile or None)``: the per-step losses as floats,
-    and with ``profile`` the tier-3 training findings (with ``objects``
-    the replica scan at init, merged in)."""
+    and with ``profile`` the tier-3 training findings, with
+    ``waste_report`` the tier-2 findings of the traced step (with
+    ``objects`` the replica scan at init), merged."""
     dev = resolve_device(device)
     cfg = registry.get_config(arch)
     if smoke:
@@ -73,6 +82,8 @@ def run(arch: str, *, smoke: bool = True, steps: int = 50, batch: int = 8,
               f"{len(obj_scan.findings)} replica groups, "
               f"{sum(f.bytes for f in obj_scan.findings):.0f} "
               f"duplicate bytes")
+    tier2 = waste_tier2(cfg, step_fn, state, batch, seq, dev) \
+        if waste_report else None
     detectors = (TrainingDetectors(ProfilerConfig(enabled=True))
                  if profile else None)
     data = Prefetcher(stream(cfg, batch, seq, seed=seed))
@@ -99,8 +110,8 @@ def run(arch: str, *, smoke: bool = True, steps: int = 50, batch: int = 8,
     dt = time.time() - t_start
     print(f"[train] done: {steps} steps in {dt:.1f}s; "
           f"loss {losses[0]:.3f} -> {losses[-1]:.3f}")
-    parts = [p for p in (detectors.report if detectors else None, obj_scan)
-             if p is not None]
+    parts = [p for p in (detectors.report if detectors else None, tier2,
+                         obj_scan) if p is not None]
     merged = merge_profiles(parts) if parts else None
     if merged is not None:
         print(merged.render(top_k=5))
@@ -113,6 +124,23 @@ def run(arch: str, *, smoke: bool = True, steps: int = 50, batch: int = 8,
     return losses, merged
 
 
+def waste_tier2(cfg, step_fn, state, batch: int, seq: int, dev):
+    """Tier 2 of one train step, traced on fake tensors of the state's
+    and a (batch, seq) batch's shapes: prints the trace line and the
+    ``summary()``, returns the tier-2 profile (``meta``: ``trace_s``,
+    ``nodes``, ``kernel_nodes``)."""
+    from repro_torch.launch.lint import _train_batch
+    traced = trace_step(step_fn, state, _train_batch(
+        cfg, batch, seq, mode=abstract_mode(), device=dev))
+    rep = analyze_waste(traced)
+    print(f"[train] tier 2 (train step): {traced.nodes} nodes, kernel "
+          f"nodes {dict(sorted(traced.kernel_nodes().items()))}; traced "
+          f"in {traced.seconds:.2f} s; {len(rep.profile.findings)} "
+          f"findings")
+    print(rep.summary())
+    return rep.profile
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True, choices=registry.ARCH_IDS)
@@ -122,6 +150,8 @@ def main():
     ap.add_argument("--seq", type=int, default=128)
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--profile", action="store_true")
+    ap.add_argument("--waste-report", action="store_true",
+                    help="tier-2 waste report of the traced train step")
     ap.add_argument("--microbatches", type=int, default=1)
     ap.add_argument("--remat", default="none",
                     choices=("none", "full", "dots"),
@@ -138,7 +168,8 @@ def main():
                     help="torch device to train on (default: cuda)")
     a = ap.parse_args()
     run(a.arch, smoke=a.smoke, steps=a.steps, batch=a.batch, seq=a.seq,
-        lr=a.lr, profile=a.profile, microbatches=a.microbatches,
+        lr=a.lr, profile=a.profile, waste_report=a.waste_report,
+        microbatches=a.microbatches,
         remat=a.remat, seed=a.seed, profile_out=a.profile_out,
         sarif_out=a.sarif_out, objects=a.objects, device=a.device)
 

@@ -313,6 +313,14 @@ class LM:
         return P.init_tree(self.decl(), generator=gen, dtype=dtype,
                            device=device)
 
+    def abstract_params(self, *, device, mode, dtype=None) -> Any:
+        """Fake-tensor parameters matching ``init`` (``P.abstract_tree``,
+        made under the fake-tensor ``mode``): the tree an abstract trace
+        of a step takes at any width."""
+        dtype = dtype or torch_dtype(self.cfg.param_dtype)
+        return P.abstract_tree(self.decl(), dtype=dtype, device=device,
+                               mode=mode)
+
     def _cross_blocks(self):
         """Names of the sub-blocks that attend across (encdec, xattn)."""
         return [f"b{i}_{t}" for i, t in enumerate(self.sched.pattern)

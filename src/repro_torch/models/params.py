@@ -80,6 +80,17 @@ def init_tree(decls: Any, *, generator: torch.Generator, dtype,
     return tree
 
 
+def abstract_tree(decls: Any, *, dtype, device, mode) -> Any:
+    """Fake tensors matching ``init_tree`` (the same leaves, shapes and
+    dtype, on ``device``), made under ``mode``, a fake-tensor mode
+    (``core/graph_trace.py:abstract_mode``): no storage, so a tree of any
+    width costs no memory. Built from the shapes alone, with no
+    generator draw."""
+    with mode:
+        return tree_map(lambda d: torch.empty(d.shape, dtype=dtype,
+                                              device=device), decls)
+
+
 def count_tree(decls: Any) -> int:
     return sum(d.size for d in tree_leaves(decls))
 

@@ -67,10 +67,8 @@ def update(tc: TrainConfig, grads: Any, state: AdamWState, master: Any,
     ``(master, state)``."""
     b1, b2, eps, wd = tc.b1, tc.b2, tc.eps, tc.weight_decay
     count = torch.as_tensor(step).to(torch.float32) + 1.0
-    c1 = 1.0 - torch.pow(torch.tensor(b1, dtype=torch.float32,
-                                      device=count.device), count)
-    c2 = 1.0 - torch.pow(torch.tensor(b2, dtype=torch.float32,
-                                      device=count.device), count)
+    c1 = 1.0 - torch.pow(torch.full_like(count, b1), count)
+    c2 = 1.0 - torch.pow(torch.full_like(count, b2), count)
     for leaf in zip(tree_leaves(grads), tree_leaves(state.m),
                     tree_leaves(state.v), tree_leaves(master)):
         for g, m, v, p in _slices(*leaf):

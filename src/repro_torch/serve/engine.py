@@ -699,6 +699,17 @@ class ServeEngine:
         return self.finished
 
     # ---------------------------- reporting ----------------------------
+    def traced_tick(self):
+        """Abstract trace of one decode tick over the engine's own
+        parameters and cache, every slot active (``core/graph_trace.py``:
+        fake tensors, nothing runs or is written): the tier-2 subject,
+        the counterpart of the reference's ``lowered_tick``."""
+        from repro_torch.core.graph_trace import trace_step
+        active = torch.ones((self.num_slots,), dtype=torch.bool,
+                            device=self.device)
+        return trace_step(self._tick_fn, self.params, self.cache,
+                          self.tokens, active)
+
     def throughput(self) -> Dict[str, float]:
         s = self.stats
         out = {

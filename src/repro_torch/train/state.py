@@ -39,6 +39,24 @@ def create(model, seed: int = 0, compute_dtype=torch.bfloat16, *,
                       step=torch.zeros((), dtype=torch.int32, device=device))
 
 
+def abstract(model, compute_dtype=torch.bfloat16, *, device,
+             mode) -> TrainState:
+    """The state ``create`` makes, as fake tensors (no storage) made
+    under the fake-tensor ``mode``: for an abstract trace of the train
+    step at any width."""
+    master = model.abstract_params(device=device, mode=mode,
+                                   dtype=torch.float32)
+    with mode:
+        def cast(dt):
+            return P.tree_map(lambda p: torch.empty(p.shape, dtype=dt,
+                                                    device=device), master)
+        return TrainState(
+            params=cast(compute_dtype), master=master,
+            opt=adamw.AdamWState(m=cast(torch.float32),
+                                 v=cast(torch.float32)),
+            step=torch.zeros((), dtype=torch.int32, device=device))
+
+
 def from_reference(state, *, device) -> TrainState:
     """The reference's ``TrainState`` as the port's: ``state`` is the
     reference state on the host (``jax.device_get``), its trees nested

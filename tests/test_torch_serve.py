@@ -210,7 +210,8 @@ def test_serve_profile_runs_tier1_on_the_decode_microstep(monkeypatch,
     at least every parameter byte of the decode step (each weight is read
     for its cast) and whose stores are non-zero; each norm and attention
     entry point is one recorded kernel operation; the rendered header
-    names tiers 1-4 and only tier 2 is reported as not ported."""
+    names tiers 1-4, with tier 2 (the traced tick) in it and no tier
+    reported as not ported."""
     from repro_torch.configs import registry as pt_registry
     from repro_torch.launch import serve as pt_serve
     from repro_torch.models import lm as pt_lm
@@ -226,8 +227,8 @@ def test_serve_profile_runs_tier1_on_the_decode_microstep(monkeypatch,
         profile=True, device="cpu")
     text = capsys.readouterr().out
     assert "(tiers 1,2,3,4)" in text
-    assert pt_serve.NOT_PORTED_TIERS in text
-    assert "tier 1" not in pt_serve.NOT_PORTED_TIERS
+    assert "not ported" not in text
+    assert "[serve] tier 2 (decode tick)" in text
     assert 1 in merged.tiers and stats["tier1_s"] > 0
 
     tier1, interp = pt_serve.tier1_decode_profile(

@@ -428,18 +428,20 @@ def test_train_driver_needs_cuda_and_rejects_unported_options(monkeypatch):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             pt_train.run("qwen3-1.7b", smoke=True, steps=1)
-    for flag in ("--ckpt-dir=x", "--resume", "--waste-report",
-                 "--strategy=fsdp", "--remat=some"):
+    for flag in ("--ckpt-dir=x", "--resume", "--strategy=fsdp",
+                 "--remat=some"):
         monkeypatch.setattr(sys, "argv", ["train", "--arch", "qwen3-1.7b",
                                           flag])
         with pytest.raises(SystemExit):
             pt_train.main()
-    # --objects is ported: it parses, and the run then needs CUDA
-    monkeypatch.setattr(sys, "argv", ["train", "--arch", "qwen3-1.7b",
-                                      "--objects"])
+    # --objects and --waste-report are ported: they parse, and the run
+    # then needs CUDA
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    with pytest.raises(RuntimeError, match="CUDA is not available"):
-        pt_train.main()
+    for flag in ("--objects", "--waste-report"):
+        monkeypatch.setattr(sys, "argv", ["train", "--arch", "qwen3-1.7b",
+                                          flag])
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            pt_train.main()
 
 
 def _remat_steps(model, state, remat, steps=3):

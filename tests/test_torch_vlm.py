@@ -329,7 +329,7 @@ def test_launch_serve_matches_reference(monkeypatch, capsys):
         np.asarray(ref_out[0])[:12])
     assert lines[2].startswith("[serve] tier 1 (decode microstep): ")
     assert stats["steps"] == plen + gen - 1
-    assert merged.tiers == [1] and stats["tier1_s"] > 0
+    assert merged.tiers == [1, 2] and stats["tier1_s"] > 0
     for kw, msg in ((dict(kv="paged"), "--kv paged"),
                     (dict(spec=True), "--spec")):
         with pytest.raises(ValueError, match=msg):

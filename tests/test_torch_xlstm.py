@@ -361,7 +361,7 @@ def test_launch_serve_matches_reference(monkeypatch):
     np.testing.assert_array_equal(out, np.asarray(ref_out))
     assert stats["steps"] == 16 + 8 - 1
     assert stats["prefill_tok_s"] > 0 and stats["decode_tok_s"] > 0
-    assert merged.tiers == [1] and stats["tier1_s"] > 0
+    assert merged.tiers == [1, 2] and stats["tier1_s"] > 0
     assert merged.total_store_events > 0
     for kw, msg in ((dict(kv="paged"), "--kv paged"), (dict(spec=True),
                                                        "--spec")):

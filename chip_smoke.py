@@ -4,8 +4,10 @@ NVIDIA GPU: the serving path, the speculative-verify serving path and
 the training path of qwen3-1.7b, granite-moe-3b-a800m's serving and
 training, the serving and training of zamba2-1.2b (the hybrid family),
 xlstm-1.3b (the ssm family) and whisper-large-v3 (the audio family), the
-fleet, and one period of llama-3.2-vision-90b (the vlm family) served
-and trained at full layer width.
+fleet, one period of llama-3.2-vision-90b (the vlm family) served
+and trained at full layer width, and qwen3-1.7b served at full width by
+two tensor-parallel ranks (tp_serve) with its training state
+checkpointed.
 
     python3 chip_smoke.py
 
@@ -247,6 +249,34 @@ depth would trace ~1 M, ~5 min of host time): exit 0,
 whisper-large-v3 on the card with the dead-expert gate at 0.0: exit 0.
 It also times B5's decode host path through ``kernels/ops.py``.
 
+Phase 14 runs scale-out serving and checkpointing. (14a, run with the
+kernel phases before the main paths: later in the process profiler
+traces come back empty) B1 and B2 (store mode) on the hostile tables
+of phase 2 at qwen3's shapes, the
+pool split into 2 and 4 page chunks read through localized tables, in
+every dtype pair: each chunk's call against its plain version, the
+chunks' pools together equal to the unsharded call's bit for bit, their
+stored and silent counts summed equal, their outputs combined by
+log-sum-exp within 1e-4 / 2e-2 of the unsharded output; each chunk's
+call and the unsharded call timed by device time. (14b) qwen3-1.7b at
+full width served by ``ServeEngine(strategy=make_strategy("tp_serve",
+mesh))`` on a (1, 2) mesh: two ranks spawned on the card (gloo, the
+collectives staged through the host), 8 slots, phase 3's prompts 128 +
+32, paged, f32 pool, bf16 and then f32 activations: per rank 28 B1
+launches a tick, 28 B2 an admission, 113 B5 a forward, tokens equal
+across ranks, every rank's chunk holding live pages, the f32 first
+tick's logits within 1e-4 relative of the unsharded engine's; decode
+tok/s, tick wall, collectives' calls, seconds and staged bytes, a
+profiled tick's device busy share and each rank's peak memory against
+the unsharded engine's printed. (14c) The smoke config in float32 under
+tp_serve on two ranks, on duplicated-prefix traffic with copies on
+write across ranks: tokens, stats and tier-3/4 reports equal to the
+unsharded engine's, on the card and on the CPU. (14d) The smoke config's
+training on the card, 4 steps straight against 2, a save and a resume
+of 2 (bit for bit); qwen3-1.7b's training state at full width saved and
+restored, every leaf bit-equal, at the depth whose reckoned bytes fit
+``CKPT_BUDGET`` and the free disk.
+
 Each phase prints its seconds (``[phase]`` lines). The line before the
 last lists the card; the last line is the JSON
 result. Any failure exits non-zero; without CUDA, or without the rest of
@@ -378,6 +408,7 @@ QWEN3_HEADS = (HQ, HKV, D)                # (Hq, Hkv, D) of qwen3-1.7b
 GRANITE = "granite-moe-3b-a800m"
 GRANITE_HEADS = (24, 8, 64)               # G 3, D 64
 MAX_LEN = 128 + 32 + 1                    # the main path's cache extent
+PHASE3 = {}                               # phase 3's tokens, for 14b
 M = -(-MAX_LEN // PS)                     # pages per slot (11)
 P = B * M                                 # pool pages (88)
 
@@ -2083,6 +2114,7 @@ def main_path(torch, np):
                                  gen=32, device="cuda")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    PHASE3["tokens"] = np.asarray(out)
     launches = {"paged_decode": pa.paged_decode_attention.launches,
                 "paged_window": fp.paged_window_attention.launches,
                 "rmsnorm_fwd": rn.rmsnorm_forward.launches}
@@ -4282,6 +4314,560 @@ def matrix_on_card(torch):
     return launches
 
 
+# ----------------------------------------------------------------------
+# phase 14: scale-out serving (tp_serve) and checkpointing
+# ----------------------------------------------------------------------
+TP_RANKS = (2, 4)                  # 14a: the pool split into 2 and 4 chunks
+TP_CARD_RANKS = 2                  # 14b/14c: ranks sharing the card
+TP_CASES = ("decode", "verify W=5 overwrite", "window S=9 store",
+            "window S=33 store", "window S=128 store")
+# 14c: the smoke config's paged pool, chunked over the ranks (32 pages of
+# 32 rows: 1024 positions), and its duplicated-prefix traffic
+TP_SMOKE = dict(kv_layout="paged", max_len=256, num_pages=32, page_size=32,
+                kernel_counters=True)
+TP_SMOKE_REQUESTS = 16
+CKPT_BUDGET = 10e9                 # 14d: bytes a full-width save may write
+
+
+def tp_localized(torch, pt, r, chunk):
+    """Rank r's localized page table: its pages renumbered into its chunk,
+    -1 everywhere else (serve/flash_decode.py)."""
+    lpt = pt - r * chunk
+    owned = (pt >= 0) & (lpt >= 0) & (lpt < chunk)
+    return torch.where(owned, lpt, -1).to(torch.int32)
+
+
+def tp_chunk_kernels(torch, np, timer):
+    """14a: B1 and B2 (store mode) on the hostile tables of phase 2 at
+    qwen3's shapes, the pool split into 2 and 4 page chunks, in every
+    dtype pair: each chunk's call against its plain version on the same
+    chunk (outputs and lse within TOL on rows that attend something, idle
+    rows 0, pools and counters equal), the chunks' pools together equal
+    to the unsharded call's bit for bit, their stored and silent counts
+    summed equal to its, and their outputs combined by log-sum-exp
+    within TOL of its output. Then each chunk's call and the unsharded
+    call of the main path (decode at 144, the 128-row admission window)
+    timed by device time."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_prefill import paged_window_attention
+    from repro_torch.kernels.paged_attention import paged_decode_attention
+    rng = np.random.default_rng(14)
+    cases = {c[0]: c for c in kernel_cases(np, sizes=(9, 33, 128))}
+
+    def calls(name, q, kn, vn, pt, idx):
+        if name == "decode":
+            def kernel(pk, pv, table):
+                o, lse, cnt = paged_decode_attention(q, kn, vn, pk, pv,
+                                                     table, idx)
+                return o, lse[..., None], cnt
+
+            def plain(pk, pv, table):
+                o, lse, _, _, cnt = ref.paged_decode_ref(q, kn, vn, pk, pv,
+                                                         table, idx)
+                return o, lse[..., None], cnt
+        else:
+            def kernel(pk, pv, table):
+                o, lse, cnt, _, _ = paged_window_attention(
+                    q, kn, vn, pk, pv, table, idx, store=True)
+                return o, lse, cnt
+
+            def plain(pk, pv, table):
+                o, lse, _, _, cnt = ref.paged_window_ref(
+                    q, kn, vn, pk, pv, table, idx, store=True)
+                return o, lse, cnt
+        return kernel, plain
+
+    def inputs(act, pool_dt, S, idx_np, pt_np, seed):
+        g = torch.Generator(device="cuda").manual_seed(seed)
+
+        def randn(*shape, dtype):
+            return torch.randn(shape, generator=g, device="cuda").to(
+                getattr(torch, dtype))
+        return (randn(B, S, HQ, D, dtype=act), randn(B, S, HKV, D, dtype=act),
+                randn(B, S, HKV, D, dtype=act),
+                randn(P, PS, HKV, D, dtype=pool_dt),
+                randn(P, PS, HKV, D, dtype=pool_dt),
+                torch.as_tensor(pt_np, device="cuda"),
+                torch.as_tensor(idx_np, device="cuda"))
+
+    zero = torch.zeros((), device="cuda")
+    seed = 1400
+    for act, pool_dt in DTYPE_PAIRS:
+        for name in TP_CASES:
+            _, S, idx_np, _ = cases[name]
+            seed += 1
+            pt_np = hostile_table(np, rng, idx_np, S)
+            q, kn, vn, pool_k, pool_v, pt, idx = inputs(act, pool_dt, S,
+                                                        idx_np, pt_np, seed)
+            kernel, plain = calls(name, q, kn, vn, pt, idx)
+            wk, wv = pool_k.clone(), pool_v.clone()
+            o_w, l_w, c_w = kernel(wk, wv, pt)
+            live_w = (l_w > NEG_INF / 2).permute(0, 2, 1)[..., None]
+            worst = {}
+            for n in TP_RANKS:
+                chunk = P // n
+                outs, lses, kks, kvs, cnt, err = [], [], [], [], 0, 0.0
+                for r in range(n):
+                    loc = tp_localized(torch, pt, r, chunk)
+                    kk = pool_k[r * chunk:(r + 1) * chunk].clone()
+                    kv = pool_v[r * chunk:(r + 1) * chunk].clone()
+                    pk2, pv2 = kk.clone(), kv.clone()
+                    o, l, c = kernel(kk, kv, loc)
+                    o_p, l_p, c_p = plain(pk2, pv2, loc)
+                    torch.cuda.synchronize()
+                    live = l_p > NEG_INF / 2
+                    live_o = live.permute(0, 2, 1)[..., None]
+                    e = max(float(torch.where(
+                        live_o, (o.float() - o_p.float()).abs(), zero).max()),
+                        float(torch.where(live, (l - l_p).abs(), zero).max()))
+                    idle0 = bool(torch.where(live_o, zero,
+                                             o.float().abs()).max() == 0)
+                    assert (torch.equal(kk, pk2) and torch.equal(kv, pv2)
+                            and torch.equal(c, c_p) and idle0
+                            and e <= TOL[act]), (name, act, pool_dt, n, r, e)
+                    err = max(err, e)
+                    outs.append(o.float())
+                    lses.append(l.permute(0, 2, 1))
+                    kks.append(kk)
+                    kvs.append(kv)
+                    cnt = cnt + c
+                lse = torch.stack(lses)
+                w = torch.exp(lse - lse.amax(dim=0))
+                comb = (torch.where(w[..., None] > 0,
+                                    torch.stack(outs) * w[..., None], 0.0)
+                        .sum(0) / w.sum(0)[..., None])
+                ce = float(torch.where(live_w, (comb - o_w.float()).abs(),
+                                       zero).max())
+                pools = (torch.equal(torch.cat(kks), wk)
+                         and torch.equal(torch.cat(kvs), wv))
+                counts = torch.equal(cnt[:, :2], c_w[:, :2])
+                assert pools and counts and ce <= TOL[act], \
+                    (name, act, pool_dt, n, pools, counts, ce)
+                worst[n] = (err, ce)
+            print(f"[14a] {name:20s} act {act:8s} pool {pool_dt:8s} chunks "
+                  + "; ".join(f"{n}: max |err| vs plain {e:.2e}, combined "
+                              f"vs unsharded {c:.2e}" for n, (e, c)
+                              in worst.items())
+                  + f" (tol {TOL[act]}); pools bit-equal, stored+silent "
+                  f"{c_w[:, :2].sum().item()} equal", flush=True)
+
+    # timing: the main path's decode and admission window (bf16
+    # activations, f32 pool), unsharded and on every chunk; on chunk 0
+    # also the plain version, SDPA over its gathered view and the bound
+    pt_np = main_path_table(np, rng)
+    for name, S, pos in (("decode", 1, 144), ("window S=128 store", 128, 0)):
+        idx_np = np.full(B, pos, np.int32)
+        q, kn, vn, pool_k, pool_v, pt, idx = inputs(
+            "bfloat16", "float32", S, idx_np, pt_np, seed + 1)
+        kernel, plain = calls(name, q, kn, vn, pt, idx)
+        wk, wv = pool_k.clone(), pool_v.clone()
+        line = [f"unsharded {timer.device(lambda: kernel(wk, wv, pt)):.4f}"]
+        for n in TP_RANKS:
+            chunk = P // n
+            per = []
+            for r in range(n):
+                loc = tp_localized(torch, pt, r, chunk)
+                kk = pool_k[r * chunk:(r + 1) * chunk].clone()
+                kv = pool_v[r * chunk:(r + 1) * chunk].clone()
+                per.append(timer.device(lambda: kernel(kk, kv, loc)))
+                if r == 0:
+                    pk2, pv2 = kk.clone(), kv.clone()
+                    plain_ms = timer.device(lambda: plain(pk2, pv2, loc))
+                    lib_ms = timer.device(library_call(
+                        torch, q, kn, vn, kk, kv, loc, idx, S))
+                    nbytes, flops = bytes_flops(
+                        np, name, S, idx_np, loc.cpu().numpy(), True, 2, 4)
+                    lo, by = bound(nbytes, flops, PEAK_FLOPS["bfloat16"])
+            line.append(f"{n} chunks: " + ", ".join(f"{t:.4f}" for t in per)
+                        + f" (chunk 0: plain {plain_ms:.4f}, SDPA {lib_ms:.4f}"
+                        f", bound {lo:.4f} by {by}: {nbytes} bytes)")
+        print(f"[14a] {name} (bf16 activations, f32 pool) device ms: "
+              + "; ".join(line), flush=True)
+
+
+def tp_first_tick(model):
+    """Wrap model.decode_step so that the first one-token forward's
+    logits (the first decode tick's) are kept, as f32 on the host."""
+    orig, kept = model.decode_step, {}
+
+    def step(params, cache, tokens, **kw):
+        logits, c = orig(params, cache, tokens, **kw)
+        if tokens.shape[1] == 1 and "tick" not in kept:
+            kept["tick"] = logits.float().cpu()
+        return logits, c
+    model.decode_step = step
+    return kept
+
+
+def tp_busy(torch, fn):
+    """Run fn under torch.profiler: (its wall ms, the summed device time
+    of its kernels and memsets in ms, read from CUPTI), or None for the
+    device time when the trace holds none."""
+    from torch.profiler import ProfilerActivity, profile
+    cuda = torch.autograd.DeviceType.CUDA
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    dev = sum(e.time_range.elapsed_us() for e in prof.events()
+              if e.device_type == cuda) / 1e3
+    return wall, (dev if dev > 0 else None)
+
+
+def tp_full_width(torch, np, mesh):
+    """14b on one rank: qwen3-1.7b at full width, tp_serve, 8 slots,
+    prompts 128 + 32 (phase 3's: its seeded weights and prompts), paged,
+    f32 pool; bf16 activations, then float32 on the same weights. The
+    launches, throughput, collectives, the live pages of this rank's
+    chunk, peak memory, one profiled decode tick and the f32 run's first
+    tick's logits."""
+    import dataclasses
+    import repro_torch.kernels.flash_prefill as fp
+    import repro_torch.kernels.paged_attention as pa
+    import repro_torch.kernels.rmsnorm as rn
+    from repro_torch.configs import registry
+    from repro_torch.data.synthetic import batch_at
+    from repro_torch.models.zoo import build_model
+    from repro_torch.serve.engine import Request, ServeEngine
+    from repro_torch.sharding import comm
+    from repro_torch.sharding.rules import make_strategy
+
+    cfg = registry.get_config(QWEN3)
+    prompts = np.asarray(batch_at(cfg, B, 128, seed=0, step=0)["tokens"])
+    out = {"rank": mesh.rank}
+    for dtype in ("bfloat16", "float32"):
+        model = build_model(dataclasses.replace(cfg, dtype=dtype))
+        kept = tp_first_tick(model) if dtype == "float32" else None
+        # the full tree goes once the engine holds this rank's slices
+        full = model.init(0, device=mesh.device)
+        eng = ServeEngine(model, full, num_slots=B, max_len=MAX_LEN,
+                          kv_dtype=torch.float32, kv_layout="paged",
+                          page_size=PS, strategy=make_strategy("tp_serve",
+                                                               mesh))
+        del full
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        for b in range(B):
+            eng.submit(Request(rid=f"r{b}", tokens=prompts[b],
+                               max_new_tokens=32))
+        pa.paged_decode_attention.launches = 0
+        fp.paged_window_attention.launches = 0
+        rn.rmsnorm_forward.launches = 0
+        comm.reset_stats()
+        chunk = eng.cache["main"]["b0_dense"]["k"].shape[1]
+        live, busy, t0 = set(), None, time.perf_counter()
+        first = None                  # the collectives of step 0
+        while eng.pending:
+            if eng.step_no == 8 and dtype == "bfloat16":
+                before = dict(comm.STATS)
+                wall, dev = tp_busy(torch, eng.step)
+                busy = (wall, dev) + tuple(comm.STATS[k] - before[k] for k
+                                           in ("calls", "seconds",
+                                               "staged_bytes"))
+            else:
+                eng.step()
+            if first is None:
+                first = dict(comm.STATS)
+            live.update(int(p) for p in eng.kv.pt.reshape(-1) if p >= 0)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        st = eng.stats
+        out[dtype] = {
+            "tokens": np.stack([np.asarray(eng.finished[f"r{b}"].generated,
+                                           np.int32) for b in range(B)]),
+            "launches": {"paged_decode": pa.paged_decode_attention.launches,
+                         "paged_window": fp.paged_window_attention.launches,
+                         "rmsnorm_fwd": rn.rmsnorm_forward.launches},
+            "ticks": st["ticks"], "prefills": st["prefills"],
+            "decode_tok_s": eng.throughput()["decode_tok_s"],
+            "tick_ms": 1e3 * st["decode_s"] / max(st["ticks"], 1),
+            "wall_s": wall, "comm": dict(comm.STATS), "comm0": first,
+            "chunk": chunk, "mine": sorted({p for p in live
+                                            if p // chunk == mesh.rank}),
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "busy": busy,
+            "logits": None if kept is None else kept.get("tick"),
+        }
+        del eng
+        torch.cuda.empty_cache()
+    return out
+
+
+def tp_smoke_engine(torch, np, model, params, strategy):
+    """14c's engine: the smoke config's chunked pool, duplicated-prefix
+    traffic, detectors and kernel counters on. Its tokens, stats (no wall
+    clocks), tier-3 and tier-4 reports, copies on write, live pages."""
+    from repro_torch.configs.base import ProfilerConfig
+    from repro_torch.core.detectors import ServingDetectors
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    det = ServingDetectors(ProfilerConfig(enabled=True, num_watchpoints=8,
+                                          seed=0), sites_per_step=4)
+    eng = ServeEngine(model, params, num_slots=4, detectors=det,
+                      kv_dtype=torch.float32, strategy=strategy, **TP_SMOKE)
+    rng = np.random.default_rng(1)
+    shared = rng.integers(0, model.cfg.vocab_size, size=40).astype(np.int32)
+    for i in range(TP_SMOKE_REQUESTS):
+        tail = rng.integers(1, model.cfg.vocab_size,
+                            size=int(rng.integers(3, 60)) if i else 0)
+        eng.submit(Request(rid=f"r{i}", tokens=np.concatenate(
+            [shared, tail.astype(np.int32)]),
+            max_new_tokens=int(rng.integers(3, 9)), arrival=i // 3))
+    cows, live = [], set()
+    admit = eng.kv.admit
+
+    def recording(*a, **k):
+        plan = admit(*a, **k)
+        cows.extend(plan.cow)
+        return plan
+    eng.kv.admit = recording
+    while eng.pending:
+        eng.step()
+        live.update(int(p) for p in eng.kv.pt.reshape(-1) if p >= 0)
+
+    def report(prof):
+        return {"tiers": list(prof.tiers), "checked": dict(prof.checked),
+                "flagged": dict(prof.flagged), "totals": dict(prof.totals),
+                "findings": {repr(f.key): (f.count, f.bytes)
+                             for f in prof.findings}}
+    return {"tokens": {k: v.generated for k, v in eng.finished.items()},
+            "stats": {k: v for k, v in eng.stats.items()
+                      if not k.endswith("_s")},
+            "report": report(det.report), "kernel": report(det.kernel),
+            "cows": cows, "live": sorted(live)}
+
+
+def tp_smoke_rank(mesh):
+    """14c on one rank (card or CPU): the f32 smoke config under tp_serve."""
+    import dataclasses
+    import torch
+    import numpy as np
+    from repro_torch.configs import registry
+    from repro_torch.models.zoo import build_model
+    from repro_torch.sharding.rules import make_strategy
+    cfg = dataclasses.replace(registry.get_config(QWEN3).smoke(),
+                              dtype="float32")
+    model = build_model(cfg)
+    params = model.init(0, device=mesh.device)
+    return tp_smoke_engine(torch, np, model, params,
+                           make_strategy("tp_serve", mesh))
+
+
+def tp_rank(mesh):
+    """One rank of 14b and 14c on the card."""
+    import torch
+    import numpy as np
+    out = tp_full_width(torch, np, mesh)
+    out["smoke"] = tp_smoke_rank(mesh)
+    return out
+
+
+def tp_serve_path(torch, np, card_line):
+    """14b and 14c: two ranks spawned on the card (gloo, the kernels built
+    by this process before), each serving qwen3-1.7b at full width under
+    tp_serve and then the smoke config; checked here against the
+    unsharded engine (f32 first-tick logits within 1e-4 relative, tokens
+    printed), the launches per rank (B1 28 a tick, B2 28 an admission,
+    B5 113 a forward), every rank's chunk holding live pages; then the
+    smoke config on two CPU ranks against the unsharded CPU engine.
+    Returns the tp_serve path's launches (summed over the ranks)."""
+    import dataclasses
+    from repro_torch.configs import registry
+    from repro_torch.data.synthetic import batch_at
+    from repro_torch.launch.mesh import launch
+    from repro_torch.models.zoo import build_model
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    cfg = registry.get_config(QWEN3)
+    layers = cfg.num_layers
+    norms = launches_per_forward(cfg)[1]
+    t0 = time.perf_counter()
+    ranks = launch(tp_rank, (1, TP_CARD_RANKS), device="cuda:0",
+                   timeout_s=600)
+    spawn_s = time.perf_counter() - t0
+    # the unsharded engine's f32 run on the same weights and prompts
+    model = build_model(dataclasses.replace(cfg, dtype="float32"))
+    kept = tp_first_tick(model)
+    params = model.init(0, device="cuda")
+    prompts = np.asarray(batch_at(cfg, B, 128, seed=0, step=0)["tokens"])
+    eng = ServeEngine(model, params, num_slots=B, max_len=MAX_LEN,
+                      kv_dtype=torch.float32, kv_layout="paged",
+                      page_size=PS)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for b in range(B):
+        eng.submit(Request(rid=f"r{b}", tokens=prompts[b],
+                           max_new_tokens=32))
+    eng.run()
+    peak_unsharded = torch.cuda.max_memory_allocated() / 1e9
+    want = kept["tick"]
+    want_toks = np.stack([np.asarray(eng.finished[f"r{b}"].generated,
+                                     np.int32) for b in range(B)])
+    del eng, params, model
+    torch.cuda.empty_cache()
+
+    total = {}
+    for r in ranks:
+        for dtype in ("bfloat16", "float32"):
+            res = r[dtype]
+            L = res["launches"]
+            assert L["paged_decode"] == layers * res["ticks"] > 0, L
+            assert L["paged_window"] == layers * res["prefills"] > 0, L
+            assert L["rmsnorm_fwd"] == norms * (res["ticks"]
+                                                + res["prefills"]), L
+            assert res["mine"], f"rank {r['rank']}'s chunk held no page"
+            if dtype == "bfloat16":
+                for k, v in L.items():
+                    total[k] = total.get(k, 0) + v
+            busy = res["busy"]
+            busy_txt = ("not measured" if busy is None or busy[1] is None
+                        else f"{busy[1] / busy[0]:.3f} ({busy[1]:.2f} of "
+                        f"{busy[0]:.2f} ms; its collectives {busy[2]} in "
+                        f"{1e3 * busy[3]:.2f} ms, {busy[4]} bytes staged)")
+            c, c0 = res["comm"], res["comm0"]
+            print(f"[14b] rank {r['rank']} {dtype}: launches {L}; ticks "
+                  f"{res['ticks']}, prefills {res['prefills']}; decode "
+                  f"{res['decode_tok_s']:.1f} tok/s, tick wall "
+                  f"{res['tick_ms']:.2f} ms, run {res['wall_s']:.2f} s; "
+                  f"collectives {c['calls']} in {c['seconds']:.3f} s, "
+                  f"{c['staged_bytes']} bytes staged through the host (step "
+                  f"0, the admission and one tick: {c0['calls']} in "
+                  f"{c0['seconds']:.3f} s, {c0['staged_bytes']} bytes); "
+                  f"live pages of its chunk of {res['chunk']}: "
+                  f"{len(res['mine'])}; peak {res['peak_gb']:.2f} GB; "
+                  f"device busy share of a tick (step 8): {busy_txt} | "
+                  f"{card_line}", flush=True)
+    r0 = ranks[0]
+    for r in ranks[1:]:
+        for dtype in ("bfloat16", "float32"):
+            assert np.array_equal(r[dtype]["tokens"], r0[dtype]["tokens"])
+    # the padded vocab tail is masked to -1e30 in both: real logits only
+    got = r0["float32"]["logits"][..., :cfg.vocab_size]
+    want = want[..., :cfg.vocab_size]
+    rel = float((got - want).abs().max() / want.abs().max())
+    f32_same = int((r0["float32"]["tokens"] == want_toks).all(axis=1).sum())
+    bf16_same = (int((r0["bfloat16"]["tokens"] == PHASE3["tokens"])
+                     .all(axis=1).sum()) if "tokens" in PHASE3 else None)
+    print(f"[14b] qwen3-1.7b full width, tp_serve on {TP_CARD_RANKS} ranks "
+          f"of one card (gloo), spawned and run in {spawn_s:.1f} s: tokens "
+          f"equal across ranks; f32 first tick's logits vs the unsharded "
+          f"engine's: max |diff| / max |logit| {rel:.2e} (tol 1e-4); f32 "
+          f"sequences equal to the unsharded engine's {f32_same}/{B}; bf16 "
+          f"sequences equal to phase 3's {bf16_same}/{B}; peak per rank "
+          f"{[round(r['float32']['peak_gb'], 2) for r in ranks]} GB (f32) "
+          f"vs the unsharded engine's {peak_unsharded:.2f} GB | "
+          f"{card_line}", flush=True)
+    assert rel <= 1e-4, rel
+
+    # 14c: the smoke config, card and CPU, against the unsharded engines
+    smoke = [r["smoke"] for r in ranks]
+    cpu = launch(tp_smoke_rank, (1, TP_CARD_RANKS), device="cpu",
+                 timeout_s=600)
+    for where, got_ranks, dev in (("card", smoke, "cuda"),
+                                  ("cpu", cpu, "cpu")):
+        scfg = dataclasses.replace(registry.get_config(QWEN3).smoke(),
+                                   dtype="float32")
+        smodel = build_model(scfg)
+        want = tp_smoke_engine(torch, np, smodel,
+                               smodel.init(0, device=dev), None)
+        chunk = TP_SMOKE["num_pages"] // TP_CARD_RANKS
+        for r, g in enumerate(got_ranks):
+            for key in ("tokens", "stats", "report", "kernel", "cows"):
+                assert g[key] == want[key], (where, r, key)
+            assert {p // chunk for p in g["live"]} == set(
+                range(TP_CARD_RANKS)), (where, g["live"])
+        cross = sum(s // chunk != d // chunk for s, d in want["cows"])
+        assert cross > 0, want["cows"]
+        print(f"[14c] smoke config (f32) tp_serve on {TP_CARD_RANKS} "
+              f"{where} ranks: tokens, stats, tier-3 and tier-4 reports "
+              f"equal to the unsharded engine's; {len(want['tokens'])} "
+              f"requests, {want['stats']['ticks']} ticks, "
+              f"{want['stats']['prefills']} prefills, COW copies "
+              f"{want['stats']['cow_copies']} ({cross} across ranks), "
+              f"kernel checked {want['kernel']['checked']}", flush=True)
+    return total
+
+
+def tp_checkpoint(torch, np, card_line):
+    """14d: the smoke config (f32 activations) on the card, 4 training
+    steps straight against 2 steps, a save and a ``--resume`` of 2 more
+    (bit for bit); then qwen3-1.7b's training state at full width saved
+    and restored (every leaf bit-equal), at the depth whose reckoned
+    bytes fit CKPT_BUDGET and half the free disk."""
+    import dataclasses
+    import shutil
+    import tempfile
+    from repro_torch.checkpoint.checkpointer import Checkpointer, flatten
+    from repro_torch.configs import registry
+    from repro_torch.launch.train import run
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.models.zoo import build_model
+    from repro_torch.train import state as TS
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(root, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="ckpt_", dir=root)
+    try:
+        kw = dict(smoke=True, batch=2, seq=32, seed=7, device="cuda")
+        with registry_override(QWEN3, dtype="float32"):
+            straight, _ = run(QWEN3, steps=4, **kw)
+            first, _ = run(QWEN3, steps=2, total_steps=4, ckpt_dir=tmp,
+                           ckpt_every=2, **kw)
+            resumed, _ = run(QWEN3, steps=4, ckpt_dir=tmp, resume=True, **kw)
+        print(f"[14d] smoke train on the card: straight {straight}, 2 + "
+              f"resume 2 {first + resumed}", flush=True)
+        assert first + resumed == straight
+        shutil.rmtree(tmp)
+
+        cfg = registry.get_config(QWEN3)
+        per_layer = sum(d.size for d in
+                        tree_leaves(build_model(dataclasses.replace(
+                            cfg, num_layers=1)).decl()["main"]))
+        other = (sum(d.size for d in tree_leaves(build_model(cfg).decl()))
+                 - cfg.num_layers * per_layer)
+        # params (bf16, stored widened), master, m and v: 4 x 4 bytes each
+        reckon = {n: 16 * (other + n * per_layer)
+                  for n in range(1, cfg.num_layers + 1)}
+        free = shutil.disk_usage(root).free
+        depth = max([n for n, b in reckon.items()
+                     if b <= min(CKPT_BUDGET, free / 2)] or [1])
+        whole = reckon[cfg.num_layers] / 1e9
+        print(f"[14d] full-width checkpoint reckoned {whole:.2f} GB at "
+              f"{cfg.num_layers} layers, {free / 1e9:.1f} GB free: saving "
+              f"{depth} layers ({reckon[depth] / 1e9:.2f} GB, budget "
+              f"{CKPT_BUDGET / 1e9:.0f} GB)", flush=True)
+        os.makedirs(tmp)
+        with registry_override(QWEN3, num_layers=depth):
+            model = build_model(registry.get_config(QWEN3))
+            state = TS.create(model, 0, device="cuda")
+            ck = Checkpointer(tmp)
+            t0 = time.perf_counter()
+            path = ck.save(1, state)
+            save_s = time.perf_counter() - t0
+            nbytes = sum(f.stat().st_size for f in path.iterdir())
+            t0 = time.perf_counter()
+            back = ck.restore(state)
+            torch.cuda.synchronize()
+            restore_s = time.perf_counter() - t0
+            a, b = flatten(state), flatten(back)
+            same = sorted(a) == sorted(b) and all(
+                torch.equal(a[k], b[k]) and a[k].dtype == b[k].dtype
+                for k in a)
+        print(f"[14d] qwen3-1.7b full width at {depth} layers: "
+              f"{len(a)} leaves, {nbytes} bytes written in {save_s:.2f} s, "
+              f"restored in {restore_s:.2f} s, every leaf bit-equal {same} "
+              f"| {card_line}", flush=True)
+        assert same
+        del state, back, a, b
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def b5_decode_host_path(torch):
     """B5's host path at the decode shape (8 x 2048 bf16) through the
     kernel entry point, whose trace hook adds one isinstance check."""
@@ -4429,6 +5015,11 @@ def main() -> int:
     phase("9a/10a new families' kernels", check_new_family_kernels, torch,
           timer, entries)
     phase("12a vlm kernels", check_vlm_kernels, torch, timer, entries)
+    # 14a times by profiler traces, which later in the process (after
+    # the long traced steps) come back empty: with the other kernels
+    t14 = time.perf_counter()
+    phase("14a tp_serve chunks", tp_chunk_kernels, torch, np, timer)
+    t14 = time.perf_counter() - t14
     # each main path is driven with the launch counts set to 0 just
     # before it and read just after
     by_path = {}
@@ -4480,6 +5071,13 @@ def main() -> int:
                                     torch, np)
     phase("13c zoo lint", lint_zoo, torch)
     by_path["matrix"] = phase("13d matrix", matrix_on_card, torch)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    by_path["tp_serve"] = phase("14b/c tp_serve", tp_serve_path, torch, np,
+                                card)
+    phase("14d checkpoint", tp_checkpoint, torch, np, card)
+    print(f"[phase] 14 in all: {t14 + time.perf_counter() - t0:.1f} s",
+          flush=True)
     # last: its traced step holds ~0.3 M kernels (~0.9 M at 48 layers),
     # after which this process's profiler traces were seen to come back
     # empty. xlstm's steps are host-bound (~22 s at its 48 layers: the

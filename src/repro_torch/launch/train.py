@@ -1,5 +1,6 @@
 """Training driver: config registry -> model -> synthetic data (+prefetch)
--> mixed-precision train step -> tier-3 training detectors (--profile).
+-> mixed-precision train step -> checkpointing (atomic, async) -> fault
+monitor -> tier-3 training detectors (--profile).
 
     python -m repro_torch.launch.train --arch qwen3-1.7b --profile
 
@@ -17,9 +18,16 @@ shapes; the forward, the backward and, under remat, the recompute),
 prints its tier-2 ``summary()`` and merges the tier-2 profile into the
 report (``--profile-out``).
 
-Port of src/repro/launch/train.py. Not ported yet (ROADMAP A6): the
-checkpoint options ``--ckpt-dir``/``--resume`` and the ``FleetMonitor``
-heartbeat (A11), and ``--strategy`` (A11).
+``--ckpt-dir`` saves the state every ``--ckpt-every`` steps (async) and
+at the end (checkpoint/checkpointer.py); ``--resume`` restarts from its
+latest step, and ``total_steps`` fixes the LR schedule's horizon apart
+from how many steps one invocation runs, so 2 steps, a save and a resume
+of 2 more give the losses of 4 straight steps. Every step heartbeats a
+``FleetMonitor`` (runtime/fault.py); its ``plan()`` aborting ends the run.
+
+Port of src/repro/launch/train.py. ``run(strategy=...)`` (the sharded
+train step) is ROADMAP A11b; ``--strategy`` stays out of ``main``, as in
+the reference.
 """
 from __future__ import annotations
 
@@ -30,6 +38,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.checkpoint.checkpointer import Checkpointer
 from repro_torch.configs import registry
 from repro_torch.configs.base import ProfilerConfig, TrainConfig
 from repro_torch.core.detectors import TrainingDetectors
@@ -44,6 +53,7 @@ from repro_torch.data.pipeline import Prefetcher
 from repro_torch.data.synthetic import stream
 from repro_torch.launch.serve import resolve_device
 from repro_torch.models.zoo import build_model
+from repro_torch.runtime.fault import FleetMonitor
 from repro_torch.train import state as TS
 from repro_torch.train.step import make_train_step
 
@@ -52,23 +62,32 @@ LOG_EVERY = 10
 
 
 def run(arch: str, *, smoke: bool = True, steps: int = 50, batch: int = 8,
-        seq: int = 128, lr: float = 3e-4, profile: bool = False,
-        waste_report: bool = False, microbatches: int = 1,
-        remat: str = "none", seed: int = 0,
+        seq: int = 128, lr: float = 3e-4, ckpt_dir: Optional[str] = None,
+        ckpt_every: int = 25, profile: bool = False,
+        waste_report: bool = False, resume: bool = False,
+        microbatches: int = 1, remat: str = "none", seed: int = 0,
+        strategy: Optional[str] = None, total_steps: Optional[int] = None,
         profile_out: Optional[str] = None, sarif_out: Optional[str] = None,
         objects: bool = False, device: str = "cuda"):
-    """Train ``steps`` steps on seeded synthetic batches. Returns
-    ``(losses, merged profile or None)``: the per-step losses as floats,
-    and with ``profile`` the tier-3 training findings, with
+    """Train up to step ``steps`` (from 0, or from the latest checkpoint
+    in ``ckpt_dir`` with ``resume``) on seeded synthetic batches. Returns
+    ``(losses, merged profile or None)``: this run's per-step losses as
+    floats, and with ``profile`` the tier-3 training findings, with
     ``waste_report`` the tier-2 findings of the traced step (with
     ``objects`` the replica scan at init), merged."""
+    if strategy:
+        raise NotImplementedError(
+            "the sharded train step (dp_tp, fsdp) is ROADMAP A11b")
     dev = resolve_device(device)
     cfg = registry.get_config(arch)
     if smoke:
         cfg = cfg.smoke()
     model = build_model(cfg)
-    tc = TrainConfig(learning_rate=lr, total_steps=steps,
-                     warmup_steps=max(steps // 10, 1),
+    # total_steps fixes the LR schedule's horizon apart from how many
+    # steps this invocation runs (checkpoint/restart determinism)
+    horizon = total_steps or steps
+    tc = TrainConfig(learning_rate=lr, total_steps=horizon,
+                     warmup_steps=max(horizon // 10, 1),
                      microbatches=microbatches, remat=remat, seed=seed)
     step_fn = make_train_step(model, tc)
     obj_registry = ObjectRegistry() if objects else None
@@ -82,33 +101,51 @@ def run(arch: str, *, smoke: bool = True, steps: int = 50, batch: int = 8,
               f"{len(obj_scan.findings)} replica groups, "
               f"{sum(f.bytes for f in obj_scan.findings):.0f} "
               f"duplicate bytes")
+    start_step = 0
+    ckpt = Checkpointer(ckpt_dir) if ckpt_dir else None
+    if ckpt and resume and ckpt.latest_step() is not None:
+        state = ckpt.restore(state)
+        start_step = int(state.step)
+        print(f"[train] resumed from step {start_step}")
     tier2 = waste_tier2(cfg, step_fn, state, batch, seq, dev) \
         if waste_report else None
     detectors = (TrainingDetectors(ProfilerConfig(enabled=True))
                  if profile else None)
-    data = Prefetcher(stream(cfg, batch, seq, seed=seed))
+    monitor = FleetMonitor(hosts=[0], dead_after=3600.0)
+    data = Prefetcher(stream(cfg, batch, seq, seed=seed,
+                             start_step=start_step))
 
     losses = []
     t_start = time.time()
-    for step in range(steps):
+    for step in range(start_step, steps):
         b = next(data)
         batch_dev = {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
         if detectors:
             detectors.on_batch(step, b)
             params_before = state.params
+        t0 = time.time()
         state, metrics = step_fn(state, batch_dev)
         loss = float(metrics["loss"])
         losses.append(loss)
+        monitor.heartbeat(0, time.time() - t0)
         if detectors:
             detectors.on_step(step, params_before, state.params)
             del params_before
-        if (step + 1) % LOG_EVERY == 0 or step == 0:
+        if ckpt and (step + 1) % ckpt_every == 0:
+            ckpt.save_async(step + 1, state)
+        if (step + 1) % LOG_EVERY == 0 or step == start_step:
             print(f"[train] step {step+1:5d} loss {loss:8.4f} "
                   f"lr {float(metrics['lr']):.2e} "
                   f"gnorm {float(metrics['grad_norm']):.3f}", flush=True)
+        plan = monitor.plan()
+        if plan["action"] == "abort":
+            raise RuntimeError(plan["reason"])
+    if ckpt:
+        ckpt.save(steps, state)
+        ckpt.wait()
     data.close()
     dt = time.time() - t_start
-    print(f"[train] done: {steps} steps in {dt:.1f}s; "
+    print(f"[train] done: {steps - start_step} steps in {dt:.1f}s; "
           f"loss {losses[0]:.3f} -> {losses[-1]:.3f}")
     parts = [p for p in (detectors.report if detectors else None, tier2,
                          obj_scan) if p is not None]
@@ -149,6 +186,9 @@ def main():
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=128)
     ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=25)
+    ap.add_argument("--resume", action="store_true")
     ap.add_argument("--profile", action="store_true")
     ap.add_argument("--waste-report", action="store_true",
                     help="tier-2 waste report of the traced train step")
@@ -168,7 +208,8 @@ def main():
                     help="torch device to train on (default: cuda)")
     a = ap.parse_args()
     run(a.arch, smoke=a.smoke, steps=a.steps, batch=a.batch, seq=a.seq,
-        lr=a.lr, profile=a.profile, waste_report=a.waste_report,
+        lr=a.lr, ckpt_dir=a.ckpt_dir, ckpt_every=a.ckpt_every,
+        profile=a.profile, waste_report=a.waste_report, resume=a.resume,
         microbatches=a.microbatches,
         remat=a.remat, seed=a.seed, profile_out=a.profile_out,
         sarif_out=a.sarif_out, objects=a.objects, device=a.device)

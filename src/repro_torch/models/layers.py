@@ -18,13 +18,83 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models import params as P
+from repro_torch.sharding import comm
+from repro_torch.sharding.ctx import current_sharder, shard
+
+
+# ----------------------------------------------------------------------
+# Tensor parallelism (tp_serve). Each rank holds the slice of every leaf
+# that its spec gives it (sharding/rules.py); the reference lets GSPMD
+# place the collectives, here each sits where GSPMD puts one: a
+# column-parallel projection (a block of the output features) is
+# all-gathered over 'model' where the next op needs every feature, a
+# row-parallel one (a block of the input features) takes its block of the
+# input and all-reduces its partial sum. A leaf's layout shows in its
+# shape: a sharded dim is smaller than the config's. Without an active
+# strategy of more than one 'model' rank none of this runs.
+# ----------------------------------------------------------------------
+def tp_mesh():
+    """The active sharder's mesh when it has more than one 'model' rank,
+    else None."""
+    s = current_sharder()
+    if s is None or s.mesh.shape.get("model", 1) == 1:
+        return None
+    return s.mesh
+
+
+def gather_cols(parts, mesh):
+    """Full tensors from column blocks: each of ``parts`` (..., w_i) is
+    this rank's block of a (..., n*w_i) tensor; one all-gather over
+    'model' for all of them."""
+    n = mesh.shape["model"]
+    widths = [t.shape[-1] for t in parts]
+    packed = torch.cat(parts, dim=-1) if len(parts) > 1 else parts[0]
+    g = comm.all_gather(packed, "model", mesh, dim=-1)
+    g = g.reshape(g.shape[:-1] + (n, sum(widths)))
+    outs = g.split(widths, dim=-1)
+    return [o.reshape(o.shape[:-2] + (n * w,)) for o, w in zip(outs, widths)]
+
+
+def tp_row(h: torch.Tensor, w: torch.Tensor, mesh) -> torch.Tensor:
+    """h (..., f) @ w for a w that may hold a block of its f input rows
+    (row-parallel): the block's partial product all-reduced over
+    'model'; a whole w is a plain product."""
+    f, blk = h.shape[-1], w.shape[-2]
+    if blk == f:
+        return h @ w.to(h.dtype)
+    r = mesh.index("model")
+    y = h[..., r * blk:(r + 1) * blk] @ w.to(h.dtype)
+    return comm.all_reduce(y, "model", mesh)
+
+
+def tp_cols(x: torch.Tensor, ws, fulls, mesh):
+    """x @ w for each column-parallel w of ``ws`` (a w may hold a block of
+    its ``fulls`` output features, or a block of its input rows), whole
+    outputs, the blocks gathered in one collective."""
+    outs, blocks = [], []
+    for w, full in zip(ws, fulls):
+        if w.shape[-2] != x.shape[-1]:
+            outs.append(tp_row(x, w, mesh))
+            continue
+        y = x @ w.to(x.dtype)
+        outs.append(y)
+        if y.shape[-1] != full:
+            blocks.append(len(outs) - 1)
+    if blocks:
+        whole = gather_cols([outs[i] for i in blocks], mesh)
+        for i, t in zip(blocks, whole):
+            outs[i] = t
+    return outs
 
 
 # ----------------------------------------------------------------------
 # Norms
 # ----------------------------------------------------------------------
 def apply_rmsnorm(p, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
-    return ops.rmsnorm(x, p["scale"], eps)
+    scale = p["scale"]
+    if scale.shape[-1] != x.shape[-1]:          # a rank's block (tp)
+        scale = gather_cols([scale], tp_mesh())[0]
+    return ops.rmsnorm(x, scale, eps)
 
 
 # ----------------------------------------------------------------------
@@ -117,11 +187,25 @@ def apply_attention(p, cfg: ModelConfig, x: torch.Tensor, *,
     H, Hkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     dt = x.dtype
 
-    q = (x @ p["wq"]["w"].to(dt)).reshape(B, S, H, D)
     src = x if kv_src is None else kv_src
     Bk, Skv = src.shape[:2]
-    k = (src @ p["wk"]["w"].to(dt)).reshape(Bk, Skv, Hkv, D)
-    v = (src @ p["wv"]["w"].to(dt)).reshape(Bk, Skv, Hkv, D)
+    tp = tp_mesh()
+    if tp is None:
+        q = (x @ p["wq"]["w"].to(dt)).reshape(B, S, H, D)
+        k = (src @ p["wk"]["w"].to(dt)).reshape(Bk, Skv, Hkv, D)
+        v = (src @ p["wv"]["w"].to(dt)).reshape(Bk, Skv, Hkv, D)
+    elif kv_src is None:
+        # q and the new K/V rows gathered whole (the reference's q_spec
+        # keeps the heads whole: the chunked attention takes them all)
+        q, k, v = tp_cols(x, [p[n]["w"] for n in ("wq", "wk", "wv")],
+                          [H * D, Hkv * D, Hkv * D], tp)
+        q, k, v = (q.reshape(B, S, H, D), k.reshape(B, S, Hkv, D),
+                   v.reshape(B, S, Hkv, D))
+    else:
+        (q,) = tp_cols(x, [p["wq"]["w"]], [H * D], tp)
+        k, v = tp_cols(src, [p["wk"]["w"], p["wv"]["w"]], [Hkv * D] * 2, tp)
+        q = q.reshape(B, S, H, D)
+        k, v = k.reshape(Bk, Skv, Hkv, D), v.reshape(Bk, Skv, Hkv, D)
     if cfg.qk_norm:
         q = apply_rmsnorm(p["q_norm"], q, cfg.norm_eps)
         k = apply_rmsnorm(p["k_norm"], k, cfg.norm_eps)
@@ -132,9 +216,10 @@ def apply_attention(p, cfg: ModelConfig, x: torch.Tensor, *,
                    else torch.arange(S, device=x.device))
             q = apply_rope(q, pos, cfg.rope_theta)
             k = apply_rope(k, pos, cfg.rope_theta)
+        q, k, v = shard(q, "bshd"), shard(k, "bskv"), shard(v, "bskv")
         out = ops.attention(q, k, v, causal=causal and kv_src is None,
                             kv_valid=kv_valid)
-        return out.reshape(B, S, H * D) @ p["wo"]["w"].to(dt), None
+        return _out_proj(out.reshape(B, S, H * D), p, tp), None
 
     idx = cache["idx"]
     ar = torch.arange(S, device=x.device, dtype=idx.dtype)
@@ -144,6 +229,27 @@ def apply_attention(p, cfg: ModelConfig, x: torch.Tensor, *,
 
     if "pt" in cache:
         counters = "kcnt" in cache
+        plan = _paged_plan(B, cache)
+        if plan is not None and spec != "defer":
+            # the pool is chunked by pages over the ranks: flash-decoding
+            # (serve/flash_decode.py), B1 for a decode, B2's store mode
+            # for a window (admission, overwrite verify); the counters
+            # stay this rank's (LM.decode_step makes them the pool's)
+            from repro_torch.serve import flash_decode as FD
+            fn = (FD.decode_paged_attention_sharded if S == 1
+                  else FD.verify_paged_attention_sharded)
+            out, ck, cv, cnt = fn(
+                q, k, v, cache["k"], cache["v"], cache["pt"], idx,
+                mesh=current_sharder().mesh, batch_axes=plan[0],
+                seq_axes=plan[1], tol=ops.COUNTER_TOL)
+            new_cache = {**cache, "k": ck, "v": cv, "idx": idx + S}
+            if counters:
+                new_cache["kcnt"] = cnt
+            return _out_proj(out.reshape(B, S, H * D), p, tp), new_cache
+        if plan is not None:
+            raise NotImplementedError(
+                "a rollback (defer) verify over a page-chunked pool is "
+                "ROADMAP A11c")
         if spec == "defer":
             # the pool is not written: the window rows are spliced into
             # the history after their pool-dtype round trip, so the
@@ -164,6 +270,15 @@ def apply_attention(p, cfg: ModelConfig, x: torch.Tensor, *,
             new_cache = {**cache, "k": ck, "v": cv, "idx": idx + S}
         if counters:
             new_cache["kcnt"] = cnt
+    elif _dense_plan(B) is not None:
+        # the dense cache is chunked by positions over the ranks
+        from repro_torch.serve.flash_decode import decode_attention_sharded
+        plan = _dense_plan(B)
+        out, _, _ = decode_attention_sharded(
+            q, k, v, cache["k"], cache["v"], idx,
+            mesh=current_sharder().mesh, batch_axes=plan[0],
+            seq_axes=plan[1], spec=spec if idx.ndim == 1 else None)
+        new_cache = {**cache, "idx": idx + S}
     else:
         ck, cv = cache["k"], cache["v"]
         bidx = torch.arange(B, device=x.device)[:, None].expand(B, S)
@@ -182,8 +297,34 @@ def apply_attention(p, cfg: ModelConfig, x: torch.Tensor, *,
         new_cache = {**cache, "idx": idx + S}
         out = ops.attention(q, ck.to(dt), cv.to(dt), causal=True,
                             q_offset=idx, kv_len=idx + S)
-    out = out.reshape(B, S, H * D) @ p["wo"]["w"].to(dt)
-    return out, new_cache
+    return _out_proj(out.reshape(B, S, H * D), p, tp), new_cache
+
+
+def _out_proj(out: torch.Tensor, p, tp) -> torch.Tensor:
+    """The attention's output projection (row-parallel under tp)."""
+    if tp is None:
+        return out @ p["wo"]["w"].to(out.dtype)
+    return shard(tp_row(out, p["wo"]["w"], tp), "btd")
+
+
+def _paged_plan(B: int, cache):
+    """flash_decode.paged_shard_plan of the pool allocated under the
+    active sharder (its global page count), or None."""
+    s = current_sharder()
+    if s is None or s.pool_pages is None:
+        return None
+    from repro_torch.serve.flash_decode import paged_shard_plan
+    return paged_shard_plan(s, B, s.pool_pages, cache["k"].shape[1])
+
+
+def _dense_plan(B: int):
+    """flash_decode.decode_shard_plan of the dense cache allocated under
+    the active sharder (its global extent), or None."""
+    s = current_sharder()
+    if s is None or s.seq_len is None:
+        return None
+    from repro_torch.serve.flash_decode import decode_shard_plan
+    return decode_shard_plan(s, B, s.seq_len)
 
 
 # ----------------------------------------------------------------------
@@ -202,12 +343,37 @@ def decl_mlp(cfg: ModelConfig, d_ff: Optional[int] = None) -> Dict[str, Any]:
 
 def apply_mlp(p, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     dt = x.dtype
+    tp = tp_mesh()
+    if tp is not None:
+        return _tp_mlp(p, cfg, x, tp)
     h = x @ p["up"]["w"].to(dt)
     if cfg.gated_mlp:
         h = F.silu(x @ p["gate"]["w"].to(dt)) * h
     else:
         h = F.gelu(h, approximate="tanh")       # jax.nn.gelu's default
     return h @ p["down"]["w"].to(dt)
+
+
+def _tp_mlp(p, cfg: ModelConfig, x: torch.Tensor, tp) -> torch.Tensor:
+    """apply_mlp under tp: up and gate column-parallel, down row-parallel
+    (its partial all-reduced), the activation on this rank's block of
+    the hidden features; a whole leaf is used whole."""
+    dt = x.dtype
+    f = cfg.d_ff
+    names = ("up", "gate") if cfg.gated_mlp else ("up",)
+    ws = [p[n]["w"] for n in names]
+    blockwise = (all(w.shape[-1] != f and w.shape[-2] == x.shape[-1]
+                     for w in ws) and p["down"]["w"].shape[-2] != f)
+    if blockwise:
+        hs = [x @ w.to(dt) for w in ws]
+    else:
+        hs = tp_cols(x, ws, [f] * len(ws), tp)
+    h = F.silu(hs[1]) * hs[0] if cfg.gated_mlp else \
+        F.gelu(hs[0], approximate="tanh")
+    if blockwise:
+        return shard(comm.all_reduce(h @ p["down"]["w"].to(dt), "model",
+                                     tp), "btd")
+    return shard(tp_row(h, p["down"]["w"], tp), "btd")
 
 
 # ----------------------------------------------------------------------
@@ -276,3 +442,28 @@ def apply_xattn_block(p, cfg: ModelConfig, x: torch.Tensor,
 # ----------------------------------------------------------------------
 def lm_head(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return x @ w.T
+
+
+def tp_embed(w: torch.Tensor, tokens: torch.Tensor, dt, mesh,
+             vocab: int) -> torch.Tensor:
+    """Embedding lookup of a (V, d) table that may hold a block of its
+    ``vocab`` rows (vocab-parallel: a masked local lookup, all-reduced
+    over 'model', the one owner's row its only term)."""
+    if w.shape[0] == vocab:
+        return w[tokens.long()].to(dt)
+    lo = mesh.index("model") * w.shape[0]
+    t = tokens.long() - lo
+    mine = (t >= 0) & (t < w.shape[0])
+    rows = w[t.clamp(0, w.shape[0] - 1)].to(dt)
+    rows = torch.where(mine[..., None], rows, torch.zeros_like(rows))
+    return comm.all_reduce(rows, "model", mesh)
+
+
+def tp_logits(x: torch.Tensor, w: torch.Tensor, mesh,
+              vocab: int) -> torch.Tensor:
+    """lm_head of a (V, d) head that may hold a block of its ``vocab``
+    rows: this rank's logits block, all-gathered over 'model' (every
+    logit whole before argmax and the detectors)."""
+    if w.shape[0] != vocab:
+        return gather_cols([lm_head(x, w)], mesh)[0]
+    return lm_head(x, w)

@@ -46,6 +46,7 @@ from repro_torch.models import moe as M
 from repro_torch.models import params as P
 from repro_torch.models import ssm as SSM
 from repro_torch.models import xlstm as XL
+from repro_torch.sharding.ctx import current_sharder, shard
 
 
 def _mask_pad_vocab(logits: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -149,7 +150,7 @@ def _cached_xattn(p_attn, cfg: ModelConfig, x: torch.Tensor,
     """Cross-attention of x (B,S,d) against one layer's precomputed
     cross K/V (``xk``/``xv``, masked by ``xvalid`` where the frames were
     right-padded). Unsharded: the sequence-sharded branch is ROADMAP
-    A11."""
+    A11c."""
     B, S, _ = x.shape
     H, D = cfg.num_heads, cfg.head_dim
     q = (x @ p_attn["wq"]["w"].to(x.dtype)).reshape(B, S, H, D)
@@ -321,6 +322,10 @@ class LM:
         return P.abstract_tree(self.decl(), dtype=dtype, device=device,
                                mode=mode)
 
+    def param_axes(self) -> Any:
+        """Logical axes of every parameter leaf (the spec trees' input)."""
+        return P.axes_tree(self.decl())
+
     def _cross_blocks(self):
         """Names of the sub-blocks that attend across (encdec, xattn)."""
         return [f"b{i}_{t}" for i, t in enumerate(self.sched.pattern)
@@ -348,6 +353,23 @@ class LM:
         """(V_padded, d) vocab-major head weight (embedding when tied)."""
         return (params["embed"] if self.cfg.tie_embeddings
                 else params["head"])
+
+    def _embed(self, params, tokens: torch.Tensor, dt) -> torch.Tensor:
+        """Token embeddings in ``dt``: vocab-parallel under tp."""
+        tp = L.tp_mesh()
+        if tp is None:
+            return params["embed"][tokens.long()].to(dt)
+        return L.tp_embed(params["embed"], tokens, dt, tp,
+                          self.cfg.padded_vocab)
+
+    def _logits(self, params, x: torch.Tensor) -> torch.Tensor:
+        """The head's (B,S,V_padded) logits, every one whole (all-gathered
+        over 'model' under tp); the padded vocab not yet masked."""
+        w = self.head_weight(params).to(x.dtype)
+        tp = L.tp_mesh()
+        if tp is None:
+            return L.lm_head(x, w)
+        return L.tp_logits(x, w, tp, self.cfg.padded_vocab)
 
     # ----------------------------- encoder ---------------------------
     def encode(self, params, frames: torch.Tensor,
@@ -385,7 +407,7 @@ class LM:
         dtype."""
         cfg, sch = self.cfg, self.sched
         dt = torch_dtype(cfg.dtype)
-        x = params["embed"][tokens.long()].to(dt)
+        x = shard(self._embed(params, tokens, dt), "btd")
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         src = None
         if sch.has_encoder:
@@ -418,8 +440,8 @@ class LM:
         """Train/prefill forward: (logits (B,S,V_padded) with the padded
         vocab masked, moe_aux)."""
         x, aux = self.backbone(params, tokens, img=img, frames=frames)
-        logits = L.lm_head(x, self.head_weight(params).to(x.dtype))
-        return _mask_pad_vocab(logits, self.cfg), aux
+        logits = self._logits(params, x)
+        return shard(_mask_pad_vocab(logits, self.cfg), "btv"), aux
 
     def loss(self, params, batch: Dict[str, torch.Tensor], *,
              z_loss: float = 0.0) -> Tuple[torch.Tensor, Dict[str, Any]]:
@@ -481,9 +503,10 @@ class LM:
         a key."""
         cfg, sch = self.cfg, self.sched
         dev = params["embed"].device
+        local_len = self._cache_chunk(batch, max_len)
         cache = {"main": {
             f"b{i}_{t}": self._init_sub_cache(t, sch.n_super, batch,
-                                              max_len, kv_dtype, dev)
+                                              local_len, kv_dtype, dev)
             for i, t in enumerate(sch.pattern)}}
         if sch.tail:
             cache["tail"] = self._init_sub_cache(
@@ -505,6 +528,25 @@ class LM:
                 sub["xk"] = torch.zeros(shape, dtype=kv_dtype, device=dev)
                 sub["xv"] = torch.zeros(shape, dtype=kv_dtype, device=dev)
         return cache
+
+    def _cache_chunk(self, batch: int, max_len: int) -> int:
+        """Positions of a dense cache this rank holds: under a strategy
+        whose cache spec chunks the sequence (TpServe.cache_specs, the
+        plan of flash_decode.decode_shard_plan) its chunk, else all; the
+        global extent is recorded on the sharder."""
+        s = current_sharder()
+        if s is None:
+            return max_len
+        from repro_torch.serve.flash_decode import decode_shard_plan
+        plan = decode_shard_plan(s, batch, max_len)
+        if plan is None:
+            return max_len
+        if self.sched.pattern != ("dense",) or self.sched.tail:
+            raise NotImplementedError(
+                f"a sequence-chunked cache of {self.cfg.family!r} blocks "
+                f"is ROADMAP A11c")
+        s.bind_extent("seq_len", max_len)
+        return max_len // s.mesh.axis_size(plan[1])
 
     def _fill_cross_kv(self, params, cache, src: torch.Tensor,
                        src_lengths: Optional[torch.Tensor], kv_dtype
@@ -557,6 +599,16 @@ class LM:
         max_pages = -(-max_len // page_size)
         if num_pages is None:
             num_pages = num_slots * max_pages
+        # under a strategy that chunks the pool by pages (paged_cache_specs)
+        # this rank holds its chunk, num_pages // n pages
+        local = num_pages
+        s = current_sharder()
+        if s is not None:
+            from repro_torch.serve.flash_decode import paged_shard_plan
+            plan = paged_shard_plan(s, num_slots, num_pages, page_size)
+            if plan is not None:
+                s.bind_extent("pool_pages", num_pages)
+                local = num_pages // s.mesh.axis_size(plan[1])
         main = {}
         for i, t in enumerate(sch.pattern):
             if t not in ("dense", "moe"):
@@ -564,9 +616,9 @@ class LM:
                     f"paged cache needs indexed KV in every sub-block; "
                     f"{t!r} blocks are unsupported")
             sub = {
-                "k": torch.zeros((n, num_pages, page_size, Hkv, D),
+                "k": torch.zeros((n, local, page_size, Hkv, D),
                                  dtype=kv_dtype, device=dev),
-                "v": torch.zeros((n, num_pages, page_size, Hkv, D),
+                "v": torch.zeros((n, local, page_size, Hkv, D),
                                  dtype=kv_dtype, device=dev),
                 "idx": torch.zeros((n, num_slots), dtype=torch.int32,
                                    device=dev),
@@ -696,7 +748,7 @@ class LM:
         ``spec`` marks a speculative verify window (see ``verify``)."""
         cfg, sch = self.cfg, self.sched
         dt = torch_dtype(cfg.dtype)
-        x = params["embed"][tokens.long()].to(dt)
+        x = shard(self._embed(params, tokens, dt), "btd_dec")
         main = cache["main"]
         per_layer = {name: {} for name in main}
         for li in range(sch.n_super):
@@ -713,6 +765,7 @@ class LM:
             name: {**sub, **{key: torch.stack(ts) for key, ts in
                              per_layer[name].items()}}
             for name, sub in main.items()}}
+        self._pool_counts(cache, new_cache, tokens.shape[1], spec)
         if sch.tail:
             # the tail's Mamba2 states are written in place
             for li, typ in enumerate(sch.tail):
@@ -722,8 +775,30 @@ class LM:
             new_cache["tail"] = cache["tail"]
 
         x = L.apply_rmsnorm(params["final_norm"], x, cfg.norm_eps)
-        logits = L.lm_head(x, self.head_weight(params).to(dt))
+        logits = self._logits(params, x)
         return _mask_pad_vocab(logits, cfg), new_cache
+
+    def _pool_counts(self, cache, new_cache, S: int, spec) -> None:
+        """Under a page-chunked pool each rank's kernels counted their own
+        chunk's stores: make ``kcnt`` the whole pool's (one all-reduce a
+        forward, flash_decode.global_counts), in place of new_cache's."""
+        s = current_sharder()
+        if s is None or s.pool_pages is None or spec == "defer":
+            return
+        from repro_torch.serve.flash_decode import (global_counts,
+                                                    paged_shard_plan)
+        for name, sub in cache["main"].items():
+            nsub = new_cache["main"][name]
+            if "kcnt" not in nsub:
+                continue
+            ps = sub["k"].shape[2]
+            plan = paged_shard_plan(s, sub["pt"].shape[1], s.pool_pages, ps)
+            if plan is None:
+                continue
+            row = 2 * sub["k"].shape[3] * sub["k"].shape[4]
+            nsub["kcnt"] = global_counts(nsub["kcnt"], sub["pt"][0],
+                                         sub["idx"][0], S, ps, row, plan[1],
+                                         s.mesh)
 
 
 # the leaves a cached forward returns per layer, restacked over the

@@ -91,6 +91,11 @@ def abstract_tree(decls: Any, *, dtype, device, mode) -> Any:
                                               device=device), decls)
 
 
+def axes_tree(decls: Any) -> Any:
+    """Logical axes tree matching ``init_tree``'s structure."""
+    return tree_map(lambda d: d.axes, decls)
+
+
 def count_tree(decls: Any) -> int:
     return sum(d.size for d in tree_leaves(decls))
 

@@ -5,18 +5,30 @@ tick and the grouped admission prefill, over the dense or the paged KV
 layout. The reference jits these factories; here they are plain calls
 that queue the device work (the engine synchronizes once per step when
 it reads the tokens back).
+
+Every factory takes a ``strategy`` (sharding/rules.py) and runs the model
+under its sharder (``sharding_ctx``), so ``ServeEngine`` composes with
+``tp_serve``: the same steps, each rank running them on its own slices
+of the weights and the cache.
 """
 from __future__ import annotations
 
 import torch
+
+from repro_torch.sharding.ctx import sharding_ctx
+
+
+def _sharder(strategy):
+    return strategy.sharder() if strategy is not None else None
 
 
 class StepCache:
     """The engine's steps, built once per (kind, paged, rollback) for one
     model, so engines serving the same model share them."""
 
-    def __init__(self, model):
+    def __init__(self, model, strategy=None):
         self.model = model
+        self.strategy = strategy
         self._fns = {}
 
     def get(self, kind: str, *, paged: bool = False,
@@ -24,35 +36,38 @@ class StepCache:
         key = (kind, bool(paged), bool(rollback))
         fn = self._fns.get(key)
         if fn is None:
+            st = self.strategy
             if kind == "tick":
-                fn = make_engine_tick(self.model, paged=paged)
+                fn = make_engine_tick(self.model, st, paged=paged)
             elif kind == "verify":
-                fn = make_engine_verify(self.model, paged=paged,
+                fn = make_engine_verify(self.model, st, paged=paged,
                                         rollback=rollback)
             elif kind == "prefill":
-                fn = make_engine_prefill(self.model, paged=paged)
+                fn = make_engine_prefill(self.model, st, paged=paged)
             elif kind == "page_copy":
                 from repro_torch.serve.kv_cache import make_page_copy
-                fn = make_page_copy()
+                fn = make_page_copy(_sharder(st))
             else:
                 raise ValueError(f"unknown step kind {kind!r}")
             self._fns[key] = fn
         return fn
 
 
-def make_serve_step(model):
+def make_serve_step(model, strategy=None):
     """serve_step(params, cache, tokens (B,1) int32) -> (greedy next
     tokens (B,1) int32, new cache): one cached forward, no gradient."""
+    sharder = _sharder(strategy)
 
     @torch.no_grad()
     def serve_step(params, cache, tokens):
-        logits, new_cache = model.decode_step(params, cache, tokens)
+        with sharding_ctx(sharder):
+            logits, new_cache = model.decode_step(params, cache, tokens)
         nxt = logits[:, -1:].argmax(dim=-1).to(torch.int32)
         return nxt, new_cache
     return serve_step
 
 
-def make_engine_tick(model, *, paged: bool = False):
+def make_engine_tick(model, strategy=None, *, paged: bool = False):
     """One decode tick over the whole slot batch.
 
     Dense layout: idle slots freeze token AND write index, so every tick
@@ -60,6 +75,7 @@ def make_engine_tick(model, *, paged: bool = False):
     dead/silent store the detectors trap on. Paged layout: idle slots'
     write positions drop to a sentinel (-2) below the page-table extent,
     so their store is dropped — the detected waste, eliminated."""
+    sharder = _sharder(strategy)
 
     def tick(params, cache, tokens, active):
         idx0 = model.cache_index(cache)            # (B,)
@@ -67,7 +83,8 @@ def make_engine_tick(model, *, paged: bool = False):
         if paged:
             stepped = model.with_cache_index(
                 cache, torch.where(active, idx0, -2))
-        logits, new_cache = model.decode_step(params, stepped, tokens)
+        with sharding_ctx(sharder):
+            logits, new_cache = model.decode_step(params, stepped, tokens)
         nxt = logits[:, -1].argmax(dim=-1).to(torch.int32)
         nxt = torch.where(active[:, None], nxt[:, None], tokens)
         new_cache = model.with_cache_index(
@@ -76,7 +93,7 @@ def make_engine_tick(model, *, paged: bool = False):
     return tick
 
 
-def make_engine_verify(model, *, paged: bool = False,
+def make_engine_verify(model, strategy=None, *, paged: bool = False,
                        rollback: bool = False):
     """One speculative verify tick over the whole slot batch.
 
@@ -99,6 +116,7 @@ def make_engine_verify(model, *, paged: bool = False,
     stored and the index rolls back over the rejected tail, which the
     next window overwrites (the dead stores ``rejected_draft_store``
     counts)."""
+    sharder = _sharder(strategy)
 
     def verify(params, cache, tokens, active, draft_len):
         B, W = tokens.shape
@@ -107,8 +125,9 @@ def make_engine_verify(model, *, paged: bool = False,
         if paged:
             stepped = model.with_cache_index(
                 cache, torch.where(active, idx0, -(W + 1)))
-        logits, new_cache = model.verify(params, stepped, tokens,
-                                         commit=not rollback)
+        with sharding_ctx(sharder):
+            logits, new_cache = model.verify(params, stepped, tokens,
+                                             commit=not rollback)
         g = logits.argmax(dim=-1).to(torch.int32)               # (B, W)
         ok = ((tokens[:, 1:] == g[:, :-1])
               & (torch.arange(W - 1, device=tokens.device)[None, :]
@@ -126,7 +145,7 @@ def make_engine_verify(model, *, paged: bool = False,
     return verify
 
 
-def make_engine_prefill(model, *, paged: bool = False):
+def make_engine_prefill(model, strategy=None, *, paged: bool = False):
     """Grouped admission prefill.
 
     toks: (B,P) right-padded prompts — full prompts in dense mode, the
@@ -140,6 +159,7 @@ def make_engine_prefill(model, *, paged: bool = False):
     refilled cache back under the admit mask). Paged: non-admitted rows
     get the sentinel index -(P+1), so their stores all drop; only the
     write indices are restored."""
+    sharder = _sharder(strategy)
 
     def prefill(params, cache, toks, admit, start, lengths, prev_tokens):
         B, P = toks.shape
@@ -154,7 +174,8 @@ def make_engine_prefill(model, *, paged: bool = False):
                                    device=toks.device))
             saved = {name: {key: sub[key].clone() for key in ("k", "v")}
                      for name, sub in cache["main"].items()}
-        logits, filled = model.prefill(params, fresh, toks)
+        with sharding_ctx(sharder):
+            logits, filled = model.prefill(params, fresh, toks)
         if saved is not None:
             keep = admit.view(1, -1, 1, 1, 1)
             for name, sub in filled["main"].items():

@@ -33,6 +33,17 @@ Production-shaped serving over a fixed-size decode batch:
     (``ServingDetectors.rejected_draft_store``); with ``spec_rollback``
     on the paged layout only the accepted prefix is stored
     (``LM.commit_verify``) and they never reach the pool.
+  * **Tensor-parallel serving** — with ``strategy`` (``tp_serve`` on a
+    (1, n) mesh of n ranks, one engine per rank, sharding/rules.py) each
+    rank holds its slice of every weight as the strategy's spec tree
+    says and its chunk of the KV cache (a paged pool's pages, a long
+    dense cache's positions); the steps run under the strategy's sharder
+    (serve/decode.py), so every attention is flash-decoding over the
+    chunks (serve/flash_decode.py). The scheduler, page allocator,
+    detectors and drafter run identically on every rank; a page copied
+    on write crosses ranks when its source and destination lie on two,
+    a detector's read of a site comes from its owner, and after every
+    step the ranks' token ids are compared (a mismatch raises at once).
   * **Fleet and object hooks** — a request may carry a ``prefix_hint``
     (pages of this pool leased by the fleet router, serve/router.py);
     with a ``registry`` (core/objects.py) every allocated page and the
@@ -62,6 +73,8 @@ from repro_torch.serve.decode import (make_engine_prefill, make_engine_tick,
                                       make_engine_verify)
 from repro_torch.serve.kv_cache import (PagedKV, PoolExhausted, _digest,
                                         make_page_copy)
+from repro_torch.sharding import comm
+from repro_torch.sharding.ctx import sharding_ctx
 
 ENGINE_FAMILIES = ("dense", "moe")
 KV_LAYOUTS = ("dense", "paged")
@@ -125,7 +138,7 @@ class ServeEngine:
                  kernel_counters: bool = False,
                  step_cache=None,
                  registry=None, owner: str = "engine",
-                 content_dedup: bool = False):
+                 content_dedup: bool = False, strategy=None):
         if model.cfg.family not in ENGINE_FAMILIES:
             raise ValueError(
                 f"ServeEngine needs an indexed KV cache in every block; "
@@ -133,6 +146,14 @@ class ServeEngine:
         if kv_layout not in KV_LAYOUTS:
             raise ValueError(f"kv_layout must be one of {KV_LAYOUTS}")
         self.model = model
+        self.strategy = strategy
+        self._sharder = None
+        # the params the steps run on (under a strategy: this rank's
+        # slices with the norm scales whole, _shard_params)
+        self._step_params = params
+        if strategy is not None:
+            self._sharder = self._check_strategy(strategy, registry)
+            params = self._shard_params(params)
         self.params = params
         self.device = params["embed"].device
         self.num_slots = num_slots
@@ -174,10 +195,16 @@ class ServeEngine:
             self.kv = PagedKV(num_slots, page_size, num_pages, max_pages,
                               prefix_window=prefix_window,
                               registry=registry, owner=f"{owner}/kv")
-            cache = model.init_paged_cache(
-                params, num_slots, max_len, page_size=page_size,
-                num_pages=num_pages, kv_dtype=kv_dtype,
-                kernel_counters=self.kernel_counters)
+            with sharding_ctx(self._sharder):
+                cache = model.init_paged_cache(
+                    params, num_slots, max_len, page_size=page_size,
+                    num_pages=num_pages, kv_dtype=kv_dtype,
+                    kernel_counters=self.kernel_counters)
+            if (self.spec and self.spec_rollback and self._sharder
+                    is not None and self._sharder.pool_pages is not None):
+                raise NotImplementedError(
+                    "speculative rollback over a page-chunked pool is "
+                    "ROADMAP A11c (pass spec_rollback=False: overwrite)")
             if registry is not None:
                 # the allocator registers pages; it needs the pool's
                 # per-page byte size and a live-content reader, both
@@ -189,11 +216,13 @@ class ServeEngine:
                     for key in ("k", "v"))
                 a.page_reader = self._read_page
             self._copy_fn = (step_cache.get("page_copy")
-                             if step_cache is not None else make_page_copy())
+                             if step_cache is not None
+                             else make_page_copy(self._sharder))
         else:
             self.kv = None
-            cache = model.init_cache(params, num_slots, max_len,
-                                     kv_dtype=kv_dtype)
+            with sharding_ctx(self._sharder):
+                cache = model.init_cache(params, num_slots, max_len,
+                                         kv_dtype=kv_dtype)
         self.cache = model.with_cache_index(
             cache, torch.zeros((num_slots,), dtype=torch.int32,
                                device=self.device))
@@ -238,16 +267,20 @@ class ServeEngine:
         if step_cache is not None:
             assert step_cache.model is model, \
                 "step_cache was built for a different model"
+            assert step_cache.strategy is strategy, \
+                "step_cache was built for a different strategy"
             self._tick_fn = step_cache.get("tick", paged=self.paged)
             self._prefill_fn = step_cache.get("prefill", paged=self.paged)
             self._verify_fn = step_cache.get(
                 "verify", paged=self.paged,
                 rollback=self.spec_rollback) if self.spec else None
         else:
-            self._tick_fn = make_engine_tick(model, paged=self.paged)
-            self._prefill_fn = make_engine_prefill(model, paged=self.paged)
+            self._tick_fn = make_engine_tick(model, strategy,
+                                             paged=self.paged)
+            self._prefill_fn = make_engine_prefill(model, strategy,
+                                                   paged=self.paged)
             self._verify_fn = make_engine_verify(
-                model, paged=self.paged,
+                model, strategy, paged=self.paged,
                 rollback=self.spec_rollback) if self.spec else None
 
         # detector geometry: the KV sub-blocks of one superblock
@@ -264,6 +297,60 @@ class ServeEngine:
                 paged=self.paged, kv_itemsize=isz,
                 row_elems={n: row(n) for n in self._kv_names})
 
+    # --------------------------- tensor parallel ----------------------
+    def _check_strategy(self, strategy, registry):
+        """The tp_serve layouts this engine serves; the others raise,
+        naming their ROADMAP item."""
+        mesh = strategy.mesh
+        if strategy.name != "tp_serve":
+            raise NotImplementedError(
+                f"ServeEngine serves under tp_serve, not {strategy.name!r}")
+        if mesh.axis_size(strategy.dp) != 1:
+            raise NotImplementedError(
+                "serving with data > 1 is ROADMAP A11c")
+        if self.model.cfg.family == "moe" and mesh.shape["model"] > 1:
+            raise NotImplementedError(
+                "MoE experts over 'model' (becd) are ROADMAP A11c")
+        if registry is not None:
+            raise NotImplementedError(
+                "the object registry under a strategy is ROADMAP A11c")
+        return strategy.sharder()
+
+    def _shard_params(self, params):
+        """This rank's slice of every leaf of the full tree ``params``, as
+        the strategy's spec tree says (copies: the full tree may go).
+        The norm scales, which the layers take whole, are gathered back
+        once here for the steps (``_step_params``)."""
+        from repro_torch.models.params import tree_map
+        from repro_torch.sharding.rules import shard_tree
+        specs = self.strategy.param_specs(self.model)
+        mesh = self.strategy.mesh
+        local = tree_map(torch.clone, shard_tree(params, specs, mesh))
+
+        def whole(tree, spec, path):
+            if isinstance(tree, dict):
+                return {k: whole(tree[k], spec[k], path + (k,))
+                        for k in tree}
+            dims = [i for i, e in enumerate(spec) if e is not None]
+            if path[-1] != "scale" or not dims:
+                return tree
+            return comm.all_gather(tree, spec[dims[0]], mesh, dim=dims[0])
+        self._step_params = whole(local, specs, ())
+        return local
+
+    def _check_ranks(self, tokens: torch.Tensor) -> None:
+        """Every rank must have stepped to the same token ids: compare
+        them (one all-gather) and raise at once on a mismatch."""
+        mesh = self.strategy.mesh
+        if mesh.size == 1:
+            return
+        got = comm.all_gather(tokens.reshape(1, -1), mesh.axis_names, mesh,
+                              dim=0)
+        if not bool((got == got[:1]).all()):
+            raise RuntimeError(
+                f"rank {mesh.rank}: the ranks' tokens differ at step "
+                f"{self.step_no}: {got.cpu().numpy().tolist()}")
+
     # ----------------------------- device sync ------------------------
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -272,13 +359,36 @@ class ServeEngine:
     def _peek(self, layer: int, page: int, off: int) -> np.ndarray:
         """The K/V values at one site, f32 on the host: dense layout
         (L, B, S, Hkv, D) with page = slot row, paged layout
-        (L, P, page_size, Hkv, D) with the pool page."""
+        (L, P, page_size, Hkv, D) with the pool page. On a chunked cache
+        the rank that holds the site broadcasts it."""
+        s = self._sharder
+        total = None
+        if s is not None:
+            total = s.pool_pages if self.paged else s.seq_len
+        if total is None:
+            outs = []
+            for name in self._kv_names:
+                sub = self.cache["main"][name]
+                outs.append(sub["k"][layer, page, off].reshape(-1))
+                outs.append(sub["v"][layer, page, off].reshape(-1))
+            return torch.cat(outs).float().cpu().numpy()
+        mesh = s.mesh
+        first = self.cache["main"][self._kv_names[0]]["k"]
+        chunk = first.shape[1] if self.paged else first.shape[2]
+        site = page if self.paged else off
+        owner, local = divmod(site, chunk)
         outs = []
         for name in self._kv_names:
             sub = self.cache["main"][name]
-            outs.append(sub["k"][layer, page, off].reshape(-1))
-            outs.append(sub["v"][layer, page, off].reshape(-1))
-        return torch.cat(outs).float().cpu().numpy()
+            for key in ("k", "v"):
+                rows = (sub[key][layer, local, off] if self.paged
+                        else sub[key][layer, page, local])
+                outs.append(rows.reshape(-1))
+        vals = torch.cat(outs)
+        if owner != mesh.index("model"):
+            vals = torch.zeros_like(vals)
+        vals = comm.broadcast(vals, owner, "model", mesh)
+        return vals.float().cpu().numpy()
 
     # --------------------------- object tier ---------------------------
     def _read_page(self, p: int) -> torch.Tensor:
@@ -502,7 +612,8 @@ class ServeEngine:
         dev = self.device
         t0 = time.perf_counter()
         toks_out, self.cache = self._prefill_fn(
-            self.params, self.cache, torch.as_tensor(toks, device=dev),
+            self._step_params, self.cache,
+            torch.as_tensor(toks, device=dev),
             torch.as_tensor(admit, device=dev),
             torch.as_tensor(starts, device=dev),
             torch.as_tensor(lengths, device=dev), self.tokens)
@@ -514,6 +625,8 @@ class ServeEngine:
         self.stats["padded_prefill_tokens"] += B * P - int(sum(suffixes))
         self.stats["prefills"] += 1
         self.tokens = toks_out
+        if self.strategy is not None:
+            self._check_ranks(toks_out)
         self._emit_kernel_store("prefill")
         if self.paged:
             for b, req in zip(taken, admitted):
@@ -530,13 +643,15 @@ class ServeEngine:
         write_pos = self._lengths.copy()   # the position each slot writes
         t0 = time.perf_counter()
         nxt, self.cache = self._tick_fn(
-            self.params, self.cache, self.tokens,
+            self._step_params, self.cache, self.tokens,
             torch.as_tensor(active, device=self.device))
         self._sync()
         self.stats["decode_s"] += time.perf_counter() - t0
         self.stats["decode_tokens"] += int(active.sum())
         self.stats["ticks"] += 1
         self.tokens = nxt
+        if self.strategy is not None:
+            self._check_ranks(nxt)
         self._emit_kernel_store("decode")
         self._lengths[active] += 1
         host = nxt[:, 0].cpu().numpy()
@@ -614,11 +729,13 @@ class ServeEngine:
         toks_d = torch.as_tensor(toks, device=dev)
         toks_d[:, :1] = self.tokens          # the last accepted tokens
         g, m, nxt, self.cache = self._verify_fn(
-            self.params, self.cache, toks_d,
+            self._step_params, self.cache, toks_d,
             torch.as_tensor(active, device=dev),
             torch.as_tensor(dlen, device=dev))
         self._sync()
         dt = time.perf_counter() - t0
+        if self.strategy is not None:
+            self._check_ranks(torch.cat([g, m[:, None]], dim=1))
         gm = torch.cat([g, m[:, None]], dim=1).cpu().numpy()
         g, m = gm[:, :W], gm[:, W]
         self.stats["verify_s"] += dt
@@ -705,6 +822,9 @@ class ServeEngine:
         fake tensors, nothing runs or is written): the tier-2 subject,
         the counterpart of the reference's ``lowered_tick``."""
         from repro_torch.core.graph_trace import trace_step
+        if self.strategy is not None:
+            raise NotImplementedError(
+                "the traced tick of a tp_serve engine is ROADMAP A11d")
         active = torch.ones((self.num_slots,), dtype=torch.bool,
                             device=self.device)
         return trace_step(self._tick_fn, self.params, self.cache,

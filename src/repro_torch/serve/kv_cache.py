@@ -423,25 +423,54 @@ class PagedKV:
 # ----------------------------------------------------------------------
 # Device-side page copy (COW) over every paged KV sub-block
 # ----------------------------------------------------------------------
-def make_page_copy():
+def make_page_copy(sharder=None):
     """(cache, src, dst) -> cache with pool[dst] = pool[src] in every
     layer of every paged KV sub-block, written in place. `src`/`dst` are
     equal-length host int vectors; entries with dst == num_pages are
     padding and are dropped (as the reference's fixed-shape copy drops
-    them)."""
+    them).
+
+    Under a ``sharder`` whose pool is chunked by pages over the ranks
+    (``sharder.pool_pages``) each rank holds pages [r*chunk, (r+1)*chunk):
+    a copy within one rank's chunk is local to it, and across ranks the
+    owner of `src` broadcasts the page over 'model' for the owner of `dst`
+    to store (the reference's jitted copy leaves that to GSPMD); every
+    rank takes part in every broadcast, in one order."""
 
     def copy(cache, src, dst):
         src = np.asarray(src, np.int64)
         dst = np.asarray(dst, np.int64)
-        for sub in cache["main"].values():
-            if "pt" not in sub:
-                continue
-            for key in ("k", "v"):
-                pool = sub[key]                    # (L, P, page, Hkv, D)
+        pools = [sub[key] for sub in cache["main"].values() if "pt" in sub
+                 for key in ("k", "v")]            # (L, P, page, Hkv, D)
+        if not pools:
+            return cache
+        chunk = pools[0].shape[1]
+        total = (sharder.pool_pages if sharder is not None
+                 and sharder.pool_pages is not None else chunk)
+        if total == chunk:
+            for pool in pools:
                 keep = dst < pool.shape[1]
                 s = torch.as_tensor(np.clip(src[keep], 0, pool.shape[1] - 1),
                                     device=pool.device)
                 d = torch.as_tensor(dst[keep], device=pool.device)
                 pool[:, d] = pool[:, s]
+            return cache
+        from repro_torch.sharding import comm
+        mesh = sharder.mesh
+        me = mesh.index("model")
+        for s_pg, d_pg in zip(src.tolist(), dst.tolist()):
+            if d_pg >= total:
+                continue
+            (so, sl), (do, dl) = divmod(s_pg, chunk), divmod(d_pg, chunk)
+            if so == do:
+                if so == me:
+                    for pool in pools:
+                        pool[:, dl] = pool[:, sl]
+                continue
+            page = torch.stack([pool[:, sl] for pool in pools])
+            page = comm.broadcast(page, so, "model", mesh)
+            if do == me:
+                for pool, rows in zip(pools, page):
+                    pool[:, dl] = rows
         return cache
     return copy

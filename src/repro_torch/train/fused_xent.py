@@ -3,7 +3,7 @@
 Port of the no-mesh part of src/repro/train/fused_xent.py (``lm_loss``
 -> ``_plain``): the head product stays a plain ``torch.matmul``, as the
 reference leaves it to XLA. The vocab-parallel ``shard_map`` path comes
-with the sharded slice (ROADMAP A11).
+with the sharded train step (ROADMAP A11b).
 """
 from __future__ import annotations
 

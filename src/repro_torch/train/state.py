@@ -2,7 +2,8 @@
 f32 AdamW moments.
 
 Port of src/repro/train/state.py, plus ``from_reference``, which carries
-a reference ``TrainState`` over (for the parity tests).
+a reference ``TrainState`` over (for the parity tests). ``state_specs``
+gives the spec tree of a strategy (sharding/rules.py) over the state.
 """
 from __future__ import annotations
 
@@ -67,3 +68,14 @@ def from_reference(state, *, device) -> TrainState:
         params=tree(state.params), master=tree(state.master),
         opt=adamw.AdamWState(m=tree(state.opt.m), v=tree(state.opt.v)),
         step=torch.tensor(int(state.step), dtype=torch.int32, device=device))
+
+
+def state_specs(model, strategy) -> TrainState:
+    """Spec tree matching TrainState: the params as the strategy places
+    them, master and moments fully sharded (ZeRO-1), the step whole."""
+    from repro_torch.sharding.rules import PS
+    p_specs = strategy.param_specs(model)
+    o_specs = strategy.opt_specs(model)
+    return TrainState(params=p_specs, master=o_specs,
+                      opt=adamw.AdamWState(m=o_specs, v=o_specs),
+                      step=PS())

@@ -2,7 +2,7 @@
 accumulation, int8 gradient compression and global-norm clipping.
 
 Port of src/repro/train/step.py without a mesh (the sharded strategy is
-ROADMAP A11). Gradients are taken by autograd with respect to the
+ROADMAP A11b). Gradients are taken by autograd with respect to the
 compute params and clipped in place; the f32 master weights and moments
 are updated in place and the next compute params are FRESH tensors cast
 from the master, so a caller may hold the pre-step params (the training

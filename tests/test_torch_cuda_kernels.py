@@ -233,6 +233,89 @@ def test_window_routes_bf16(cuda, route, S, D, hq, hkv, store):
         assert torch.equal(c_a, c_k) and torch.equal(k3, kk)
 
 
+# a pool of 16 pages of 4 rows chunked over 2 or 4 ranks (tp_serve): the
+# slots' pages spread over every chunk, slot 2 idle
+CHUNK_PT = np.array([[0, 9, 4, 14, -1],
+                     [13, 6, 1, 11, -1],
+                     [3, -1, -1, -1, -1]], np.int32)
+CHUNK_IDX = (17, 13, -40)            # the new rows on pages 9/14 and 11/6
+
+
+@pytest.mark.parametrize("n", [2, 4])
+@pytest.mark.parametrize("S,act", [(1, "float32"), (1, "bfloat16"),
+                                   (2, "float32"), (5, "float32"),
+                                   (5, "bfloat16"), (33, "float32"),
+                                   (33, "bfloat16")])
+def test_chunked_pool_stores_and_attends_owned_rows_only(cuda, n, S, act):
+    """B1 (S 1) and B2's store mode on every route (split: S * G <= 4 or a
+    short f32 window; tensor cores: bf16; CUDA cores: a long f32 window)
+    on one rank's chunk of a page-chunked pool, read through the
+    localized table where(owned, pt - off, -1): a window row whose page
+    another rank owns is unmapped there, so this rank's kernel neither
+    stores nor attends it. Each chunk's call equals the plain version on
+    the same chunk; the chunks' pools together equal the unsharded
+    call's bit for bit, their stored and silent counts sum to its, and
+    their outputs combined by log-sum-exp equal its output."""
+    pages, ps = 16, 4
+    q, k, v, pk, pv = _inputs(cuda, S, 16, act, "float32", seed=7 + S,
+                              pages=pages, ps=ps)
+    pt = torch.as_tensor(CHUNK_PT, device=cuda)
+    idx = torch.tensor(CHUNK_IDX, dtype=torch.int32, device=cuda)
+    if S > 1:
+        idx = idx - torch.tensor([S // 2, 0, 0], dtype=torch.int32,
+                                 device=cuda)
+
+    def call(qq, pool_k, pool_v, table):
+        if S == 1:
+            o, lse, cnt = paged_decode_attention(qq, k, v, pool_k, pool_v,
+                                                 table, idx)
+            return o, lse[..., None], cnt
+        o, lse, cnt, _, _ = paged_window_attention(qq, k, v, pool_k, pool_v,
+                                                   table, idx, store=True)
+        return o, lse, cnt
+
+    def plain(pool_k, pool_v, table):
+        if S == 1:
+            o, lse, _, _, cnt = ref.paged_decode_ref(q, k, v, pool_k, pool_v,
+                                                     table, idx)
+            return o, lse[..., None], cnt
+        o, lse, _, _, cnt = ref.paged_window_ref(q, k, v, pool_k, pool_v,
+                                                 table, idx, store=True)
+        return o, lse, cnt
+
+    wk, wv = pk.clone(), pv.clone()
+    whole = call(q, wk, wv, pt)
+    chunk = pages // n
+    outs, lses, kks, kvs, cnt = [], [], [], [], 0
+    for r in range(n):
+        lpt = pt - r * chunk
+        owned = (pt >= 0) & (lpt >= 0) & (lpt < chunk)
+        loc = torch.where(owned, lpt, -1).to(torch.int32)
+        kk = pk[r * chunk:(r + 1) * chunk].clone()
+        kv = pv[r * chunk:(r + 1) * chunk].clone()
+        pk2, pv2 = kk.clone(), kv.clone()
+        got = call(q, kk, kv, loc)
+        want = plain(pk2, pv2, loc)
+        torch.cuda.synchronize()
+        _compare(got, want, (kk, kv), (pk2, pv2), act)
+        outs.append(got[0].float())
+        lses.append(got[1].permute(0, 2, 1))          # (B, S, Hq)
+        kks.append(kk)
+        kvs.append(kv)
+        cnt = cnt + got[2]
+    assert torch.equal(torch.cat(kks), wk) and torch.equal(torch.cat(kvs), wv)
+    assert torch.equal(cnt[:, :2], whole[2][:, :2])
+    lse = torch.stack(lses)
+    w = torch.exp(lse - lse.amax(dim=0))
+    part = torch.where(w[..., None] > 0, torch.stack(outs) * w[..., None],
+                       0.0)
+    comb = part.sum(0) / w.sum(0)[..., None]
+    live = (whole[1] > ref.NEG_INF / 2).permute(0, 2, 1)[..., None]
+    tol = 1e-5 if act == "float32" else 2e-2
+    err = torch.where(live, (comb - whole[0].float()).abs(), 0.0)
+    assert float(err.max()) <= tol
+
+
 @pytest.mark.parametrize("S,store", [(1, True), (5, True), (5, False),
                                      (20, True)])
 def test_paged_slot_independent_of_other_slots(cuda, S, store):

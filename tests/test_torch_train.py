@@ -428,16 +428,16 @@ def test_train_driver_needs_cuda_and_rejects_unported_options(monkeypatch):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             pt_train.run("qwen3-1.7b", smoke=True, steps=1)
-    for flag in ("--ckpt-dir=x", "--resume", "--strategy=fsdp",
-                 "--remat=some"):
+    for flag in ("--strategy=fsdp", "--remat=some"):
         monkeypatch.setattr(sys, "argv", ["train", "--arch", "qwen3-1.7b",
                                           flag])
         with pytest.raises(SystemExit):
             pt_train.main()
-    # --objects and --waste-report are ported: they parse, and the run
-    # then needs CUDA
+    # --objects, --waste-report and the checkpoint options are ported:
+    # they parse, and the run then needs CUDA
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    for flag in ("--objects", "--waste-report"):
+    for flag in ("--objects", "--waste-report", "--ckpt-dir=x", "--resume",
+                 "--ckpt-every=3"):
         monkeypatch.setattr(sys, "argv", ["train", "--arch", "qwen3-1.7b",
                                           flag])
         with pytest.raises(RuntimeError, match="CUDA is not available"):

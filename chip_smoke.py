@@ -7,7 +7,7 @@ xlstm-1.3b (the ssm family) and whisper-large-v3 (the audio family), the
 fleet, one period of llama-3.2-vision-90b (the vlm family) served
 and trained at full layer width, and qwen3-1.7b served at full width by
 two tensor-parallel ranks (tp_serve) with its training state
-checkpointed.
+checkpointed, and its train step sharded over two ranks (dp_tp, fsdp).
 
     python3 chip_smoke.py
 
@@ -80,22 +80,24 @@ checkpointed.
    and one verify tick at full width with torch.profiler (device time by
    kernel kind, device busy share), each trace opened by untimed spin
    kernels and its B1, B2 and B5 kernels equal to the launch counters;
-3b. runs the speculative-verify path at full width:
-   ``repro_torch.launch.serve.run`` with ``spec=True, spec_k=4,
-   draft="ngram"``, once with rollback and once without, launch counts
-   set to 0 before each: 28 window-kernel and 113 RMSNorm launches per
-   verify tick, ``kernel_rejected_draft_store`` flagged 0 under rollback
-   and equal to the rejected drafts under overwrite; traces one verify
+3b. runs the speculative-verify path at full width, cut to 14 of 28
+   layers (``CUT_DEPTH``): ``repro_torch.launch.serve.run`` with
+   ``spec=True, spec_k=4, draft="ngram"``, once with rollback and once
+   without, launch counts set to 0 before each: 14 window-kernel and 57
+   RMSNorm launches per verify tick, ``kernel_rejected_draft_store``
+   flagged 0 under rollback and equal to the rejected drafts under
+   overwrite; traces one verify
    tick; and, on the smoke config in float32, checks that the replayed
    plain continuations (``--draft oracle``) give plain decode's tokens on
    the card, in every mode, and that the n-gram runs give the CPU's
    tokens and spec counters;
 3c. runs granite-moe-3b-a800m (the MoE family: 32 layers, d_model 1536,
-   40 experts top-8) at full width through ``launch.serve.run``: paged,
+   40 experts top-8) at full width, cut to 8 layers (``CUT_DEPTH``),
+   through ``launch.serve.run``: paged,
    profile on, batch 8, prompt 128 + 32, twice (equal tokens; the second
    without the profiler), then with
    n-gram drafts under rollback and overwrite, launch counts set to 0
-   before each run (32 B1 or B2 and 65 RMSNorm launches a forward); the
+   before each run (8 B1 or B2 and 17 RMSNorm launches a forward); the
    dispatch buffer's dead rows of every MoE layer of an admission step,
    a decode tick and a verify tick (0 under scatter); one traced
    admission step, decode tick and verify tick (kernels by kind, read
@@ -143,27 +145,29 @@ checkpointed.
    each profile equal to the CPU's; the decode microstep of qwen3-1.7b's
    smoke config in float32, card against CPU (totals, samples and checked
    counts equal; flagged counts equal or each difference printed with
-   its pair); and the decode microstep at full width (batch 8, cache
-   161, period 5000, 2 epochs, as ``launch.serve --profile`` runs it):
-   recorded operations, events and element-events, B5 launches in the
-   recording (113) and in the engine's passes (0), bytes snapshotted,
+   its pair); and the decode microstep at full width, 14 of 28 layers
+   (``CUT_DEPTH``; batch 8, cache 161, period 5000, 2 epochs, as
+   ``launch.serve --profile`` runs it): recorded operations, events and
+   element-events, B5 launches in the recording (57) and in the
+   engine's passes (0), bytes snapshotted,
    the seconds of the recording and of each pass, peak device memory
    with the trace held and after it is dropped, the top findings;
-7. trains granite-moe-3b-a800m at full width (32 layers, 40 experts
-   top-8): first B4 at its heads (Hq 24, Hkv 8, D 64: G 3) and B5 at
-   4096 x 1536 against their plain versions and timed (phase 7a, run
-   with 8a before the main paths); one step under each remat mode that
-   fits (bit-equal, peaks beside the reckoning); ``launch.train.run``, 4
-   steps of 4 x 1024 tokens with the detectors on (32 + 32 B4 and 65 +
-   65 B5 launches a step, one B3 per checked store); timed steps and a
-   traced step; the smoke config in float32, card against CPU;
-8. runs zamba2-1.2b (38 Mamba2 blocks, one shared attention block used
-   6 times) at full width: B4 at its heads (32, 32, 64: G 1) and B5 at
-   4096 x 4096 (the gate norm, the backward's widest wide-route row)
-   and 4104 against their plain versions (8a); ``launch.serve.run`` (the
-   token-loop driver, profile on, batch 8, prompt 128 + 32) twice (the
-   second without the profiler), equal
-   tokens, 89 B5 launches a step, tier 1's line, prefill and decode
+7. trains granite-moe-3b-a800m at full width (40 experts top-8), 8 of
+   32 layers (``CUT_DEPTH``): first B4 at its heads (Hq 24, Hkv 8, D
+   64: G 3) and B5 at 4096 x 1536 against their plain versions and timed
+   (phase 7a, run with 8a before the main paths); one step under each
+   remat mode that fits (bit-equal, peaks beside the reckoning);
+   ``launch.train.run``, 4 steps of 4 x 1024 tokens with the detectors on
+   (8 + 8 B4 and 17 + 17 B5 launches a step, one B3 per checked store);
+   timed steps and a traced step; the smoke config in float32, card
+against CPU; 8. runs zamba2-1.2b (38 Mamba2 blocks, one shared attention
+   block used 6 times) at full width: B4 at its heads (32, 32, 64: G 1)
+   and B5 at 4096 x 4096 (the gate norm, the backward's widest wide-route
+   row) and 4104 against their plain versions (8a); ``launch.serve.run``
+   (the token-loop driver, profile on, batch 8, prompt 128 + 32) at 12 of
+   38 layers (two attention periods, ``CUT_DEPTH``) twice (the second
+   without the profiler), equal
+   tokens, 29 B5 launches a step, tier 1's line, prefill and decode
    tok/s, one decode step traced; the smoke config (8 layers) in float32,
    the card's tokens and tier-1 totals equal to the CPU's; then training
    as in 7 (6 + 6 B4 and 89 + 89 B5 launches a step);
@@ -171,29 +175,32 @@ checkpointed.
    width: B5 at its decode and training rows at widths 2048 and 4096
    against its plain version and timed (9a, run with 10a before the
    main paths); ``launch.serve.run`` (token loop, profile on, batch 8,
-   prompt 128 + 32) twice, equal tokens, 97 B5 launches a forward and
-   none of B4, one decode step traced; tier 1 on its decode microstep
-   as in 6c (the mLSTM states snapshotted before their in-place
-   writes); the smoke config in float32, tokens and tier-1 totals card
-   = CPU; training as in 7, last of all, at full width cut to 2 of its
-   6 superblocks (16 layers: 33 + 33 B5, no B4; a step at 48 layers is
-   ~22 s, host-bound by the sLSTM's token loop), with 2 driver steps and
-   one timed step, the smoke check's card steps each from the CPU's
-   state;
+   prompt 128 + 32) at 8 of 48 layers (1 superblock, ``CUT_DEPTH``)
+   twice (the second without the profiler), equal tokens, 17 B5
+   launches a forward and none of B4, one decode step traced; tier 1 on
+   its decode microstep at the same depth as in 6c (the mLSTM states
+   snapshotted before their in-place writes); the smoke config in
+   float32, tokens and tier-1 totals card = CPU; training as in 7, last of
+   all, at full width cut to 1 of its 6 superblocks (8 layers: 17 + 17 B5,
+   no B4; a step at 48 layers is ~22 s, host-bound by the sLSTM's token
+   loop), with 2 driver steps and one timed step, the smoke check at 8 of
+   its 16 layers, its card steps each from the CPU's state;
 10. runs whisper-large-v3 (32 encoder and 32 decoder layers, d_model
    1280, 20 heads of 64) at full width: B4 at its heads (G 1, D 64)
    non-causal 1024 x 1024 and causal 1024 in both dtypes, two calls
    bit-identical, timed beside SDPA, and ragged non-causal cases (1024
    queries over 1500 frames, tier 1's one query over 128), B5 at 1280
-   (10a); ``launch.serve.run`` twice as in 9 (65 B5 launches in the
-   encoder, 97 a decode forward; B4 only in tier 1's cache and
-   microstep, which the reference builds from unmasked frames); frames
-   of (8, 1500, 1280) bucketed (extent 1024) against capacity (1500):
-   equal greedy tokens, the largest logit difference printed; the smoke
-   config in float32, card = CPU; training as in 7 (96 + 96 B4, 162 +
-   162 B5, no alignment copy);
+   (10a); ``launch.serve.run`` twice as in 9, at 8 + 8 of 32 + 32
+   layers (``CUT_DEPTH``; 17 B5 launches in the encoder, 25 a decode
+   forward; B4 only in tier 1's cache and microstep, which the
+   reference builds from unmasked frames); frames
+   of (8, 1500, 1280) bucketed (extent 1024) against capacity (1500)
+   at the same depth: equal greedy tokens, the largest logit difference
+   printed; the smoke config in float32, card = CPU; training as in 7 at
+   the same depth (24 + 24 B4, 42 + 42 B5, no alignment copy);
 11. runs the fleet and object tiers: ``repro_torch.launch.fleet.run``
-   for qwen3-1.7b at full width (two replicas of 2 slots over one
+   for qwen3-1.7b at full width, 14 of 28 layers (``CUT_DEPTH``; two
+   replicas of 2 slots over one
    parameter tree, bf16 activations, f32 pools, the driver's default
    trace: 12 requests, prompt 48 with a 40-token shared prefix, gen 4),
    prefix routing with ``--compare`` (random), ``--profile`` and
@@ -207,18 +214,18 @@ checkpointed.
    (cross-replica KV replica bytes above 0, then 0, with content-dedup
    routes and deferrals); the defaults in float32 with
    ``--check-single`` (tokens equal to one engine's, asserted); launches
-   28 B1 a decode tick, 28 B2 a prefill and 113 B5 a forward over every
-   fleet and single engine; one traced fleet tick per policy (kernels by
-   kind, busy share, the same launches); and the smoke config in
-   float32, card against CPU: router stats, routes, tokens, engine
-   stats, the merged fleet profile's findings, the object scan's replica
-   groups and bytes, and the training driver's ``--objects`` scan;
-12. runs llama-3.2-vision-90b (the vlm family: 20 periods of 4 dense
-   blocks and one gated cross-attention block over 1024 image tokens,
-   d_model 8192, 64 heads over 8 kv heads of 128) at full layer width,
-   cut to one period (6.38 B parameters): B4 at its heads (G 8) causal
-   and non-causal 1024 x 1024 in both dtypes and a decode step's one
-   query over the 1024 image tokens, B5 at width 8192 (the general
+   a B1 a layer and decode tick, a B2 a layer and prefill and 2 L + 1
+   B5 a forward over every fleet and single engine; one traced fleet
+   tick per policy (kernels by kind, busy share, the same launches); and
+   the smoke config in float32, card against CPU: router stats, routes,
+   tokens, engine stats, the merged fleet profile's findings, the object
+   scan's replica groups and bytes, and the training driver's
+``--objects`` scan; 12. runs llama-3.2-vision-90b (the vlm family: 20
+   periods of 4 dense blocks and one gated cross-attention block over 1024
+   image tokens, d_model 8192, 64 heads over 8 kv heads of 128) at full
+   layer width, cut to one period (6.38 B parameters): B4 at its heads (G
+   8) causal and non-causal 1024 x 1024 in both dtypes and a decode step's
+   one query over the 1024 image tokens, B5 at width 8192 (the general
    route) at decode and training rows, each against its plain version,
    two calls bit-identical, kernels and grids from the trace, timed
    beside SDPA or ``F.rms_norm`` (12a, run with the other kernel
@@ -259,23 +266,41 @@ chunks' pools together equal to the unsharded call's bit for bit, their
 stored and silent counts summed equal, their outputs combined by
 log-sum-exp within 1e-4 / 2e-2 of the unsharded output; each chunk's
 call and the unsharded call timed by device time. (14b) qwen3-1.7b at
-full width served by ``ServeEngine(strategy=make_strategy("tp_serve",
-mesh))`` on a (1, 2) mesh: two ranks spawned on the card (gloo, the
-collectives staged through the host), 8 slots, phase 3's prompts 128 +
-32, paged, f32 pool, bf16 and then f32 activations: per rank 28 B1
-launches a tick, 28 B2 an admission, 113 B5 a forward, tokens equal
-across ranks, every rank's chunk holding live pages, the f32 first
-tick's logits within 1e-4 relative of the unsharded engine's; decode
-tok/s, tick wall, collectives' calls, seconds and staged bytes, a
-profiled tick's device busy share and each rank's peak memory against
-the unsharded engine's printed. (14c) The smoke config in float32 under
-tp_serve on two ranks, on duplicated-prefix traffic with copies on
-write across ranks: tokens, stats and tier-3/4 reports equal to the
-unsharded engine's, on the card and on the CPU. (14d) The smoke config's
-training on the card, 4 steps straight against 2, a save and a resume
-of 2 (bit for bit); qwen3-1.7b's training state at full width saved and
-restored, every leaf bit-equal, at the depth whose reckoned bytes fit
-``CKPT_BUDGET`` and the free disk.
+full width, 14 of 28 layers (``CUT_DEPTH``), served by
+``ServeEngine(strategy=make_strategy("tp_serve", mesh))`` on a (1, 2)
+mesh: two ranks spawned on the card (gloo, the collectives staged through
+the host), 8 slots, phase 3's prompts 128 + 32, paged, f32 pool, bf16 and
+then f32 activations: per rank 14 B1 launches a tick, 14 B2 an admission,
+57 B5 a forward, tokens equal across ranks, every rank's chunk holding
+live pages, the f32 first tick's logits within 1e-4 relative of the
+unsharded engine's; decode tok/s, tick wall, collectives' calls, seconds
+and staged bytes, a profiled tick's device busy share and each rank's peak
+memory against the unsharded engine's printed. (14c) The smoke config in
+float32 under tp_serve on two ranks, on duplicated-prefix traffic with
+copies on write across ranks: tokens, stats and tier-3/4 reports equal to
+the unsharded engine's, on the card and on the CPU. (14d) The smoke
+config's training on the card, 4 steps straight against 2, a save and a
+resume of 2 (bit for bit); qwen3-1.7b's training state at full width saved
+and restored, every leaf bit-equal, at the depth whose reckoned bytes fit
+``CKPT_BUDGET`` and the free disk. (14e) qwen3-1.7b's train step sharded
+over a (1, 2) mesh of two ranks spawned on the card (gloo, staged
+through the host), at full width cut to ``TP_TRAIN_LAYERS`` layers (the
+reckoning of the bytes a step stages is printed), under dp_tp and fsdp:
+(a) in float32 from the seed-0 weights, 2 steps of the stream's 4 x
+1024 batches, each rank on its rows, against the unsharded step on the
+card at the same depth: first loss within 1e-5 relative, grad norms
+within 1e-4, the master (each rank's blocks) within 2 lr a step, each
+rank's share of the state its ``state_specs`` block; (b)
+``launch.train.run(strategy=, mesh=, profile=True)`` in bf16, 2 steps:
+per rank B4 L + L and B5 4L + 1 each way a step, one B3 per checked
+store, the tier-3 findings equal on both ranks, one traced sharded step
+whose kernels equal its launches (both ranks retake when either's trace
+missed kernels); step walls, collectives' calls, seconds and staged
+bytes, the traced step's busy share and each rank's peak beside the
+unsharded step's printed. Its kernels' rank shapes (B4 on dp_tp's heads
+and fsdp's rows, B5 at half the q/k-norm rows and fsdp's block norm, B3
+on half the embedding) are checked and timed with the kernel phases
+(``check_tp_train_kernels``).
 
 Each phase prints its seconds (``[phase]`` lines). The line before the
 last lists the card; the last line is the JSON
@@ -408,7 +433,7 @@ QWEN3_HEADS = (HQ, HKV, D)                # (Hq, Hkv, D) of qwen3-1.7b
 GRANITE = "granite-moe-3b-a800m"
 GRANITE_HEADS = (24, 8, 64)               # G 3, D 64
 MAX_LEN = 128 + 32 + 1                    # the main path's cache extent
-PHASE3 = {}                               # phase 3's tokens, for 14b
+PHASE3 = {}                      # phase 3's tokens and depth, for 14b
 M = -(-MAX_LEN // PS)                     # pages per slot (11)
 P = B * M                                 # pool pages (88)
 
@@ -1417,16 +1442,17 @@ def flash_case(torch, dtype, sq, skv, causal, seed, d=D, layout="plain",
     return err, err_g, (q, k, v, out, lse, dout)
 
 
-def flash_bytes_flops(sq, skv, isz, causal, backward, heads=QWEN3_HEADS):
+def flash_bytes_flops(sq, skv, isz, causal, backward, heads=QWEN3_HEADS,
+                      batch=TB):
     """Least bytes and flops of one call: inputs read once, outputs
     written once; 4 D flops per visible (query, key) pair forward (two
     products), 10 D backward (the scores again, dP, dV, dK, dQ)."""
     hq, hkv, d = heads
-    pairs = TB * hq * (sum(min(r + 1, skv) for r in range(sq)) if causal
-                       else sq * skv)
-    qo = TB * sq * hq * d * isz
-    kv = TB * skv * hkv * d * isz
-    lse = TB * hq * sq * 4
+    pairs = batch * hq * (sum(min(r + 1, skv) for r in range(sq)) if causal
+                          else sq * skv)
+    qo = batch * sq * hq * d * isz
+    kv = batch * skv * hkv * d * isz
+    lse = batch * hq * sq * 4
     if backward:       # q k v out dout lse in; dq dk dv out
         return 3 * qo + 2 * kv + lse + qo + 2 * kv, 10 * d * pairs
     return 2 * qo + 2 * kv + lse, 4 * d * pairs
@@ -1473,9 +1499,10 @@ def check_flash(torch, timer):
     return entries
 
 
-def flash_on_training_inputs(torch, timer, arch, heads, causal=True):
-    """Flash attention at a training path's inputs (B 4, S 1024, the
-    model's heads, bf16, causal or not) in bfloat16 and float32 against
+def flash_on_training_inputs(torch, timer, arch, heads, causal=True,
+                             batch=TB):
+    """Flash attention at a training path's inputs (B ``batch``, S 1024,
+    the model's heads, bf16, causal or not) in bfloat16 and float32 against
     the plain versions, two forward and two backward calls bit-identical,
     each call's kernels and grids read from the trace (one forward
     kernel, the backward's three), then timed by device time (CUPTI)
@@ -1489,9 +1516,10 @@ def flash_on_training_inputs(torch, timer, arch, heads, causal=True):
     hq, hkv, d = heads
     mask = "causal" if causal else "non-causal"
     flash_case(torch, "float32", TSEQ, TSEQ, causal, seed=3, d=d, hq=hq,
-               hkv=hkv)
+               hkv=hkv, batch=batch)
     err, err_g, (q, k, v, out, lse, dout) = flash_case(
-        torch, "bfloat16", TSEQ, TSEQ, causal, seed=1, d=d, hq=hq, hkv=hkv)
+        torch, "bfloat16", TSEQ, TSEQ, causal, seed=1, d=d, hq=hq, hkv=hkv,
+        batch=batch)
     fwd = [flash_attention_forward(q, k, v, causal) for _ in range(2)]
     first = flash_attention_backward(q, k, v, out, lse, dout, causal)
     again = flash_attention_backward(q, k, v, out, lse, dout, causal)
@@ -1542,14 +1570,14 @@ def flash_on_training_inputs(torch, timer, arch, heads, causal=True):
         tag = "bwd" if back else "fwd"
         ms, plain_ms, lib_ms = dev[tag], dev[tag + "_plain"], dev["sdpa_" + tag]
         nbytes, flops = flash_bytes_flops(TSEQ, TSEQ, isz, causal, back,
-                                          heads)
+                                          heads, batch)
         b_ms, by = bound(nbytes, flops, PEAK_FLOPS["bfloat16"])
         nums[key] = {"max_abs_err": e, "ms": ms, "plain_ms": plain_ms,
                      "bound_ms": b_ms, "bound_by": by, "library_ms": lib_ms,
                      "event_ms": ev[tag]}
         extra = (f" | SDPA fwd+bwd {dev['sdpa_fwd_bwd']:.4f} ms" if back
                  else "")
-        print(f"[kernels] {key} on {arch}'s training inputs (B {TB}, S "
+        print(f"[kernels] {key} on {arch}'s training inputs (B {batch}, S "
               f"{TSEQ}, Hq {hq}, Hkv {hkv}, D {d}, bf16, {mask}), device "
               f"time: kernel {ms:.4f} ms = {flops / ms / 1e9:.1f} TFLOP/s at "
               f"the bound's flops, {b_ms / ms:.3f} of the bound | plain "
@@ -2115,6 +2143,7 @@ def main_path(torch, np):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     PHASE3["tokens"] = np.asarray(out)
+    PHASE3["layers"] = layers
     launches = {"paged_decode": pa.paged_decode_attention.launches,
                 "paged_window": fp.paged_window_attention.launches,
                 "rmsnorm_fwd": rn.rmsnorm_forward.launches}
@@ -2324,7 +2353,8 @@ SPEC_K = 4
 
 
 def spec_path(torch, np):
-    """``launch.serve.run --spec on --draft ngram`` at full width, with
+    """``launch.serve.run --spec on --draft ngram`` at full width (and
+    the registry's depth: cut by ``CUT_DEPTH`` in main), with
     rollback and with overwrite; the serving kernels' launch counts are
     set to 0 just before each run and read just after. Returns the
     launches per run."""
@@ -2498,14 +2528,16 @@ def small_reference_check(torch, np):
 # phase 3c: granite-moe-3b-a800m, the MoE family, served at full width
 # ----------------------------------------------------------------------
 def granite_path(torch, np):
-    """``launch.serve.run`` for granite-moe-3b-a800m at full width (32
-    layers, d_model 1536, Hq 24, Hkv 8, D 64, 40 experts top-8; random
-    weights from seed 0): paged, profile on, batch 8, prompt 128 + 32;
+    """``launch.serve.run`` for granite-moe-3b-a800m at full width (the
+    registry's depth: 32 layers, cut to 8 by ``CUT_DEPTH`` in main;
+    d_model 1536, Hq 24, Hkv 8, D 64, 40 experts top-8; random weights
+    from seed 0): paged, profile on, batch 8, prompt 128 + 32;
     again with the profiler off (equal tokens; tier 1 would take ~30 s
     of the repeat), then ``--spec on`` (n-gram drafts, k 4) with rollback
     and with overwrite. The serving kernels' launch counts are set to 0
-    just before each run and read just after: 32 B1 or B2 and 65 B5
-    launches a forward (and a forward more in a profiled run's tier 1).
+    just before each run and read just after: a B1 or B2 a layer and
+    2 L + 1 B5 launches a forward (and a forward more in a profiled
+    run's tier 1).
     Then the MoE dispatch stats and traced steps (engine_steps). Returns
     the launches per run."""
     import repro_torch.kernels.flash_prefill as fp
@@ -3090,13 +3122,15 @@ def token_loop_inputs(cfg, model, batch, prompt_len, dev):
 
 def token_loop_serve(torch, np, arch, profile_again=True):
     """Phases 8b, 9b and 10b. ``launch.serve.run`` for ``arch`` at full
-    width (random weights from seed 0): the token-loop driver with the
+    width and the registry's depth (cut by ``CUT_DEPTH`` in main;
+    random weights from seed 0): the token-loop driver with the
     profiler on, batch 8, prompt 128 + 32, twice (equal tokens; the
     second without the profiler unless ``profile_again``), the
     kernels' launches counted: a decode forward's B5 launches a step
-    (89 for zamba2-1.2b, 97 for xlstm-1.3b and whisper-large-v3) and one
-    forward more in tier 1's recorded decode microstep, and for the audio
-    family the encoder's (65) twice: in the run's ``init_cache`` and in
+    (``launches_per_forward``: 29 for zamba2-1.2b at 12 layers, 33 for
+    xlstm-1.3b at 16, 25 for whisper-large-v3 at 8 + 8) and one forward
+    more in tier 1's recorded decode microstep, and for the audio family
+    the encoder's (17 at 8 layers) twice: in the run's ``init_cache`` and in
     tier 1's. A decode's attention is masked (the plain composition, as
     in the reference), so the run makes no B4 launch, except in the audio
     family's tier 1: its cache is the reference driver's, built from the
@@ -3245,9 +3279,23 @@ def token_loop_smoke_check(torch, np, arch, **overrides):
 # audio family), served and trained at full width
 # ----------------------------------------------------------------------
 XLSTM = "xlstm-1.3b"
-XLSTM_TRAIN_LAYERS = 16                   # 2 of its 6 superblocks
+XLSTM_TRAIN_LAYERS = 8                    # 1 of its 6 superblocks
 WHISPER = "whisper-large-v3"
 WHISPER_HEADS = (20, 20, 64)              # G 1, D 64
+# Every main path but qwen3-1.7b's phases 3, 5 and 13 runs at full width
+# cut to these depths (qwen3's in 3b, 6c, 11 and 14b; granite's in 3c and
+# 7; zamba2's in 8b; xlstm's in 9b-c; whisper's in 10b, 10c and 10e), so
+# that the whole script stays near half its time limit: its phases are
+# mostly host-bound, and one host ran them all 1.6x slower than another
+# (967 s against 920 s with these cuts; at full depth 1200 s was passed).
+# Every launch count they assert is reckoned at the cut depth.
+CUT_DEPTH = {
+    QWEN3: {"num_layers": 14},                         # of 28
+    GRANITE: {"num_layers": 8},                        # of 32
+    ZAMBA: {"num_layers": 12},                         # 2 periods of 6
+    XLSTM: {"num_layers": XLSTM_TRAIN_LAYERS},         # 1 of its 6 superblocks
+    WHISPER: {"num_layers": 8, "encoder_layers": 8},   # of 32 + 32
+}
 
 
 def check_new_family_kernels(torch, timer, entries):
@@ -3440,8 +3488,9 @@ def fleet_path(torch, np, card_line):
     object gate); the defaults in float32 with ``--check-single``. The
     serving kernels' launch counts are set to 0 before the first run and
     read after the last; every fleet runs a warm-up pass and a measured
-    pass with the same ticks, so the launches are 28 B1 a decode tick,
-    28 B2 a prefill and 113 B5 a forward of the measured fleets, twice,
+    pass with the same ticks, so the launches are a B1 a layer and
+    decode tick, a B2 a layer and prefill and 2 L + 1 B5 a forward (L
+    the registry's layers) of the measured fleets, twice,
     plus the single engines'. Returns the launches."""
     import repro_torch.launch.fleet as fl
     from repro_torch.configs import registry
@@ -3570,7 +3619,8 @@ def fleet_traced_ticks(torch, np):
     4 requests 3 ticks apart: a fresh fleet stepped past its first burst
     (3 ticks), then the tick that dispatches and admits the second. The
     kernels of the tick, read from the trace, equal the launch counters:
-    28 B1 a decode tick, 28 B2 a prefill and 113 B5 a forward over the
+    a B1 a layer and decode tick, a B2 a layer and prefill and 2 L + 1 B5
+    a forward over the
     replicas that stepped."""
     import repro_torch.launch.fleet as fl
     from repro_torch.configs import registry
@@ -4658,10 +4708,12 @@ def tp_smoke_rank(mesh):
 
 
 def tp_rank(mesh):
-    """One rank of 14b and 14c on the card."""
+    """One rank of 14b and 14c on the card; 14b at qwen3-1.7b's
+    ``CUT_DEPTH``, as ``tp_serve_path``'s unsharded engine."""
     import torch
     import numpy as np
-    out = tp_full_width(torch, np, mesh)
+    with registry_override(QWEN3, **CUT_DEPTH[QWEN3]):
+        out = tp_full_width(torch, np, mesh)
     out["smoke"] = tp_smoke_rank(mesh)
     return out
 
@@ -4671,8 +4723,9 @@ def tp_serve_path(torch, np, card_line):
     by this process before), each serving qwen3-1.7b at full width under
     tp_serve and then the smoke config; checked here against the
     unsharded engine (f32 first-tick logits within 1e-4 relative, tokens
-    printed), the launches per rank (B1 28 a tick, B2 28 an admission,
-    B5 113 a forward), every rank's chunk holding live pages; then the
+    printed), the launches per rank (a B1 a layer and tick, a B2 a layer
+    and admission, 2 L + 1 B5 a forward; L qwen3-1.7b's ``CUT_DEPTH``,
+    here and in ``tp_rank``), every rank's chunk holding live pages; then the
     smoke config on two CPU ranks against the unsharded CPU engine.
     Returns the tp_serve path's launches (summed over the ranks)."""
     import dataclasses
@@ -4682,7 +4735,8 @@ def tp_serve_path(torch, np, card_line):
     from repro_torch.models.zoo import build_model
     from repro_torch.serve.engine import Request, ServeEngine
 
-    cfg = registry.get_config(QWEN3)
+    # at the ranks' depth (tp_rank)
+    cfg = dataclasses.replace(registry.get_config(QWEN3), **CUT_DEPTH[QWEN3])
     layers = cfg.num_layers
     norms = launches_per_forward(cfg)[1]
     t0 = time.perf_counter()
@@ -4750,14 +4804,19 @@ def tp_serve_path(torch, np, card_line):
     want = want[..., :cfg.vocab_size]
     rel = float((got - want).abs().max() / want.abs().max())
     f32_same = int((r0["float32"]["tokens"] == want_toks).all(axis=1).sum())
+    # phase 3's tokens are comparable only at its depth
     bf16_same = (int((r0["bfloat16"]["tokens"] == PHASE3["tokens"])
-                     .all(axis=1).sum()) if "tokens" in PHASE3 else None)
-    print(f"[14b] qwen3-1.7b full width, tp_serve on {TP_CARD_RANKS} ranks "
-          f"of one card (gloo), spawned and run in {spawn_s:.1f} s: tokens "
+                     .all(axis=1).sum())
+                 if PHASE3.get("layers") == layers else None)
+    print(f"[14b] qwen3-1.7b full width at {layers} layers, tp_serve on "
+          f"{TP_CARD_RANKS} ranks of one card (gloo), spawned and run in "
+          f"{spawn_s:.1f} s: tokens "
           f"equal across ranks; f32 first tick's logits vs the unsharded "
           f"engine's: max |diff| / max |logit| {rel:.2e} (tol 1e-4); f32 "
           f"sequences equal to the unsharded engine's {f32_same}/{B}; bf16 "
-          f"sequences equal to phase 3's {bf16_same}/{B}; peak per rank "
+          f"sequences equal to phase 3's "
+          f"{'(other depth)' if bf16_same is None else bf16_same}/{B}; "
+          f"peak per rank "
           f"{[round(r['float32']['peak_gb'], 2) for r in ranks]} GB (f32) "
           f"vs the unsharded engine's {peak_unsharded:.2f} GB | "
           f"{card_line}", flush=True)
@@ -4866,6 +4925,384 @@ def tp_checkpoint(torch, np, card_line):
         torch.cuda.empty_cache()
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+def check_tp_train_kernels(torch, timer, entries):
+    """14e's kernels at a rank's shapes (run with the kernel phases): B4
+    on dp_tp's heads (B 4, Hq 8 over Hkv 4, D 128) and on fsdp's rows (B
+    2, Hq 16, Hkv 8), B5 at the q- and k-norms' half rows (32768 and
+    16384 x 128) and fsdp's block norm (2048 x 2048), B3 on half the
+    embedding leaf (75968 x 2048 bf16), each against its plain version
+    and timed as in phases 4 and 7a. The numbers go into the entries'
+    ``by_shape``."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.silent_compare import silent_compare
+    for tag, heads, batch in (("qwen3-1.7b dp_tp rank", (HQ // 2, HKV // 2,
+                                                         D), TB),
+                              ("qwen3-1.7b fsdp rank", QWEN3_HEADS, TB // 2)):
+        nums = flash_on_training_inputs(torch, timer, tag, heads,
+                                        batch=batch)
+        for key, num in nums.items():
+            entries[key]["by_shape"][f"{tag} train"] = num
+    for tag, rows, width in (
+            ("qwen3-1.7b rank q-norm (half rows)", TB * TSEQ * HQ // 2, D),
+            ("qwen3-1.7b rank k-norm (half rows)", TB * TSEQ * HKV // 2, D),
+            ("qwen3-1.7b fsdp rank block norm", TB * TSEQ // 2, 2048)):
+        norm_train_times(torch, timer, entries, tag, rows, width)
+    g = torch.Generator(device="cuda").manual_seed(11)
+    a = (torch.randn((151936 // 2, 2048), generator=g, device="cuda")
+         * 0.02).to(torch.bfloat16)
+    b = a.clone()
+    b.view(-1)[::3] += 1e-3
+    got, want = (int(silent_compare(a, b, 0.01)),
+                 int(ref.silent_compare_ref(a, b, 0.01)))
+    assert got == want, (got, want)
+    ms = timer.device(lambda: silent_compare(a, b, 0.01))
+    plain_ms = timer.device(lambda: ref.silent_compare_ref(a, b, 0.01))
+    nbytes = 2 * a.numel() * a.element_size()
+    b_ms, by = bound(nbytes, 0, PEAK_FLOPS["bfloat16"])
+    print(f"[kernels] silent_compare on half the embedding leaf (a rank's "
+          f"block: 75968 x 2048 bf16, tol 0.01): count {got} = plain's; "
+          f"kernel {ms:.4f} ms | plain {plain_ms:.4f} ms | bound "
+          f"{b_ms:.4f} ms ({by}: {nbytes / 1e6:.2f} MB)", flush=True)
+    entries["silent_compare"].setdefault("by_shape", {})[
+        "qwen3-1.7b rank embedding block"] = {
+        "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": b_ms, "bound_by": by, "library_ms": None}
+
+
+# ----------------------------------------------------------------------
+# phase 14e: the sharded train step
+# ----------------------------------------------------------------------
+TP_TRAIN_LAYERS = 4        # 14e: qwen3-1.7b's depth (full width)
+TP_TRAIN_STEPS = 2
+TP_TRAIN_STRATEGIES = ("dp_tp", "fsdp")
+GLOO_BYTES_S = 1e9         # host staging rate of large collectives (14b)
+
+
+def tp_train_reckon(cfg, layers):
+    """Bytes one rank of two stages through the host in a bf16 train step
+    of qwen3-1.7b at ``layers`` layers, by strategy: under dp_tp the two
+    all-reduces a layer forward and two backward of the (B, S, d)
+    activations in f32 (both ways), the embedding's and the loss's, and
+    the tp-sharded gradients and params gathered whole for the ZeRO
+    reshards (a block out, the whole leaf back); under fsdp each layer's
+    weights gathered whole forward, the gradients summed whole backward
+    in f32 (gloo has no reduce-scatter), and the params gathered for the
+    reshard. Printed with the seconds at GLOO_BYTES_S."""
+    import dataclasses
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.models.zoo import build_model
+    model = build_model(dataclasses.replace(cfg, num_layers=layers))
+    n = sum(d.size for d in tree_leaves(model.decl()))
+    act = 4 * TB * TSEQ * cfg.d_model
+    dp_tp = (4 * layers + 2) * 2 * act + 2 * 1.5 * 2 * n
+    fsdp = 1.5 * 2 * n + 2 * 4 * n + 1.5 * 2 * n
+    return n, {"dp_tp": dp_tp, "fsdp": fsdp}
+
+
+def tp_train_f32(torch, np, mesh, name, ref_path):
+    """14e(a) on one rank: the f32 step at full width and TP_TRAIN_LAYERS
+    from seed 0 under ``name``, TP_TRAIN_STEPS steps of the stream's 4 x
+    1024 batches, each rank on its rows; the share's element counts
+    against ``state_specs``; the master after the steps against the
+    unsharded step's (``ref_path``: its whole master) on this rank's
+    blocks; the peak memory."""
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data.synthetic import batch_at
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.models.zoo import build_model
+    from repro_torch.sharding import comm
+    from repro_torch.sharding.rules import (map2, global_shape,
+                                            local_slice, make_strategy)
+    from repro_torch.train import state as TS
+    from repro_torch.train.step import make_train_step, rank_batch
+    dev = mesh.device
+    with registry_override(QWEN3, num_layers=TP_TRAIN_LAYERS,
+                           dtype="float32"):
+        cfg = registry.get_config(QWEN3)
+        model = build_model(cfg)
+        strat = make_strategy(name, mesh)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        state = TS.create(model, 0, compute_dtype=torch.float32, device=dev,
+                          strategy=strat)
+        specs = TS.state_specs(model, strat)
+        whole = [tuple(d.shape) for d in tree_leaves(model.decl())]
+        share = all(
+            global_shape(t.shape, s, mesh) == w
+            for part, spec in ((state.params, specs.params),
+                               (state.master, specs.master),
+                               (state.opt.m, specs.opt.m),
+                               (state.opt.v, specs.opt.v))
+            for t, s, w in zip(tree_leaves(part), tree_leaves(spec), whole))
+        tc = TrainConfig(learning_rate=3e-4, total_steps=TP_TRAIN_STEPS,
+                         warmup_steps=1, remat="none")
+        fn = make_train_step(model, tc, strat)
+        rows, tokens = [], None
+        comm.reset_stats()
+        t0 = time.perf_counter()
+        for step in range(TP_TRAIN_STEPS):
+            b = rank_batch(batch_at(cfg, TB, TSEQ, seed=0, step=step), strat)
+            tokens = int(b["tokens"].size)
+            state, m = fn(state, {k: torch.from_numpy(v).to(dev)
+                                  for k, v in b.items()})
+            rows.append((float(m["loss"]), float(m["grad_norm"]),
+                         float(m["lr"])))
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / TP_TRAIN_STEPS
+        stats = dict(comm.STATS)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        ref = torch.load(ref_path, mmap=True, map_location="cpu")
+        diff = []
+        map2(lambda t, w, s: diff.append(float((t - local_slice(
+            w, s, mesh).to(t.device)).abs().max())),
+            state.master, ref, specs.master)
+        del state, ref
+        torch.cuda.empty_cache()
+    return {"rows": rows, "share": share, "master_diff": max(diff),
+            "peak_gib": peak, "tokens": tokens, "wall_s": wall,
+            "comm": stats}
+
+
+def tp_train_bf16(torch, np, mesh, name):
+    """14e(b) on one rank: ``launch.train.run(strategy=name, mesh=mesh,
+    profile=True)`` at full width and TP_TRAIN_LAYERS, TP_TRAIN_STEPS
+    steps of 4 x 1024 tokens in bf16 with the kernels' launch counts set
+    to 0 just before and read just after, its collectives and peak
+    memory; then one traced sharded step (the ranks agree on each retake:
+    every step runs collectives)."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data.synthetic import batch_at
+    from repro_torch.launch.train import run
+    from repro_torch.models.zoo import build_model
+    from repro_torch.sharding import comm
+    from repro_torch.sharding.rules import make_strategy
+    from repro_torch.train import state as TS
+    from repro_torch.train.step import make_train_step, rank_batch
+    counters = train_counters()
+    for c in counters.values():
+        c.launches = 0
+    comm.reset_stats()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with registry_override(QWEN3, num_layers=TP_TRAIN_LAYERS):
+        t0 = time.perf_counter()
+        losses, merged = run(QWEN3, smoke=False, steps=TP_TRAIN_STEPS,
+                             batch=TB, seq=TSEQ, profile=True,
+                             strategy=name, mesh=mesh)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches = {k: c.launches for k, c in counters.items()}
+        stats = dict(comm.STATS)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        report = {"checked": dict(merged.checked),
+                  "flagged": dict(merged.flagged),
+                  "findings": sorted((f.kind, f.c1, f.step, f.count, f.bytes)
+                                     for f in merged.findings)}
+        # one traced step from a fresh state
+        cfg = registry.get_config(QWEN3)
+        model = build_model(cfg)
+        strat = make_strategy(name, mesh)
+        state = TS.create(model, 0, device=mesh.device, strategy=strat)
+        fn = make_train_step(model, TrainConfig(
+            learning_rate=3e-4, total_steps=2, warmup_steps=1,
+            remat="none"), strat)
+        b = {k: torch.from_numpy(v).to(mesh.device) for k, v in rank_batch(
+            batch_at(cfg, TB, TSEQ, seed=0, step=0), strat).items()}
+        kernels = {k: c for k, c in counters.items()
+                   if k != "silent_compare"}
+        traced = None
+        for attempt in range(TRACE_TRIES):
+            if attempt:
+                retake_pause(attempt)
+            for c in kernels.values():
+                c.launches = 0
+            before = dict(comm.STATS)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for _ in range(LEAD_IN):
+                    torch.cuda._sleep(100)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn(state, b)
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t0) * 1e3
+            counts = report_trace(torch, prof,
+                                  f"14e {name} rank {mesh.rank} step",
+                                  wall_ms)
+            launched = {k: c.launches for k, c in kernels.items()}
+            ok = all(counts.get(k, 0) == n * KERNELS_PER_LAUNCH.get(k, 1)
+                     for k, n in launched.items())
+            # every rank retakes if any rank's trace missed kernels
+            bad = comm.all_reduce(torch.tensor(0 if ok else 1),
+                                  mesh.axis_names, mesh)
+            traced = {"wall_ms": wall_ms, "launched": launched,
+                      "trace": {k: counts.get(k, 0) for k in kernels},
+                      "comm": {k: comm.STATS[k] - before[k] for k in
+                               ("calls", "seconds", "staged_bytes")}}
+            if int(bad) == 0:
+                break
+        del state
+        torch.cuda.empty_cache()
+    return {"losses": losses, "launches": launches, "comm_b": stats,
+            "peak_b_gib": peak, "report": report, "run_s": run_s,
+            "traced": traced, "traced_ok": int(bad) == 0}
+
+
+def tp_train_rank(mesh, ref_path):
+    """One rank of 14e: (a) for each strategy, then (b) for each."""
+    import torch
+    import numpy as np
+    out = {"rank": mesh.rank}
+    for name in TP_TRAIN_STRATEGIES:
+        out[name] = tp_train_f32(torch, np, mesh, name, ref_path)
+    for name in TP_TRAIN_STRATEGIES:
+        out[name].update(tp_train_bf16(torch, np, mesh, name))
+    return out
+
+
+def tp_train_path(torch, np, card_line):
+    """14e: qwen3-1.7b's train step sharded over a (1, 2) mesh of two
+    ranks spawned on the card (gloo, staged through the host), at full
+    width cut to TP_TRAIN_LAYERS layers, under dp_tp and fsdp. (a) f32
+    from the seed-0 weights on the stream's 4 x 1024 batches, against the
+    unsharded step on the card at the same depth (run here first): loss
+    within 1e-5 relative, grad norm within 1e-4 relative, the master
+    after TP_TRAIN_STEPS steps within 2 lr a step (the ROADMAP's Adam
+    allowance), each rank's share of the state its ``state_specs``
+    block; (b) ``launch.train.run`` in bf16 with the detectors on: per
+    rank and step B4 L + L and B5 4L + 1 each way, one B3 per checked
+    store, the tokens split as the batch axes say (dp_tp: each rank the
+    whole batch; fsdp: half), the tier-3 findings equal on both ranks,
+    one traced step's kernels equal to its launches; printed: step wall,
+    collectives, staged bytes, busy share, peaks against the unsharded
+    step's. Returns the launches of (b), summed over the ranks."""
+    import math
+    import shutil
+    import tempfile
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data.synthetic import batch_at
+    from repro_torch.launch.mesh import launch
+    from repro_torch.models.zoo import build_model
+    from repro_torch.train import state as TS
+    from repro_torch.train.step import make_train_step
+
+    cfg = registry.get_config(QWEN3)
+    L = TP_TRAIN_LAYERS
+    n, staged = tp_train_reckon(cfg, L)
+    print(f"[14e] reckoning: qwen3-1.7b at {L} of {cfg.num_layers} layers "
+          f"({n / 1e6:.0f} M parameters, the embedding "
+          f"{cfg.padded_vocab * cfg.d_model / 1e6:.0f} M of them): a bf16 "
+          f"step stages "
+          + ", ".join(f"{k} {v / 1e9:.2f} GB (~{v / GLOO_BYTES_S:.1f} s)"
+                      for k, v in staged.items())
+          + f" a rank through the host at ~{GLOO_BYTES_S / 1e9:.0f} GB/s; "
+          f"{TP_TRAIN_STEPS} steps each of (a) and (b) and a traced step "
+          f"per strategy", flush=True)
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(root, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="tp_train_", dir=root)
+    try:
+        # the unsharded f32 step at the same depth, on the card
+        with registry_override(QWEN3, num_layers=L, dtype="float32"):
+            scfg = registry.get_config(QWEN3)
+            model = build_model(scfg)
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            state = TS.create(model, 0, compute_dtype=torch.float32,
+                              device="cuda")
+            fn = make_train_step(model, TrainConfig(
+                learning_rate=3e-4, total_steps=TP_TRAIN_STEPS,
+                warmup_steps=1, remat="none"))
+            want, t0 = [], time.perf_counter()
+            for step in range(TP_TRAIN_STEPS):
+                b = batch_at(scfg, TB, TSEQ, seed=0, step=step)
+                state, m = fn(state, {k: torch.from_numpy(v).cuda()
+                                      for k, v in b.items()})
+                want.append((float(m["loss"]), float(m["grad_norm"]),
+                             float(m["lr"])))
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) / TP_TRAIN_STEPS
+            peak_unsharded = torch.cuda.max_memory_allocated() / 2**30
+            ref_path = os.path.join(tmp, "master.pt")
+            torch.save(state.master, ref_path)
+            del state, fn, model
+            torch.cuda.empty_cache()
+        print(f"[14e] unsharded f32 step at {L} layers on the card: "
+              f"{want} (loss, grad norm, lr a step), {wall:.2f} s a step, "
+              f"peak {peak_unsharded:.2f} GiB | {card_line}", flush=True)
+        t0 = time.perf_counter()
+        ranks = launch(tp_train_rank, (1, 2), args=(ref_path,),
+                       device="cuda:0", timeout_s=300)
+        print(f"[14e] two ranks spawned and run in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    allow = 2 * sum(r[2] for r in want)
+    norms = 4 * L + 1
+    total = {}
+    for name in TP_TRAIN_STRATEGIES:
+        for r in ranks:
+            a = r[name]
+            loss_rel = abs(a["rows"][0][0] - want[0][0]) / abs(want[0][0])
+            gn_rel = max(abs(g[1] - w[1]) / abs(w[1])
+                         for g, w in zip(a["rows"], want))
+            tok = TB * TSEQ // (1 if name == "dp_tp" else 2)
+            c = a["comm"]
+            print(f"[14e] (a) {name} rank {r['rank']} f32: rows {a['rows']}; "
+                  f"first loss {loss_rel:.2e} relative from the unsharded "
+                  f"step's (tol 1e-5), grad norm {gn_rel:.2e} (tol 1e-4), "
+                  f"master after {TP_TRAIN_STEPS} steps max |diff| "
+                  f"{a['master_diff']:.2e} (tol {allow:.2e}); share of the "
+                  f"state its state_specs block: {a['share']}; tokens "
+                  f"{a['tokens']} a step; {a['wall_s']:.2f} s a step, "
+                  f"collectives {c['calls']} in {c['seconds']:.2f} s, "
+                  f"{c['staged_bytes']} bytes staged; peak "
+                  f"{a['peak_gib']:.2f} GiB against the unsharded step's "
+                  f"{peak_unsharded:.2f} GiB | {card_line}", flush=True)
+            assert loss_rel <= 1e-5 and gn_rel <= 1e-4, (name, a["rows"])
+            assert a["master_diff"] <= allow, (name, a["master_diff"])
+            assert a["share"] and a["tokens"] == tok, (name, a["tokens"])
+            L_ = a["launches"]
+            s = TP_TRAIN_STEPS
+            assert L_["flash_attention_fwd"] == L * s, L_
+            assert L_["flash_attention_bwd"] == L * s, L_
+            assert L_["rmsnorm_fwd"] == norms * s, L_
+            assert L_["rmsnorm_bwd"] == norms * s, L_
+            checked = a["report"]["checked"].get("silent_param_store", 0)
+            assert L_["silent_compare"] == checked > 0, (L_, checked)
+            assert a["report"] == ranks[0][name]["report"], name
+            assert all(math.isfinite(x) for x in a["losses"]), a["losses"]
+            tr = a["traced"]
+            assert a["traced_ok"], tr
+            assert tr["launched"] == {
+                "flash_attention_fwd": L, "flash_attention_bwd": L,
+                "rmsnorm_fwd": norms, "rmsnorm_bwd": norms}, tr
+            cb, ct = a["comm_b"], tr["comm"]
+            print(f"[14e] (b) {name} rank {r['rank']} bf16 run(): losses "
+                  f"{a['losses']}; launches {L_} over {s} steps; run "
+                  f"{a['run_s']:.2f} s; collectives {cb['calls']} in "
+                  f"{cb['seconds']:.2f} s, {cb['staged_bytes']} bytes "
+                  f"staged; traced step wall {tr['wall_ms']:.1f} ms, its "
+                  f"collectives {ct['calls']} in {ct['seconds']:.2f} s, "
+                  f"{ct['staged_bytes']} bytes; kernels in the trace "
+                  f"{tr['trace']}; peak {a['peak_b_gib']:.2f} GiB; tier-3 "
+                  f"checked {a['report']['checked']}, flagged "
+                  f"{a['report']['flagged']} (equal on both ranks) | "
+                  f"{card_line}", flush=True)
+            for k, v in L_.items():
+                total[k] = total.get(k, 0) + v
+    return total
 
 
 def b5_decode_host_path(torch):
@@ -5019,15 +5456,18 @@ def main() -> int:
     # the long traced steps) come back empty: with the other kernels
     t14 = time.perf_counter()
     phase("14a tp_serve chunks", tp_chunk_kernels, torch, np, timer)
+    phase("14e kernels", check_tp_train_kernels, torch, timer, entries)
     t14 = time.perf_counter() - t14
     # each main path is driven with the launch counts set to 0 just
     # before it and read just after
     by_path = {}
     by_path["serve"], stats = phase("3 main path", main_path, torch, np)
     phase("3 smoke", small_reference_check, torch, np)
-    by_path.update(phase("3b spec", spec_path, torch, np))
+    with registry_override(QWEN3, **CUT_DEPTH[QWEN3]):
+        by_path.update(phase("3b spec", spec_path, torch, np))
     phase("3b smoke", spec_smoke_check, torch, np)
-    by_path.update(phase("3c granite serve", granite_path, torch, np))
+    with registry_override(GRANITE, **CUT_DEPTH[GRANITE]):
+        by_path.update(phase("3c granite serve", granite_path, torch, np))
     phase("3c smoke", granite_smoke_check, torch, np)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -5038,29 +5478,37 @@ def main() -> int:
     phase("6a corpus", tier1_corpus, torch)
     phase("6b smoke", tier1_smoke_check, torch, np)
     torch.cuda.empty_cache()
-    by_path["tier1"] = phase("6c tier 1", tier1_full_width, torch, np, card)
+    with registry_override(QWEN3, **CUT_DEPTH[QWEN3]):
+        by_path["tier1"] = phase("6c tier 1", tier1_full_width, torch, np,
+                                 card)
     torch.cuda.empty_cache()
-    by_path["granite train"] = phase("7 granite train", train_family, torch,
-                                     np, GRANITE)
-    by_path.update(phase("8b zamba2 serve", token_loop_serve, torch, np,
-                         ZAMBA, profile_again=False))
+    with registry_override(GRANITE, **CUT_DEPTH[GRANITE]):
+        by_path["granite train"] = phase("7 granite train", train_family,
+                                         torch, np, GRANITE)
+    with registry_override(ZAMBA, **CUT_DEPTH[ZAMBA]):
+        by_path.update(phase("8b zamba2 serve", token_loop_serve, torch,
+                             np, ZAMBA, profile_again=False))
     phase("8c zamba2 smoke", token_loop_smoke_check, torch, np, ZAMBA,
           num_layers=8)
     by_path["zamba2 train"] = phase("8 zamba2 train", train_family, torch,
                                     np, ZAMBA, num_layers=8)
-    by_path.update(phase("9b xlstm serve", token_loop_serve, torch, np,
-                         XLSTM))
-    by_path["xlstm tier1"] = phase("9c xlstm tier 1", tier1_full_width,
-                                   torch, np, card, XLSTM)
+    with registry_override(XLSTM, **CUT_DEPTH[XLSTM]):
+        by_path.update(phase("9b xlstm serve", token_loop_serve, torch,
+                             np, XLSTM, profile_again=False))
+        by_path["xlstm tier1"] = phase("9c xlstm tier 1", tier1_full_width,
+                                       torch, np, card, XLSTM)
     phase("9d xlstm smoke", token_loop_smoke_check, torch, np, XLSTM)
-    by_path.update(phase("10b whisper serve", token_loop_serve, torch, np,
-                         WHISPER))
-    phase("10c whisper bucketing", whisper_bucketing, torch, np)
-    phase("10d whisper smoke", token_loop_smoke_check, torch, np, WHISPER)
-    by_path["whisper train"] = phase("10e whisper train", train_family,
-                                     torch, np, WHISPER)
+    with registry_override(WHISPER, **CUT_DEPTH[WHISPER]):
+        by_path.update(phase("10b whisper serve", token_loop_serve, torch,
+                             np, WHISPER, profile_again=False))
+        phase("10c whisper bucketing", whisper_bucketing, torch, np)
+        phase("10d whisper smoke", token_loop_smoke_check, torch, np,
+              WHISPER)
+        by_path["whisper train"] = phase("10e whisper train", train_family,
+                                         torch, np, WHISPER)
     torch.cuda.empty_cache()
-    by_path.update(phase("11 fleet", fleet_path, torch, np, card))
+    with registry_override(QWEN3, **CUT_DEPTH[QWEN3]):
+        by_path.update(phase("11 fleet", fleet_path, torch, np, card))
     phase("11 smoke", fleet_smoke_check, torch, np)
     by_path.update(phase("12b vlm serve", vlm_serve, torch, np))
     by_path.update(phase("12c vlm train", vlm_train, torch, np))
@@ -5076,18 +5524,22 @@ def main() -> int:
     by_path["tp_serve"] = phase("14b/c tp_serve", tp_serve_path, torch, np,
                                 card)
     phase("14d checkpoint", tp_checkpoint, torch, np, card)
+    torch.cuda.empty_cache()
+    by_path["tp_train"] = phase("14e sharded training", tp_train_path,
+                                torch, np, card)
     print(f"[phase] 14 in all: {t14 + time.perf_counter() - t0:.1f} s",
           flush=True)
     # last: its traced step holds ~0.3 M kernels (~0.9 M at 48 layers),
     # after which this process's profiler traces were seen to come back
     # empty. xlstm's steps are host-bound (~22 s at its 48 layers: the
-    # sLSTM's token loop), so its training runs 2 of its 6 superblocks
-    # (16 layers at full width, ~7 s a step), its driver takes 2 steps and
-    # one step is timed, without a warm-up
+    # sLSTM's token loop), so its training runs 1 of its 6 superblocks
+    # (8 layers at full width; 16 took ~87 s, which phase 14e's time
+    # displaced), its driver takes 2 steps and one step is timed, without
+    # a warm-up
     with registry_override(XLSTM, num_layers=XLSTM_TRAIN_LAYERS):
         by_path["xlstm train"] = phase(
             "9e xlstm train", train_family, torch, np, XLSTM, steps=2,
-            timed=1, warmup=0, resync=True)
+            timed=1, warmup=0, resync=True, num_layers=8)
 
     import math
     for key, e in entries.items():

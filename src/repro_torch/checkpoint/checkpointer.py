@@ -193,8 +193,10 @@ class Checkpointer:
                     f"shape mismatch for {key}: ckpt {arr.shape} vs "
                     f"template {tuple(tmpl.shape)}")
             if spec_map is not None:
-                arr = np.ascontiguousarray(
-                    local_slice(arr, spec_map[key], mesh))
+                # np.array, not ascontiguousarray: that makes a 0-d leaf
+                # (the step) 1-d
+                arr = np.array(local_slice(arr, spec_map[key], mesh),
+                               order="C")
             if not isinstance(tmpl, torch.Tensor):
                 return arr.astype(np.asarray(tmpl).dtype)
             dev = device if device is not None else tmpl.device

@@ -14,7 +14,12 @@ Training loop (``TrainingDetectors``, port of the reference's
 
 The leaf comparison is ``ops.silent_fraction``: on CUDA leaves the
 silent-compare kernel (2 reads per element), on CPU leaves its plain
-version.
+version. Under a sharded train step (``mesh`` and the param ``specs``)
+each rank holds a block of every leaf: every rank draws the same leaves
+(one seed), counts the silent elements of its block with the kernel,
+and the counts are summed over the axes the leaf is sharded over, so
+the fraction and the bytes are the whole leaf's, as the reference's,
+which compares global arrays.
 
 Serving loop (``ServingDetectors``): the serving engine's fixed-size
 decode batch keeps writing the KV cache whether or not a slot serves a
@@ -85,8 +90,11 @@ class TrainingDetectors:
     and ``on_step`` with the params before and after each step."""
 
     def __init__(self, cfg: Optional[ProfilerConfig] = None,
-                 leaves_per_step: int = 4):
+                 leaves_per_step: int = 4, *, mesh=None, specs=None):
         self.cfg = cfg or ProfilerConfig(enabled=True)
+        # a sharded step's mesh and param spec tree (by leaf path)
+        self.mesh = mesh
+        self._specs = None if specs is None else dict(_leaf_paths(specs))
         self.tol = self.cfg.fp_tolerance
         self.leaves_per_step = leaves_per_step
         self.wp = ReservoirWatchpoints(self.cfg.num_watchpoints,
@@ -105,6 +113,22 @@ class TrainingDetectors:
         self.report.add(f)
         return f
 
+    def _silent(self, path: str, a, b, tol: float) -> Tuple[float, int]:
+        """(silent fraction, bytes) of the whole leaf at ``path``: a and b
+        are its values before and after (under a mesh, this rank's
+        blocks, each rank counting its own and the counts summed over
+        the leaf's shard axes)."""
+        if self.mesh is None:
+            return (ops.silent_fraction(a, b, tol=tol),
+                    _leaf_event(path, b).nbytes)
+        from repro_torch.sharding import comm
+        from repro_torch.sharding.rules import global_shape, spec_axes
+        spec = self._specs[path]
+        n = max(int(np.prod(global_shape(b.shape, spec, self.mesh))), 1)
+        cnt = comm.all_reduce(ops.silent_count(a, b, tol),
+                              spec_axes(spec), self.mesh)
+        return float(cnt.to(torch.float32) / n), n * b.element_size()
+
     # ------------------------------------------------------------------
     def on_step(self, step: int, params_before, params_after,
                 grads=None) -> List[Finding]:
@@ -119,14 +143,13 @@ class TrainingDetectors:
         for wp in list(self.wp.armed()):
             path = wp.meta
             if path in after:
-                frac = ops.silent_fraction(before[path], after[path],
-                                           tol=self.tol)
+                frac, nbytes = self._silent(path, before[path], after[path],
+                                            self.tol)
                 silent = frac > 0.99
                 self.report.observe("silent_param_store", silent)
                 if silent:
-                    ev = _leaf_event(path, after[path])
                     out.append(self._found(step, "silent_param_store",
-                                           path, frac, ev.nbytes))
+                                           path, frac, nbytes))
             self.wp.disarm(wp)
 
         # arm new watchpoints on sampled leaf-store events (reservoir
@@ -144,14 +167,13 @@ class TrainingDetectors:
             gleaves = _leaf_paths(grads)
             for _ in range(min(self.leaves_per_step, len(gleaves))):
                 p, g = gleaves[self.rng.randint(len(gleaves))]
-                zero_frac = ops.silent_fraction(g, torch.zeros_like(g),
-                                                tol=0.0)
+                zero_frac, nbytes = self._silent(p, g, torch.zeros_like(g),
+                                                 0.0)
                 dead = zero_frac > 0.99
                 self.report.observe("dead_grad_store", dead)
                 if dead:
-                    ev = _leaf_event(p, g)
                     out.append(self._found(step, "dead_grad_store", p,
-                                           zero_frac, ev.nbytes))
+                                           zero_frac, nbytes))
         return out
 
     # ------------------------------------------------------------------

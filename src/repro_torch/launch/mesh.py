@@ -19,6 +19,7 @@ import datetime
 import itertools
 import math
 import os
+import pickle
 import queue as _queue
 import shutil
 import tempfile
@@ -205,7 +206,10 @@ def _rank_main(rank, shape, axis_names, init_method, backend, devices,
             out = fn(mesh, *args)
         finally:
             leave(mesh)
-        results.put((rank, True, out))
+        # pickled here by value: through the queue a tensor's storage
+        # would be shared by a file descriptor that this process serves,
+        # and it exits right after
+        results.put((rank, True, pickle.dumps(out)))
     except BaseException:                      # reported to the parent
         results.put((rank, False, traceback.format_exc()))
 
@@ -258,7 +262,7 @@ def launch(fn: Callable, shape: Sequence[int],
                 continue
             if not ok:
                 raise RuntimeError(f"rank {rank} of {n} failed:\n{val}")
-            out[rank] = val
+            out[rank] = pickle.loads(val)
     finally:
         for p in procs:
             p.join(timeout=30 if len(out) == n else 1)

@@ -25,9 +25,20 @@ from how many steps one invocation runs, so 2 steps, a save and a resume
 of 2 more give the losses of 4 straight steps. Every step heartbeats a
 ``FleetMonitor`` (runtime/fault.py); its ``plan()`` aborting ends the run.
 
-Port of src/repro/launch/train.py. ``run(strategy=...)`` (the sharded
-train step) is ROADMAP A11b; ``--strategy`` stays out of ``main``, as in
+``run(strategy="dp_tp" | "fsdp", mesh=...)`` trains sharded: called on
+every rank of a joined mesh (``launch.mesh.launch``), each rank holds
+its share of the state (``train/state.py:create``), takes its rows of
+the same seeded global batch (``train/step.py:rank_batch``) and runs
+the sharded step; its detectors see the global batch and count each
+watched leaf whole. A checkpoint holds whole leaves, gathered leaf by
+leaf and written by rank 0 in the unsharded layout, and a resume cuts
+each rank's share from it, so either restores in the other. Rank 0
+prints the ``[train]`` lines; every rank returns the losses and its
+merged profile. Without a mesh, a strategy runs on the one-rank host
+mesh, as in the reference. ``--strategy`` stays out of ``main``, as in
 the reference.
+
+Port of src/repro/launch/train.py.
 """
 from __future__ import annotations
 
@@ -55,7 +66,7 @@ from repro_torch.launch.serve import resolve_device
 from repro_torch.models.zoo import build_model
 from repro_torch.runtime.fault import FleetMonitor
 from repro_torch.train import state as TS
-from repro_torch.train.step import make_train_step
+from repro_torch.train.step import check_strategy, make_train_step, rank_batch
 
 
 LOG_EVERY = 10
@@ -68,30 +79,50 @@ def run(arch: str, *, smoke: bool = True, steps: int = 50, batch: int = 8,
         microbatches: int = 1, remat: str = "none", seed: int = 0,
         strategy: Optional[str] = None, total_steps: Optional[int] = None,
         profile_out: Optional[str] = None, sarif_out: Optional[str] = None,
-        objects: bool = False, device: str = "cuda"):
+        objects: bool = False, device: str = "cuda", mesh=None):
     """Train up to step ``steps`` (from 0, or from the latest checkpoint
     in ``ckpt_dir`` with ``resume``) on seeded synthetic batches. Returns
     ``(losses, merged profile or None)``: this run's per-step losses as
     floats, and with ``profile`` the tier-3 training findings, with
     ``waste_report`` the tier-2 findings of the traced step (with
-    ``objects`` the replica scan at init), merged."""
-    if strategy:
-        raise NotImplementedError(
-            "the sharded train step (dp_tp, fsdp) is ROADMAP A11b")
-    dev = resolve_device(device)
+    ``objects`` the replica scan at init), merged. With ``strategy``
+    ("dp_tp" or "fsdp") the step is sharded over ``mesh`` (this rank's
+    view of a joined mesh; None: the one-rank host mesh), on the mesh's
+    device when it has one."""
     cfg = registry.get_config(arch)
     if smoke:
         cfg = cfg.smoke()
     model = build_model(cfg)
+    strat, rank0 = None, True
+    if strategy:
+        from repro_torch.launch.mesh import make_host_mesh
+        from repro_torch.sharding.rules import make_strategy
+        if strategy not in ("dp_tp", "fsdp"):
+            raise ValueError(f"strategy {strategy!r}: dp_tp or fsdp")
+        if objects:
+            raise NotImplementedError(
+                "the object registry under a strategy is ROADMAP A11c")
+        if waste_report:
+            raise NotImplementedError(
+                "the waste report of a sharded step is ROADMAP A11d (its "
+                "collectives are not yet nodes of a fake-tensor trace)")
+        mesh = mesh if mesh is not None else make_host_mesh()
+        strat = make_strategy(strategy, mesh)
+        check_strategy(model, strat)
+        rank0 = mesh.rank == 0
+        if mesh.device is not None:
+            device = str(mesh.device)
+    dev = resolve_device(device)
     # total_steps fixes the LR schedule's horizon apart from how many
     # steps this invocation runs (checkpoint/restart determinism)
     horizon = total_steps or steps
     tc = TrainConfig(learning_rate=lr, total_steps=horizon,
                      warmup_steps=max(horizon // 10, 1),
                      microbatches=microbatches, remat=remat, seed=seed)
-    step_fn = make_train_step(model, tc)
+    step_fn = make_train_step(model, tc, strat)
     obj_registry = ObjectRegistry() if objects else None
-    state = TS.create(model, seed, device=dev, registry=obj_registry)
+    state = TS.create(model, seed, device=dev, registry=obj_registry,
+                      strategy=strat)
     obj_scan = None
     if obj_registry is not None:
         # scan AT INIT: the moments are all bit-identical zeros here (the
@@ -104,13 +135,22 @@ def run(arch: str, *, smoke: bool = True, steps: int = 50, batch: int = 8,
     start_step = 0
     ckpt = Checkpointer(ckpt_dir) if ckpt_dir else None
     if ckpt and resume and ckpt.latest_step() is not None:
-        state = ckpt.restore(state)
+        state = (ckpt.restore(state) if strat is None else
+                 ckpt.restore(TS.abstract(model, device=dev,
+                                          mode=abstract_mode()),
+                              specs=TS.state_specs(model, strat),
+                              mesh=strat.mesh, device=dev))
         start_step = int(state.step)
-        print(f"[train] resumed from step {start_step}")
+        if rank0:
+            print(f"[train] resumed from step {start_step}")
     tier2 = waste_tier2(cfg, step_fn, state, batch, seq, dev) \
         if waste_report else None
-    detectors = (TrainingDetectors(ProfilerConfig(enabled=True))
-                 if profile else None)
+    detectors = None
+    if profile:
+        detectors = TrainingDetectors(
+            ProfilerConfig(enabled=True),
+            **({} if strat is None else
+               dict(mesh=strat.mesh, specs=strat.param_specs(model))))
     monitor = FleetMonitor(hosts=[0], dead_after=3600.0)
     data = Prefetcher(stream(cfg, batch, seq, seed=seed,
                              start_step=start_step))
@@ -119,7 +159,8 @@ def run(arch: str, *, smoke: bool = True, steps: int = 50, batch: int = 8,
     t_start = time.time()
     for step in range(start_step, steps):
         b = next(data)
-        batch_dev = {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+        mine = b if strat is None else rank_batch(b, strat, microbatches)
+        batch_dev = {k: torch.from_numpy(v).to(dev) for k, v in mine.items()}
         if detectors:
             detectors.on_batch(step, b)
             params_before = state.params
@@ -132,8 +173,8 @@ def run(arch: str, *, smoke: bool = True, steps: int = 50, batch: int = 8,
             detectors.on_step(step, params_before, state.params)
             del params_before
         if ckpt and (step + 1) % ckpt_every == 0:
-            ckpt.save_async(step + 1, state)
-        if (step + 1) % LOG_EVERY == 0 or step == start_step:
+            save_state(ckpt, step + 1, state, strat, model, wait=False)
+        if rank0 and ((step + 1) % LOG_EVERY == 0 or step == start_step):
             print(f"[train] step {step+1:5d} loss {loss:8.4f} "
                   f"lr {float(metrics['lr']):.2e} "
                   f"gnorm {float(metrics['grad_norm']):.3f}", flush=True)
@@ -141,16 +182,16 @@ def run(arch: str, *, smoke: bool = True, steps: int = 50, batch: int = 8,
         if plan["action"] == "abort":
             raise RuntimeError(plan["reason"])
     if ckpt:
-        ckpt.save(steps, state)
-        ckpt.wait()
+        save_state(ckpt, steps, state, strat, model, wait=True)
     data.close()
     dt = time.time() - t_start
-    print(f"[train] done: {steps - start_step} steps in {dt:.1f}s; "
-          f"loss {losses[0]:.3f} -> {losses[-1]:.3f}")
+    if rank0:
+        print(f"[train] done: {steps - start_step} steps in {dt:.1f}s; "
+              f"loss {losses[0]:.3f} -> {losses[-1]:.3f}")
     parts = [p for p in (detectors.report if detectors else None, tier2,
                          obj_scan) if p is not None]
     merged = merge_profiles(parts) if parts else None
-    if merged is not None:
+    if merged is not None and rank0:
         print(merged.render(top_k=5))
         if profile_out:
             dump_json(merged, profile_out)
@@ -159,6 +200,32 @@ def run(arch: str, *, smoke: bool = True, steps: int = 50, batch: int = 8,
             write_sarif(merged, sarif_out, src_root=os.getcwd())
             print(f"[train] SARIF findings written to {sarif_out}")
     return losses, merged
+
+
+def save_state(ckpt: Checkpointer, step: int, state, strat, model, *,
+               wait: bool) -> None:
+    """Save ``state`` at ``step`` (async unless ``wait``). Under a
+    strategy every rank gathers each leaf whole (``TS.gather_state``,
+    collectively), rank 0 writes the unsharded layout, and with ``wait``
+    every rank returns once it is on disk."""
+    if strat is None:
+        _write(ckpt, step, state, wait)
+        return
+    whole = TS.gather_state(state, model, strat)
+    if strat.mesh.rank == 0:
+        _write(ckpt, step, whole, wait)
+    if wait:
+        from repro_torch.sharding import comm
+        comm.all_reduce(torch.zeros((), device=state.step.device),
+                        strat.mesh.axis_names, strat.mesh)
+
+
+def _write(ckpt: Checkpointer, step: int, state, wait: bool) -> None:
+    if wait:
+        ckpt.save(step, state)
+        ckpt.wait()
+    else:
+        ckpt.save_async(step, state)
 
 
 def waste_tier2(cfg, step_fn, state, batch: int, seq: int, dev):

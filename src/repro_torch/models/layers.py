@@ -23,21 +23,28 @@ from repro_torch.sharding.ctx import current_sharder, shard
 
 
 # ----------------------------------------------------------------------
-# Tensor parallelism (tp_serve). Each rank holds the slice of every leaf
-# that its spec gives it (sharding/rules.py); the reference lets GSPMD
-# place the collectives, here each sits where GSPMD puts one: a
-# column-parallel projection (a block of the output features) is
-# all-gathered over 'model' where the next op needs every feature, a
-# row-parallel one (a block of the input features) takes its block of the
-# input and all-reduces its partial sum. A leaf's layout shows in its
-# shape: a sharded dim is smaller than the config's. Without an active
-# strategy of more than one 'model' rank none of this runs.
+# Tensor parallelism (tp_serve, and dp_tp training). Each rank holds the
+# slice of every leaf that its spec gives it (sharding/rules.py); the
+# reference lets GSPMD place the collectives, here each sits where GSPMD
+# puts one: a column-parallel projection (a block of the output
+# features) is all-gathered over 'model' where the next op needs every
+# feature, a row-parallel one (a block of the input features) takes its
+# block of the input and all-reduces its partial sum. A leaf's layout
+# shows in its shape: a sharded dim is smaller than the config's. The
+# collectives are the differentiable ones of sharding/comm.py, so the
+# same branches train: a replicated input of a column block is copied
+# into the region (its gradient all-reduced), a gathered output's
+# gradient is cut to the rank's block. Without an active strategy of
+# more than one 'model' rank, or under fsdp ('model' a batch axis: the
+# weights are gathered whole and the compute is data-parallel), none of
+# this runs.
 # ----------------------------------------------------------------------
 def tp_mesh():
-    """The active sharder's mesh when it has more than one 'model' rank,
-    else None."""
+    """The active sharder's mesh when it has more than one 'model' rank
+    and 'model' is no batch axis, else None."""
     s = current_sharder()
-    if s is None or s.mesh.shape.get("model", 1) == 1:
+    if (s is None or s.mesh.shape.get("model", 1) == 1
+            or "model" in s.batch_axes):
         return None
     return s.mesh
 
@@ -49,7 +56,7 @@ def gather_cols(parts, mesh):
     n = mesh.shape["model"]
     widths = [t.shape[-1] for t in parts]
     packed = torch.cat(parts, dim=-1) if len(parts) > 1 else parts[0]
-    g = comm.all_gather(packed, "model", mesh, dim=-1)
+    g = comm.gather_from(packed, "model", mesh, dim=-1)
     g = g.reshape(g.shape[:-1] + (n, sum(widths)))
     outs = g.split(widths, dim=-1)
     return [o.reshape(o.shape[:-2] + (n * w,)) for o, w in zip(outs, widths)]
@@ -62,28 +69,47 @@ def tp_row(h: torch.Tensor, w: torch.Tensor, mesh) -> torch.Tensor:
     f, blk = h.shape[-1], w.shape[-2]
     if blk == f:
         return h @ w.to(h.dtype)
-    r = mesh.index("model")
-    y = h[..., r * blk:(r + 1) * blk] @ w.to(h.dtype)
-    return comm.all_reduce(y, "model", mesh)
+    y = comm.block_of(h, "model", mesh, dim=-1) @ w.to(h.dtype)
+    return comm.reduce_from(y, "model", mesh)
 
 
 def tp_cols(x: torch.Tensor, ws, fulls, mesh):
     """x @ w for each column-parallel w of ``ws`` (a w may hold a block of
     its ``fulls`` output features, or a block of its input rows), whole
     outputs, the blocks gathered in one collective."""
-    outs, blocks = [], []
+    outs, blocks, xc = [], [], None
     for w, full in zip(ws, fulls):
         if w.shape[-2] != x.shape[-1]:
             outs.append(tp_row(x, w, mesh))
             continue
-        y = x @ w.to(x.dtype)
-        outs.append(y)
-        if y.shape[-1] != full:
-            blocks.append(len(outs) - 1)
+        if w.shape[-1] != full:
+            xc = comm.copy_to(x, "model", mesh) if xc is None else xc
+            blocks.append(len(outs))
+            outs.append(xc @ w.to(x.dtype))
+        else:
+            outs.append(x @ w.to(x.dtype))
     if blocks:
         whole = gather_cols([outs[i] for i in blocks], mesh)
         for i, t in zip(blocks, whole):
             outs[i] = t
+    return outs
+
+
+def tp_heads(x: torch.Tensor, ws, heads, head_dim: int, mesh):
+    """This rank's block of the heads of x @ w for each w of ``ws`` (the
+    Megatron layout: (B, S, heads // n, D) each): a block of w's output
+    features is used as it is (x copied into the region), a whole or
+    row-parallel w's output is cut to the rank's heads."""
+    n = mesh.shape["model"]
+    B, S, _ = x.shape
+    outs, xc = [], None
+    for w, h in zip(ws, heads):
+        if w.shape[-2] == x.shape[-1] and w.shape[-1] != h * head_dim:
+            xc = comm.copy_to(x, "model", mesh) if xc is None else xc
+            y = xc @ w.to(x.dtype)
+        else:
+            y = comm.block_of(tp_row(x, w, mesh), "model", mesh, dim=-1)
+        outs.append(y.reshape(B, S, h // n, head_dim))
     return outs
 
 
@@ -190,6 +216,11 @@ def apply_attention(p, cfg: ModelConfig, x: torch.Tensor, *,
     src = x if kv_src is None else kv_src
     Bk, Skv = src.shape[:2]
     tp = tp_mesh()
+    if (tp is not None and cache is None and kv_src is None
+            and H % tp.shape["model"] == 0
+            and Hkv % tp.shape["model"] == 0):
+        return _tp_self_attention(p, cfg, x, positions, causal, use_rope,
+                                  kv_valid, tp), None
     if tp is None:
         q = (x @ p["wq"]["w"].to(dt)).reshape(B, S, H, D)
         k = (src @ p["wk"]["w"].to(dt)).reshape(Bk, Skv, Hkv, D)
@@ -300,6 +331,41 @@ def apply_attention(p, cfg: ModelConfig, x: torch.Tensor, *,
     return _out_proj(out.reshape(B, S, H * D), p, tp), new_cache
 
 
+def _tp_self_attention(p, cfg: ModelConfig, x: torch.Tensor, positions,
+                       causal: bool, use_rope: bool, kv_valid, tp
+                       ) -> torch.Tensor:
+    """Cache-free self-attention on this rank's heads (the training
+    forward under tp: the reference's Megatron layout, whose head
+    sharding spreads from the column-sharded projections): q, k and v
+    are never gathered, the q/k-norms, RoPE and the attention kernel run
+    on the rank's Hq/n query heads over its Hkv/n kv heads (G as
+    unsharded), and ``wo`` takes the rank's rows of its input features,
+    its partial sum all-reduced."""
+    B, S, _ = x.shape
+    H, Hkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    q, k, v = tp_heads(x, [p[n]["w"] for n in ("wq", "wk", "wv")],
+                       [H, Hkv, Hkv], D, tp)
+    if cfg.qk_norm:
+        def norm(name, t):
+            # a replicated scale applied to the rank's heads only: its
+            # gradient is the sum of the ranks'
+            scale = comm.copy_to(p[name]["scale"], "model", tp)
+            return apply_rmsnorm({"scale": scale}, t, cfg.norm_eps)
+        q, k = norm("q_norm", q), norm("k_norm", k)
+    if use_rope:
+        pos = (positions if positions is not None
+               else torch.arange(S, device=x.device))
+        q = apply_rope(q, pos, cfg.rope_theta)
+        k = apply_rope(k, pos, cfg.rope_theta)
+    out = ops.attention(q, k, v, causal=causal, kv_valid=kv_valid)
+    out = out.reshape(B, S, q.shape[2] * D)
+    wo = p["wo"]["w"]
+    if wo.shape[-2] != out.shape[-1]:           # a whole wo: its rows
+        wo = comm.block_of(wo, "model", tp, dim=-2)
+    return shard(comm.reduce_from(out @ wo.to(out.dtype), "model", tp),
+                 "btd")
+
+
 def _out_proj(out: torch.Tensor, p, tp) -> torch.Tensor:
     """The attention's output projection (row-parallel under tp)."""
     if tp is None:
@@ -365,14 +431,15 @@ def _tp_mlp(p, cfg: ModelConfig, x: torch.Tensor, tp) -> torch.Tensor:
     blockwise = (all(w.shape[-1] != f and w.shape[-2] == x.shape[-1]
                      for w in ws) and p["down"]["w"].shape[-2] != f)
     if blockwise:
-        hs = [x @ w.to(dt) for w in ws]
+        xc = comm.copy_to(x, "model", tp)
+        hs = [xc @ w.to(dt) for w in ws]
     else:
         hs = tp_cols(x, ws, [f] * len(ws), tp)
     h = F.silu(hs[1]) * hs[0] if cfg.gated_mlp else \
         F.gelu(hs[0], approximate="tanh")
     if blockwise:
-        return shard(comm.all_reduce(h @ p["down"]["w"].to(dt), "model",
-                                     tp), "btd")
+        return shard(comm.reduce_from(h @ p["down"]["w"].to(dt), "model",
+                                      tp), "btd")
     return shard(tp_row(h, p["down"]["w"], tp), "btd")
 
 
@@ -456,7 +523,7 @@ def tp_embed(w: torch.Tensor, tokens: torch.Tensor, dt, mesh,
     mine = (t >= 0) & (t < w.shape[0])
     rows = w[t.clamp(0, w.shape[0] - 1)].to(dt)
     rows = torch.where(mine[..., None], rows, torch.zeros_like(rows))
-    return comm.all_reduce(rows, "model", mesh)
+    return comm.reduce_from(rows, "model", mesh)
 
 
 def tp_logits(x: torch.Tensor, w: torch.Tensor, mesh,

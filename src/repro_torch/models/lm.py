@@ -46,6 +46,7 @@ from repro_torch.models import moe as M
 from repro_torch.models import params as P
 from repro_torch.models import ssm as SSM
 from repro_torch.models import xlstm as XL
+from repro_torch.sharding import comm
 from repro_torch.sharding.ctx import current_sharder, shard
 
 
@@ -220,6 +221,28 @@ def _apply_sub(p, cfg: ModelConfig, typ: str, x: torch.Tensor, *,
     raise ValueError(typ)
 
 
+def _fsdp_mesh():
+    """The active sharder's mesh when its weights are fsdp-sharded
+    ('model' a batch axis: each rank computes on whole weights, gathered
+    at use) over more than one rank, else None."""
+    s = current_sharder()
+    if s is None or "model" not in s.batch_axes or s.mesh.size == 1:
+        return None
+    return s.mesh
+
+
+def _gather_leaf(t: torch.Tensor, spec, whole, mesh) -> torch.Tensor:
+    """A rank's block of a fsdp-sharded leaf gathered whole (each sharded
+    dim with ``comm.gather_weight``: the backward reduce-scatters its
+    gradient); a leaf that is whole already is returned as it is."""
+    if tuple(t.shape) == tuple(whole):
+        return t
+    for dim, entry in enumerate(tuple(spec)):
+        if entry is not None:
+            t = comm.gather_weight(t, entry, mesh, dim)
+    return t
+
+
 def _layer(tree, li: int):
     """Layer ``li`` of a stacked tree: views, no copies."""
     return P.tree_map(lambda t: t[li], tree)
@@ -276,6 +299,42 @@ class LM:
             raise ValueError(f"remat={self.remat!r}: none, full or dots")
         return ckpt.checkpoint(self._superblock, p_l, shared, x, aux, src,
                                use_reentrant=False, context_fn=ctx)
+
+    # ---------------------------- fsdp ---------------------------------
+    def _fsdp_plan(self, mesh):
+        """Under fsdp on ``mesh``, each leaf's (spec, whole shape)
+        (sharding/rules.py ``leaf_spec_fsdp``), and the same for one
+        layer's views of the stacked leaves; cached per mesh shape."""
+        key = tuple(sorted(mesh.shape.items()))
+        plans = self.__dict__.setdefault("_fsdp_plans", {})
+        if key not in plans:
+            from repro_torch.sharding.rules import PS, Fsdp, map2
+            plan = map2(lambda s, d: (s, d.shape),
+                        Fsdp(mesh).param_specs(self), self.decl())
+            layer = P.tree_map(lambda sw: (PS(*sw[0][1:]), sw[1][1:]),
+                               plan["main"])
+            plans[key] = plan, layer
+        return plans[key]
+
+    def gather_params(self, params, layer: bool = False):
+        """Under fsdp, ``params`` with every top-level leaf except the
+        stacked layers (``"main"``) gathered whole (the embedding, the
+        head, the final norm, a tail, a shared block, an encoder); with
+        ``layer`` and ``params`` one layer's views of the stacked leaves,
+        that layer's leaves gathered (the layer loop does so just before
+        each superblock). Otherwise ``params`` as they are."""
+        mesh = _fsdp_mesh()
+        if mesh is None:
+            return params
+        from repro_torch.sharding.rules import map2
+        plan, layer_plan = self._fsdp_plan(mesh)
+
+        def gather(tree, plan):
+            return map2(lambda t, sw: _gather_leaf(t, *sw, mesh), tree, plan)
+        if layer:
+            return gather(params, layer_plan)
+        return {k: v if k == "main" else gather(v, plan[k])
+                for k, v in params.items()}
 
     # -------------------------- declarations -------------------------
     def decl(self) -> Dict[str, Any]:
@@ -407,6 +466,7 @@ class LM:
         dtype."""
         cfg, sch = self.cfg, self.sched
         dt = torch_dtype(cfg.dtype)
+        params = self.gather_params(params)
         x = shard(self._embed(params, tokens, dt), "btd")
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         src = None
@@ -422,8 +482,9 @@ class LM:
         layers = P.tree_map(lambda t: t.unbind(0), params["main"])
         shared = params.get("shared")
         for li in range(sch.n_super):
-            x, aux = self._maybe_remat(
-                P.tree_map(lambda ts: ts[li], layers), shared, x, aux, src)
+            p_l = self.gather_params(P.tree_map(lambda ts: ts[li], layers),
+                                     layer=True)
+            x, aux = self._maybe_remat(p_l, shared, x, aux, src)
         if sch.tail:
             # the tail is not checkpointed, as in the reference
             tail = P.tree_map(lambda t: t.unbind(0), params["tail"])
@@ -439,6 +500,7 @@ class LM:
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Train/prefill forward: (logits (B,S,V_padded) with the padded
         vocab masked, moe_aux)."""
+        params = self.gather_params(params)
         x, aux = self.backbone(params, tokens, img=img, frames=frames)
         logits = self._logits(params, x)
         return shard(_mask_pad_vocab(logits, self.cfg), "btv"), aux
@@ -447,13 +509,18 @@ class LM:
              z_loss: float = 0.0) -> Tuple[torch.Tensor, Dict[str, Any]]:
         """LM loss of a batch {"tokens", "labels"} (B,S) int tensors (and
         "frames" (B,F,d) for the audio family, "img" (B,N_img,d) for the
-        vlm family): (nll + moe_aux, {"nll", "moe_aux"})."""
+        vlm family): (nll + moe_aux, {"nll", "moe_aux"}). Under a strategy
+        (the active sharder) each rank passes its batch and its weights,
+        and the loss is the whole batch's on every rank
+        (``train/fused_xent.py:lm_loss``)."""
         from repro_torch.train.fused_xent import lm_loss
+        params = self.gather_params(params)
         x, aux = self.backbone(params, batch["tokens"],
                                img=batch.get("img"),
                                frames=batch.get("frames"))
         w = self.head_weight(params)
-        nll = lm_loss(x, w.to(x.dtype), batch["labels"], z_loss=z_loss)
+        nll = lm_loss(x, w.to(x.dtype), batch["labels"], z_loss=z_loss,
+                      sharder=current_sharder(), vocab=self.cfg.padded_vocab)
         return nll + aux, {"nll": nll, "moe_aux": aux}
 
     # ------------------------------ caches ---------------------------

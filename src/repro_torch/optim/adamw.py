@@ -12,6 +12,11 @@ the gradients in place, slice by slice, for the same reason (the
 reference returns a clipped copy). Slicing changes no value: every
 operation is elementwise. With an object registry, ``init`` registers
 every moment leaf (core/objects.py), as the reference's does.
+
+Under a strategy each rank holds its blocks of the gradients, the
+master and the moments (the ZeRO layout): ``update`` runs on them as
+they are, and ``global_norm`` takes the mesh and the spec tree so that
+each block counts once in the whole tree's norm.
 """
 from __future__ import annotations
 
@@ -82,19 +87,38 @@ def update(tc: TrainConfig, grads: Any, state: AdamWState, master: Any,
     return master, state
 
 
-def global_norm(tree: Any) -> torch.Tensor:
-    """sqrt of the sum of squares of every leaf, in f32 (0-d tensor)."""
-    sq = [torch.sum(torch.square(t.to(torch.float32)))
-          for t in tree_leaves(tree)]
-    return torch.sqrt(functools.reduce(torch.add, sq))
+def global_norm(tree: Any, mesh=None, specs: Any = None) -> torch.Tensor:
+    """sqrt of the sum of squares of every leaf, in f32 (0-d tensor).
+
+    With a ``mesh`` and the ``specs`` tree of the rank's blocks
+    (sharding/rules.py), the whole tree's norm on every rank: a leaf's
+    block is counted on the one rank of the group that holds it (index
+    0 of each axis its spec leaves replicated), and the partial sums
+    are all-reduced over every axis of the mesh."""
+    if mesh is None:
+        sq = [torch.sum(torch.square(t.to(torch.float32)))
+              for t in tree_leaves(tree)]
+        return torch.sqrt(functools.reduce(torch.add, sq))
+    from repro_torch.sharding import comm
+    from repro_torch.sharding.rules import map2, owns_block
+    sq = map2(lambda t, spec: torch.sum(torch.square(t.to(torch.float32)))
+              if owns_block(spec, mesh) else None, tree, specs)
+    total = torch.zeros((), dtype=torch.float32,
+                        device=tree_leaves(tree)[0].device)
+    for s in tree_leaves(sq):
+        if s is not None:
+            total = total + s
+    return torch.sqrt(comm.all_reduce(total, mesh.axis_names, mesh))
 
 
 @torch.no_grad()
-def clip_by_global_norm_(tree: Any, max_norm: float) -> torch.Tensor:
+def clip_by_global_norm_(tree: Any, max_norm: float, mesh=None,
+                         specs: Any = None) -> torch.Tensor:
     """Scale ``tree`` in place to a global norm <= max_norm (each leaf
     keeps its dtype; scaled in f32, slice by slice). Returns the norm
-    before."""
-    norm = global_norm(tree)
+    before (of the whole tree, with a ``mesh`` and ``specs``: see
+    ``global_norm``)."""
+    norm = global_norm(tree, mesh, specs)
     scale = torch.clamp(max_norm / (norm + 1e-9), max=1.0)
     for leaf in tree_leaves(tree):
         for (g,) in _slices(leaf):

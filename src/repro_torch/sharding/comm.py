@@ -11,8 +11,20 @@ the host, reduced or gathered there, and copied back: ``STATS`` counts
 those bytes (both ways), and the calls and seconds of every collective.
 
 Reductions of floating tensors run in float32 (a bf16 tensor is widened
-first, the result cast back); gathers and broadcasts move the bits as
-they are. Every rank of a group gets the same bits back.
+first, the result cast back: on the host when staged, so a bf16 tensor
+crosses to the host and back in bf16); gathers and broadcasts move the
+bits as they are. Every rank of a group gets the same bits back.
+
+The differentiable collectives below are what the tensor-parallel and
+fsdp training forwards place where GSPMD would put a collective
+(Megatron's conjugate pairs): ``reduce_from`` sums partial products
+(backward: identity), ``copy_to`` feeds a replicated tensor into
+rank-local products (backward: all-reduce), ``gather_from`` and
+``block_of`` move between a dim's blocks and the whole dim (backward:
+this rank's block, an all-gather), ``gather_weight`` gathers a
+fsdp-sharded weight (backward: reduce-scatter), ``mean_over`` makes a
+rank's loss the mean over the ranks (backward: 1/n). Without grad
+they cost what the plain collectives cost.
 """
 from __future__ import annotations
 
@@ -53,6 +65,16 @@ def _from_wire(mesh, w: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     return w
 
 
+def _wide(w: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """The wire tensor ``w`` of ``t`` as the reduction's buffer: float32
+    for a floating t, and never t's own storage (the reduction writes
+    it)."""
+    x = w.float() if t.is_floating_point() else w
+    if x.data_ptr() == t.data_ptr():
+        x = x.clone()
+    return x
+
+
 def _bits(t: torch.Tensor) -> torch.Tensor:
     """A view of t whose dtype every backend moves (bf16 and bool as
     bytes)."""
@@ -79,12 +101,9 @@ def all_reduce(t: torch.Tensor, axes, mesh, op: str = "sum") -> torch.Tensor:
     dist = _dist()
     red = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
     with _Timed():
-        x = t.float() if t.is_floating_point() else t
-        w = _to_wire(mesh, x)
-        if w is x or w.data_ptr() == x.data_ptr():
-            w = w.clone()
+        w = _wide(_to_wire(mesh, t), t)
         dist.all_reduce(w, op=red, group=mesh.group(axes))
-        return _from_wire(mesh, w, t).to(t.dtype)
+        return _from_wire(mesh, w.to(t.dtype), t)
 
 
 def all_gather(t: torch.Tensor, axes, mesh, dim: int = -1) -> torch.Tensor:
@@ -103,6 +122,23 @@ def all_gather(t: torch.Tensor, axes, mesh, dim: int = -1) -> torch.Tensor:
         return torch.cat(parts, dim=dim)
 
 
+def reduce_scatter(t: torch.Tensor, axes, mesh, dim: int = 0
+                   ) -> torch.Tensor:
+    """This rank's block (by its index over ``axes``) along ``dim`` of the
+    sum of t over the ranks of ``axes``: ``all_reduce``'s sum, of which
+    only the block comes back from the host when staged."""
+    n = mesh.axis_size(axes)
+    if n == 1:
+        return t
+    dist = _dist()
+    with _Timed():
+        w = _wide(_to_wire(mesh, t), t)
+        dist.all_reduce(w, group=mesh.group(axes))
+        blk = w.shape[dim] // n
+        w = w.narrow(dim, mesh.index(axes) * blk, blk)
+        return _from_wire(mesh, w.to(t.dtype).contiguous(), t)
+
+
 def broadcast(t: torch.Tensor, src: int, axes, mesh) -> torch.Tensor:
     """The tensor of the rank at index ``src`` over ``axes``, on every
     rank of them (t gives the shape and dtype elsewhere)."""
@@ -114,3 +150,134 @@ def broadcast(t: torch.Tensor, src: int, axes, mesh) -> torch.Tensor:
         dist.broadcast(w, src=mesh.peers(axes)[src],
                        group=mesh.group(axes))
         return _from_wire(mesh, w, t).view(t.dtype).view(t.shape)
+
+
+# ----------------------------------------------------------------------
+# Differentiable collectives (training under a strategy)
+# ----------------------------------------------------------------------
+def _block(t: torch.Tensor, axes, mesh, dim: int) -> torch.Tensor:
+    n = mesh.axis_size(axes)
+    blk = t.shape[dim] // n
+    return t.narrow(dim, mesh.index(axes) * blk, blk)
+
+
+class _ReduceFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, axes, mesh):
+        return all_reduce(t, axes, mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _CopyTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, axes, mesh):
+        ctx.axes, ctx.mesh = axes, mesh
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g, ctx.axes, ctx.mesh), None, None
+
+
+class _GatherFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, axes, mesh, dim):
+        ctx.axes, ctx.mesh, ctx.dim = axes, mesh, dim
+        return all_gather(t, axes, mesh, dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (_block(g, ctx.axes, ctx.mesh, ctx.dim).contiguous(), None,
+                None, None)
+
+
+class _BlockOf(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, axes, mesh, dim):
+        ctx.axes, ctx.mesh, ctx.dim = axes, mesh, dim
+        return _block(t, axes, mesh, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather(g, ctx.axes, ctx.mesh, dim=ctx.dim), None, None, None
+
+
+class _GatherWeight(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, axes, mesh, dim):
+        ctx.axes, ctx.mesh, ctx.dim = axes, mesh, dim
+        return all_gather(t, axes, mesh, dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return reduce_scatter(g, ctx.axes, ctx.mesh, ctx.dim), None, None, None
+
+
+class _MeanOver(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, axes, mesh):
+        ctx.n = mesh.axis_size(axes)
+        return all_reduce(t, axes, mesh) / ctx.n
+
+    @staticmethod
+    def backward(ctx, g):
+        return g / ctx.n, None, None
+
+
+def _dim(t: torch.Tensor, dim: int) -> int:
+    return dim % t.ndim
+
+
+def reduce_from(t: torch.Tensor, axes, mesh) -> torch.Tensor:
+    """The sum of the ranks' partial tensors (a row-parallel product);
+    the gradient passes to each partial as it is."""
+    if mesh.axis_size(axes) == 1:
+        return t
+    return _ReduceFrom.apply(t, axes, mesh)
+
+
+def copy_to(t: torch.Tensor, axes, mesh) -> torch.Tensor:
+    """t (the same on every rank of ``axes``) as the input of rank-local
+    products (a column-parallel projection): the identity, whose
+    gradient is the sum of the ranks' gradients."""
+    if mesh.axis_size(axes) == 1:
+        return t
+    return _CopyTo.apply(t, axes, mesh)
+
+
+def gather_from(t: torch.Tensor, axes, mesh, dim: int = -1) -> torch.Tensor:
+    """The ranks' blocks of a dim concatenated (``all_gather``); the
+    whole result is the same on every rank, so its gradient's block is
+    this rank's."""
+    if mesh.axis_size(axes) == 1:
+        return t
+    return _GatherFrom.apply(t, axes, mesh, _dim(t, dim))
+
+
+def block_of(t: torch.Tensor, axes, mesh, dim: int = -1) -> torch.Tensor:
+    """This rank's block of a dim of t (the same on every rank of
+    ``axes``): a view; the gradient is the ranks' blocks gathered."""
+    if mesh.axis_size(axes) == 1:
+        return t
+    return _BlockOf.apply(t, axes, mesh, _dim(t, dim))
+
+
+def gather_weight(t: torch.Tensor, axes, mesh, dim: int) -> torch.Tensor:
+    """A fsdp-sharded leaf whole (``all_gather`` of the ranks' blocks
+    along ``dim``); each rank's gradient of the whole leaf is its own
+    batch's, so the backward sums them and keeps this rank's block
+    (``reduce_scatter``)."""
+    if mesh.axis_size(axes) == 1:
+        return t
+    return _GatherWeight.apply(t, axes, mesh, _dim(t, dim))
+
+
+def mean_over(t: torch.Tensor, axes, mesh) -> torch.Tensor:
+    """The mean of t over the ranks of ``axes`` (a data-parallel loss:
+    each rank's is its batch's); the gradient of each rank's t is 1/n."""
+    if mesh.axis_size(axes) == 1:
+        return t
+    return _MeanOver.apply(t, axes, mesh)

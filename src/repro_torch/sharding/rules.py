@@ -21,11 +21,15 @@ a tuple of names), which compares equal, axis for axis, to the
 reference's ``PartitionSpec``. ``local_slice``/``shard_tree`` cut a full
 leaf (tree) down to what one rank of a mesh holds under its spec: the
 weights of a rank, and a rank's share of a restored checkpoint.
+``reshard`` moves a rank's leaf from one spec to another (the sharded
+train step's param layout <-> its ZeRO optimizer layout), collectively.
 """
 from __future__ import annotations
 
 import math
 from typing import Any, Dict, Optional, Tuple
+
+import torch
 
 from repro_torch.models import params as P
 from repro_torch.sharding.ctx import Sharder
@@ -113,19 +117,22 @@ def leaf_spec_fsdp(axes, shape, mesh) -> PS:
     return PS()
 
 
-def _map2(fn, a, b):
-    """``fn`` over the leaves of two nested-dict trees of one structure."""
+def map2(fn, a, *rest):
+    """``fn`` over the leaves of nested-dict trees of one structure (two
+    or more), leaf by leaf."""
     if isinstance(a, dict):
-        if set(a) != set(b):
-            raise ValueError(f"trees differ: {sorted(a)} vs {sorted(b)}")
-        return {k: _map2(fn, a[k], b[k]) for k in a}
-    return fn(a, b)
+        for b in rest:
+            if set(a) != set(b):
+                raise ValueError(f"trees differ: {sorted(a)} vs "
+                                 f"{sorted(b)}")
+        return {k: map2(fn, a[k], *(b[k] for b in rest)) for k in a}
+    return fn(a, *rest)
 
 
 def _tree_specs(axes_tree, abstract_params, mesh, leaf_fn):
     """Spec tree of a parameter tree: ``abstract_params``' leaves are
     anything with a ``shape`` (declarations, tensors, fake tensors)."""
-    return _map2(lambda ax, p: leaf_fn(ax, _shape(p), mesh), axes_tree,
+    return map2(lambda ax, p: leaf_fn(ax, _shape(p), mesh), axes_tree,
                  abstract_params)
 
 
@@ -337,4 +344,60 @@ def local_slice(x, spec, mesh, coords: Optional[Dict[str, int]] = None):
 
 def shard_tree(tree, specs, mesh, coords: Optional[Dict[str, int]] = None):
     """``local_slice`` over a nested-dict tree and its spec tree."""
-    return _map2(lambda x, s: local_slice(x, s, mesh, coords), tree, specs)
+    return map2(lambda x, s: local_slice(x, s, mesh, coords), tree, specs)
+
+
+def spec_axes(spec) -> Tuple[str, ...]:
+    """Every mesh axis a spec shards over, in the order it names them."""
+    return tuple(a for entry in tuple(spec) for a in _names(entry))
+
+
+def global_shape(local_shape, spec, mesh) -> Tuple[int, ...]:
+    """The whole leaf's shape of a rank's block under ``spec``."""
+    shape = list(local_shape)
+    for dim, entry in enumerate(tuple(spec)):
+        for a in _names(entry):
+            shape[dim] *= mesh.shape[a]
+    return tuple(shape)
+
+
+def owns_block(spec, mesh) -> bool:
+    """True on the one rank of each group of ranks that hold the same
+    block under ``spec``: index 0 of every axis the spec leaves
+    replicated (how a block is counted once in a sum over the mesh)."""
+    named = set(spec_axes(spec))
+    return all(mesh.coords[a] == 0 for a in mesh.axis_names
+               if a not in named)
+
+
+def _effective(spec, mesh) -> Tuple[Tuple[str, ...], ...]:
+    """A spec without its axes of one rank: two specs whose effective
+    forms are equal place every block on the same rank (on a (1, 2)
+    mesh, ("data", "model") and "model" are one layout)."""
+    out = [tuple(a for a in _names(e) if mesh.shape[a] > 1)
+           for e in tuple(spec)]
+    while out and not out[-1]:
+        out.pop()
+    return tuple(out)
+
+
+def reshard(x, src_spec, dst_spec, mesh):
+    """This rank's block under ``dst_spec`` of the leaf whose block under
+    ``src_spec`` it holds (``x``): every sharded dim of ``src_spec``
+    all-gathered whole (sharding/comm.py), then ``local_slice`` by
+    ``dst_spec`` (``PS()``: the whole leaf). Every rank of the mesh
+    must call it, in the same order. ``x`` itself where the two specs
+    place the blocks alike (``_effective``) or the whole leaf is asked of
+    a whole leaf, else a dense tensor of its own (never a view that would
+    keep a gathered leaf alive)."""
+    from repro_torch.sharding import comm
+    if _effective(src_spec, mesh) == _effective(dst_spec, mesh):
+        return x
+    for dim, entry in enumerate(tuple(src_spec)):
+        names = _names(entry)
+        if names:
+            x = comm.all_gather(x, names, mesh, dim=dim)
+    out = local_slice(x, dst_spec, mesh)
+    if out.numel() != x.numel():
+        out = out.clone(memory_format=torch.contiguous_format)
+    return out

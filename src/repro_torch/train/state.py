@@ -3,7 +3,8 @@ f32 AdamW moments.
 
 Port of src/repro/train/state.py, plus ``from_reference``, which carries
 a reference ``TrainState`` over (for the parity tests). ``state_specs``
-gives the spec tree of a strategy (sharding/rules.py) over the state.
+gives the spec tree of a strategy (sharding/rules.py) over the state;
+under a strategy ``create`` gives each rank its slice of it.
 """
 from __future__ import annotations
 
@@ -23,14 +24,23 @@ class TrainState(NamedTuple):
 
 
 def create(model, seed: int = 0, compute_dtype=torch.bfloat16, *,
-           device, registry=None) -> TrainState:
+           device, registry=None, strategy=None) -> TrainState:
     """Random f32 master weights from a seeded generator on ``device``,
     compute params cast from them, zero moments, step 0. With an object
     registry (core/objects.py) the master and compute trees register as
     ``param`` objects here (``train/master``, ``train/params``) and the
-    moments inside `adamw.init`."""
+    moments inside `adamw.init`.
+
+    Under a ``strategy`` the whole tree is drawn as without one (so
+    every rank's slices are cut from the same leaves) and this rank (its
+    mesh's) keeps its ``state_specs`` share: the params in the param
+    layout, the master and the moments in the optimizer (ZeRO) layout."""
     master = model.init(seed, device=device, dtype=torch.float32)
     params = P.tree_map(lambda p: p.to(compute_dtype, copy=True), master)
+    if strategy is not None:
+        cut = shard_state(TrainState(params=params, master=master,
+                                     opt=None, step=None), model, strategy)
+        params, master = cut.params, cut.master
     if registry is not None:
         from repro_torch.core.objects import register_tree
         register_tree(registry, "train/master", master, kind="param")
@@ -79,3 +89,42 @@ def state_specs(model, strategy) -> TrainState:
     return TrainState(params=p_specs, master=o_specs,
                       opt=adamw.AdamWState(m=o_specs, v=o_specs),
                       step=PS())
+
+
+def shard_state(state: TrainState, model, strategy) -> TrainState:
+    """This rank's ``state_specs`` share of a whole state (its mesh's
+    rank): each leaf's block, a dense tensor of its own (never a view of
+    the whole leaf). A part that is None stays None."""
+    from repro_torch.sharding.rules import shard_tree
+    specs = state_specs(model, strategy)
+
+    def cut(tree, spec):
+        if tree is None:
+            return None
+        return P.tree_map(
+            lambda t: t.clone(memory_format=torch.contiguous_format),
+            shard_tree(tree, spec, strategy.mesh))
+    opt = None if state.opt is None else adamw.AdamWState(
+        m=cut(state.opt.m, specs.opt.m), v=cut(state.opt.v, specs.opt.v))
+    return TrainState(params=cut(state.params, specs.params),
+                      master=cut(state.master, specs.master), opt=opt,
+                      step=state.step)
+
+
+def gather_state(state: TrainState, model, strategy) -> TrainState:
+    """The whole state from every rank's share (each leaf resharded from
+    its ``state_specs`` block to ``PS()``, leaf by leaf): collective,
+    every rank of the strategy's mesh must call it. The checkpoint's
+    layout, and what a sharded step is held to."""
+    from repro_torch.sharding.rules import PS, map2, reshard
+    specs = state_specs(model, strategy)
+
+    def whole(tree, spec):
+        return map2(lambda t, s: reshard(t, s, PS(), strategy.mesh), tree,
+                     spec)
+    return TrainState(
+        params=whole(state.params, specs.params),
+        master=whole(state.master, specs.master),
+        opt=adamw.AdamWState(m=whole(state.opt.m, specs.opt.m),
+                             v=whole(state.opt.v, specs.opt.v)),
+        step=state.step)

@@ -1,12 +1,27 @@
 """Train-step factory: mixed-precision AdamW step with optional gradient
-accumulation, int8 gradient compression and global-norm clipping.
+accumulation, int8 gradient compression and global-norm clipping, on
+one device or sharded over a mesh of ranks (``dp_tp``, ``fsdp``).
 
-Port of src/repro/train/step.py without a mesh (the sharded strategy is
-ROADMAP A11b). Gradients are taken by autograd with respect to the
-compute params and clipped in place; the f32 master weights and moments
-are updated in place and the next compute params are FRESH tensors cast
-from the master, so a caller may hold the pre-step params (the training
-detectors compare them with the post-step ones).
+Port of src/repro/train/step.py. Gradients are taken by autograd with
+respect to the compute params and clipped in place; the f32 master
+weights and moments are updated in place and the next compute params
+are FRESH tensors cast from the master, so a caller may hold the
+pre-step params (the training detectors compare them with the post-step
+ones).
+
+Under a strategy (sharding/rules.py) every rank runs this step on its
+own blocks: its rows of the batch (``rank_batch``), its params in the
+strategy's param layout, its master and moments in the ZeRO layout
+(``train/state.py:state_specs``). The model's forward places the
+collectives (models/layers.py, models/lm.py, train/fused_xent.py), and
+each rank's gradient is its rows' part of the whole batch's loss's.
+The step then sums each gradient over the batch axes its layout does
+not shard (the fsdp gather's backward already reduce-scattered over the
+others) — once — and reshards it to the ZeRO layout, where the
+reference constrains the gradients to the optimizer specs; int8
+compression takes each whole leaf's scale, the clip the whole tree's
+norm, AdamW runs on the shards, and the new master is cast and
+resharded into fresh params.
 """
 from __future__ import annotations
 
@@ -18,7 +33,19 @@ from repro_torch.configs.base import TrainConfig
 from repro_torch.models.params import tree_leaves, tree_map
 from repro_torch.optim import adamw
 from repro_torch.optim.schedule import lr_at
+from repro_torch.sharding import comm
+from repro_torch.sharding.ctx import sharding_ctx
 from repro_torch.train import state as S
+
+# the model families each strategy trains; the others raise, naming the
+# ROADMAP item that would add them. dp_tp needs a tensor-parallel
+# training branch in every layer: the MoE experts over 'model' (becd),
+# the Mamba2 block's ssm_inner and the xLSTM blocks have none. fsdp's
+# compute is data-parallel over gathered weights, which holds for every
+# family whose loss is a mean over the batch's rows: the MoE layer's
+# capacity and aux loss are taken over the whole batch, not a rank's rows
+SHARDED_FAMILIES = {"dp_tp": ("dense", "vlm", "audio"),
+                    "fsdp": ("dense", "vlm", "audio", "hybrid", "ssm")}
 
 
 def _like(tree, leaves):
@@ -27,26 +54,72 @@ def _like(tree, leaves):
     return tree_map(lambda _: next(it), tree)
 
 
-def _compress_int8_ef(g: torch.Tensor) -> torch.Tensor:
+def _compress_int8_ef(g: torch.Tensor, mesh=None,
+                      axes=()) -> torch.Tensor:
     """int8 quantize-dequantize with a per-tensor scale: the wire format
     of the cross-pod gradient all-reduce (error feedback is carried by
-    the optimizer moments)."""
+    the optimizer moments). With a ``mesh``, g is a block of a leaf
+    sharded over ``axes``, and the scale is the whole leaf's (the
+    blocks' largest magnitude, reduced with max)."""
     gf = g.to(torch.float32)
-    scale = torch.clamp(torch.amax(torch.abs(gf)), min=1e-8) / 127.0
+    amax = torch.amax(torch.abs(gf))
+    if mesh is not None:
+        amax = comm.all_reduce(amax, axes, mesh, op="max")
+    scale = torch.clamp(amax, min=1e-8) / 127.0
     q = torch.clamp(torch.round(gf / scale), -127, 127).to(torch.int8)
     return (q.to(torch.float32) * scale).to(g.dtype)
 
 
-def make_train_step(model, tc: TrainConfig):
+def check_strategy(model, strategy) -> None:
+    """Raise for a model family the strategy does not train."""
+    fam = model.cfg.family
+    if fam not in SHARDED_FAMILIES.get(strategy.name, ()):
+        raise NotImplementedError(
+            f"training the {fam!r} family under {strategy.name!r} is "
+            f"ROADMAP A11e")
+
+
+def rank_batch(batch: Dict[str, Any], strategy,
+               microbatches: int = 1) -> Dict[str, Any]:
+    """This rank's rows of a global batch (numpy arrays or tensors, the
+    batch first): its block over the strategy's batch axes of each of
+    the ``microbatches`` consecutive microbatches, in order, so that the
+    step's microbatch split gives each microbatch's block (the
+    reference's microbatches are of the global batch)."""
+    mesh, axes = strategy.mesh, strategy.batch_axes
+    n, i, k = mesh.axis_size(axes), mesh.index(axes), max(microbatches, 1)
+    out = {}
+    for key, a in batch.items():
+        B = a.shape[0]
+        if B % (n * k):
+            raise ValueError(f"batch {B} does not divide over {n} ranks of "
+                             f"{axes} x {k} microbatches")
+        blk = B // (n * k)
+        a = a.reshape((k, B // k) + tuple(a.shape[1:]))
+        a = a[:, i * blk:(i + 1) * blk].reshape((B // n,)
+                                                + tuple(a.shape[2:]))
+        out[key] = a.contiguous() if torch.is_tensor(a) else a.copy()
+    return out
+
+
+def make_train_step(model, tc: TrainConfig, strategy=None):
     """Returns train_step(state, batch) -> (new_state, metrics); batch is
     {"tokens", "labels"} (B,S) int tensors on the params' device (and
     "frames" (B,F,d) for the audio family, "img" (B,N_img,d) for the vlm
-    family; microbatches split every entry along the batch)."""
+    family; microbatches split every entry along the batch). Under a
+    ``strategy`` each rank calls it with its state share and its
+    ``rank_batch``; the metrics are the whole batch's on every rank."""
     model.remat = tc.remat
+    sharder = specs = mesh = None
+    if strategy is not None:
+        check_strategy(model, strategy)
+        sharder = strategy.sharder()
+        specs = S.state_specs(model, strategy)
+        mesh = strategy.mesh
 
     def value_and_grad(params, batch):
         live = tree_map(lambda t: t.detach().requires_grad_(True), params)
-        with torch.enable_grad():
+        with torch.enable_grad(), sharding_ctx(sharder):
             loss, metrics = model.loss(live, batch, z_loss=tc.z_loss)
             leaves = tree_leaves(live)
             grads = torch.autograd.grad(loss, leaves, allow_unused=True)
@@ -72,19 +145,38 @@ def make_train_step(model, tc: TrainConfig):
                     a.add_(g)
         return loss, metrics, tree_map(lambda g: g / k, acc)
 
+    def to_opt_layout(grads):
+        """Each gradient summed over the batch axes its param layout does
+        not shard, then resharded to the ZeRO layout."""
+        from repro_torch.sharding.rules import map2, reshard, spec_axes
+
+        def one(g, p_spec, o_spec):
+            axes = tuple(a for a in strategy.batch_axes
+                         if a not in spec_axes(p_spec))
+            return reshard(comm.all_reduce(g, axes, mesh), p_spec, o_spec,
+                           mesh)
+        return map2(one, grads, specs.params, specs.master)
+
     def train_step(state: S.TrainState, batch: Dict[str, Any]):
         loss, metrics, grads = compute_grads(state.params, batch)
+        if strategy is not None:
+            grads = to_opt_layout(grads)
         if tc.grad_compression == "int8_ef":
-            grads = tree_map(_compress_int8_ef, grads)
+            if strategy is None:
+                grads = tree_map(_compress_int8_ef, grads)
+            else:
+                from repro_torch.sharding.rules import map2, spec_axes
+                grads = map2(lambda g, s: _compress_int8_ef(
+                    g, mesh, spec_axes(s)), grads, specs.master)
         # in place: the clipped tree is not a second copy of the grads
-        gnorm = adamw.clip_by_global_norm_(grads, tc.grad_clip)
+        gnorm = adamw.clip_by_global_norm_(
+            grads, tc.grad_clip, mesh,
+            None if specs is None else specs.master)
         lr = lr_at(tc, state.step)
         master, opt = adamw.update(tc, grads, state.opt, state.master, lr,
                                    state.step)
         del grads
-        params = _like(state.params, [
-            m.to(p.dtype, copy=True) for m, p in
-            zip(tree_leaves(master), tree_leaves(state.params))])
+        params = _fresh_params(master, state.params, specs, mesh)
         new_state = S.TrainState(params=params, master=master, opt=opt,
                                  step=state.step + 1)
         metrics = dict(metrics)
@@ -94,10 +186,29 @@ def make_train_step(model, tc: TrainConfig):
     return train_step
 
 
-def make_eval_step(model):
-    """Forward-only step (prefill / eval): batch -> (logits, aux)."""
+def _fresh_params(master, params, specs, mesh):
+    """The next compute params: the master cast to each param's dtype (a
+    copy), resharded from the ZeRO layout to the param layout under a
+    strategy."""
+    if specs is None:
+        return _like(params, [
+            m.to(p.dtype, copy=True) for m, p in
+            zip(tree_leaves(master), tree_leaves(params))])
+    from repro_torch.sharding.rules import map2, reshard
+    with torch.no_grad():
+        return map2(lambda m, p, o_spec, p_spec: reshard(
+            m.to(p.dtype, copy=True), o_spec, p_spec, mesh),
+            master, params, specs.master, specs.params)
+
+
+def make_eval_step(model, strategy=None):
+    """Forward-only step (prefill / eval): batch -> (logits, aux). Under a
+    ``strategy`` each rank passes its params and its rows of the batch,
+    and gets its rows' logits, every vocab entry whole."""
+    sharder = strategy.sharder() if strategy is not None else None
+
     def eval_step(params, batch):
-        with torch.no_grad():
+        with torch.no_grad(), sharding_ctx(sharder):
             return model.forward(params, batch["tokens"],
                                  img=batch.get("img"),
                                  frames=batch.get("frames"))

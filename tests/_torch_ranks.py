@@ -132,14 +132,23 @@ def dup_requests(vocab: int, n: int = 16):
     return out
 
 
-# engine configurations: kv layout, cache sizes, speculative overwrite
+# engine configurations: kv layout, cache sizes, speculative overwrite,
+# the model config ("wide": WIDE's, every attention projection sharded;
+# default the smoke config, whose attention leaves stay replicated)
 SERVE_CASES = {
     "paged": dict(kv_layout="paged", max_len=256, num_pages=32,
                   page_size=32, kernel_counters=True),
     "dense": dict(kv_layout="dense", max_len=1024),
     "overwrite": dict(kv_layout="paged", max_len=256, num_pages=32,
                       page_size=32, kernel_counters=True, spec=True),
+    "paged-wide": dict(kv_layout="paged", max_len=256, num_pages=32,
+                       page_size=32, kernel_counters=True, config="wide"),
 }
+
+
+def serve_config(case: str) -> str:
+    """The model config ("plain" or "wide") a serving case runs."""
+    return SERVE_CASES[case].get("config", "plain")
 
 
 def report_of(prof):
@@ -160,6 +169,7 @@ def serve_case(model, params, case: str, strategy=None):
     from repro_torch.serve.engine import Request, ServeEngine
     from repro_torch.serve.spec import NGramDrafter
     kw = dict(SERVE_CASES[case])
+    kw.pop("config", None)
     spec = kw.pop("spec", False)
     if spec:
         kw.update(drafter=NGramDrafter(), spec_k=3, spec_rollback=False)
@@ -174,10 +184,12 @@ def serve_case(model, params, case: str, strategy=None):
 
 
 def serve_rank(mesh, ref_params, cases):
-    """This rank's tp_serve engines: per case its tokens, stats, page
-    table, refcounts, tier-3/4 reports, the sharded calls it made, the
-    pool pages of its chunk that held live data, the copies on write it
-    ran, and its leaves held to their slice of the full tree."""
+    """This rank's tp_serve engines (``ref_params``: the reference's
+    weights by config): per case its tokens, stats, page table,
+    refcounts, tier-3/4 reports, the sharded calls it made, the pool
+    pages of its chunk that held live data, the copies on write it ran,
+    its leaves held to their slice of the full tree, and the attention
+    projections it holds a block of."""
     import torch
     from repro_torch.configs import registry
     from repro_torch.checkpoint.checkpointer import flatten
@@ -185,9 +197,6 @@ def serve_rank(mesh, ref_params, cases):
     from repro_torch.models.zoo import build_model
     from repro_torch.serve import flash_decode as FD
     from repro_torch.sharding.rules import PS, local_slice, make_strategy
-    cfg = dataclasses.replace(registry.get_config("qwen3-1.7b").smoke(),
-                              dtype="float32")
-    model = build_model(cfg)
     calls = {"decode": 0, "verify": 0, "dense": 0}
 
     def counted(name, fn):
@@ -201,9 +210,13 @@ def serve_rank(mesh, ref_params, cases):
         "verify", FD.verify_paged_attention_sharded)
     FD.decode_attention_sharded = counted(
         "dense", FD.decode_attention_sharded)
-    full = from_reference(ref_params, device="cpu")
     out = {}
     for case in cases:
+        kind = serve_config(case)
+        model = build_model(dataclasses.replace(
+            registry.get_config("qwen3-1.7b").smoke(),
+            **train_overrides(kind)))
+        full = from_reference(ref_params[kind], device="cpu")
         for k in calls:
             calls[k] = 0
         strategy = make_strategy("tp_serve", mesh)
@@ -242,6 +255,10 @@ def serve_rank(mesh, ref_params, cases):
             "kernel": report_of(det.kernel),
             "calls": dict(calls), "live": sorted(live), "cows": cows,
             "held": held, "local_shape": tuple(first.shape),
+            "sharded_attn": sorted(
+                k for k in ("wq", "wk", "wv", "wo")
+                if eng.params["main"]["b0_dense"]["attn"][k]["w"].shape
+                != full["main"]["b0_dense"]["attn"][k]["w"].shape),
             "sharder": (strategy.sharder().pool_pages,
                         strategy.sharder().seq_len),
         }
@@ -265,3 +282,344 @@ def elastic_rank(mesh, ckpt_dir):
     return {"shape": dict(emesh.shape), "coords": dict(emesh.coords),
             "leaves": {k: v.float().numpy() for k, v in
                        flatten(state).items()}}
+
+
+# ----------------------------------------------------------------------
+# Sharded training (test_torch_train_sharded.py)
+# ----------------------------------------------------------------------
+# qwen3-1.7b's smoke config widened until every attention projection
+# and the embedding shard (each over 16 Ki elements): 8 heads over 4 kv
+# heads of 32, d_ff 512
+WIDE = dict(d_model=256, num_heads=8, num_kv_heads=4, head_dim=32,
+            d_ff=512)
+TRAIN_STEPS, TRAIN_SEQ = 3, 32
+# case -> (config, strategy, TrainConfig fields, global batch)
+TRAIN_CASES = {
+    "wide-dp_tp": ("wide", "dp_tp", {}, 4),
+    "wide-fsdp": ("wide", "fsdp", {}, 4),
+    "plain-dp_tp": ("plain", "dp_tp", {}, 4),
+    "plain-fsdp": ("plain", "fsdp", {}, 4),
+    "wide-dp_tp-mb2": ("wide", "dp_tp", {"microbatches": 2}, 8),
+    "wide-fsdp-mb2": ("wide", "fsdp", {"microbatches": 2}, 8),
+    "wide-dp_tp-int8": ("wide", "dp_tp", {"grad_compression": "int8_ef"},
+                        4),
+    "wide-fsdp-int8": ("wide", "fsdp", {"grad_compression": "int8_ef"}, 4),
+}
+
+
+def train_overrides(kind: str) -> dict:
+    """Config fields of a training case's config ("wide" or "plain"), in
+    float32."""
+    return dict(WIDE, dtype="float32") if kind == "wide" else \
+        {"dtype": "float32"}
+
+
+def port_train_model(kind: str):
+    from repro_torch.configs import registry
+    from repro_torch.models.zoo import build_model
+    return build_model(dataclasses.replace(
+        registry.get_config("qwen3-1.7b").smoke(), **train_overrides(kind)))
+
+
+def port_state(host: dict):
+    """A whole port TrainState on the CPU from a reference state on the
+    host as plain dicts ({"params", "master", "m", "v"} trees of numpy
+    arrays, "step" an int): a rank needs no JAX to load it."""
+    import torch
+    from repro_torch.models.params import from_reference
+    from repro_torch.optim.adamw import AdamWState
+    from repro_torch.train.state import TrainState
+
+    def tree(t):
+        return from_reference(t, device="cpu")
+    return TrainState(params=tree(host["params"]),
+                      master=tree(host["master"]),
+                      opt=AdamWState(m=tree(host["m"]), v=tree(host["v"])),
+                      step=torch.tensor(host["step"], dtype=torch.int32))
+
+
+def train_case(model, state, case: str, strategy=None):
+    """TRAIN_STEPS steps of ``case`` from ``state`` (this rank's share
+    under a ``strategy``) with the training detectors on: per step (loss,
+    nll, grad norm, lr), the whole state after (numpy by checkpoint key),
+    the detectors' report, and the eval step's logits of the last batch's
+    rows here (``block``: this rank's (index, count) over the batch
+    axes)."""
+    import torch
+    from repro_torch.checkpoint.checkpointer import flatten
+    from repro_torch.configs.base import ProfilerConfig, TrainConfig
+    from repro_torch.core.detectors import TrainingDetectors
+    from repro_torch.data.synthetic import stream
+    from repro_torch.train import state as TS
+    from repro_torch.train.step import (make_eval_step, make_train_step,
+                                        rank_batch)
+    _, _, fields, B = TRAIN_CASES[case]
+    tc = TrainConfig(**fields)
+    fn = make_train_step(model, tc, strategy)
+    shard = ({} if strategy is None else
+             dict(mesh=strategy.mesh, specs=strategy.param_specs(model)))
+    det = TrainingDetectors(ProfilerConfig(enabled=True), **shard)
+    data = stream(model.cfg, B, TRAIN_SEQ, seed=0)
+    rows = []
+    for step in range(TRAIN_STEPS):
+        b = next(data)
+        det.on_batch(step, b)
+        mine = b if strategy is None else rank_batch(b, strategy,
+                                                     tc.microbatches)
+        before = state.params
+        state, m = fn(state, {k: torch.from_numpy(v) for k, v in
+                              mine.items()})
+        det.on_step(step, before, state.params)
+        rows.append(tuple(float(m[k]) for k in ("loss", "nll", "grad_norm",
+                                                "lr")))
+    # the eval step on the last batch's rows, with the stepped params
+    logits, _ = make_eval_step(model, strategy)(
+        state.params, {k: torch.from_numpy(v) for k, v in mine.items()})
+    whole = (state if strategy is None
+             else TS.gather_state(state, model, strategy))
+    return {"rows": rows, "report": report_of(det.report),
+            "logits": logits.numpy().copy(),
+            "block": (0, 1) if strategy is None else (
+                strategy.mesh.index(strategy.batch_axes),
+                strategy.mesh.axis_size(strategy.batch_axes)),
+            "state": {k: v.numpy().copy() for k, v in
+                      flatten(whole).items()}}
+
+
+def train_rank(mesh, hosts, cases, ckpt_root=None):
+    """Every case of ``cases`` on this rank, from the reference's state
+    of its config (``hosts``: by config) cut to this rank's share: the
+    case's ``train_case`` result, and the share's layout: each leaf's
+    element count against its ``state_specs`` block, the sharded leaves
+    of the param layout and the largest param leaf here."""
+    from repro_torch.checkpoint.checkpointer import flatten
+    from repro_torch.sharding.rules import PS, global_shape, make_strategy
+    from repro_torch.train import state as TS
+    out = {}
+    for case in cases:
+        kind, name, _, _ = TRAIN_CASES[case]
+        model = port_train_model(kind)
+        strategy = make_strategy(name, mesh)
+        whole = port_state(hosts[kind])
+        state = TS.shard_state(whole, model, strategy)
+        specs = flatten(TS.state_specs(model, strategy),
+                        is_leaf=lambda x: isinstance(x, PS))
+        mine, full = flatten(state), flatten(whole)
+        held = all(global_shape(t.shape, specs[k], mesh)
+                   == tuple(full[k].shape)
+                   for k, t in mine.items() if k != ".step")
+        pspecs = flatten(strategy.param_specs(model),
+                         is_leaf=lambda x: isinstance(x, PS))
+        res = train_case(model, state, case, strategy)
+        res["layout"] = {
+            "held": held,
+            "sharded": sorted(k for k, s in pspecs.items() if any(s)),
+            "leaves": len(pspecs),
+        }
+        out[case] = res
+    driver = None if ckpt_root is None else driver_rank(mesh, ckpt_root)
+    return {"rank": mesh.rank, "cases": out, "driver": driver}
+
+
+def driver_rank(mesh, ckpt_root):
+    """``launch.train.run`` under dp_tp on this rank (qwen3-1.7b's smoke
+    config, seed 7, batch 4 x 32): 4 straight steps with the profile on
+    (saved at the end), then 2 steps saved and a resume of 2 more, each
+    checkpoint under ``ckpt_root``. The losses and the profile."""
+    import os
+    from repro_torch.launch.train import run
+    kw = dict(smoke=True, batch=4, seq=32, seed=7, device="cpu",
+              strategy="dp_tp", mesh=mesh)
+    straight, prof = run("qwen3-1.7b", steps=4, profile=True,
+                         ckpt_dir=os.path.join(ckpt_root, "straight"),
+                         ckpt_every=100, **kw)
+    resumed = os.path.join(ckpt_root, "resumed")
+    first, _ = run("qwen3-1.7b", steps=2, total_steps=4, ckpt_dir=resumed,
+                   ckpt_every=2, **kw)
+    second, _ = run("qwen3-1.7b", steps=4, ckpt_dir=resumed, resume=True,
+                    **kw)
+    return {"straight": straight, "first": first, "second": second,
+            "report": report_of(prof)}
+
+
+# ----------------------------------------------------------------------
+# Vocab-parallel loss and differentiable collectives
+# (test_torch_fused_xent.py)
+# ----------------------------------------------------------------------
+XENT_SHAPE = (4, 8, 16)             # B, S, d
+XENT_VOCABS = (64, 63)              # divides 'model' (fused), does not
+Z_LOSSES = (0.0, 1e-3)
+
+
+def xent_inputs(V: int) -> dict:
+    """Seeded float32 inputs of the loss: x (B,S,d), w (V,d), labels."""
+    B, S, d = XENT_SHAPE
+    rng = np.random.default_rng(V)
+    return {"x": rng.standard_normal((B, S, d)).astype(np.float32),
+            "w": (0.5 * rng.standard_normal((V, d))).astype(np.float32),
+            "labels": rng.integers(0, V, size=(B, S)).astype(np.int32)}
+
+
+def grad_inputs() -> dict:
+    """Seeded float32 inputs of the collectives' products."""
+    rng = np.random.default_rng(7)
+
+    def r(*shape):
+        return rng.standard_normal(shape).astype(np.float32)
+    return {"x": r(4, 8), "w1": r(8, 12), "w2": r(12, 8), "c": r(4, 8)}
+
+
+def _largest_forward_tensor(fn):
+    """fn() under a dispatch mode: its result and the most elements of
+    any tensor an operation in it returned."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Largest(TorchDispatchMode):
+        most = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            for t in (out if isinstance(out, (tuple, list)) else (out,)):
+                if isinstance(t, torch.Tensor):
+                    Largest.most = max(Largest.most, t.numel())
+            return out
+    with Largest():
+        res = fn()
+    return res, Largest.most
+
+
+def xent_rank(mesh):
+    """On this rank: the fused loss (``make_fused_xent``) and ``lm_loss``
+    under a dp_tp sharder, for each vocab and z_loss: loss, dx of its
+    rows, its rows' part of dw of its vocab block (or of the whole head
+    where ``lm_loss`` falls back), the largest tensor the fused forward
+    made; then the differentiable collectives' gradients
+    (``grad_rank``)."""
+    import torch
+    from repro_torch.sharding.rules import PS, local_slice, make_strategy
+    from repro_torch.train.fused_xent import lm_loss, make_fused_xent
+    sharder = make_strategy("dp_tp", mesh).sharder()
+    out = {}
+    for V in XENT_VOCABS:
+        a = {k: torch.from_numpy(v) for k, v in xent_inputs(V).items()}
+        x_l = local_slice(a["x"], PS("data"), mesh).clone()
+        lab = local_slice(a["labels"], PS("data"), mesh).clone()
+        fused = V % mesh.shape["model"] == 0
+        w_l = (local_slice(a["w"], PS("model"), mesh) if fused
+               else a["w"]).clone()
+        for z in Z_LOSSES:
+            res = {}
+            for how in ("fused", "lm_loss"):
+                if how == "fused" and not fused:
+                    continue
+                x = x_l.clone().requires_grad_(True)
+                w = w_l.clone().requires_grad_(True)
+                if how == "fused":
+                    fn = make_fused_xent(mesh, ("data",), z)
+                    loss, most = _largest_forward_tensor(
+                        lambda: fn(x, w, lab))
+                else:
+                    loss = lm_loss(x, w, lab, z_loss=z, sharder=sharder,
+                                   vocab=V)
+                    most = None
+                loss.backward()
+                res[how] = (float(loss.detach()), x.grad.numpy(),
+                            w.grad.numpy(), most)
+            out[(V, z)] = res
+    return {"rank": mesh.rank, "coords": dict(mesh.coords), "xent": out,
+            "grads": grad_rank(mesh)}
+
+
+def grad_rank(mesh):
+    """The gradients of small sharded products through each
+    differentiable collective of sharding/comm.py, on this rank (model
+    blocks over 'model', batch rows over 'data'):
+    - "mlp": x (rows) -> copy_to -> x @ w1 (column block) -> relu ->
+      @ w2 (row block) -> reduce_from -> sum(y * c);
+    - "gather": x @ w1 (column block) -> gather_from -> sum(z * c');
+    - "block": block_of(x) (its columns) @ w1 (row block) ->
+      reduce_from;
+    - "fsdp": x (rows over every axis) @ gather_weight(w1 rows block) ->
+      mean_over every axis of the rows' mean of (y * c'')."""
+    import torch
+    from repro_torch.sharding import comm
+    from repro_torch.sharding.rules import PS, local_slice
+    a = {k: torch.from_numpy(v) for k, v in grad_inputs().items()}
+    every = mesh.axis_names
+
+    def cut(t, spec):
+        return local_slice(t, spec, mesh).clone().requires_grad_(True)
+    out = {}
+    x, w1, w2 = (cut(a["x"], PS("data")), cut(a["w1"], PS(None, "model")),
+                 cut(a["w2"], PS("model")))
+    c = local_slice(a["c"], PS("data"), mesh)
+    y = comm.reduce_from(torch.relu(comm.copy_to(x, "model", mesh) @ w1)
+                         @ w2, "model", mesh)
+    (y * c).sum().backward()
+    out["mlp"] = [t.grad.numpy() for t in (x, w1, w2)]
+    x, w1 = cut(a["x"], PS("data")), cut(a["w1"], PS(None, "model"))
+    z = comm.gather_from(comm.copy_to(x, "model", mesh) @ w1, "model",
+                         mesh, dim=-1)
+    (z * local_slice(a["c"] @ a["w1"], PS("data"), mesh)).sum().backward()
+    out["gather"] = [t.grad.numpy() for t in (x, w1)]
+    x, w1 = cut(a["x"], PS("data")), cut(a["w1"], PS("model"))
+    y = comm.reduce_from(comm.block_of(x, "model", mesh, dim=-1) @ w1,
+                         "model", mesh)
+    (y * local_slice(a["c"] @ a["w1"], PS("data"), mesh)).sum().backward()
+    out["block"] = [t.grad.numpy() for t in (x, w1)]
+    x, w1 = cut(a["x"], PS(every)), cut(a["w1"], PS(every))
+    y = x @ comm.gather_weight(w1, every, mesh, dim=0)
+    loss = comm.mean_over(torch.mean(y * local_slice(
+        a["c"] @ a["w1"], PS(every), mesh)), every, mesh)
+    loss.backward()
+    out["fsdp"] = [t.grad.numpy() for t in (x, w1)] + [float(loss.detach())]
+    return out
+
+
+# every family a strategy trains (train/step.py:SHARDED_FAMILIES), at
+# its smoke config in float32: 2 steps of 4 x 32 tokens
+FAMILY_CASES = (
+    ("llama-3.2-vision-90b", "dp_tp"), ("llama-3.2-vision-90b", "fsdp"),
+    ("whisper-large-v3", "dp_tp"), ("whisper-large-v3", "fsdp"),
+    ("zamba2-1.2b", "fsdp"), ("xlstm-1.3b", "fsdp"))
+
+
+def family_steps(arch: str, strategy=None, mesh=None):
+    """2 f32 steps of ``arch``'s smoke config from the port's seed-0 state
+    (this rank's share under ``strategy``): (loss, grad norm) a step and
+    the whole master after, by checkpoint key."""
+    import torch
+    from repro_torch.checkpoint.checkpointer import flatten
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data.synthetic import stream
+    from repro_torch.models.zoo import build_model
+    from repro_torch.sharding.rules import make_strategy
+    from repro_torch.train import state as TS
+    from repro_torch.train.step import make_train_step, rank_batch
+    cfg = dataclasses.replace(registry.get_config(arch).smoke(),
+                              dtype="float32")
+    model = build_model(cfg)
+    strat = None if strategy is None else make_strategy(strategy, mesh)
+    fn = make_train_step(model, TrainConfig(
+        learning_rate=3e-4, total_steps=2, warmup_steps=1, remat="none"),
+        strat)
+    state = TS.create(model, 0, compute_dtype=torch.float32, device="cpu",
+                      strategy=strat)
+    data = stream(cfg, 4, TRAIN_SEQ, seed=0)
+    rows = []
+    for _ in range(2):
+        b = next(data)
+        b = b if strat is None else rank_batch(b, strat)
+        state, m = fn(state, {k: torch.from_numpy(v) for k, v in b.items()})
+        rows.append((float(m["loss"]), float(m["grad_norm"])))
+    if strat is not None:
+        state = TS.gather_state(state, model, strat)
+    return rows, {k: v.numpy().copy() for k, v in
+                  flatten(state.master).items()}
+
+
+def family_rank(mesh, cases):
+    """``family_steps`` of every (arch, strategy) of ``cases`` here."""
+    return {f"{a}-{s}": family_steps(a, s, mesh) for a, s in cases}

@@ -7,8 +7,12 @@ recycling), with the tier-3 detectors and the tier-4 kernel counters.
 
 Cases (``_torch_ranks.SERVE_CASES``): a paged pool of 32 pages of 32
 rows (1024 positions: chunked by pages, 16 or 8 a rank), a dense cache
-of 1024 positions (chunked by positions) and the paged pool under
-speculative overwrite verify. Every rank's tokens, stats, page tables,
+of 1024 positions (chunked by positions), the paged pool under
+speculative overwrite verify, and the paged pool with the smoke config
+widened (d_model 256, 8 heads over 4 kv heads of 32, d_ff 512), where
+every attention projection is sharded (the smoke config's stay whole:
+each is under 16 Ki elements), so the column-parallel q/k/v and the
+row-parallel output projection run sharded. Every rank's tokens, stats, page tables,
 refcounts, detector and kernel-counter reports must equal the
 reference's unsharded engine's (the kernel counters of the overwrite
 case the port's unsharded engine's: there the two frameworks' silent
@@ -74,6 +78,7 @@ print("TOKENS" + json.dumps({k: [int(t) for t in v.generated]
 
 def _ref_engine(model, params, case):
     kw = dict(R.SERVE_CASES[case])
+    kw.pop("config", None)
     if kw.pop("spec", False):
         kw.update(drafter=RefNGram(), spec_k=3, spec_rollback=False)
     det = RefDetectors(RefProfilerConfig(enabled=True, num_watchpoints=8,
@@ -99,10 +104,13 @@ def runs(tmp_path_factory):
                            env=env, stdout=subprocess.PIPE,
                            stderr=subprocess.PIPE, text=True)
     ref_model, ref_params, pt_model, pt_params = smoke_models()
-    host = jax.device_get(ref_params)
-    port = {n: launch(R.serve_rank, (1, n), args=(host, CASES),
+    wide_model, wide_params, _, _ = smoke_models(**R.WIDE)
+    models = {"plain": (ref_model, ref_params),
+              "wide": (wide_model, wide_params)}
+    hosts = {k: jax.device_get(p) for k, (_, p) in models.items()}
+    port = {n: launch(R.serve_rank, (1, n), args=(hosts, CASES),
                       init_dir=str(tmp)) for n in RANKS}
-    refs = {case: _ref_engine(ref_model, ref_params, case)
+    refs = {case: _ref_engine(*models[R.serve_config(case)], case)
             for case in CASES}
     # the port's unsharded overwrite engine: its kernel silent-store
     # bytes are the yardstick there (see test_tp_serve_engine_...)
@@ -152,7 +160,7 @@ def test_tp_serve_engine_matches_reference(runs, n, case):
 def test_tp_serve_took_the_sharded_path(runs, n, case):
     """The pools are chunked (each rank holds 1/n), the sharded functions
     ran, every rank's chunk held live pages, and some copy on write
-    crossed ranks."""
+    crossed ranks; the wide config's attention projections are blocks."""
     port = runs[2]
     kw = R.SERVE_CASES[case]
     for rank in port[n]:
@@ -162,7 +170,8 @@ def test_tp_serve_took_the_sharded_path(runs, n, case):
             pages = kw["num_pages"]
             assert got["sharder"] == (pages, None)
             assert got["local_shape"][1] == pages // n
-            assert calls["decode" if case == "paged" else "verify"] > 0
+            assert calls["verify" if case == "overwrite" else
+                         "decode"] > 0
             assert calls["verify"] > 0 and calls["dense"] == 0
             chunk = pages // n
             assert {p // chunk for p in got["live"]} == set(range(n))
@@ -173,6 +182,9 @@ def test_tp_serve_took_the_sharded_path(runs, n, case):
             assert got["local_shape"][2] == kw["max_len"] // n
             assert calls["dense"] > 0
             assert calls["decode"] == calls["verify"] == 0
+        wide = R.serve_config(case) == "wide"
+        assert got["sharded_attn"] == (["wk", "wo", "wq", "wv"] if wide
+                                       else [])
 
 
 def test_tp_serve_tokens_match_the_reference_tp_serve_engine(runs):

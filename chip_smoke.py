@@ -80,10 +80,10 @@ checkpointed, and its train step sharded over two ranks (dp_tp, fsdp).
    and one verify tick at full width with torch.profiler (device time by
    kernel kind, device busy share), each trace opened by untimed spin
    kernels and its B1, B2 and B5 kernels equal to the launch counters;
-3b. runs the speculative-verify path at full width, cut to 14 of 28
+3b. runs the speculative-verify path at full width, cut to 7 of 28
    layers (``CUT_DEPTH``): ``repro_torch.launch.serve.run`` with
    ``spec=True, spec_k=4, draft="ngram"``, once with rollback and once
-   without, launch counts set to 0 before each: 14 window-kernel and 57
+   without, launch counts set to 0 before each: 7 window-kernel and 29
    RMSNorm launches per verify tick, ``kernel_rejected_draft_store``
    flagged 0 under rollback and equal to the rejected drafts under
    overwrite; traces one verify
@@ -92,12 +92,12 @@ checkpointed, and its train step sharded over two ranks (dp_tp, fsdp).
    the card, in every mode, and that the n-gram runs give the CPU's
    tokens and spec counters;
 3c. runs granite-moe-3b-a800m (the MoE family: 32 layers, d_model 1536,
-   40 experts top-8) at full width, cut to 8 layers (``CUT_DEPTH``),
+   40 experts top-8) at full width, cut to 4 layers (``CUT_DEPTH``),
    through ``launch.serve.run``: paged,
    profile on, batch 8, prompt 128 + 32, twice (equal tokens; the second
    without the profiler), then with
    n-gram drafts under rollback and overwrite, launch counts set to 0
-   before each run (8 B1 or B2 and 17 RMSNorm launches a forward); the
+   before each run (4 B1 or B2 and 9 RMSNorm launches a forward); the
    dispatch buffer's dead rows of every MoE layer of an admission step,
    a decode tick and a verify tick (0 under scatter); one traced
    admission step, decode tick and verify tick (kernels by kind, read
@@ -145,20 +145,20 @@ checkpointed, and its train step sharded over two ranks (dp_tp, fsdp).
    each profile equal to the CPU's; the decode microstep of qwen3-1.7b's
    smoke config in float32, card against CPU (totals, samples and checked
    counts equal; flagged counts equal or each difference printed with
-   its pair); and the decode microstep at full width, 14 of 28 layers
+   its pair); and the decode microstep at full width, 7 of 28 layers
    (``CUT_DEPTH``; batch 8, cache 161, period 5000, 2 epochs, as
    ``launch.serve --profile`` runs it): recorded operations, events and
-   element-events, B5 launches in the recording (57) and in the
+   element-events, B5 launches in the recording (29) and in the
    engine's passes (0), bytes snapshotted,
    the seconds of the recording and of each pass, peak device memory
    with the trace held and after it is dropped, the top findings;
-7. trains granite-moe-3b-a800m at full width (40 experts top-8), 8 of
+7. trains granite-moe-3b-a800m at full width (40 experts top-8), 4 of
    32 layers (``CUT_DEPTH``): first B4 at its heads (Hq 24, Hkv 8, D
    64: G 3) and B5 at 4096 x 1536 against their plain versions and timed
    (phase 7a, run with 8a before the main paths); one step under each
    remat mode that fits (bit-equal, peaks beside the reckoning);
    ``launch.train.run``, 4 steps of 4 x 1024 tokens with the detectors on
-   (8 + 8 B4 and 17 + 17 B5 launches a step, one B3 per checked store);
+   (4 + 4 B4 and 9 + 9 B5 launches a step, one B3 per checked store);
    timed steps and a traced step; the smoke config in float32, card
 against CPU; 8. runs zamba2-1.2b (38 Mamba2 blocks, one shared attention
    block used 6 times) at full width: B4 at its heads (32, 32, 64: G 1)
@@ -199,7 +199,7 @@ against CPU; 8. runs zamba2-1.2b (38 Mamba2 blocks, one shared attention
    printed; the smoke config in float32, card = CPU; training as in 7 at
    the same depth (24 + 24 B4, 42 + 42 B5, no alignment copy);
 11. runs the fleet and object tiers: ``repro_torch.launch.fleet.run``
-   for qwen3-1.7b at full width, 14 of 28 layers (``CUT_DEPTH``; two
+   for qwen3-1.7b at full width, 7 of 28 layers (``CUT_DEPTH``; two
    replicas of 2 slots over one
    parameter tree, bf16 activations, f32 pools, the driver's default
    trace: 12 requests, prompt 48 with a 40-token shared prefix, gen 4),
@@ -266,12 +266,12 @@ chunks' pools together equal to the unsharded call's bit for bit, their
 stored and silent counts summed equal, their outputs combined by
 log-sum-exp within 1e-4 / 2e-2 of the unsharded output; each chunk's
 call and the unsharded call timed by device time. (14b) qwen3-1.7b at
-full width, 14 of 28 layers (``CUT_DEPTH``), served by
+full width, 7 of 28 layers (``CUT_DEPTH``), served by
 ``ServeEngine(strategy=make_strategy("tp_serve", mesh))`` on a (1, 2)
 mesh: two ranks spawned on the card (gloo, the collectives staged through
 the host), 8 slots, phase 3's prompts 128 + 32, paged, f32 pool, bf16 and
-then f32 activations: per rank 14 B1 launches a tick, 14 B2 an admission,
-57 B5 a forward, tokens equal across ranks, every rank's chunk holding
+then f32 activations: per rank 7 B1 launches a tick, 7 B2 an admission,
+29 B5 a forward, tokens equal across ranks, every rank's chunk holding
 live pages, the f32 first tick's logits within 1e-4 relative of the
 unsharded engine's; decode tok/s, tick wall, collectives' calls, seconds
 and staged bytes, a profiled tick's device busy share and each rank's peak
@@ -300,7 +300,16 @@ bytes, the traced step's busy share and each rank's peak beside the
 unsharded step's printed. Its kernels' rank shapes (B4 on dp_tp's heads
 and fsdp's rows, B5 at half the q/k-norm rows and fsdp's block norm, B3
 on half the embedding) are checked and timed with the kernel phases
-(``check_tp_train_kernels``).
+(``check_tp_train_kernels``). (14f) granite-moe-3b-a800m at full width,
+4 of 32 layers (``CUT_DEPTH``), served under tp_serve on a (data
+2, model 2) mesh of four ranks spawned on the card, the experts over
+'model': n-gram rollback spec (B2's defer mode on each rank's chunk at
+every verify) with the object registry on prompts repeated across
+slots, then plain decode (B1 on the chunk); then zamba2, whisper and the vlm
+smoke configs through ``make_serve_step`` on chunked caches. Held to
+the unsharded engine and the unsharded card runs in this process
+(``tp_layout_path``); B2's defer mode on a chunk is checked and timed
+with the kernel phases (``tp_defer_chunk_kernels``).
 
 Each phase prints its seconds (``[phase]`` lines). The line before the
 last lists the card; the last line is the JSON
@@ -483,24 +492,27 @@ def kernel_cases(np, sizes=(2, 3, 8, 9, 32, 33, 128)):
 
 
 def bytes_flops(np, name, S, idx, pt, store, act_isz, pool_isz,
-                heads=QWEN3_HEADS):
-    """Least bytes moved and flops done by one call on these inputs: each
-    input read once, each output written once, history counted as the
-    mapped rows the call attends, stores as the rows that land."""
+                heads=QWEN3_HEADS, chunk=False):
+    """Least bytes moved and flops done by one call on these inputs (the
+    slots of ``pt``'s rows): each input read once, each output written
+    once, history counted as the mapped rows the call attends, stores as
+    the rows that land; ``chunk`` (defer on a chunk) counts only the
+    window rows whose page entry is not another rank's (-1)."""
     HQ, HKV, D = heads
-    m = pt.shape[1]
+    nb, m = pt.shape
     row = 2 * HKV * D * pool_isz                       # one K+V pool row
-    nbytes = (B * S * HQ * D * act_isz * 2             # q in, out
-              + 2 * B * S * HKV * D * act_isz          # new/window K, V
-              + B * HQ * S * 4 + B * 3 * 4 + pt.size * 4 + idx.size * 4)
+    nbytes = (nb * S * HQ * D * act_isz * 2            # q in, out
+              + 2 * nb * S * HKV * D * act_isz         # new/window K, V
+              + nb * HQ * S * 4 + nb * 3 * 4 + pt.size * 4 + idx.size * 4)
     flops = 0
-    for b in range(B):
+    for b in range(nb):
         i0 = int(idx[b])
         mapped = [pt[b, p // PS] >= 0 if 0 <= p < m * PS else False
                   for p in range(max(i0, 0) + S)]
         hist = sum(mapped[:max(i0, 0)])
         nbytes += hist * row
         win_ok = [(0 <= i0 + c < m * PS) and (not store or mapped[i0 + c])
+                  and (not chunk or pt[b, (i0 + c) // PS] != -1)
                   for c in range(S)] if i0 + S > 0 else [False] * S
         if store:
             nbytes += 2 * row * sum(win_ok)             # old read + new write
@@ -2529,7 +2541,7 @@ def small_reference_check(torch, np):
 # ----------------------------------------------------------------------
 def granite_path(torch, np):
     """``launch.serve.run`` for granite-moe-3b-a800m at full width (the
-    registry's depth: 32 layers, cut to 8 by ``CUT_DEPTH`` in main;
+    registry's depth: 32 layers, cut to 4 by ``CUT_DEPTH`` in main;
     d_model 1536, Hq 24, Hkv 8, D 64, 40 experts top-8; random weights
     from seed 0): paged, profile on, batch 8, prompt 128 + 32;
     again with the profiler off (equal tokens; tier 1 would take ~30 s
@@ -2624,7 +2636,7 @@ class MoEDispatchStats:
         from repro_torch.models import moe as M
         self._orig = M.apply_moe
 
-        def measured(p, cfg, x):
+        def measured(p, cfg, x, **kw):
             st = M.dispatch_stats(p, cfg, x)
             assert st["dispatch"] == "scatter", st
             self.calls += 1
@@ -2633,7 +2645,7 @@ class MoEDispatchStats:
             for k, v in st.items():
                 if k not in ("dispatch", "dead_fraction"):
                     self.stats[k] = self.stats.get(k, 0) + v
-            return self._orig(p, cfg, x)
+            return self._orig(p, cfg, x, **kw)
         M.apply_moe = measured
         return self
 
@@ -3288,10 +3300,12 @@ WHISPER_HEADS = (20, 20, 64)              # G 1, D 64
 # that the whole script stays near half its time limit: its phases are
 # mostly host-bound, and one host ran them all 1.6x slower than another
 # (967 s against 920 s with these cuts; at full depth 1200 s was passed).
-# Every launch count they assert is reckoned at the cut depth.
+# qwen3 was cut from 14 layers and granite from 8 when the script passed
+# 700 s on a fast host. Every launch count they assert is reckoned at the
+# cut depth.
 CUT_DEPTH = {
-    QWEN3: {"num_layers": 14},                         # of 28
-    GRANITE: {"num_layers": 8},                        # of 32
+    QWEN3: {"num_layers": 7},                          # of 28
+    GRANITE: {"num_layers": 4},                        # of 32
     ZAMBA: {"num_layers": 12},                         # 2 periods of 6
     XLSTM: {"num_layers": XLSTM_TRAIN_LAYERS},         # 1 of its 6 superblocks
     WHISPER: {"num_layers": 8, "encoder_layers": 8},   # of 32 + 32
@@ -4535,6 +4549,200 @@ def tp_chunk_kernels(torch, np, timer):
               + "; ".join(line), flush=True)
 
 
+def tp_chunk_table(torch, pt, r, chunk):
+    """Rank r's table for B2's defer mode on a chunk: ``tp_localized``,
+    and on rank 0 the pages unmapped in the whole table marked as its own
+    (ref.UNMAPPED_MINE), as flash_decode.defer_paged_attention_sharded
+    builds it."""
+    from repro_torch.kernels import ref
+    loc = tp_localized(torch, pt, r, chunk)
+    if r == 0:
+        loc = torch.where(pt < 0, ref.UNMAPPED_MINE, loc).to(torch.int32)
+    return loc
+
+
+def tp_defer_chunk_kernels(torch, np, timer, entries):
+    """14a, B2's defer mode on a chunk (``chunk=True``): on phase 2's
+    hostile tables at qwen3's and granite's heads, every dtype pair and
+    every route that takes the inputs, the pool split into 2 and 4
+    chunks: each chunk's call twice (bit-identical) against its plain
+    version on the same chunk (outputs and lse within TOL on rows that
+    attend something, idle rows 0, the pools untouched, the counters 0),
+    and the chunks' outputs combined by lse within TOL of the unsharded
+    defer call on the same route. Then granite's verify window (W 5 at
+    144, bf16 activations, f32 pool) on chunk 0 of 2 for all 8 slots and
+    for a data rank's 4, and B1's decode and B2's admission (store mode,
+    S 128 at 0) on a data rank's 4 slots on that chunk, timed by device
+    time beside the plain version, SDPA over the
+    chunk's gathered view and the bound; added to the entries'
+    ``by_shape``."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import flash_prefill as fp
+    from repro_torch.kernels.paged_attention import paged_decode_attention
+    rng = np.random.default_rng(15)
+    zero = torch.zeros((), device="cuda")
+    seed = 1500
+    for heads in (QWEN3_HEADS, GRANITE_HEADS):
+        hq, hkv, d = heads
+        cases = [c for c in kernel_cases(np, sizes=(2, 9, 33, 128))
+                 if not c[3]]
+        for act, pool_dt in DTYPE_PAIRS:
+            for name, S, idx_np, _ in cases:
+                seed += 1
+                pt_np = hostile_table(np, rng, idx_np, S)
+                g = torch.Generator(device="cuda").manual_seed(seed)
+
+                def randn(*shape, dtype):
+                    return torch.randn(shape, generator=g,
+                                       device="cuda").to(getattr(torch,
+                                                                 dtype))
+                q = randn(B, S, hq, d, dtype=act)
+                kn, vn = (randn(B, S, hkv, d, dtype=act) for _ in "kv")
+                pk, pv = (randn(P, PS, hkv, d, dtype=pool_dt)
+                          for _ in "kv")
+                pt = torch.as_tensor(pt_np, device="cuda")
+                idx = torch.as_tensor(idx_np, device="cuda")
+                worst = {}
+                for route in window_routes(act, heads):
+                    o_w, l_w, _, _, _ = fp.paged_window_on_route(
+                        route, q, kn, vn, pk, pv, pt, idx, store=False)
+                    live_w = (l_w > NEG_INF / 2).permute(0, 2, 1)[..., None]
+                    for n in TP_RANKS:
+                        chunk = P // n
+                        outs, lses, err = [], [], 0.0
+                        for r in range(n):
+                            loc = tp_chunk_table(torch, pt, r, chunk)
+                            kk = pk[r * chunk:(r + 1) * chunk].clone()
+                            kv = pv[r * chunk:(r + 1) * chunk].clone()
+                            k0, v0 = kk.clone(), kv.clone()
+                            o, l, c, _, _ = fp.paged_window_on_route(
+                                route, q, kn, vn, kk, kv, loc, idx,
+                                store=False, chunk=True)
+                            again = fp.paged_window_on_route(
+                                route, q, kn, vn, kk, kv, loc, idx,
+                                store=False, chunk=True)
+                            o_p, l_p, _, _, _ = ref.paged_window_ref(
+                                q, kn, vn, k0.clone(), v0.clone(), loc, idx,
+                                store=False, chunk=True)
+                            torch.cuda.synchronize()
+                            twice = (torch.equal(o, again[0])
+                                     and torch.equal(l, again[1]))
+                            live = l_p > NEG_INF / 2
+                            live_o = live.permute(0, 2, 1)[..., None]
+                            e = max(float(torch.where(
+                                live_o, (o.float() - o_p.float()).abs(),
+                                zero).max()), float(torch.where(
+                                    live, (l - l_p).abs(), zero).max()))
+                            idle0 = bool(torch.where(
+                                live_o, zero, o.float().abs()).max() == 0)
+                            assert (twice and idle0 and e <= TOL[act]
+                                    and not c.any() and torch.equal(kk, k0)
+                                    and torch.equal(kv, v0)), (
+                                name, heads, act, pool_dt, route, n, r, e,
+                                twice, idle0)
+                            err = max(err, e)
+                            outs.append(o.float())
+                            lses.append(l.permute(0, 2, 1))
+                        lse = torch.stack(lses)
+                        w = torch.exp(lse - lse.amax(dim=0))
+                        comb = (torch.where(w[..., None] > 0,
+                                            torch.stack(outs) * w[..., None],
+                                            0.0).sum(0) / w.sum(0)[..., None])
+                        ce = float(torch.where(live_w, (comb - o_w.float())
+                                               .abs(), zero).max())
+                        assert ce <= TOL[act], (name, heads, act, pool_dt,
+                                                route, n, ce)
+                        worst[(route, n)] = (err, ce)
+                print(f"[14a] defer on a chunk, {name} G{hq // hkv} D{d} "
+                      f"act {act} pool {pool_dt}: " + "; ".join(
+                          f"{route} {n} chunks: vs plain {e:.2e}, combined "
+                          f"vs unsharded {c:.2e}" for (route, n), (e, c)
+                          in worst.items())
+                      + f" (tol {TOL[act]}); two calls bit-identical, pools "
+                      f"untouched, counters 0", flush=True)
+
+    # timing at granite's heads: W 5 at 144 on chunk 0 of 2
+    hq, hkv, d = GRANITE_HEADS
+    pt_np = main_path_table(np, rng)
+    g = torch.Generator(device="cuda").manual_seed(seed + 1)
+    chunk = P // 2
+    loc_all = tp_chunk_table(torch, torch.as_tensor(pt_np, device="cuda"),
+                             0, chunk)
+    pk = torch.randn((chunk, PS, hkv, d), generator=g, device="cuda")
+    pv = torch.randn((chunk, PS, hkv, d), generator=g, device="cuda")
+    loc_store = tp_localized(torch, torch.as_tensor(pt_np, device="cuda"),
+                             0, chunk)
+    for label, S, nb in (("verify W=5 defer on 1 of 2 chunks", 5, B),
+                         ("verify W=5 defer on 1 of 2 chunks, 4 slots", 5,
+                          B // 2),
+                         ("decode on 1 of 2 chunks, 4 slots", 1, B // 2),
+                         ("admission S=128 store on 1 of 2 chunks, 4 slots",
+                          128, B // 2)):
+        q = torch.randn((nb, S, hq, d), generator=g,
+                        device="cuda").bfloat16()
+        kn, vn = (torch.randn((nb, S, hkv, d), generator=g,
+                              device="cuda").bfloat16() for _ in "kv")
+        loc = loc_all[:nb].contiguous()
+        idx = torch.full((nb,), 144, dtype=torch.int32, device="cuda")
+        if S == 128:
+            # admission: the prompt's window stored at 0 through the
+            # chunk's localized table (other ranks' pages -1)
+            loc = loc_store[:nb].contiguous()
+            idx = torch.zeros((nb,), dtype=torch.int32, device="cuda")
+            kk, kv, pk2, pv2 = (t.clone() for t in (pk, pv, pk, pv))
+
+            def kernel():
+                return fp.paged_window_attention(q, kn, vn, kk, kv, loc, idx,
+                                                 store=True)
+
+            def plain():
+                return ref.paged_window_ref(q, kn, vn, pk2, pv2, loc, idx,
+                                            store=True)
+            store, key = True, "paged_window"
+            got, want = kernel()[0], plain()[0]
+        elif S == 1:
+            kk, kv = pk.clone(), pv.clone()
+
+            def kernel():
+                return paged_decode_attention(q, kn, vn, kk, kv, loc, idx)
+            pk2, pv2 = pk.clone(), pv.clone()
+
+            def plain():
+                return ref.paged_decode_ref(q, kn, vn, pk2, pv2, loc, idx)
+            store, key = True, "paged_decode"
+            got = kernel()[0]
+            want = ref.paged_decode_ref(q, kn, vn, pk.clone(), pv.clone(),
+                                        loc, idx)[0]
+        else:
+            def kernel():
+                return fp.paged_window_attention(q, kn, vn, pk, pv, loc, idx,
+                                                 store=False, chunk=True)
+
+            def plain():
+                return ref.paged_window_ref(q, kn, vn, pk, pv, loc, idx,
+                                            store=False, chunk=True)
+            store, key = False, "paged_window"
+            got, want = kernel()[0], plain()[0]
+        err = float((got.float() - want.float()).abs().nan_to_num(0).max())
+        assert err <= TOL["bfloat16"], (label, err)
+        ms = timer.device(kernel)
+        plain_ms = timer.device(plain)
+        lib_ms = timer.device(library_call(torch, q, kn, vn, pk, pv, loc,
+                                           idx, S))
+        nbytes, flops = bytes_flops(np, label, S, idx.cpu().numpy(),
+                                    loc.cpu().numpy(), store, 2, 4,
+                                    GRANITE_HEADS, chunk=not store)
+        b_ms, by = bound(nbytes, flops, PEAK_FLOPS["bfloat16"])
+        print(f"[14a] {key} {label} (granite G3 D64, position "
+              f"{int(idx[0])}, bf16 act, f32 pool), device time: kernel {ms:.4f} ms | plain "
+              f"{plain_ms:.4f} ms | SDPA over the chunk's gathered view "
+              f"{lib_ms:.4f} ms | bound {b_ms:.4f} ms ({by}: {nbytes} "
+              f"bytes, {flops} flops) | max |err| {err:.2e}", flush=True)
+        entries[key]["by_shape"][f"{GRANITE} {label}"] = {
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": by, "library_ms": lib_ms}
+
+
 def tp_first_tick(model):
     """Wrap model.decode_step so that the first one-token forward's
     logits (the first decode tick's) are kept, as f32 on the host."""
@@ -4848,6 +5056,372 @@ def tp_serve_path(torch, np, card_line):
               f"{want['stats']['prefills']} prefills, COW copies "
               f"{want['stats']['cow_copies']} ({cross} across ranks), "
               f"kernel checked {want['kernel']['checked']}", flush=True)
+    return total
+
+
+# 14f: the rarer tp_serve layouts on a (data 2, model 2) mesh of four
+# ranks sharing the card
+TP_LAYOUT_MESH = (2, 2)
+# the rollback spec run's slots 4-7 take slots 0-3's prompts: an MoE
+# routes a row by the rows before it in its dispatch group (256 tokens,
+# two prompts here), so only whole groups repeated give bit-equal pages,
+# the replicas the registry's scan must find; it scans after step 3,
+# while every slot's pages are live
+TP_LAYOUT_SCAN_STEP = 3
+
+
+def tp_layout_scan(objects):
+    """The registry's replica scan as comparable groups: each finding's
+    kind, canonical and duplicate objects (kind and name: the key
+    without its registration site), sorted."""
+    from repro_torch.core.replicas import ReplicaDetector
+
+    def names(keys):
+        return tuple(k.rsplit("|", 1)[0] for k in keys)
+    return sorted((f.kind, names(f.c1), names(f.c2)) for f in
+                  ReplicaDetector(objects).scan().findings)
+TP_LOOP = {ZAMBA: {}, WHISPER: {}, VLM: {"num_layers": 5}}
+TP_LOOP_LEN, TP_LOOP_CROSS, TP_LOOP_STEPS = 1024, 1024, 4
+
+
+def tp_layout_engine(torch, np, mesh, registry, spec):
+    """14f's engine of granite-moe-3b-a800m (f32, the registry's depth,
+    seeded weights): 8 slots, phase 3's prompts (128 + 32 new tokens),
+    page 16, a paged f32 pool of 88 pages, detectors, kernel counters;
+    with ``spec`` n-gram drafts (k 4, rollback); with ``registry`` the
+    object registry, and slots 4-7 on slots 0-3's prompts.
+    Under tp_serve when ``mesh`` is given. Returns the engine, its
+    detectors, its registry, the first verify forward's logits (f32 on
+    the host) and the MoE dispatch sums."""
+    import dataclasses
+    from repro_torch.configs import registry as reg
+    from repro_torch.configs.base import ProfilerConfig
+    from repro_torch.core.detectors import ServingDetectors
+    from repro_torch.core.objects import ObjectRegistry
+    from repro_torch.data.synthetic import batch_at
+    from repro_torch.models.zoo import build_model
+    from repro_torch.serve.engine import Request, ServeEngine
+    from repro_torch.serve.spec import NGramDrafter
+    from repro_torch.sharding.rules import make_strategy
+    cfg = reg.get_config(GRANITE)
+    prompts = np.array(batch_at(cfg, B, 128, seed=0, step=0)["tokens"])
+    if registry:
+        prompts[B // 2:] = prompts[:B // 2]
+    model = build_model(dataclasses.replace(cfg, dtype="float32"))
+    orig, kept = model.decode_step, {}
+
+    def first_verify(params, cache, tokens, **kw):
+        logits, c = orig(params, cache, tokens, **kw)
+        if kw.get("spec") and "verify" not in kept:
+            kept["verify"] = logits.float().cpu()
+        return logits, c
+    model.decode_step = first_verify
+    dev = "cuda" if mesh is None else mesh.device
+    full = model.init(0, device=dev)
+    det = ServingDetectors(ProfilerConfig(enabled=True))
+    objects = ObjectRegistry() if registry else None
+    kw = dict(drafter=NGramDrafter(), spec_k=SPEC_K,
+              spec_rollback=True) if spec else {}
+    eng = ServeEngine(model, full, num_slots=B, max_len=MAX_LEN,
+                      kv_dtype=torch.float32, kv_layout="paged",
+                      page_size=PS, num_pages=P, detectors=det,
+                      kernel_counters=True, registry=objects,
+                      strategy=None if mesh is None else
+                      make_strategy("tp_serve", mesh), **kw)
+    del full
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    for b in range(B):
+        eng.submit(Request(rid=f"r{b}", tokens=prompts[b],
+                           max_new_tokens=32 if spec else 4))
+    return eng, det, objects, kept
+
+
+def tp_layout_granite(torch, np, mesh):
+    """14f's granite runs on one rank: the rollback spec engine with the
+    registry to its end (launches, collectives, tick wall, one profiled
+    tick, live pages of this rank's chunk, peak memory, dispatch sums,
+    the registry scan, the tier-4 report), then the plain engine for 4
+    new tokens (B1 on the chunk)."""
+    import repro_torch.kernels.flash_prefill as fp
+    import repro_torch.kernels.paged_attention as pa
+    import repro_torch.kernels.rmsnorm as rn
+    from repro_torch.sharding import comm
+    counters = {"paged_decode": pa.paged_decode_attention,
+                "paged_window": fp.paged_window_attention,
+                "rmsnorm_fwd": rn.rmsnorm_forward}
+    out = {"rank": mesh.rank, "coords": dict(mesh.coords)}
+    torch.cuda.reset_peak_memory_stats()
+    for label, spec in (("spec", True), ("plain", False)):
+        with MoEDispatchStats() as moe:
+            eng, det, objects, kept = tp_layout_engine(
+                torch, np, mesh, registry=spec, spec=spec)
+            for c in counters.values():
+                c.launches = 0
+            comm.reset_stats()
+            chunk = eng.cache["main"]["b0_moe"]["k"].shape[1]
+            live, busy, t0 = set(), None, time.perf_counter()
+            scan = None
+            while eng.pending:
+                if eng.step_no == 4 and spec:
+                    before = dict(comm.STATS)
+                    wall, dev = tp_busy(torch, eng.step)
+                    busy = (wall, dev) + tuple(
+                        comm.STATS[k] - before[k]
+                        for k in ("calls", "seconds", "staged_bytes"))
+                else:
+                    eng.step()
+                live.update(int(p) for p in eng.kv.pt.reshape(-1) if p >= 0)
+                if objects is not None and \
+                        eng.step_no == TP_LAYOUT_SCAN_STEP:
+                    scan = tp_layout_scan(objects)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        launches = {k: c.launches for k, c in counters.items()}
+        st = dict(eng.stats)
+        me = mesh.index("model")
+        out[label] = {
+            "tokens": np.stack([np.asarray(eng.finished[f"r{b}"].generated,
+                                           np.int32) for b in range(B)]),
+            "launches": launches, "stats": st, "wall_s": wall,
+            "tick_ms": 1e3 * st["decode_s"] / max(st["ticks"], 1),
+            "comm": dict(comm.STATS), "busy": busy,
+            "mine": sorted({p for p in live if p // chunk == me}),
+            "chunk": chunk, "dispatch": dict(moe.stats),
+            "kernel": (dict(det.kernel.checked), dict(det.kernel.flagged)),
+            "scan": scan,
+            "logits": kept.get("verify"),
+            "experts": int(eng.params["main"]["b0_moe"]["moe"]["w_up"]
+                           .shape[1]),
+        }
+        del eng
+        torch.cuda.empty_cache()
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    return out
+
+
+def tp_loop_run(torch, np, arch, mesh=None):
+    """A token-loop family's smoke config (f32, seeded weights, the vlm
+    gates set non-zero) on the card: TP_LOOP_STEPS greedy steps through
+    ``make_serve_step`` over a cache of TP_LOOP_LEN positions and
+    TP_LOOP_CROSS frames or image tokens, under tp_serve on ``mesh`` when
+    given (the cache and the cross K/V chunked over 'model'). Returns
+    (logits, tokens, the chunked and sharded-cross calls)."""
+    import dataclasses
+    from repro_torch.configs import registry as reg
+    from repro_torch.models.zoo import build_model
+    from repro_torch.serve import flash_decode as FD
+    from repro_torch.serve.decode import make_serve_step, shard_params
+    from repro_torch.sharding.ctx import sharding_ctx
+    from repro_torch.sharding.rules import make_strategy
+    cfg = dataclasses.replace(reg.get_config(arch).smoke(), dtype="float32",
+                              **TP_LOOP[arch])
+    model = build_model(cfg)
+    dev = "cuda" if mesh is None else mesh.device
+    params = model.init(0, device=dev)
+    g = torch.Generator(device="cpu").manual_seed(11)
+    for name, blk in params["main"].items():
+        if name.endswith("_xattn"):
+            for gate in ("gate_attn", "gate_mlp"):
+                vals = torch.rand(blk[gate].shape, generator=g) * 0.9 + 0.3
+                sign = torch.where(torch.rand(blk[gate].shape, generator=g)
+                                   < 0.5, -1.0, 1.0)
+                blk[gate] = (vals * sign).to(blk[gate])
+    strategy = None if mesh is None else make_strategy("tp_serve", mesh)
+    sharder = None if strategy is None else strategy.sharder()
+    if strategy is not None:
+        _, params = shard_params(model, strategy, params)
+    calls = {"dense": 0, "cross": 0}
+    saved = {}
+    for name, fn in (("dense", "decode_attention_sharded"),
+                     ("cross", "cross_attention_sharded")):
+        saved[fn] = getattr(FD, fn)
+
+        def wrapped(*a, _inner=saved[fn], _name=name, **k):
+            calls[_name] += 1
+            return _inner(*a, **k)
+        setattr(FD, fn, wrapped)
+    gi = torch.Generator(device="cpu").manual_seed(3)
+    toks = torch.randint(1, cfg.vocab_size, (2, 1), generator=gi,
+                         dtype=torch.int32)
+    src = torch.randn((2, TP_LOOP_CROSS, cfg.d_model), generator=gi)
+    kw = ({"frames": src.to(dev)} if cfg.family == "audio" else
+          {"img": src.to(dev)} if cfg.family == "vlm" else {})
+    try:
+        with sharding_ctx(sharder):
+            cache = model.init_cache(params, 2, TP_LOOP_LEN,
+                                     kv_dtype=torch.float32, **kw)
+        logits, out = [], []
+        inner = model.decode_step
+
+        def recorded(*a, **k):
+            lg, c = inner(*a, **k)
+            logits.append(lg.float().cpu())
+            return lg, c
+        model.decode_step = recorded
+        step = make_serve_step(model, strategy)
+        dparams = model.decode_params(params)
+        tok = toks.to(dev)
+        for _ in range(TP_LOOP_STEPS):
+            tok, cache = step(dparams, cache, tok)
+            out.append(tok.cpu())
+    finally:
+        for fn, f in saved.items():
+            setattr(FD, fn, f)
+    return torch.stack(logits), torch.cat(out, 1), calls
+
+
+def tp_layout_rank(mesh):
+    """One rank of 14f: granite at ``CUT_DEPTH`` (tp_layout_granite),
+    then the token-loop families' smoke configs."""
+    import torch
+    import numpy as np
+    with registry_override(GRANITE, **CUT_DEPTH[GRANITE]):
+        out = tp_layout_granite(torch, np, mesh)
+    out["loop"] = {arch: tp_loop_run(torch, np, arch, mesh)
+                   for arch in TP_LOOP}
+    return out
+
+
+def tp_layout_path(torch, np, card_line):
+    """14f: granite-moe-3b-a800m at full width (``CUT_DEPTH``: 4 of 32
+    layers) served under tp_serve on a (data 2, model 2) mesh of four gloo
+    ranks sharing the card, the experts over 'model', n-gram rollback
+    spec (B2's defer mode on each rank's chunk at every verify), the
+    tier-3 detectors, the tier-4 counters and the object registry; then
+    the plain engine for 4 tokens (B1 on the chunk); then the token-loop
+    families' smoke configs on the same ranks. Checked here against the
+    unsharded engine in this process: tokens equal on all ranks, f32
+    first verify's logits within 1e-4 relative, launches per rank
+    reckoned from the stats, every chunk live, no dead expert row, no
+    rejected draft stored, the registry scan after step 3 non-empty
+    (slots 4-7 repeat slots 0-3's prompts), equal on every rank, its
+    replica groups among the unsharded scan's; the token-loop logits within 1e-5 relative of
+    the unsharded card run's, tokens equal. Returns the summed launches
+    of the granite runs."""
+    import dataclasses
+    from repro_torch.configs import registry
+    from repro_torch.launch.mesh import launch
+
+    cfg = dataclasses.replace(registry.get_config(GRANITE),
+                              **CUT_DEPTH[GRANITE])
+    layers = cfg.num_layers
+    norms = launches_per_forward(cfg)[1]
+    t0 = time.perf_counter()
+    ranks = launch(tp_layout_rank, TP_LAYOUT_MESH, device="cuda:0",
+                   timeout_s=600)
+    spawn_s = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    with registry_override(GRANITE, **CUT_DEPTH[GRANITE]):
+        eng, det, objects, kept = tp_layout_engine(torch, np, None,
+                                                   registry=True, spec=True)
+        while eng.pending:
+            eng.step()
+            if eng.step_no == TP_LAYOUT_SCAN_STEP:
+                want_scan = tp_layout_scan(objects)
+        want_toks = np.stack([np.asarray(eng.finished[f"r{b}"].generated,
+                                         np.int32) for b in range(B)])
+        assert want_scan, "the unsharded scan found no replicas"
+        want_stats = dict(eng.stats)
+        del eng
+    want = kept["verify"][..., :cfg.vocab_size]
+    torch.cuda.empty_cache()
+    loops = {arch: tp_loop_run(torch, np, arch) for arch in TP_LOOP}
+    unsharded_s = time.perf_counter() - t1
+
+    total = {}
+    n_model = TP_LAYOUT_MESH[1]
+    r0 = ranks[0]
+    for r in ranks:
+        for label in ("spec", "plain"):
+            res, st = r[label], r[label]["stats"]
+            L = res["launches"]
+            forwards = st["prefills"] + st["ticks"]
+            if label == "spec":
+                assert st["ticks"] == st["spec_ticks"] > 0, st
+                assert L["paged_decode"] == 0, L
+            else:
+                assert L["paged_decode"] == layers * st["ticks"] > 0, L
+            assert L["paged_window"] == layers * (
+                st["prefills"] + st["spec_ticks"]) > 0, L
+            assert L["rmsnorm_fwd"] == norms * forwards, L
+            assert res["mine"], (r["coords"], label, "chunk held no page")
+            assert res["experts"] == cfg.moe.num_experts // n_model, res[
+                "experts"]
+            d = res["dispatch"]
+            assert d["dead_rows"] == 0 and d["rows_stored"] == d[
+                "rows_routed"], d
+            assert np.array_equal(res["tokens"], r0[label]["tokens"]), \
+                (r["coords"], label)
+            for k, v in L.items():
+                total[k] = total.get(k, 0) + v
+        checked, flagged = r["spec"]["kernel"]
+        assert checked.get("kernel_rejected_draft_store", 0) > 0, checked
+        assert flagged.get("kernel_rejected_draft_store", 0) == 0, flagged
+        # a page that a slot's attention read from two chunks holds other
+        # last bits than its duplicate read from one (partials combined),
+        # so the sharded groups are the unsharded ones less those
+        assert r["spec"]["scan"] and r["spec"]["scan"] == r0["spec"][
+            "scan"] and set(r["spec"]["scan"]) <= set(want_scan), (
+            r["coords"], "scan")
+        res, st = r["spec"], r["spec"]["stats"]
+        busy = res["busy"]
+        busy_txt = ("not measured" if busy is None or busy[1] is None
+                    else f"{busy[1] / busy[0]:.3f} ({busy[1]:.2f} of "
+                    f"{busy[0]:.2f} ms; its collectives {busy[2]} in "
+                    f"{1e3 * busy[3]:.2f} ms, {busy[4]} bytes staged)")
+        c = res["comm"]
+        print(f"[14f] rank {r['rank']} {r['coords']}: launches spec "
+              f"{res['launches']}, plain {r['plain']['launches']}; "
+              f"prefills {st['prefills']}, verify ticks {st['spec_ticks']}, "
+              f"drafts accepted {st['draft_accepted']} of "
+              f"{st['draft_proposed']}; tick wall {res['tick_ms']:.2f} ms, "
+              f"run {res['wall_s']:.2f} s; collectives {c['calls']} in "
+              f"{c['seconds']:.3f} s, {c['staged_bytes']} bytes staged "
+              f"through the host; live pages of its chunk of "
+              f"{res['chunk']}: {len(res['mine'])}; experts a rank "
+              f"{res['experts']}; MoE dispatch rows routed "
+              f"{res['dispatch']['rows_routed']}, dead "
+              f"{res['dispatch']['dead_rows']}; peak {r['peak_gb']:.2f} GB; "
+              f"busy share of a verify tick (step 4): {busy_txt} | "
+              f"{card_line}", flush=True)
+    got = r0["spec"]["logits"][..., :cfg.vocab_size]
+    rel = float((got - want).abs().max() / want.abs().max())
+    f32_same = int((r0["spec"]["tokens"] == want_toks).all(axis=1).sum())
+    stats_same = ({k: v for k, v in r0["spec"]["stats"].items()
+                   if not k.endswith("_s")}
+                  == {k: v for k, v in want_stats.items()
+                      if not k.endswith("_s")})
+    print(f"[14f] granite-moe-3b-a800m full width at {layers} layers (f32), "
+          f"tp_serve on a {TP_LAYOUT_MESH} (data, model) mesh of four ranks "
+          f"of one card (gloo), experts {cfg.moe.num_experts} over 'model' "
+          f"({cfg.moe.num_experts // n_model} a rank), spawned and run in "
+          f"{spawn_s:.1f} s (the unsharded runs {unsharded_s:.1f} s): "
+          f"tokens equal on all ranks; first verify's logits vs the "
+          f"unsharded engine's: max |diff| / max |logit| {rel:.2e} (tol "
+          f"1e-4); f32 sequences equal to the unsharded engine's "
+          f"{f32_same}/{B} (stats equal {stats_same}); registry scan after "
+          f"step {TP_LAYOUT_SCAN_STEP} equal on every rank, its "
+          f"{len(r0['spec']['scan'])} replica groups among the unsharded "
+          f"scan's {len(want_scan)}; "
+          f"kernel_rejected_draft_store 0 | {card_line}", flush=True)
+    assert rel <= 1e-4, rel
+    for arch, (w_lg, w_tok, _) in loops.items():
+        scale = float(w_lg.abs().max())
+        for r in ranks:
+            lg, tok, calls = r["loop"][arch]
+            err = float((lg - w_lg).abs().max()) / scale
+            assert err <= 1e-5 and torch.equal(tok, w_tok), (arch, err)
+            assert calls["dense"] > 0 and (
+                (calls["cross"] > 0) == (arch != ZAMBA)), (arch, calls)
+        print(f"[14f] {arch} smoke config (f32) through make_serve_step on "
+              f"the {TP_LAYOUT_MESH} mesh, cache {TP_LOOP_LEN} positions "
+              f"chunked over 'model'"
+              + ("" if arch == ZAMBA else
+                 f", cross K/V of {TP_LOOP_CROSS} chunked too")
+              + f": logits vs the unsharded card run max |diff| / max "
+              f"{err:.2e} (tol 1e-5), tokens equal; sharded calls "
+              f"{ranks[0]['loop'][arch][2]}", flush=True)
     return total
 
 
@@ -5456,6 +6030,8 @@ def main() -> int:
     # the long traced steps) come back empty: with the other kernels
     t14 = time.perf_counter()
     phase("14a tp_serve chunks", tp_chunk_kernels, torch, np, timer)
+    phase("14a defer on chunks", tp_defer_chunk_kernels, torch, np, timer,
+          entries)
     phase("14e kernels", check_tp_train_kernels, torch, timer, entries)
     t14 = time.perf_counter() - t14
     # each main path is driven with the launch counts set to 0 just
@@ -5523,6 +6099,8 @@ def main() -> int:
     t0 = time.perf_counter()
     by_path["tp_serve"] = phase("14b/c tp_serve", tp_serve_path, torch, np,
                                 card)
+    by_path["tp_serve layouts"] = phase("14f tp_serve layouts",
+                                        tp_layout_path, torch, np, card)
     phase("14d checkpoint", tp_checkpoint, torch, np, card)
     torch.cuda.empty_cache()
     by_path["tp_train"] = phase("14e sharded training", tp_train_path,

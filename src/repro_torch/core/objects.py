@@ -115,11 +115,16 @@ def _leaves_with_path(tree, path=()):
 
 def register_tree(registry: Optional[ObjectRegistry], owner: str, tree,
                   *, kind: str = "param",
-                  meta: Optional[Dict[str, Any]] = None
-                  ) -> List[ObjectRecord]:
+                  meta: Optional[Dict[str, Any]] = None,
+                  specs=None, mesh=None) -> List[ObjectRecord]:
     """Register every tensor leaf of a nested-dict tree under
     ``owner/<path>``, ``<path>`` the keys joined by dots (the reference's
     ``jax.tree_util.keystr`` names, in its sorted-key order).
+
+    With ``specs`` (the tree's spec tree) and ``mesh`` the leaves are this
+    rank's blocks of sharded leaves: each registers the whole leaf's byte
+    size, and its reader gives a ``replicas.ShardedLeaf``, whose digest
+    gathers its sampled spans from their owners.
 
     The fleet driver registers the (shared, in-process) parameter tree
     once per replica, which is the layout a multi-host fleet would
@@ -127,11 +132,17 @@ def register_tree(registry: Optional[ObjectRegistry], owner: str, tree,
     bit-identical weight replicas they would be."""
     if registry is None:
         return []
+    spec_of = dict(_leaves_with_path(specs)) if specs is not None else {}
     out = []
     for path, leaf in _leaves_with_path(tree):
         if not hasattr(leaf, "nbytes"):
             continue
+        nbytes, reader = int(leaf.nbytes), (lambda a=leaf: a)
+        if specs is not None:
+            from repro_torch.core.replicas import ShardedLeaf
+            whole = ShardedLeaf(leaf, spec_of[path], mesh)
+            nbytes, reader = whole.nbytes, (lambda a=whole: a)
         out.append(registry.register(
-            f"{owner}/" + ".".join(path), kind, int(leaf.nbytes),
-            reader=(lambda a=leaf: a), meta=meta, depth=2))
+            f"{owner}/" + ".".join(path), kind, nbytes, reader=reader,
+            meta=meta, depth=2))
     return out

@@ -75,8 +75,71 @@ def _sample_spans(nbytes: int):
                for i in range(1, _N_STRIDED + 1)])
 
 
+class ShardedLeaf:
+    """A leaf that lives in blocks on the ranks of a mesh: this rank's
+    ``block`` of it under ``spec`` (sharding/rules.py). A registry reader
+    returns one for a sharded parameter or optimizer leaf; its digest is
+    the whole leaf's, every sampled span gathered from the ranks that
+    hold it (``read_spans``). Every rank of the mesh must digest the same
+    leaves in the same order."""
+
+    def __init__(self, block: torch.Tensor, spec, mesh):
+        from repro_torch.sharding.rules import global_shape
+        self.block, self.spec, self.mesh = block, spec, mesh
+        self.shape = global_shape(block.shape, spec, mesh)
+        self.dtype = block.dtype
+        self.nbytes = int(np.prod(self.shape)) * block.element_size()
+
+    def read_spans(self, spans) -> List[bytes]:
+        """The whole leaf's bytes at each (offset, length) of ``spans``:
+        the elements they cover are picked from this rank's block where
+        it holds them (once over the ranks that hold the same block,
+        ``owns_block``), and summed over the mesh as integers, which
+        puts each byte of each element together from its one owner."""
+        from repro_torch.sharding import comm
+        from repro_torch.sharding.rules import _names, owns_block
+        t, mesh = self.block.detach(), self.mesh
+        isz, dev = t.element_size(), t.device
+        ranges = [(o // isz, (o + n - 1) // isz + 1) for o, n in spans]
+        flat = torch.cat([torch.arange(a, b, device=dev)
+                          for a, b in ranges])
+        holds = torch.full_like(flat, owns_block(self.spec, mesh),
+                                dtype=torch.bool)
+        local = torch.zeros_like(flat)
+        rest = flat
+        for dim in reversed(range(len(self.shape))):
+            at_dim = torch.remainder(rest, self.shape[dim])
+            rest = torch.div(rest, self.shape[dim], rounding_mode="floor")
+            entry = (tuple(self.spec)[dim] if dim < len(tuple(self.spec))
+                     else None)
+            names = _names(entry)
+            blk = t.shape[dim]
+            if names:
+                at = mesh.index(names)
+                holds &= torch.div(at_dim, blk, rounding_mode="floor") == at
+                at_dim = at_dim - at * blk
+            stride = int(np.prod(t.shape[dim + 1:]))
+            local += at_dim.clamp(0, blk - 1) * stride
+        vals = t.contiguous().reshape(-1)[local]
+        got = vals.reshape(-1, 1).view(torch.uint8).to(torch.int32)
+        got = torch.where(holds[:, None], got, 0).reshape(-1)
+        got = comm.all_reduce(got, mesh.axis_names, mesh)
+        got = got.to(torch.uint8).cpu().numpy().tobytes()
+        out, at = [], 0
+        for (o, n), (a, b) in zip(spans, ranges):
+            lo = at + o - a * isz
+            out.append(got[lo:lo + n])
+            at += (b - a) * isz
+        return out
+
+
 def _header_and_bytes(a):
-    """(numpy-spelled header, the sampled bytes) of an array or tensor."""
+    """(numpy-spelled header, the sampled bytes) of an array or tensor, or
+    of a ``ShardedLeaf`` (the whole leaf's)."""
+    if isinstance(a, ShardedLeaf):
+        header = (f"{tuple(int(n) for n in a.shape)}|"
+                  f"{str(a.dtype).replace('torch.', '')}|{a.nbytes}")
+        return header, a.read_spans(_sample_spans(a.nbytes))
     if isinstance(a, torch.Tensor):
         t = a.detach()
         nbytes = t.numel() * t.element_size()

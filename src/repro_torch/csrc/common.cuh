@@ -98,6 +98,24 @@ __device__ __forceinline__ void load_f(const T* p, float (&x)[N]) {
 // sentinel) attempt nothing. The block's threads take 4-element pieces
 // of the rows, U pieces a thread with all their loads in flight before
 // any store (D a multiple of 4, rows 16-byte aligned).
+// Window modes (paged_window.cu's `store` argument): 0 defer, 1 store,
+// 2 defer on a chunk of a page-chunked pool. A window row at a valid
+// position is a key where its mode places it: store, on a mapped page
+// (under a rank's localized table, a page the rank owns); defer,
+// anywhere in [0, M*page); defer on a chunk, wherever its table entry is
+// not another rank's page (WIN_NOT_MINE): on a page the rank owns (>= 0)
+// or on a page unmapped in the whole pool that the table gives this rank
+// (WIN_UNMAPPED_MINE). Each window row of a chunked pool is so a key on
+// exactly one rank, and the ranks' partials combine to the unsharded
+// defer call.
+enum { WIN_DEFER = 0, WIN_STORE = 1, WIN_DEFER_CHUNK = 2 };
+enum { WIN_NOT_MINE = -1, WIN_UNMAPPED_MINE = -2 };
+
+__device__ __forceinline__ bool window_key_ok(int mode, int entry) {
+  return mode == WIN_DEFER ||
+         (mode == WIN_STORE ? entry >= 0 : entry != WIN_NOT_MINE);
+}
+
 template <typename T, typename PT, int U>
 __device__ __forceinline__ void store_window(
     const T* __restrict__ kw, const T* __restrict__ vw,

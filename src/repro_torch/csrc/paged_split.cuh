@@ -289,7 +289,7 @@ __device__ __forceinline__ void split_attend(const SplitArgs& a) {
     cp_async_commit();
   }
 
-  if (a.store && sp == ws && qc == 0)  // rows >= idx: no history row
+  if (a.store == WIN_STORE && sp == ws && qc == 0)  // rows >= idx
     store_window<T, PT, 2>(kwb, vwb, pool_k, pool_v, ptb, a.cnt + 3 * b, h,
                            i0, 0, S, Hkv, D, ps, M, a.tol);
 
@@ -335,7 +335,7 @@ __device__ __forceinline__ void split_attend(const SplitArgs& a) {
     for (int c = warp; c <= rlast; c += SPLIT_NW) {
       const int pos = i0 + c;
       bool ok = pos >= 0 && pos < M * ps;
-      if (ok && a.store) ok = ptb[pos / ps] >= 0;
+      if (ok && a.store) ok = window_key_ok(a.store, ptb[pos / ps]);
       if (!ok) continue;
       float kf[EPL] = {}, vf[EPL] = {};
       if (on) {

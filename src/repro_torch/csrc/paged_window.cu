@@ -10,7 +10,10 @@
 // row r (position idx+r) attends the committed history [0, idx) through
 // the page table (unmapped pages masked) and window rows c <= r whose
 // position is valid: in store mode, >= 0 and on a mapped page of the
-// table; in defer mode, in [0, M*page). Window K/V are read rounded
+// table; in defer mode, in [0, M*page); in defer mode on a chunk (a
+// rank's localized table of a page-chunked pool), in [0, M*page) and on
+// a page the table does not mark as another rank's (window_key_ok,
+// common.cuh), so every window row is a key on exactly one rank. Window K/V are read rounded
 // through the pool dtype, as the pool would hold them. Store mode also
 // writes every landing window row into its page and counts [stored,
 // silent, dropped] elements against the pool content before the store;
@@ -139,7 +142,7 @@ __global__ void __launch_bounds__(NT) window_attn_kernel(
   int* kpos_s = reinterpret_cast<int*>(a_s + NQ);  // (CH,)
 
   const int64_t i0 = idx[b];
-  if (store)  // this block's window rows: positions >= idx, no history
+  if (store == WIN_STORE)  // the block's window rows: >= idx, no history
     store_window<T, PT, 2>(k_win + (int64_t)b * S * Hkv * D,
                         v_win + (int64_t)b * S * Hkv * D, pool_k, pool_v,
                         pt + (int64_t)b * M, cnt + 3 * b, h, (int)i0, r0,
@@ -194,7 +197,8 @@ __global__ void __launch_bounds__(NT) window_attn_kernel(
       const int c = c0 + j;
       const int64_t pos = i0 + c;
       bool ok = pos >= 0 && pos < (int64_t)M * ps;
-      if (ok && store) ok = pt[(int64_t)b * M + pos / ps] >= 0;
+      if (ok && store)
+        ok = window_key_ok(store, pt[(int64_t)b * M + pos / ps]);
       kpos_s[j] = ok ? c : -1;
     }
     __syncthreads();
@@ -391,7 +395,7 @@ __global__ void __launch_bounds__(TC_NT) window_tc_kernel(
   }
   cp_async_commit();
 
-  if (store && sp == ws)  // the block's window rows, as its tiles load
+  if (store == WIN_STORE && sp == ws)  // the block's rows, as tiles load
     store_window<bf16, PT, 4>(k_win + (int64_t)b * S * Hkv * D,
                            v_win + (int64_t)b * S * Hkv * D, pool_k, pool_v,
                            ptb, cnt + 3 * b, h, i0, r0, rend, Hkv, D, ps, M,
@@ -440,7 +444,7 @@ __global__ void __launch_bounds__(TC_NT) window_tc_kernel(
       } else {
         const int c = k0 + lane, pos = i0 + c;
         kv = c < S && pos >= 0 && pos < M * ps;
-        if (kv && store) kv = ptb[pos / ps] >= 0;
+        if (kv && store) kv = window_key_ok(store, ptb[pos / ps]);
       }
       const unsigned live = __ballot_sync(0xffffffffu, kv);
       float s[1][TC_TK / 8][4];
@@ -687,7 +691,8 @@ extern "C" int paged_window_workspace(int B, int S, int Hq, int Hkv, int D,
 
 // C entry point. Returns the cudaError_t of the launch (0 = success).
 // act_dtype / pool_dtype: 0 = float32, 1 = bfloat16. store: 1 writes the
-// window rows into the pool and counts them, 0 leaves pool and counters.
+// window rows into the pool and counts them, 0 leaves pool and counters,
+// 2 does as 0 with the window rows of a rank's chunk (WIN_DEFER_CHUNK).
 // route: 0 = choose_route's pick, else ROUTE_CORE / ROUTE_TC / ROUTE_SPLIT
 // (a forced route, for measurement and tests). D a multiple of 8; float
 // operands 16-byte aligned. cnt: the (B, 3) counters followed by the

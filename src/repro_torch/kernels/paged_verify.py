@@ -11,7 +11,10 @@ pushes a prompt chunk; only the pool's fate differs:
     stores, which the engine's kernel-tier classification attributes.
   * ``mode="defer"`` (rollback): the pool is untouched and the counters
     stay zero; ``LM.commit_verify`` stores the accepted prefix later, so
-    rejected rows never become stores.
+    rejected rows never become stores. On a rank's localized table of a
+    page-chunked pool (``chunk=True``) the window rows count only where
+    the table gives them to this rank (serve/flash_decode.py:
+    ``defer_paged_attention_sharded``).
 """
 from __future__ import annotations
 
@@ -26,7 +29,7 @@ def paged_verify_attention(q: torch.Tensor, k_win: torch.Tensor,
                            v_win: torch.Tensor, pool_k: torch.Tensor,
                            pool_v: torch.Tensor, pt: torch.Tensor,
                            idx: torch.Tensor, *, mode: str = "overwrite",
-                           tol: float = 0.0):
+                           tol: float = 0.0, chunk: bool = False):
     """q/k_win/v_win: (B, k+1, H*, D) at per-slot offsets ``idx``.
 
     Returns ``(out, lse, counters, pool_k, pool_v)`` as
@@ -35,4 +38,5 @@ def paged_verify_attention(q: torch.Tensor, k_win: torch.Tensor,
     if mode not in MODES:
         raise ValueError(f"paged verify mode {mode!r} not in {MODES}")
     return paged_window_attention(q, k_win, v_win, pool_k, pool_v, pt, idx,
-                                  store=mode == "overwrite", tol=tol)
+                                  store=mode == "overwrite", tol=tol,
+                                  chunk=chunk)

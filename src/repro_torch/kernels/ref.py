@@ -255,14 +255,26 @@ def paged_decode_ref(q, k_new, v_new, pool_k, pool_v, pt, idx,
     return out, lse[..., 0], pool_k, pool_v, cnt
 
 
+# a rank's localized page table of a page-chunked pool (serve/
+# flash_decode.py): another rank's page, and a page unmapped in the whole
+# pool whose window rows this rank takes (csrc/common.cuh's WIN_NOT_MINE
+# and WIN_UNMAPPED_MINE)
+NOT_MINE, UNMAPPED_MINE = -1, -2
+
+
 def paged_window_ref(q, k_win, v_win, pool_k, pool_v, pt, idx, *,
-                     store: bool = True, tol: float = 0.0):
+                     store: bool = True, tol: float = 0.0,
+                     chunk: bool = False):
     """The paged window kernel's function (prefill / verify).
 
     ``store=True``: all S window rows are stored through the page table
     (in place), then attention runs over the gathered view.
     ``store=False``: the window is spliced into the gathered view, the
-    pool is untouched and the counters are zero. Returns
+    pool is untouched and the counters are zero. With ``chunk`` (defer
+    on a rank's localized table of a page-chunked pool) a window row is
+    spliced only where its page's entry is not ``NOT_MINE``: on a page
+    the rank owns, or on an ``UNMAPPED_MINE`` page; history pages count
+    where the entry is >= 0, as always. Returns
     ``(out, lse, pool_k, pool_v, counters)``; lse is (B, Hq, S) f32.
     """
     dt = q.dtype
@@ -280,6 +292,11 @@ def paged_window_ref(q, k_win, v_win, pool_k, pool_v, pt, idx, *,
         ext = gk.shape[1]
         pos = idx.long()[:, None] + torch.arange(S, device=q.device)[None]
         keep = (pos >= 0) & (pos < ext)
+        if chunk:
+            ps, M = pool_k.shape[1], pt.shape[1]
+            page_i = torch.div(pos, ps, rounding_mode="floor")
+            entry = pt.long().gather(1, page_i.clamp(0, M - 1))
+            keep = keep & (entry != NOT_MINE)
         bidx = torch.arange(B, device=q.device)[:, None].expand(B, S)
         gk[bidx[keep], pos[keep]] = k_win[keep].to(gk.dtype)
         gv[bidx[keep], pos[keep]] = v_win[keep].to(gv.dtype)

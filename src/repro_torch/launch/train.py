@@ -99,9 +99,6 @@ def run(arch: str, *, smoke: bool = True, steps: int = 50, batch: int = 8,
         from repro_torch.sharding.rules import make_strategy
         if strategy not in ("dp_tp", "fsdp"):
             raise ValueError(f"strategy {strategy!r}: dp_tp or fsdp")
-        if objects:
-            raise NotImplementedError(
-                "the object registry under a strategy is ROADMAP A11c")
         if waste_report:
             raise NotImplementedError(
                 "the waste report of a sharded step is ROADMAP A11d (its "

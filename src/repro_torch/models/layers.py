@@ -10,6 +10,8 @@ reference.
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -111,6 +113,117 @@ def tp_heads(x: torch.Tensor, ws, heads, head_dim: int, mesh):
             y = comm.block_of(tp_row(x, w, mesh), "model", mesh, dim=-1)
         outs.append(y.reshape(B, S, h // n, head_dim))
     return outs
+
+
+def whole_leaves(p, layout, mesh):
+    """``p`` with every leaf that ``layout`` (the sub-block's spec tree,
+    ``lm._layer_layout``) says is a block gathered whole: the recurrent
+    blocks, which have no tensor-parallel branch, run on whole weights
+    under tp_serve, each rank the whole block."""
+    def leaf(t, spec):
+        dims = [i for i, e in enumerate(spec) if e is not None]
+        if not dims:
+            return t
+        return comm.all_gather(t, spec[dims[0]], mesh, dim=dims[0])
+    from repro_torch.sharding.rules import map2
+    return map2(leaf, p, layout)
+
+
+# ----------------------------------------------------------------------
+# Serving over more than one 'data' rank (tp_serve). The reference shards
+# the slot batch over 'data' and keeps the KV cache replicated over it
+# (sharding/rules.py: TpServe.cache_specs, paged_cache_specs). Here
+# ``LM.decode_step`` runs the engine families' forward on this data
+# rank's block of the slots inside ``data_rows``: an attention layer
+# takes its slots' rows of the page tables, indices and dense K/V rows
+# (the pool is whole), runs as it would on a batch of that size, then
+# gathers the new K/V rows over 'data' and stores the other data ranks'
+# rows too, so every rank's copy of the cache holds every slot's rows in
+# the same step; an MoE layer routes the rows of every slot
+# (``gather_rows``), since its capacity is per group of the whole
+# batch's tokens.
+# ----------------------------------------------------------------------
+_DATA_ROWS: contextvars.ContextVar = contextvars.ContextVar(
+    "data_rows", default=None)
+
+
+@contextlib.contextmanager
+def data_rows(split):
+    """Within: ``split`` = (mesh, data axes, first slot, slots a rank) of
+    the forward that runs on this rank's block of the slots (None: the
+    whole batch)."""
+    tok = _DATA_ROWS.set(split)
+    try:
+        yield
+    finally:
+        _DATA_ROWS.reset(tok)
+
+
+def gather_rows(t: torch.Tensor) -> torch.Tensor:
+    """The whole batch's rows of t (this data rank's block on dim 0),
+    gathered over 'data' in rank order; t itself without a split."""
+    split = _DATA_ROWS.get()
+    if split is None:
+        return t
+    mesh, axes = split[0], split[1]
+    return comm.all_gather(t.contiguous(), axes, mesh, dim=0)
+
+
+def local_rows(t: torch.Tensor) -> torch.Tensor:
+    """This data rank's block of the rows of a whole-batch t."""
+    split = _DATA_ROWS.get()
+    if split is None:
+        return t
+    lo, n = split[2], split[3]
+    return t[lo:lo + n]
+
+
+def _local_cache(cache, lo: int, n: int):
+    """One layer's cache as a batch of this rank's slots: its rows of the
+    page table, the indices and the counters, and a dense cache's rows
+    (views: stores land in the whole cache); the pool stays whole."""
+    out = dict(cache)
+    keys = ("pt", "idx", "kcnt") if "pt" in cache else ("k", "v", "idx")
+    for key in keys:
+        if key in cache and cache[key].ndim >= 1:
+            out[key] = cache[key][lo:lo + n]
+    return out
+
+
+def _store_other_rows(full, k, v, S: int, spec, split) -> None:
+    """Store the other data ranks' new K/V rows into this rank's copy of
+    the cache (``full``: the layer's whole-batch cache, stores in place):
+    one all-gather of k and v over 'data', then the rows of every slot
+    but this rank's through the same rule the kernels store by (paged:
+    the page table, localized to this rank's chunk of a chunked pool;
+    dense: the rows at the index, clamped or, for a verify window,
+    dropped past the extent; a chunked dense cache takes the rows of its
+    positions)."""
+    mesh, axes, lo, n = split
+    kv = comm.all_gather(torch.stack([k, v]), axes, mesh, dim=1)
+    idx = full["idx"].clone()
+    mine = torch.zeros(idx.shape[0], dtype=torch.bool, device=idx.device)
+    mine[lo:lo + n] = True
+    if "pt" in full:
+        pt = full["pt"]
+        plan = _paged_plan(pt.shape[0], full)
+        if plan is not None:
+            from repro_torch.serve.flash_decode import _localize
+            chunk = full["k"].shape[0]
+            pt, _ = _localize(pt, mesh.index(plan[1]) * chunk, chunk)
+        # this rank's slots take the idle sentinel: their stores drop
+        idx = torch.where(mine, -(S + 1), idx)
+        ops.paged_update(full["k"], full["v"], kv[0], kv[1], pt, idx)
+        return
+    from repro_torch.serve.flash_decode import store_dense_rows
+    plan = _dense_plan(idx.shape[0])
+    ck = full["k"]
+    total, off = ck.shape[1], 0
+    if plan is not None:
+        total = ck.shape[1] * mesh.axis_size(plan[1])
+        off = mesh.index(plan[1]) * ck.shape[1]
+    store_dense_rows(ck, full["v"], kv[0], kv[1], idx, off=off, total=total,
+                     spec=spec, rows=~mine)
 
 
 # ----------------------------------------------------------------------
@@ -252,6 +365,9 @@ def apply_attention(p, cfg: ModelConfig, x: torch.Tensor, *,
                             kv_valid=kv_valid)
         return _out_proj(out.reshape(B, S, H * D), p, tp), None
 
+    full, split = None, _DATA_ROWS.get()
+    if split is not None:
+        full, cache = cache, _local_cache(cache, split[2], split[3])
     idx = cache["idx"]
     ar = torch.arange(S, device=x.device, dtype=idx.dtype)
     pos_q = idx[:, None] + ar[None, :] if idx.ndim == 1 else (idx + ar)[None]
@@ -260,28 +376,33 @@ def apply_attention(p, cfg: ModelConfig, x: torch.Tensor, *,
 
     if "pt" in cache:
         counters = "kcnt" in cache
-        plan = _paged_plan(B, cache)
-        if plan is not None and spec != "defer":
+        plan = _paged_plan(full["pt"].shape[0] if full else B, cache)
+        if plan is not None:
             # the pool is chunked by pages over the ranks: flash-decoding
             # (serve/flash_decode.py), B1 for a decode, B2's store mode
-            # for a window (admission, overwrite verify); the counters
-            # stay this rank's (LM.decode_step makes them the pool's)
+            # for a window (admission, overwrite verify), its defer mode
+            # on a chunk for a rollback verify; the counters stay this
+            # rank's (LM.decode_step makes them the pool's)
             from repro_torch.serve import flash_decode as FD
-            fn = (FD.decode_paged_attention_sharded if S == 1
-                  else FD.verify_paged_attention_sharded)
-            out, ck, cv, cnt = fn(
-                q, k, v, cache["k"], cache["v"], cache["pt"], idx,
-                mesh=current_sharder().mesh, batch_axes=plan[0],
-                seq_axes=plan[1], tol=ops.COUNTER_TOL)
-            new_cache = {**cache, "k": ck, "v": cv, "idx": idx + S}
-            if counters:
-                new_cache["kcnt"] = cnt
-            return _out_proj(out.reshape(B, S, H * D), p, tp), new_cache
-        if plan is not None:
-            raise NotImplementedError(
-                "a rollback (defer) verify over a page-chunked pool is "
-                "ROADMAP A11c")
-        if spec == "defer":
+            kw = dict(mesh=current_sharder().mesh, batch_axes=plan[0],
+                      seq_axes=plan[1])
+            if spec == "defer":
+                out = FD.defer_paged_attention_sharded(
+                    q, k, v, cache["k"], cache["v"], cache["pt"], idx, **kw)
+                new_cache = {**cache, "idx": idx + S, "win_k": k,
+                             "win_v": v}
+                if counters:
+                    new_cache["kcnt"] = torch.zeros_like(cache["kcnt"])
+            else:
+                fn = (FD.decode_paged_attention_sharded if S == 1
+                      else FD.verify_paged_attention_sharded)
+                out, ck, cv, cnt = fn(q, k, v, cache["k"], cache["v"],
+                                      cache["pt"], idx, tol=ops.COUNTER_TOL,
+                                      **kw)
+                new_cache = {**cache, "k": ck, "v": cv, "idx": idx + S}
+                if counters:
+                    new_cache["kcnt"] = cnt
+        elif spec == "defer":
             # the pool is not written: the window rows are spliced into
             # the history after their pool-dtype round trip, so the
             # logits equal overwrite mode's bit for bit
@@ -299,12 +420,12 @@ def apply_attention(p, cfg: ModelConfig, x: torch.Tensor, *,
                     q, k, v, cache["k"], cache["v"], cache["pt"], idx,
                     store=True, counters=counters)
             new_cache = {**cache, "k": ck, "v": cv, "idx": idx + S}
-        if counters:
+        if counters and plan is None:
             new_cache["kcnt"] = cnt
-    elif _dense_plan(B) is not None:
+    elif _dense_plan(full["k"].shape[0] if full else B) is not None:
         # the dense cache is chunked by positions over the ranks
         from repro_torch.serve.flash_decode import decode_attention_sharded
-        plan = _dense_plan(B)
+        plan = _dense_plan(full["k"].shape[0] if full else B)
         out, _, _ = decode_attention_sharded(
             q, k, v, cache["k"], cache["v"], idx,
             mesh=current_sharder().mesh, batch_axes=plan[0],
@@ -328,6 +449,16 @@ def apply_attention(p, cfg: ModelConfig, x: torch.Tensor, *,
         new_cache = {**cache, "idx": idx + S}
         out = ops.attention(q, ck.to(dt), cv.to(dt), causal=True,
                             q_offset=idx, kv_len=idx + S)
+    if full is not None:
+        # the layer's whole-batch cache back, with this rank's counters
+        # and deferred window (LM.decode_step and commit_verify gather
+        # them over 'data')
+        if spec != "defer":
+            _store_other_rows(full, k, v, S, spec, split)
+        new_cache = {**full, **{key: new_cache[key] for key in
+                                ("kcnt", "win_k", "win_v")
+                                if key in new_cache},
+                     "idx": full["idx"] + S}
     return _out_proj(out.reshape(B, S, H * D), p, tp), new_cache
 
 

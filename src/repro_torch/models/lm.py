@@ -150,21 +150,55 @@ def _cached_xattn(p_attn, cfg: ModelConfig, x: torch.Tensor,
                   c: Dict[str, torch.Tensor]) -> torch.Tensor:
     """Cross-attention of x (B,S,d) against one layer's precomputed
     cross K/V (``xk``/``xv``, masked by ``xvalid`` where the frames were
-    right-padded). Unsharded: the sequence-sharded branch is ROADMAP
-    A11c."""
+    right-padded). Where the cross K/V were filled in chunks over the
+    ranks (``_fill_cross_kv``: a plan of ``decode_shard_plan`` for the
+    whole extent, and no ``xvalid``), each rank attends its chunk and the
+    partials combine (``flash_decode.cross_attention_sharded``, plain
+    PyTorch as the reference's body is), as the reference does; the
+    projections are tensor-parallel where their leaves are blocks."""
     B, S, _ = x.shape
     H, D = cfg.num_heads, cfg.head_dim
-    q = (x @ p_attn["wq"]["w"].to(x.dtype)).reshape(B, S, H, D)
+    tp = L.tp_mesh()
+    if tp is None:
+        q = x @ p_attn["wq"]["w"].to(x.dtype)
+    else:
+        (q,) = L.tp_cols(x, [p_attn["wq"]["w"]], [H * D], tp)
+    q = q.reshape(B, S, H, D)
     if cfg.qk_norm:
         q = L.apply_rmsnorm(p_attn["q_norm"], q, cfg.norm_eps)
-    out = ops.attention(q, c["xk"].to(x.dtype), c["xv"].to(x.dtype),
-                        causal=False, kv_valid=c.get("xvalid"))
-    return out.reshape(B, S, H * D) @ p_attn["wo"]["w"].to(x.dtype)
+    s = current_sharder()
+    plan = None
+    if s is not None and s.cross_len is not None and "xvalid" not in c:
+        from repro_torch.serve.flash_decode import decode_shard_plan
+        plan = decode_shard_plan(s, B, s.cross_len)
+    if plan is not None:
+        from repro_torch.serve.flash_decode import cross_attention_sharded
+        out = cross_attention_sharded(q, c["xk"], c["xv"], mesh=s.mesh,
+                                      batch_axes=plan[0], seq_axes=plan[1])
+    else:
+        out = ops.attention(q, c["xk"].to(x.dtype), c["xv"].to(x.dtype),
+                            causal=False, kv_valid=c.get("xvalid"))
+    return L._out_proj(out.reshape(B, S, H * D), p_attn, tp)
+
+
+def _layer_layout(*path):
+    """The spec tree of one layer of the stacked params at ``path`` (as
+    ("main", "b0_moe")) as the serving steps hold them: the tree
+    ``serve.decode.shard_params`` bound on the sharder, its layer dim
+    dropped; None without one (unsharded, no tensor-parallel 'model', or
+    a strategy that bound none)."""
+    s = current_sharder()
+    if s is None or s.param_specs is None or L.tp_mesh() is None:
+        return None
+    tree = s.param_specs
+    for key in path:
+        tree = tree[key]
+    return P.tree_map(lambda spec: tuple(spec)[1:], tree)
 
 
 def _apply_sub(p, cfg: ModelConfig, typ: str, x: torch.Tensor, *,
                cache=None, spec: Optional[str] = None,
-               src: Optional[torch.Tensor] = None):
+               src: Optional[torch.Tensor] = None, layout=None):
     """One sub-block, cache-free or cached (as ``L.apply_attention``):
     (x, new cache, moe_aux or None). A moe block is attention, then the
     MoE layer on ln2; a mamba, mlstm or slstm block writes a given state
@@ -173,7 +207,10 @@ def _apply_sub(p, cfg: ModelConfig, typ: str, x: torch.Tensor, *,
     output ``src`` (cache-free) or to the cache's cross K/V, then runs
     its MLP; an xattn block attends across to the image tokens ``src``
     (cache-free) or to the cache's cross K/V, each half behind its tanh
-    gate, and leaves the cache as it was."""
+    gate, and leaves the cache as it was. ``layout`` is the sub-block's
+    spec tree under tp_serve (``_layer_layout``): the MoE layer runs a
+    rank's block of the experts, a recurrent block gathers its blocks
+    whole."""
     if typ in ("dense", "shared"):
         x, nc = L.apply_dense_block(p, cfg, x, cache=cache, spec=spec)
         return x, nc, None
@@ -182,9 +219,12 @@ def _apply_sub(p, cfg: ModelConfig, typ: str, x: torch.Tensor, *,
             p["attn"], cfg, L.apply_rmsnorm(p["ln1"], x, cfg.norm_eps),
             cache=cache, spec=spec)
         x = x + h
-        h, aux = M.apply_moe(p["moe"], cfg,
-                             L.apply_rmsnorm(p["ln2"], x, cfg.norm_eps))
-        return x + h, nc, aux
+        # over 'data' ranks the layer routes every slot's rows
+        # (L.data_rows): capacity is per group of the whole batch
+        h, aux = M.apply_moe(p["moe"], cfg, L.gather_rows(
+            L.apply_rmsnorm(p["ln2"], x, cfg.norm_eps)),
+            layout=None if layout is None else layout["moe"])
+        return x + L.local_rows(h), nc, aux
     if typ == "xattn":
         if cache is None:
             return L.apply_xattn_block(p, cfg, x, src), None, None
@@ -194,6 +234,8 @@ def _apply_sub(p, cfg: ModelConfig, typ: str, x: torch.Tensor, *,
         h = L.apply_mlp(p["mlp"], cfg,
                         L.apply_rmsnorm(p["ln2"], x, cfg.norm_eps))
         return L.gated_residual(x, p["gate_mlp"], h), cache, None
+    if typ in ("mamba", "mlstm", "slstm") and layout is not None:
+        p = L.whole_leaves(p, layout, L.tp_mesh())
     if typ == "mamba":
         x, nc = SSM.apply_mamba(p, cfg, x, state=cache)
         return x, nc, None
@@ -570,7 +612,7 @@ class LM:
         a key."""
         cfg, sch = self.cfg, self.sched
         dev = params["embed"].device
-        local_len = self._cache_chunk(batch, max_len)
+        _, local_len = self._cache_chunk(batch, max_len)
         cache = {"main": {
             f"b{i}_{t}": self._init_sub_cache(t, sch.n_super, batch,
                                               local_len, kv_dtype, dev)
@@ -588,6 +630,7 @@ class LM:
         else:
             extent = (cfg.encoder_frames if sch.has_encoder
                       else cfg.num_image_tokens)
+            _, extent = self._cache_chunk(batch, extent, "cross_len")
             shape = (sch.n_super, batch, extent, cfg.num_kv_heads,
                      cfg.head_dim)
             for name in self._cross_blocks():
@@ -596,24 +639,27 @@ class LM:
                 sub["xv"] = torch.zeros(shape, dtype=kv_dtype, device=dev)
         return cache
 
-    def _cache_chunk(self, batch: int, max_len: int) -> int:
-        """Positions of a dense cache this rank holds: under a strategy
-        whose cache spec chunks the sequence (TpServe.cache_specs, the
-        plan of flash_decode.decode_shard_plan) its chunk, else all; the
-        global extent is recorded on the sharder."""
+    def _cache_chunk(self, batch: int, max_len: int, attr: str = "seq_len"
+                     ) -> Tuple[int, int]:
+        """(offset, positions) of a dense cache's extent ``max_len`` that
+        this rank holds: under a strategy whose cache spec chunks the
+        sequence (TpServe.cache_specs, the plan of
+        flash_decode.decode_shard_plan) its chunk, else all of it; the
+        whole extent is recorded on the sharder as ``attr``. Every
+        attention sub-block's K/V (dense, moe, the hybrid's shared block,
+        encdec self-attention, with ``attr`` "cross_len" the cross K/V)
+        chunks so; recurrent states stay whole, as cache_specs leaves
+        them."""
         s = current_sharder()
         if s is None:
-            return max_len
+            return 0, max_len
         from repro_torch.serve.flash_decode import decode_shard_plan
         plan = decode_shard_plan(s, batch, max_len)
         if plan is None:
-            return max_len
-        if self.sched.pattern != ("dense",) or self.sched.tail:
-            raise NotImplementedError(
-                f"a sequence-chunked cache of {self.cfg.family!r} blocks "
-                f"is ROADMAP A11c")
-        s.bind_extent("seq_len", max_len)
-        return max_len // s.mesh.axis_size(plan[1])
+            return 0, max_len
+        s.bind_extent(attr, max_len)
+        n = max_len // s.mesh.axis_size(plan[1])
+        return s.mesh.index(plan[1]) * n, n
 
     def _fill_cross_kv(self, params, cache, src: torch.Tensor,
                        src_lengths: Optional[torch.Tensor], kv_dtype
@@ -625,21 +671,32 @@ class LM:
         cfg, sch = self.cfg, self.sched
         Hkv, D = cfg.num_kv_heads, cfg.head_dim
         B, Skv = src.shape[:2]
+        mine = src
+        if src_lengths is None:
+            # a chunked cross cache: this rank's chunk of the frames or
+            # image tokens (_cached_xattn attends it and combines)
+            off, n = self._cache_chunk(B, Skv, "cross_len")
+            mine = src[:, off:off + n]
+        Sl = mine.shape[1]
+        tp = L.tp_mesh()
         for name in self._cross_blocks():
             ap = params["main"][name]["xattn"]
             sub = cache["main"][name]
-            xk = torch.empty((sch.n_super, B, Skv, Hkv, D), dtype=kv_dtype,
+            xk = torch.empty((sch.n_super, B, Sl, Hkv, D), dtype=kv_dtype,
                              device=src.device)
             xv = torch.empty_like(xk)
             for li in range(sch.n_super):
-                k = (src @ ap["wk"]["w"][li].to(src.dtype)).reshape(
-                    B, Skv, Hkv, D)
+                ws = [ap["wk"]["w"][li], ap["wv"]["w"][li]]
+                if tp is None:
+                    k, v = (mine @ w.to(src.dtype) for w in ws)
+                else:
+                    k, v = L.tp_cols(mine, ws, [Hkv * D] * 2, tp)
+                k = k.reshape(B, Sl, Hkv, D)
                 if cfg.qk_norm:
                     k = L.apply_rmsnorm(_layer(ap["k_norm"], li), k,
                                         cfg.norm_eps)
                 xk[li] = k
-                xv[li] = (src @ ap["wv"]["w"][li].to(src.dtype)).reshape(
-                    B, Skv, Hkv, D)
+                xv[li] = v.reshape(B, Sl, Hkv, D)
             sub["xk"], sub["xv"] = xk, xv
             if src_lengths is not None:
                 valid = (torch.arange(Skv, device=src.device)[None, :]
@@ -775,22 +832,37 @@ class LM:
         With kernel counters on, ``kcnt`` becomes this commit's
         [stored, silent, dropped] counts, measured against the pool
         before the store. Drops the win_* leaves."""
+        s = current_sharder()
         new_main = {}
         for name, sub in cache["main"].items():
             if "win_k" not in sub:
                 new_main[name] = sub
                 continue
             n, P = sub["k"].shape[:2]
-            B = sub["win_k"].shape[1]
+            B = sub["pt"].shape[1]
+            wins = {key: sub[key] for key in ("win_k", "win_v")}
+            if sub["win_k"].shape[1] != B:
+                # a data rank's window rows: every rank's copy of the pool
+                # stores every slot's accepted rows (L.data_rows)
+                both = comm.all_gather(torch.stack(list(wins.values())),
+                                       s.batch_axes, s.mesh, dim=2)
+                wins = {"win_k": both[0], "win_v": both[1]}
+            pt = sub["pt"]
+            plan = self._pool_plan(sub)
+            if plan is not None:
+                # a chunked pool: each rank stores the rows of its pages
+                # through its localized table (flash_decode._localize)
+                from repro_torch.serve.flash_decode import _localize
+                pt, _ = _localize(pt, s.mesh.index(plan[1]) * P, P)
             # every layer's pool as one pool of n*P pages, its table
             # shifted to the layer's pages
-            pt = sub["pt"].long()
+            pt = pt.long()
             off = (torch.arange(n, device=pt.device) * P)[:, None, None]
             pt_all = torch.where(pt >= 0, pt + off, -1).reshape(n * B, -1)
             pools = [sub[key].view((n * P,) + sub[key].shape[2:])
                      for key in ("k", "v")]
-            wins = [sub[key].reshape((n * B,) + sub[key].shape[2:])
-                    for key in ("win_k", "win_v")]
+            wins = [t.reshape((n * B,) + t.shape[2:])
+                    for t in wins.values()]
             start_all = start.repeat(n)
             length_all = torch.as_tensor(length, device=pt.device).repeat(n)
             out = {key: t for key, t in sub.items()
@@ -801,6 +873,13 @@ class LM:
                 out["kcnt"] = ops.paged_store_counts(
                     *pools, *wins, pt_all, start_all, length=length_all,
                     tol=ops.COUNTER_TOL).reshape(n, B, 3)
+                if plan is not None:
+                    from repro_torch.serve.flash_decode import global_counts
+                    out["kcnt"] = global_counts(
+                        out["kcnt"], sub["pt"][0], start,
+                        wins[0].shape[1], sub["k"].shape[2],
+                        2 * sub["k"].shape[3] * sub["k"].shape[4], plan[1],
+                        s.mesh, length=length_all[:B])
             ops.paged_update(*pools, *wins, pt_all, start_all,
                              length=length_all)
             new_main[name] = out
@@ -815,53 +894,97 @@ class LM:
         ``spec`` marks a speculative verify window (see ``verify``)."""
         cfg, sch = self.cfg, self.sched
         dt = torch_dtype(cfg.dtype)
+        split = self._data_split(tokens.shape[0])
+        if split is not None:
+            tokens = tokens[split[2]:split[2] + split[3]]
         x = shard(self._embed(params, tokens, dt), "btd_dec")
         main = cache["main"]
         per_layer = {name: {} for name in main}
-        for li in range(sch.n_super):
-            p_l = _layer(params["main"], li)
-            for i, typ in enumerate(sch.pattern):
-                name = f"b{i}_{typ}"
-                c = {key: t[li] for key, t in main[name].items()}
-                p = params["shared"] if typ == "shared" else p_l[name]
-                x, nc, _ = _apply_sub(p, cfg, typ, x, cache=c, spec=spec)
-                for key in _PER_LAYER:
-                    if key in nc:
-                        per_layer[name].setdefault(key, []).append(nc[key])
+        layouts = {name: None if name.endswith("_shared") else
+                   _layer_layout("main", name) for name in main}
+        with L.data_rows(split):
+            for li in range(sch.n_super):
+                p_l = _layer(params["main"], li)
+                for i, typ in enumerate(sch.pattern):
+                    name = f"b{i}_{typ}"
+                    c = {key: t[li] for key, t in main[name].items()}
+                    p = params["shared"] if typ == "shared" else p_l[name]
+                    x, nc, _ = _apply_sub(p, cfg, typ, x, cache=c,
+                                          spec=spec, layout=layouts[name])
+                    for key in _PER_LAYER:
+                        if key in nc:
+                            per_layer[name].setdefault(key, []).append(
+                                nc[key])
         new_cache = {"main": {
             name: {**sub, **{key: torch.stack(ts) for key, ts in
                              per_layer[name].items()}}
             for name, sub in main.items()}}
-        self._pool_counts(cache, new_cache, tokens.shape[1], spec)
+        self._pool_counts(cache, new_cache, tokens.shape[1], spec, split)
         if sch.tail:
             # the tail's Mamba2 states are written in place
+            layout = _layer_layout("tail")
             for li, typ in enumerate(sch.tail):
                 x, _, _ = _apply_sub(
                     _layer(params["tail"], li), cfg, typ, x,
-                    cache={key: t[li] for key, t in cache["tail"].items()})
+                    cache={key: t[li] for key, t in cache["tail"].items()},
+                    layout=layout)
             new_cache["tail"] = cache["tail"]
 
         x = L.apply_rmsnorm(params["final_norm"], x, cfg.norm_eps)
         logits = self._logits(params, x)
+        if split is not None:
+            logits = comm.all_gather(logits, split[1], split[0], dim=0)
         return _mask_pad_vocab(logits, cfg), new_cache
 
-    def _pool_counts(self, cache, new_cache, S: int, spec) -> None:
-        """Under a page-chunked pool each rank's kernels counted their own
-        chunk's stores: make ``kcnt`` the whole pool's (one all-reduce a
-        forward, flash_decode.global_counts), in place of new_cache's."""
+    def _data_split(self, B: int):
+        """(mesh, data axes, first slot, slots a rank) when the active
+        sharder serves the slot batch over more than one 'data' rank (the
+        reference's batch spec: tp_serve with the batch divisible): the
+        engine families' forward then runs on this rank's block of the
+        slots (``L.data_rows``). None otherwise: the token-loop families,
+        whose recurrent and cross states are whole-batch tensors, and a
+        batch that does not divide, run the whole batch on every rank."""
         s = current_sharder()
-        if s is None or s.pool_pages is None or spec == "defer":
+        if (s is None or self.cfg.family not in ("dense", "moe")
+                or "model" in s.batch_axes):
+            return None
+        n = s.mesh.axis_size(s.batch_axes)
+        if n == 1 or B % n:
+            return None
+        return (s.mesh, s.batch_axes, s.mesh.index(s.batch_axes) * (B // n),
+                B // n)
+
+    def _pool_plan(self, sub):
+        """flash_decode.paged_shard_plan of one paged sub-block's pool
+        under the active sharder, or None when the pool is whole."""
+        s = current_sharder()
+        if s is None or s.pool_pages is None:
+            return None
+        from repro_torch.serve.flash_decode import paged_shard_plan
+        return paged_shard_plan(s, sub["pt"].shape[1], s.pool_pages,
+                                sub["k"].shape[2])
+
+    def _pool_counts(self, cache, new_cache, S: int, spec, split) -> None:
+        """Make ``kcnt`` the whole pool's, in place of new_cache's: over
+        'data' ranks each counted its own slots (one all-gather), and
+        under a page-chunked pool each rank's kernels counted their own
+        chunk's stores (one all-reduce a forward, flash_decode.
+        global_counts)."""
+        s = current_sharder()
+        if s is None or spec == "defer":
             return
-        from repro_torch.serve.flash_decode import (global_counts,
-                                                    paged_shard_plan)
+        from repro_torch.serve.flash_decode import global_counts
         for name, sub in cache["main"].items():
             nsub = new_cache["main"][name]
             if "kcnt" not in nsub:
                 continue
-            ps = sub["k"].shape[2]
-            plan = paged_shard_plan(s, sub["pt"].shape[1], s.pool_pages, ps)
+            if split is not None:
+                nsub["kcnt"] = comm.all_gather(nsub["kcnt"], split[1],
+                                               split[0], dim=1)
+            plan = self._pool_plan(sub)
             if plan is None:
                 continue
+            ps = sub["k"].shape[2]
             row = 2 * sub["k"].shape[3] * sub["k"].shape[4]
             nsub["kcnt"] = global_counts(nsub["kcnt"], sub["pt"][0],
                                          sub["idx"][0], S, ps, row, plan[1],

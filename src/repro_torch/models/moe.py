@@ -33,6 +33,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import params as P
+from repro_torch.sharding import comm
 
 
 def decl_moe(cfg: ModelConfig) -> Dict[str, Any]:
@@ -140,12 +141,36 @@ def _regroup(cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     return x.reshape(tokens // G, G, d)
 
 
-def apply_moe(p, cfg: ModelConfig, x: torch.Tensor
+def _expert_block(p, layout):
+    """(mesh, first expert, experts) of this rank's experts when
+    ``layout`` (the layer's spec tree under tp_serve) shards the expert
+    leaves over 'model' (sharding/rules.py), else None. On their experts
+    dim a rank holds a block of the experts; on their ffn dim (experts
+    that do not divide over the ranks) it holds every expert's block of
+    the ffn, and its products are partial sums just the same."""
+    if layout is None or not any(layout["w_up"]):
+        return None
+    from repro_torch.models.layers import tp_mesh
+    mesh = tp_mesh()
+    El = p["w_up"].shape[0]
+    if layout["w_up"][0] is None:
+        return mesh, 0, El
+    return mesh, mesh.index("model") * El, El
+
+
+def apply_moe(p, cfg: ModelConfig, x: torch.Tensor, *, layout=None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, d) -> (out, aux_loss f32 scalar).
 
     Tokens are regrouped to (n_groups, GROUP, d); capacity is per group
-    (GShard), so routing bookkeeping never crosses a group."""
+    (GShard), so routing bookkeeping never crosses a group.
+
+    With the experts over 'model' (``layout``, ``_expert_block``) every
+    rank routes every token with the whole router, exactly as unsharded,
+    and runs its own experts on the dispatch rows routed to them; its
+    combine is a partial sum (the other experts' rows 0), which, with the
+    shared expert's row-parallel partial, is summed over 'model' once in
+    f32 (``comm.reduce_from``)."""
     m = cfg.moe
     Bo, So, d = x.shape
     E, K = m.num_experts, m.experts_per_token
@@ -154,6 +179,16 @@ def apply_moe(p, cfg: ModelConfig, x: torch.Tensor
     dt = x.dtype
 
     gate_idx, gate_keep, pos_in_e, keep, C, aux = _route(p, cfg, x)
+    block = _expert_block(p, layout)
+    if block is not None:
+        # this rank's experts only: a choice of another rank's expert is
+        # dropped here (its rows and gate 0), kept on its owner's rank
+        e0, E = block[1], block[2]
+        mine = (gate_idx >= e0) & (gate_idx < e0 + E)
+        keep = keep & mine
+        pos_in_e = torch.where(mine, pos_in_e, C)
+        gate_keep = gate_keep * mine.float()
+        gate_idx = (gate_idx - e0).clamp(0, E - 1)
 
     if m.dispatch == "einsum":
         # reference path: one-hot dispatch/combine einsums over the
@@ -188,10 +223,24 @@ def apply_moe(p, cfg: ModelConfig, x: torch.Tensor
         eg = eg.masked_fill(drop[..., None], 0)
         out = torch.matmul(gate_keep.to(dt)[..., None, :], eg).squeeze(-2)
 
+    shared = None
     if m.shared_expert:
         sh = p["shared"]
         hs = F.silu(x @ sh["gate"]["w"].to(dt)) * (x @ sh["up"]["w"].to(dt))
-        out = out + hs @ sh["down"]["w"].to(dt)
+        shared = hs @ sh["down"]["w"].to(dt)
+    if shared is not None and layout is not None and any(
+            layout["shared"]["down"]["w"]):
+        # the shared expert's ffn is a block (column- then row-parallel):
+        # its product is a partial sum, reduced with the experts' one
+        from repro_torch.models.layers import tp_mesh
+        if block is None:
+            shared = comm.reduce_from(shared, "model", tp_mesh())
+        else:
+            out, shared = out + shared, None
+    if block is not None:
+        out = comm.reduce_from(out, "model", block[0])
+    if shared is not None:
+        out = out + shared
 
     return out.reshape(Bo, So, d), aux.float()
 

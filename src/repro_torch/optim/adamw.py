@@ -49,18 +49,21 @@ class AdamWState(NamedTuple):
     v: Any
 
 
-def init(params: Any, registry=None, owner: str = "opt") -> AdamWState:
+def init(params: Any, registry=None, owner: str = "opt", *, specs=None,
+         mesh=None) -> AdamWState:
     """Zero f32 moments shaped like ``params``. With an `ObjectRegistry`
     (core/objects.py) every moment leaf registers as a live
     ``opt_state`` object: all bit-identical zeros at init, the state the
-    replica detector reports as lazy-materializable."""
+    replica detector reports as lazy-materializable (``params``' blocks
+    under ``specs`` on ``mesh``: each moment as its whole leaf)."""
     def zeros(p):
         return torch.zeros_like(p, dtype=torch.float32)
     state = AdamWState(m=tree_map(zeros, params), v=tree_map(zeros, params))
     if registry is not None:
         from repro_torch.core.objects import register_tree
-        register_tree(registry, f"{owner}/m", state.m, kind="opt_state")
-        register_tree(registry, f"{owner}/v", state.v, kind="opt_state")
+        for name, tree in (("m", state.m), ("v", state.v)):
+            register_tree(registry, f"{owner}/{name}", tree,
+                          kind="opt_state", specs=specs, mesh=mesh)
     return state
 
 

@@ -53,6 +53,39 @@ class StepCache:
         return fn
 
 
+def shard_params(model, strategy, params):
+    """(this rank's slice of every leaf of the full tree ``params`` as the
+    strategy's spec tree says, copies so the full tree may go; the params
+    the steps run on). The serving layers keep the residual stream whole
+    on every rank and run blocks only of feature dims, so a leaf the spec
+    shards on its 'embed' axis (the stacked norm scales, an MoE router)
+    is gathered whole once for the steps. The steps' layout (the spec
+    tree with those leaves whole) is bound on the strategy's sharder,
+    where the layers read which of their leaves are blocks
+    (``Sharder.param_specs``)."""
+    from repro_torch.models.params import tree_map
+    from repro_torch.sharding import comm
+    from repro_torch.sharding.rules import PS, map2, shard_tree
+    specs = strategy.param_specs(model)
+    mesh = strategy.mesh
+    local = tree_map(torch.clone, shard_tree(params, specs, mesh))
+
+    def embed_dim(axes, spec):
+        return next((i for i, (a, e) in enumerate(zip(axes, spec))
+                     if a == "embed" and e is not None), None)
+
+    def run(t, axes, spec):
+        dim = embed_dim(axes, spec)
+        if dim is None:
+            return t
+        return comm.all_gather(t, spec[dim], mesh, dim=dim)
+    axes = model.param_axes()
+    strategy.sharder().bind_params(map2(
+        lambda ax, sp: sp if embed_dim(ax, sp) is None else PS(), axes,
+        specs))
+    return local, map2(run, local, axes, specs)
+
+
 def make_serve_step(model, strategy=None):
     """serve_step(params, cache, tokens (B,1) int32) -> (greedy next
     tokens (B,1) int32, new cache): one cached forward, no gradient."""
@@ -135,8 +168,9 @@ def make_engine_verify(model, strategy=None, *, paged: bool = False,
         m = torch.cumprod(ok.to(torch.int32), dim=1).sum(dim=1)
         m = torch.where(active, m, 0).to(torch.int32)
         if rollback:
-            new_cache = model.commit_verify(
-                new_cache, idx0, torch.where(active, 1 + m, 0))
+            with sharding_ctx(sharder):
+                new_cache = model.commit_verify(
+                    new_cache, idx0, torch.where(active, 1 + m, 0))
         nxt = torch.gather(g, 1, m[:, None].long())
         nxt = torch.where(active[:, None], nxt, tokens[:, :1])
         new_cache = model.with_cache_index(

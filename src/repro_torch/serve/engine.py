@@ -70,7 +70,7 @@ import torch
 from repro_torch.core.detectors import (ServingDetectors, SlotWrite,
                                         VerifyWrite)
 from repro_torch.serve.decode import (make_engine_prefill, make_engine_tick,
-                                      make_engine_verify)
+                                      make_engine_verify, shard_params)
 from repro_torch.serve.kv_cache import (PagedKV, PoolExhausted, _digest,
                                         make_page_copy)
 from repro_torch.sharding import comm
@@ -149,11 +149,12 @@ class ServeEngine:
         self.strategy = strategy
         self._sharder = None
         # the params the steps run on (under a strategy: this rank's
-        # slices with the norm scales whole, _shard_params)
+        # slices, those sharded on 'embed' whole: decode.shard_params)
         self._step_params = params
         if strategy is not None:
-            self._sharder = self._check_strategy(strategy, registry)
-            params = self._shard_params(params)
+            self._sharder = self._check_strategy(strategy)
+            params, self._step_params = shard_params(model, strategy,
+                                                     params)
         self.params = params
         self.device = params["embed"].device
         self.num_slots = num_slots
@@ -200,18 +201,13 @@ class ServeEngine:
                     params, num_slots, max_len, page_size=page_size,
                     num_pages=num_pages, kv_dtype=kv_dtype,
                     kernel_counters=self.kernel_counters)
-            if (self.spec and self.spec_rollback and self._sharder
-                    is not None and self._sharder.pool_pages is not None):
-                raise NotImplementedError(
-                    "speculative rollback over a page-chunked pool is "
-                    "ROADMAP A11c (pass spec_rollback=False: overwrite)")
             if registry is not None:
                 # the allocator registers pages; it needs the pool's
                 # per-page byte size and a live-content reader, both
                 # only known once the device cache exists
                 a = self.kv.alloc
                 a.page_bytes = sum(
-                    sub[key].nbytes // num_pages
+                    sub[key][:, 0].nbytes
                     for sub in cache["main"].values() if "pt" in sub
                     for key in ("k", "v"))
                 a.page_reader = self._read_page
@@ -298,45 +294,16 @@ class ServeEngine:
                 row_elems={n: row(n) for n in self._kv_names})
 
     # --------------------------- tensor parallel ----------------------
-    def _check_strategy(self, strategy, registry):
-        """The tp_serve layouts this engine serves; the others raise,
-        naming their ROADMAP item."""
-        mesh = strategy.mesh
+    def _check_strategy(self, strategy):
+        """The strategy's sharder: the engine serves under tp_serve, over
+        any (data, model) mesh (the slots over 'data' when they divide,
+        the cache chunked over 'model', an MoE model's experts over
+        'model'), with or without an object registry; another strategy
+        raises."""
         if strategy.name != "tp_serve":
-            raise NotImplementedError(
+            raise ValueError(
                 f"ServeEngine serves under tp_serve, not {strategy.name!r}")
-        if mesh.axis_size(strategy.dp) != 1:
-            raise NotImplementedError(
-                "serving with data > 1 is ROADMAP A11c")
-        if self.model.cfg.family == "moe" and mesh.shape["model"] > 1:
-            raise NotImplementedError(
-                "MoE experts over 'model' (becd) are ROADMAP A11c")
-        if registry is not None:
-            raise NotImplementedError(
-                "the object registry under a strategy is ROADMAP A11c")
         return strategy.sharder()
-
-    def _shard_params(self, params):
-        """This rank's slice of every leaf of the full tree ``params``, as
-        the strategy's spec tree says (copies: the full tree may go).
-        The norm scales, which the layers take whole, are gathered back
-        once here for the steps (``_step_params``)."""
-        from repro_torch.models.params import tree_map
-        from repro_torch.sharding.rules import shard_tree
-        specs = self.strategy.param_specs(self.model)
-        mesh = self.strategy.mesh
-        local = tree_map(torch.clone, shard_tree(params, specs, mesh))
-
-        def whole(tree, spec, path):
-            if isinstance(tree, dict):
-                return {k: whole(tree[k], spec[k], path + (k,))
-                        for k in tree}
-            dims = [i for i, e in enumerate(spec) if e is not None]
-            if path[-1] != "scale" or not dims:
-                return tree
-            return comm.all_gather(tree, spec[dims[0]], mesh, dim=dims[0])
-        self._step_params = whole(local, specs, ())
-        return local
 
     def _check_ranks(self, tokens: torch.Tensor) -> None:
         """Every rank must have stepped to the same token ids: compare
@@ -395,16 +362,25 @@ class ServeEngine:
         """Live contents of pool page `p` across every paged KV
         sub-block (k, then v, each (L, page_size, Hkv, D)), as one flat
         uint8 tensor on the pool's device: the replica detector's
-        content reader, in the reference's byte order."""
+        content reader, in the reference's byte order. On a pool chunked
+        over 'model' the rank that holds the page broadcasts it (every
+        rank scans the same pages in the same order)."""
+        s = self._sharder
+        chunk = next(sub["k"] for sub in self.cache["main"].values()
+                     if "pt" in sub).shape[1]
+        owner, local = divmod(p, chunk)
         chunks = []
         for sub in self.cache["main"].values():
             if "pt" not in sub:
                 continue
             for key in ("k", "v"):
-                chunks.append(sub[key][:, p].contiguous().reshape(-1)
+                chunks.append(sub[key][:, local].contiguous().reshape(-1)
                               .view(torch.uint8))
-        return (torch.cat(chunks) if chunks
+        page = (torch.cat(chunks) if chunks
                 else torch.zeros(0, dtype=torch.uint8))
+        if s is None or s.pool_pages is None:
+            return page
+        return comm.broadcast(page, owner, "model", s.mesh)
 
     def _read_draft_window(self) -> np.ndarray:
         corpus = (getattr(self.drafter, "_corpus", None)

@@ -65,7 +65,8 @@ def _combine_partials(m: torch.Tensor, l: torch.Tensor, o: torch.Tensor,
                       seq_axes, mesh) -> torch.Tensor:
     """The flash-decoding reduction of unnormalized partials: m, l (...)
     running max and denominator, o (..., D) numerator; returns the
-    normalized (..., D) float32 output."""
+    normalized (..., D) float32 output, NaN in a row that no rank
+    attended (as the plain unsharded attention's softmax gives)."""
     ranks = _gather_parts((m, l, o), seq_axes, mesh)
     gm = ranks[0][0]
     for mr, _, _ in ranks[1:]:
@@ -76,16 +77,23 @@ def _combine_partials(m: torch.Tensor, l: torch.Tensor, o: torch.Tensor,
         corr = torch.exp(mr - gm)
         den = den + lr * corr
         num = num + orr * corr[..., None]
-    return num / torch.clamp(den, min=1e-30)[..., None]
+    return torch.where((den > 0)[..., None], num / den.clamp(min=1e-30)[
+        ..., None], torch.nan)
 
 
 def _lse_combine(o_l: torch.Tensor, lse: torch.Tensor, seq_axes, mesh,
-                 out_dtype) -> torch.Tensor:
+                 out_dtype, plain: bool = False) -> torch.Tensor:
     """Cross-rank combine of per-rank normalized outputs and their
     log-sum-exp: out = sum_i e^{lse_i - max} o_i / sum_i e^{lse_i - max}.
-    Idle slots (every lse NEG_INF, every o 0) come back zero, no NaNs.
+    Idle slots (every lse NEG_INF, every o 0) come back zero, no NaNs, as
+    the kernels give them; ``plain`` (the plain versions' partials, NaN
+    where a rank attended nothing) zeroes a rank's empty rows and gives
+    NaN where no rank attended, as the plain unsharded call does.
     o_l: (..., D) with lse broadcastable to o_l.shape[:-1]."""
     lse = lse.float().expand(o_l.shape[:-1])
+    empty = lse <= ref.NEG_INF
+    if plain:
+        o_l = o_l.masked_fill(empty[..., None], 0)
     ranks = _gather_parts((lse, o_l), seq_axes, mesh)
     gm = ranks[0][0]
     for lr, _ in ranks[1:]:
@@ -96,12 +104,46 @@ def _lse_combine(o_l: torch.Tensor, lse: torch.Tensor, seq_axes, mesh,
         w = torch.exp(lr - gm)
         den = den + w
         num = num + orr * w[..., None]
-    return (num / torch.clamp(den, min=1e-30)[..., None]).to(out_dtype)
+    out = num / torch.clamp(den, min=1e-30)[..., None]
+    if plain:
+        for lr, _ in ranks:
+            empty = empty & (lr <= ref.NEG_INF)
+        out = out.masked_fill(empty[..., None], torch.nan)
+    return out.to(out_dtype)
 
 
 # ----------------------------------------------------------------------
 # Dense per-slot cache
 # ----------------------------------------------------------------------
+def store_dense_rows(ck, cv, k_new, v_new, idx, *, off: int, total: int,
+                     spec: Optional[str] = None,
+                     rows: Optional[torch.Tensor] = None) -> None:
+    """Store S new K/V rows (B,S,Hkv,D) into a dense cache's positions
+    [off, off + chunk) (ck/cv (B,chunk,Hkv,D), in place; ``total`` the
+    whole cache's extent) where the unsharded cache puts them: the
+    window's start clamped into the cache, or, for a verify window
+    ``spec``, rows past the extent dropped. ``rows`` ((B,) bool) limits
+    the store to those slots."""
+    B, S = k_new.shape[:2]
+    chunk = ck.shape[1]
+    dev = ck.device
+    idx_b = torch.as_tensor(idx, device=dev).long().expand(B)
+    ar = torch.arange(S, device=dev)
+    if spec is not None:
+        pos = idx_b[:, None] + ar[None, :]
+        keep = (pos >= 0) & (pos < total)
+    else:
+        pos = idx_b.clamp(0, total - S)[:, None] + ar[None, :]
+        keep = torch.ones_like(pos, dtype=torch.bool)
+    if rows is not None:
+        keep = keep & rows[:, None]
+    lpos = pos - off
+    mine = keep & (lpos >= 0) & (lpos < chunk)
+    bidx = torch.arange(B, device=dev)[:, None].expand(B, S)
+    ck[bidx[mine], lpos[mine]] = k_new[mine].to(ck.dtype)
+    cv[bidx[mine], lpos[mine]] = v_new[mine].to(cv.dtype)
+
+
 def decode_attention_sharded(q, k_new, v_new, ck, cv, idx, *, mesh,
                              batch_axes: Tuple[str, ...],
                              seq_axes: Tuple[str, ...],
@@ -123,17 +165,8 @@ def decode_attention_sharded(q, k_new, v_new, ck, cv, idx, *, mesh,
     dev = q.device
     idx_b = torch.as_tensor(idx, device=dev).long().expand(B)
     ar = torch.arange(S, device=dev)
-    if spec is not None:
-        pos = idx_b[:, None] + ar[None, :]
-        keep = (pos >= 0) & (pos < total)
-    else:
-        pos = idx_b.clamp(0, total - S)[:, None] + ar[None, :]
-        keep = torch.ones_like(pos, dtype=torch.bool)
-    lpos = pos - off
-    mine = keep & (lpos >= 0) & (lpos < chunk)
-    bidx = torch.arange(B, device=dev)[:, None].expand(B, S)
-    ck[bidx[mine], lpos[mine]] = k_new[mine].to(ck.dtype)
-    cv[bidx[mine], lpos[mine]] = v_new[mine].to(cv.dtype)
+    store_dense_rows(ck, cv, k_new, v_new, idx_b, off=off, total=total,
+                     spec=spec)
 
     # local partial attention over my chunk (row r sees pos <= idx + r)
     qg = q.reshape(B, S, Hkv, G, D).float()
@@ -144,7 +177,7 @@ def decode_attention_sharded(q, k_new, v_new, ck, cv, idx, *, mesh,
     valid = kpos[None, None, :] <= qpos[:, :, None]          # (B,S,chunk)
     s = torch.where(valid[:, None, None], s, _MASK)
     m = s.amax(dim=-1)                                       # (B,Hkv,G,S)
-    p = torch.exp(s - m[..., None])
+    p = torch.where(valid[:, None, None], torch.exp(s - m[..., None]), 0)
     l = p.sum(dim=-1)
     o = torch.einsum("bhgqk,bkhd->bhgqd", p, cv.to(q.dtype).float())
     out = _combine_partials(m, l, o, seq_axes, mesh)         # (B,h,g,S,D)
@@ -188,7 +221,8 @@ def _paged_plain(q, k_new, v_new, ck, cv, loc, owned, idx, seq_axes, mesh,
     s = s * (1.0 / math.sqrt(D))
     s = torch.where(valid[:, None, None], s, _MASK)
     m = s.amax(dim=-1)
-    p = torch.exp(s - m[..., None])
+    # a masked key weighs 0 (a row with no valid key: l 0, no rank's)
+    p = torch.where(valid[:, None, None], torch.exp(s - m[..., None]), 0)
     l = p.sum(dim=-1)
     o = torch.einsum("bhgqk,bkhd->bhgqd", p, vg.to(q.dtype).float())
     out = _combine_partials(m, l, o, seq_axes, mesh)
@@ -253,23 +287,65 @@ def verify_paged_attention_sharded(q, k_new, v_new, ck, cv, pt, idx, *,
     return out, ck, cv, cnt
 
 
+def defer_paged_attention_sharded(q, k_new, v_new, ck, cv, pt, idx, *,
+                                  mesh, batch_axes: Tuple[str, ...],
+                                  seq_axes: Tuple[str, ...]):
+    """Width-W window over a block-paged KV pool chunked by pages, the
+    pool left as it is: the rollback (defer) verify, whose accepted rows
+    ``LM.commit_verify`` stores afterwards.
+
+    The reference splices every window row at a position in [0, M*page)
+    into the history, its page mapped or not (``ref.paged_window_ref``).
+    On a chunk each row must count on exactly one rank, or the combine
+    would weigh it once a rank: a row is taken by the rank that owns its
+    page, and a row on a page unmapped in the whole table by seq-rank 0
+    (``ref.UNMAPPED_MINE`` in that rank's localized table). The engine
+    keeps every draft on a mapped page (``ServeEngine._draft_cap``), so
+    only the padding rows past a slot's drafts reach unmapped pages; they
+    still count, because an MoE layer routes them with the others. On
+    CUDA B2 runs in its defer-on-a-chunk mode on the localized table,
+    the partials combined by its lse; on the CPU, its plain version.
+    q, k_new/v_new, ck/cv, pt, idx as in ``verify_paged_attention_
+    sharded``; returns out (B,W,Hq,D)."""
+    chunk = ck.shape[0]
+    me = mesh.index(seq_axes)
+    loc, _ = _localize(pt, me * chunk, chunk)
+    if me == 0:
+        loc = torch.where(pt < 0, ref.UNMAPPED_MINE, loc).to(pt.dtype)
+    if q.device.type == "cuda":
+        from repro_torch.kernels.paged_verify import paged_verify_attention
+        o_l, lse, _, _, _ = paged_verify_attention(
+            q, k_new, v_new, ck, cv, loc, idx, mode="defer", chunk=True)
+        return _lse_combine(o_l, lse.transpose(1, 2), seq_axes, mesh,
+                            q.dtype)
+    o_l, lse, _, _, _ = ref.paged_window_ref(
+        q, k_new, v_new, ck, cv, loc, idx, store=False, chunk=True)
+    return _lse_combine(o_l, lse.transpose(1, 2), seq_axes, mesh, q.dtype,
+                        plain=True)
+
+
 def global_counts(cnt: torch.Tensor, pt: torch.Tensor, idx: torch.Tensor,
-                  S: int, ps: int, row_elems: int, seq_axes, mesh
-                  ) -> torch.Tensor:
+                  S: int, ps: int, row_elems: int, seq_axes, mesh,
+                  length: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The whole pool's [stored, silent, dropped] counters of a chunked
     store from the ranks' own: cnt (..., B, 3) int32 of this rank (any
     leading dims, e.g. the layers); stored and silent summed over the
     ranks, dropped recounted from the replicated table: every attempted
-    row (position >= 0) whose page is unmapped or past the table, times
-    ``row_elems`` (2 * Hkv * D). pt (B, M), idx (B,) as the store got
-    them."""
+    row (position >= 0, and below its slot's ``length`` (B,) when the
+    store had a row budget) whose page is unmapped or past the table,
+    times ``row_elems`` (2 * Hkv * D). pt (B, M), idx (B,) as the store
+    got them."""
     B, Mp = pt.shape
     summed = comm.all_reduce(cnt[..., :2].contiguous(), seq_axes, mesh)
-    pos = idx.long()[:, None] + torch.arange(S, device=pt.device)[None, :]
+    ar = torch.arange(S, device=pt.device)[None, :]
+    pos = idx.long()[:, None] + ar
     pi = torch.div(pos, ps, rounding_mode="floor")
     inside = (pi >= 0) & (pi < Mp)
     page = torch.where(inside, pt.long().gather(1, pi.clamp(0, Mp - 1)), -1)
-    dropped = ((pos >= 0) & (page < 0)).sum(dim=1) * row_elems    # (B,)
+    tried = pos >= 0
+    if length is not None:
+        tried = tried & (ar < length.long()[:, None])
+    dropped = (tried & (page < 0)).sum(dim=1) * row_elems         # (B,)
     dropped = dropped.to(cnt.dtype).expand(cnt.shape[:-1])
     return torch.cat([summed, dropped[..., None]], dim=-1)
 

@@ -13,7 +13,10 @@ those bytes (both ways), and the calls and seconds of every collective.
 Reductions of floating tensors run in float32 (a bf16 tensor is widened
 first, the result cast back: on the host when staged, so a bf16 tensor
 crosses to the host and back in bf16); gathers and broadcasts move the
-bits as they are. Every rank of a group gets the same bits back.
+bits as they are. Every rank of a group gets the same bits back. A
+row-parallel product's partial sums (``reduce_from``) add in rank order
+(``ordered_sum``), so that equal rows stay equal; bulk sums take the
+ring all-reduce.
 
 The differentiable collectives below are what the tensor-parallel and
 fsdp training forwards place where GSPMD would put a collective
@@ -139,6 +142,31 @@ def reduce_scatter(t: torch.Tensor, axes, mesh, dim: int = 0
         return _from_wire(mesh, w.to(t.dtype).contiguous(), t)
 
 
+def ordered_sum(t: torch.Tensor, axes, mesh) -> torch.Tensor:
+    """The sum of t over the ranks of ``axes`` added in rank order, in
+    float32 for a floating t. Every element's terms add in one order, so
+    equal rows of partial products come back with equal bits; a ring
+    all-reduce (``all_reduce``) does not promise that over more than two
+    ranks, since it adds an element's terms in an order set by the
+    element's offset, and the replica scan compares such rows. Its wire
+    is an all-gather (n copies of t), which costs bulk sums about twice
+    the ring's time (PERF.md), so gradients keep ``all_reduce``."""
+    n = mesh.axis_size(axes)
+    if n == 1:
+        return t
+    dist = _dist()
+    with _Timed():
+        w = _to_wire(mesh, _bits(t))
+        parts = [torch.empty_like(w) for _ in range(n)]
+        dist.all_gather(parts, w, group=mesh.group(axes))
+        acc = None
+        for part in parts:
+            x = part.view(t.dtype).view(t.shape)
+            x = x.float() if t.is_floating_point() else x
+            acc = x if acc is None else acc + x
+        return _from_wire(mesh, acc.to(t.dtype), t)
+
+
 def broadcast(t: torch.Tensor, src: int, axes, mesh) -> torch.Tensor:
     """The tensor of the rank at index ``src`` over ``axes``, on every
     rank of them (t gives the shape and dtype elsewhere)."""
@@ -164,7 +192,7 @@ def _block(t: torch.Tensor, axes, mesh, dim: int) -> torch.Tensor:
 class _ReduceFrom(torch.autograd.Function):
     @staticmethod
     def forward(ctx, t, axes, mesh):
-        return all_reduce(t, axes, mesh)
+        return ordered_sum(t, axes, mesh)
 
     @staticmethod
     def backward(ctx, g):

@@ -12,8 +12,11 @@ value: ``Sharder.spec_for`` says which spec the reference would apply,
 under the same divisibility rule (undersized shapes stay replicated).
 
 A Sharder also records the global extents of the cache allocated under
-it (``pool_pages``, ``seq_len``): a rank's pool holds only its chunk, so
-the layers cannot read the global page count off the tensor they get.
+it (``pool_pages``, ``seq_len``, ``cross_len``): a rank's pool holds
+only its chunk, so the layers cannot read the global page count off the
+tensor they get; and, for serving, the spec tree of the params the
+steps run on (``param_specs``), from which the layers that run a block
+of a leaf or take it whole learn which leaves are blocks.
 """
 from __future__ import annotations
 
@@ -33,9 +36,16 @@ class Sharder:
         self.act_specs = dict(act_specs)
         self.batch_axes = tuple(batch_axes)
         # global extents of the cache allocated under this sharder: pool
-        # pages of a paged cache, positions of a dense one (None: none)
+        # pages of a paged cache, positions of a dense one, the cross K/V
+        # positions (frames, image tokens) of a chunked cross cache
+        # (None: none)
         self.pool_pages: Optional[int] = None
         self.seq_len: Optional[int] = None
+        self.cross_len: Optional[int] = None
+        # the spec tree of the params the serving steps run on
+        # (serve.decode.shard_params): which leaves are a rank's blocks,
+        # and of which dim (None: not bound, every leaf as given)
+        self.param_specs = None
 
     def _divisible(self, shape, spec) -> bool:
         for dim, names in zip(shape, tuple(spec) + (None,) * len(shape)):
@@ -72,6 +82,11 @@ class Sharder:
             raise ValueError(f"sharder already holds a cache with {attr} "
                              f"{cur}, not {value}")
         setattr(self, attr, value)
+
+
+    def bind_params(self, specs) -> None:
+        """Record the spec tree of the params the steps run on."""
+        self.param_specs = specs
 
 
 @contextlib.contextmanager

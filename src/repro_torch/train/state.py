@@ -29,7 +29,8 @@ def create(model, seed: int = 0, compute_dtype=torch.bfloat16, *,
     compute params cast from them, zero moments, step 0. With an object
     registry (core/objects.py) the master and compute trees register as
     ``param`` objects here (``train/master``, ``train/params``) and the
-    moments inside `adamw.init`.
+    moments inside `adamw.init`; under a strategy each as the whole leaf
+    its blocks make up (``register_tree``'s ``specs``).
 
     Under a ``strategy`` the whole tree is drawn as without one (so
     every rank's slices are cut from the same leaves) and this rank (its
@@ -41,12 +42,20 @@ def create(model, seed: int = 0, compute_dtype=torch.bfloat16, *,
         cut = shard_state(TrainState(params=params, master=master,
                                      opt=None, step=None), model, strategy)
         params, master = cut.params, cut.master
+    on = {}
     if registry is not None:
         from repro_torch.core.objects import register_tree
-        register_tree(registry, "train/master", master, kind="param")
-        register_tree(registry, "train/params", params, kind="param")
+        specs = (state_specs(model, strategy) if strategy is not None
+                 else TrainState(params=None, master=None, opt=None,
+                                 step=None))
+        mesh = None if strategy is None else strategy.mesh
+        register_tree(registry, "train/master", master, kind="param",
+                      specs=specs.master, mesh=mesh)
+        register_tree(registry, "train/params", params, kind="param",
+                      specs=specs.params, mesh=mesh)
+        on = dict(specs=specs.master, mesh=mesh)
     return TrainState(params=params, master=master,
-                      opt=adamw.init(master, registry=registry),
+                      opt=adamw.init(master, registry=registry, **on),
                       step=torch.zeros((), dtype=torch.int32, device=device))
 
 

@@ -6,6 +6,7 @@ bodies live here, in a module that imports neither JAX nor the
 reference, so a rank loads only torch and the port. The input builders
 use numpy alone, so the reference's subprocesses build the same inputs.
 """
+import contextlib
 import dataclasses
 
 import numpy as np
@@ -623,3 +624,268 @@ def family_steps(arch: str, strategy=None, mesh=None):
 def family_rank(mesh, cases):
     """``family_steps`` of every (arch, strategy) of ``cases`` here."""
     return {f"{a}-{s}": family_steps(a, s, mesh) for a, s in cases}
+
+
+# ----------------------------------------------------------------------
+# The rarer tp_serve layouts (test_torch_tp_layouts.py): 'data' > 1, an
+# MoE model's experts over 'model', the rollback verify on a chunked
+# pool, the object registry
+# ----------------------------------------------------------------------
+# case -> (arch, speculative mode or None, object registry); every case
+# serves ``dup_requests`` on a paged pool of 32 pages of 32 rows (1024
+# positions: chunked over 'model') with the tier-3 detectors and the
+# tier-4 kernel counters, 4 slots (over 'data' 2 a rank)
+LAYOUT_ARCHS = {"qwen": "qwen3-1.7b", "granite": "granite-moe-3b-a800m"}
+LAYOUT_CASES = {
+    "qwen-rollback": ("qwen", "rollback", False),
+    "granite-paged": ("granite", None, False),
+    "granite-rollback": ("granite", "rollback", False),
+    "qwen-registry": ("qwen", None, True),
+}
+LAYOUT_POOL = dict(kv_layout="paged", max_len=256, num_pages=32,
+                   page_size=32, kernel_counters=True)
+LAYOUT_SPEC_K = 3
+
+
+def layout_case(model, params, case: str, strategy=None, on_step=None):
+    """One engine of a LAYOUT_CASES case over ``dup_requests``, run to
+    its end (``on_step(engine)`` after each step): (engine, detectors,
+    the registry's replica scan or None)."""
+    import torch
+    from repro_torch.configs.base import ProfilerConfig
+    from repro_torch.core.detectors import ServingDetectors
+    from repro_torch.core.objects import ObjectRegistry
+    from repro_torch.core.replicas import ReplicaDetector
+    from repro_torch.serve.engine import Request, ServeEngine
+    from repro_torch.serve.spec import NGramDrafter
+    _, spec, objects = LAYOUT_CASES[case]
+    kw = dict(LAYOUT_POOL)
+    if spec:
+        kw.update(drafter=NGramDrafter(), spec_k=LAYOUT_SPEC_K,
+                  spec_rollback=spec == "rollback")
+    reg = ObjectRegistry() if objects else None
+    det = ServingDetectors(ProfilerConfig(enabled=True, num_watchpoints=8,
+                                          seed=0), sites_per_step=4)
+    eng = ServeEngine(model, params, num_slots=4, detectors=det,
+                      kv_dtype=torch.float32, strategy=strategy,
+                      registry=reg, **kw)
+    for rid, toks, gen, arr in dup_requests(model.cfg.vocab_size):
+        eng.submit(Request(rid=rid, tokens=toks, max_new_tokens=gen,
+                           arrival=arr))
+    steps = 0
+    while eng.pending and steps < 300:
+        eng.step()
+        steps += 1
+        if on_step is not None:
+            on_step(eng)
+    scan = None if reg is None else scan_of(ReplicaDetector(reg).scan())
+    return eng, det, scan
+
+
+def scan_of(prof):
+    """A replica scan's comparable content: each finding's kind, canonical
+    and duplicate objects (kind and name: the key without its
+    registration site, which names each package's own file:line), count
+    and bytes, sorted."""
+    def names(keys):
+        return tuple(k.rsplit("|", 1)[0] for k in keys)
+    return sorted((f.kind, names(f.c1), names(f.c2), f.count, f.bytes)
+                  for f in prof.findings)
+
+
+def engine_result(eng, det, scan, dispatch=None):
+    """What the layout tests compare of an engine run to its end."""
+    return {
+        "tokens": {k: v.generated for k, v in eng.finished.items()},
+        "reuse": {k: v.reuse_len for k, v in eng.finished.items()},
+        "stats": {k: v for k, v in eng.stats.items()
+                  if k not in ("prefill_s", "decode_s", "draft_s",
+                               "verify_s")},
+        "pt": eng.kv.pt.copy(), "refcount": eng.kv.alloc.refcount.copy(),
+        "report": report_of(det.report), "kernel": report_of(det.kernel),
+        "scan": scan, "dispatch": dispatch,
+    }
+
+
+@contextlib.contextmanager
+def count_dispatch():
+    """Within: the port's MoE layer wrapped so each call also sums its
+    ``dispatch_stats`` (rows total, routed, stored, dead) into the dict
+    this yields; the layer is restored on exit."""
+    from repro_torch.models import moe as Moe
+    sums = {"calls": 0, "rows_total": 0, "rows_routed": 0,
+            "rows_stored": 0, "dead_rows": 0}
+    inner = Moe.apply_moe
+
+    def apply_moe(p, cfg, x, **kw):
+        st = Moe.dispatch_stats(p, cfg, x)
+        sums["calls"] += 1
+        for k in sums:
+            if k != "calls":
+                sums[k] += st[k]
+        return inner(p, cfg, x, **kw)
+    Moe.apply_moe = apply_moe
+    try:
+        yield sums
+    finally:
+        Moe.apply_moe = inner
+
+
+def layout_rank(mesh, hosts, cases):
+    """This rank's tp_serve engines of ``cases`` (``hosts``: the
+    reference's weights by arch key): per case ``engine_result`` with the
+    MoE dispatch sums, the sharded functions it ran, the pool pages of
+    its chunk that held live data, the expert leaves' first dim, and the
+    data splits taken."""
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.models import layers as Lyr
+    from repro_torch.models.params import from_reference
+    from repro_torch.models.zoo import build_model
+    from repro_torch.serve import flash_decode as FD
+    from repro_torch.sharding.rules import make_strategy
+    calls = {"decode": 0, "verify": 0, "defer": 0, "split": 0}
+
+    def counted(name, fn):
+        def wrapped(*a, **k):
+            calls[name] += 1
+            return fn(*a, **k)
+        return wrapped
+    for name, fn in (("decode", "decode_paged_attention_sharded"),
+                     ("verify", "verify_paged_attention_sharded"),
+                     ("defer", "defer_paged_attention_sharded")):
+        setattr(FD, fn, counted(name, getattr(FD, fn)))
+    Lyr._local_cache = counted("split", Lyr._local_cache)
+    out = {}
+    with count_dispatch() as dispatch:
+        for case in cases:
+            arch = LAYOUT_CASES[case][0]
+            model = build_model(dataclasses.replace(
+                registry.get_config(LAYOUT_ARCHS[arch]).smoke(),
+                dtype="float32"))
+            full = from_reference(hosts[arch], device="cpu")
+            for k in list(calls) + list(dispatch):
+                (calls if k in calls else dispatch)[k] = 0
+            strategy = make_strategy("tp_serve", mesh)
+            live = set()
+            eng, det, scan = layout_case(
+                model, full, case, strategy, on_step=lambda e: live.update(
+                    int(p) for p in e.kv.pt.reshape(-1) if p >= 0))
+            res = engine_result(eng, det, scan,
+                                dict(dispatch) if arch == "granite" else None)
+            first = next(iter(eng.cache["main"].values()))
+            moe = eng.params["main"].get("b0_moe", {}).get("moe")
+            res.update(calls=dict(calls), live=sorted(live),
+                       local_pages=int(first["k"].shape[1]),
+                       experts=None if moe is None else
+                       int(moe["w_up"].shape[1]),
+                       pool_pages=strategy.sharder().pool_pages)
+            out[case] = res
+    return {"rank": mesh.rank, "coords": dict(mesh.coords), "cases": out}
+
+
+# ----------------------------------------------------------------------
+# Token-loop families under tp_serve (test_torch_tp_loop.py): a cache of
+# LOOP_LEN positions (chunked over 'model'), LOOP_CROSS frames or image
+# tokens (chunked too), greedy steps from LOOP_PROMPT's first token
+# ----------------------------------------------------------------------
+LOOP_ARCHS = {"zamba2-1.2b": {}, "whisper-large-v3": {},
+              "llama-3.2-vision-90b": {"num_layers": 5}}
+LOOP_LEN, LOOP_CROSS, LOOP_BATCH, LOOP_STEPS = 1024, 1024, 2, 4
+
+
+def loop_inputs(cfg):
+    """(first tokens (B, 1) int32, init_cache's frames or image tokens as
+    numpy) of a token-loop case, from seed 3."""
+    rng = np.random.default_rng(3)
+    toks = rng.integers(1, cfg.vocab_size, size=(LOOP_BATCH, 1))
+    kw = {}
+    src = rng.standard_normal((LOOP_BATCH, LOOP_CROSS, cfg.d_model))
+    if cfg.family == "audio":
+        kw["frames"] = src.astype(np.float32)
+    if cfg.family == "vlm":
+        kw["img"] = src.astype(np.float32)
+    return toks.astype(np.int32), kw
+
+
+def loop_run(arch: str, host, mesh=None):
+    """LOOP_STEPS greedy decode steps of ``arch``'s smoke config (f32, the
+    reference's weights ``host``) through ``make_serve_step``, under
+    tp_serve on ``mesh`` when given: (logits (steps, B, 1, V), tokens
+    (B, steps), the sharded functions' calls)."""
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.models.params import from_reference
+    from repro_torch.models.zoo import build_model
+    from repro_torch.serve import flash_decode as FD
+    from repro_torch.serve.decode import shard_params
+    from repro_torch.sharding.rules import make_strategy
+    cfg = dataclasses.replace(registry.get_config(arch).smoke(),
+                              dtype="float32", **LOOP_ARCHS[arch])
+    model = build_model(cfg)
+    params = from_reference(host, device="cpu")
+    strategy = None if mesh is None else make_strategy("tp_serve", mesh)
+    sharder = None if strategy is None else strategy.sharder()
+    if strategy is not None:
+        _, params = shard_params(model, strategy, params)
+    calls = {"dense": 0, "cross": 0}
+    saved = {}
+    for name, fn in (("dense", "decode_attention_sharded"),
+                     ("cross", "cross_attention_sharded")):
+        saved[fn] = getattr(FD, fn)
+
+        def wrapped(*a, _inner=saved[fn], _name=name, **k):
+            calls[_name] += 1
+            return _inner(*a, **k)
+        setattr(FD, fn, wrapped)
+    try:
+        return _loop_steps(model, params, strategy, sharder, cfg) + (calls,)
+    finally:
+        for fn, f in saved.items():
+            setattr(FD, fn, f)
+
+
+def _loop_steps(model, params, strategy, sharder, cfg):
+    """``loop_run``'s greedy steps: (logits, tokens)."""
+    import torch
+    from repro_torch.serve.decode import make_serve_step
+    from repro_torch.sharding.ctx import sharding_ctx
+    toks, kw = loop_inputs(cfg)
+    with sharding_ctx(sharder):
+        cache = model.init_cache(params, LOOP_BATCH, LOOP_LEN,
+                                 kv_dtype=torch.float32,
+                                 **{k: torch.from_numpy(v)
+                                    for k, v in kw.items()})
+    logits, out = [], []
+    inner = model.decode_step
+
+    def recorded(*a, **k):
+        lg, c = inner(*a, **k)
+        logits.append(lg.numpy().copy())
+        return lg, c
+    model.decode_step = recorded
+    step = make_serve_step(model, strategy)
+    dparams = model.decode_params(params)
+    tok = torch.from_numpy(toks)
+    for _ in range(LOOP_STEPS):
+        tok, cache = step(dparams, cache, tok)
+        out.append(tok.numpy().copy())
+    return np.stack(logits), np.concatenate(out, axis=1)
+
+
+def loop_rank(mesh, hosts):
+    """``loop_run`` of every LOOP_ARCHS arch on this rank."""
+    return {arch: loop_run(arch, hosts[arch], mesh) for arch in LOOP_ARCHS}
+
+
+def objects_rank(mesh, strategies):
+    """The train driver's object scan at init (``objects=True``) under
+    each strategy on this rank: qwen3's smoke config, one step."""
+    from repro_torch.launch import train
+    out = {}
+    for st in strategies:
+        _, prof = train.run("qwen3-1.7b", smoke=True, steps=1, batch=4,
+                            seq=32, device="cpu", strategy=st, mesh=mesh,
+                            objects=True)
+        out[st] = scan_of(prof)
+    return out

@@ -53,7 +53,8 @@ import torch
 from repro_torch.kernels import build, ref
 from repro_torch.kernels.flash_attention import (
     flash_attention, flash_attention_backward, flash_attention_forward)
-from repro_torch.kernels.flash_prefill import paged_window_attention
+from repro_torch.kernels.flash_prefill import (paged_window_attention,
+                                               paged_window_on_route)
 from repro_torch.kernels.paged_attention import paged_decode_attention
 from repro_torch.kernels.paged_verify import paged_verify_attention
 from repro_torch.kernels.rmsnorm import (RMSNorm, fwd_plan_for, plan_for,
@@ -314,6 +315,83 @@ def test_chunked_pool_stores_and_attends_owned_rows_only(cuda, n, S, act):
     tol = 1e-5 if act == "float32" else 2e-2
     err = torch.where(live, (comb - whole[0].float()).abs(), 0.0)
     assert float(err.max()) <= tol
+
+
+# the window of slot 1 reaches an unmapped page at the table's end, which
+# the pool's rank 0 takes in defer mode on a chunk
+DEFER_PT = np.array([[0, 9, 4, 14, -1],
+                     [13, 6, 1, 11, -1],
+                     [3, -1, -1, -1, -1]], np.int32)
+DEFER_IDX = (9, 14, -6)
+
+
+def _defer_cases():
+    """(route, S, act, pool) for every route that takes the inputs (the
+    tensor cores: bf16 activations)."""
+    out = []
+    for S, act, pool in ((2, "float32", "float32"), (5, "float32", "float32"),
+                         (5, "bfloat16", "float32"),
+                         (5, "bfloat16", "bfloat16"),
+                         (33, "float32", "float32"),
+                         (33, "bfloat16", "float32")):
+        for route in ("split", "tensor_core", "cuda_core"):
+            if route != "tensor_core" or act == "bfloat16":
+                out.append((route, S, act, pool))
+    return out
+
+
+@pytest.mark.parametrize("n", [2, 4])
+@pytest.mark.parametrize("route,S,act,pool", _defer_cases())
+def test_defer_on_a_chunk_matches_plain_on_every_route(cuda, n, route, S,
+                                                       act, pool):
+    """B2's defer mode on a chunk (``chunk=True``) through every route that
+    takes the inputs: each rank's call on its localized table (rank 0
+    taking the window rows of pages unmapped in the whole table) twice,
+    bit-identical, against the plain version on the same chunk (pools
+    untouched, counters 0), and the chunks combined by log-sum-exp equal
+    to the unsharded defer call."""
+    pages, ps = 16, 4
+    q, k, v, pk, pv = _inputs(cuda, S, 16, act, pool, seed=11 + S,
+                              pages=pages, ps=ps)
+    pt = torch.as_tensor(DEFER_PT, device=cuda)
+    idx = torch.tensor(DEFER_IDX, dtype=torch.int32, device=cuda)
+    if S > 5:
+        idx = torch.tensor((0, 1, -(S + 1)), dtype=torch.int32, device=cuda)
+    whole = paged_window_on_route(route, q, k, v, pk, pv, pt, idx,
+                                  store=False)
+    chunk = pages // n
+    outs, lses = [], []
+    for r in range(n):
+        lpt = pt - r * chunk
+        owned = (pt >= 0) & (lpt >= 0) & (lpt < chunk)
+        loc = torch.where(owned, lpt, ref.NOT_MINE)
+        if r == 0:
+            loc = torch.where(pt < 0, ref.UNMAPPED_MINE, loc)
+        loc = loc.to(torch.int32)
+        kk = pk[r * chunk:(r + 1) * chunk].clone()
+        kv = pv[r * chunk:(r + 1) * chunk].clone()
+        pk2, pv2 = kk.clone(), kv.clone()
+        got = paged_window_on_route(route, q, k, v, kk, kv, loc, idx,
+                                    store=False, chunk=True)
+        again = paged_window_on_route(route, q, k, v, kk, kv, loc, idx,
+                                      store=False, chunk=True)
+        o_p, l_p, _, _, c_p = ref.paged_window_ref(
+            q, k, v, pk2, pv2, loc, idx, store=False, chunk=True)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], again[0]) and torch.equal(got[1],
+                                                             again[1])
+        _compare(got[:3], (o_p, l_p, c_p), (kk, kv), (pk2, pv2), act)
+        assert not got[2].any()
+        outs.append(got[0].float())
+        lses.append(got[1].permute(0, 2, 1))
+    lse = torch.stack(lses)
+    w = torch.exp(lse - lse.amax(dim=0))
+    comb = (torch.where(w[..., None] > 0, torch.stack(outs) * w[..., None],
+                        0.0).sum(0) / w.sum(0)[..., None])
+    live = (whole[1] > ref.NEG_INF / 2).permute(0, 2, 1)[..., None]
+    tol = 1e-5 if act == "float32" else 2e-2
+    assert float(torch.where(live, (comb - whole[0].float()).abs(),
+                             0.0).max()) <= tol
 
 
 @pytest.mark.parametrize("S,store", [(1, True), (5, True), (5, False),

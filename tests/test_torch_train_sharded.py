@@ -334,8 +334,14 @@ def test_sharded_families_match_unsharded(runs, arch, strategy):
 def test_sharded_driver_options_name_their_roadmap_items():
     kw = dict(smoke=True, steps=1, batch=2, seq=32, device="cpu",
               strategy="dp_tp")
-    with pytest.raises(NotImplementedError, match="A11c"):
-        pt_train.run("qwen3-1.7b", objects=True, **kw)
+    # the object registry runs under a strategy (ROADMAP A11c): on the
+    # one-rank host mesh its scan is the unsharded driver's
+    scans = [pt_train.run("qwen3-1.7b", objects=True, **k)[1]
+             for k in (kw, {k: v for k, v in kw.items() if k != "strategy"})]
+    assert [sorted((f.kind, f.count, f.bytes) for f in p.findings)
+            for p in scans] == [sorted((f.kind, f.count, f.bytes)
+                                       for f in scans[1].findings)] * 2
+    assert scans[1].findings
     with pytest.raises(NotImplementedError, match="A11d"):
         pt_train.run("qwen3-1.7b", waste_report=True, **kw)
     for arch, strategy in (("granite-moe-3b-a800m", "dp_tp"),

@@ -254,7 +254,18 @@ depth would trace ~1 M, ~5 min of host time): exit 0,
 ``max_memory_allocated`` unchanged. (13d)
 ``launch.matrix --toy`` over granite-moe-3b-a800m, zamba2-1.2b and
 whisper-large-v3 on the card with the dead-expert gate at 0.0: exit 0.
-It also times B5's decode host path through ``kernels/ops.py``.
+It also times B5's decode host path through ``kernels/ops.py``. (13e)
+The production dry run (``launch.dryrun --mesh single``, in this
+process): qwen3-1.7b's train_4k, prefill_32k and decode_32k cells and
+granite-moe-3b-a800m's decode_32k, rank 0 of the 16 x 16 mesh at full
+width and depth on fake CUDA tensors: every record "ok", the card's
+allocated and peak bytes unchanged; each record's dominant term,
+roofline fraction (a model of 256 cards), trace seconds and a rank's
+memory printed. In phase 14's ranks: each 14b rank's tp_serve engine's
+traced tick against one real tick (kernel nodes = its launches,
+collective nodes = its ``comm.STATS`` kinds, the tier-2 line printed),
+and 14e(b)'s ``run(strategy=, waste_report=True)``: the traced step's
+kernel and collective nodes against a step's launches and collectives.
 
 Phase 14 runs scale-out serving and checkpointing. (14a, run with the
 kernel phases before the main paths: later in the process profiler
@@ -323,9 +334,14 @@ import subprocess
 import sys
 import time
 
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                "src"))
+# the H100 SXM's rates, one source with the dry run's roofline terms
+from repro_torch.launch.roofline import (  # noqa: E402
+    HBM_BW as HBM_BYTES_S, PEAK_FLOPS as _PEAK_BF16, PEAK_FLOPS_F32)
+
 NEG_INF = -1e30
-HBM_BYTES_S = 3.35e12          # H100 SXM device memory rate
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}   # dense, no tensor-core TF32
+PEAK_FLOPS = {"bfloat16": _PEAK_BF16, "float32": PEAK_FLOPS_F32}
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 # flash attention: (out and lse, gradients relative to their largest value)
 FLASH_TOL = {"float32": (1e-4, 2e-4), "bfloat16": (2e-2, 3e-2)}
@@ -4850,9 +4866,51 @@ def tp_full_width(torch, np, mesh):
             "busy": busy,
             "logits": None if kept is None else kept.get("tick"),
         }
+        if dtype == "bfloat16":
+            out[dtype]["tick_check"] = tp_tick_check(torch, eng)
         del eng
         torch.cuda.empty_cache()
     return out
+
+
+def tp_tick_check(torch, eng):
+    """13e(1) on one rank: the tp_serve engine's traced tick (fake CUDA
+    tensors over this rank's slices and cache chunk, every slot active:
+    nothing runs) against one real tick of the engine, every slot active,
+    with the launch counts and the collectives' counts set to 0 just
+    before it: the trace's kernel and collective nodes, the tick's
+    launches and ``comm.STATS`` kinds, and the tier-2 report's line."""
+    from collections import Counter
+    import repro_torch.kernels.flash_prefill as fp
+    import repro_torch.kernels.paged_attention as pa
+    import repro_torch.kernels.rmsnorm as rn
+    from repro_torch.core.graph_cost import GraphCostModel, collective_of
+    from repro_torch.core.graph_waste import analyze_waste
+    from repro_torch.sharding import comm
+    traced = eng.traced_tick()
+    rep = analyze_waste(traced)
+    cost = GraphCostModel(traced).total()
+    active = torch.ones((eng.num_slots,), dtype=torch.bool,
+                        device=eng.device)
+    counters = {"ops.paged_decode": pa.paged_decode_attention,
+                "ops.paged_window": fp.paged_window_attention,
+                "ops.rmsnorm": rn.rmsnorm_forward}
+    for c in counters.values():
+        c.launches = 0
+    comm.reset_stats()
+    eng._tick_fn(eng._step_params, eng.cache, eng.tokens, active)
+    torch.cuda.synchronize()
+    return {"nodes": traced.nodes, "trace_s": traced.seconds,
+            "kernel_nodes": dict(traced.kernel_nodes()),
+            "collective_nodes": dict(Counter(
+                c[0] for c in map(collective_of, traced.graph.nodes) if c)),
+            "launches": {k: c.launches for k, c in counters.items()
+                         if c.launches},
+            "collectives": dict(comm.STATS["kinds"]),
+            "findings": sorted(Counter(f.kind for f in rep.profile.findings)
+                               .items()),
+            "wire_bytes": cost.coll_wire_bytes,
+            "redundant_bytes": rep.totals["redundant_collective_bytes"]}
 
 
 def tp_smoke_engine(torch, np, model, params, strategy):
@@ -5003,6 +5061,20 @@ def tp_serve_path(torch, np, card_line):
                   f"{len(res['mine'])}; peak {res['peak_gb']:.2f} GB; "
                   f"device busy share of a tick (step 8): {busy_txt} | "
                   f"{card_line}", flush=True)
+    for r in ranks:
+        tc = r["bfloat16"]["tick_check"]
+        print(f"[13e] rank {r['rank']}: the tp_serve engine's traced tick "
+              f"(bf16, {layers} layers, fake CUDA tensors): {tc['nodes']} "
+              f"nodes in {tc['trace_s']:.2f} s, kernel nodes "
+              f"{tc['kernel_nodes']} against one tick's launches "
+              f"{tc['launches']}; collective nodes {tc['collective_nodes']} "
+              f"against its collectives {tc['collectives']}; tier 2: "
+              f"findings {tc['findings']}, wire {tc['wire_bytes']:.0f} "
+              f"bytes a tick, redundant {tc['redundant_bytes']:.0f} | "
+              f"{card_line}", flush=True)
+        assert tc["kernel_nodes"] == tc["launches"], tc
+        assert tc["collective_nodes"] == tc["collectives"], tc
+        assert tc["kernel_nodes"]["ops.paged_decode"] == layers, tc
     r0 = ranks[0]
     for r in ranks[1:]:
         for dtype in ("bfloat16", "float32"):
@@ -5669,7 +5741,7 @@ def tp_train_bf16(torch, np, mesh, name):
         t0 = time.perf_counter()
         losses, merged = run(QWEN3, smoke=False, steps=TP_TRAIN_STEPS,
                              batch=TB, seq=TSEQ, profile=True,
-                             strategy=name, mesh=mesh)
+                             waste_report=True, strategy=name, mesh=mesh)
         torch.cuda.synchronize()
         run_s = time.perf_counter() - t0
         launches = {k: c.launches for k, c in counters.items()}
@@ -5679,6 +5751,12 @@ def tp_train_bf16(torch, np, mesh, name):
                   "flagged": dict(merged.flagged),
                   "findings": sorted((f.kind, f.c1, f.step, f.count, f.bytes)
                                      for f in merged.findings)}
+        # 13e(2): the tier-2 trace of run()'s step (waste_report)
+        tier2 = {k: merged.meta[k] for k in ("kernel_nodes",
+                                             "collective_nodes", "nodes",
+                                             "trace_s")}
+        tier2["findings"] = sorted((f.kind, f.count, f.flops, f.bytes)
+                                   for f in merged.findings if f.tier == 2)
         # one traced step from a fresh state
         cfg = registry.get_config(QWEN3)
         model = build_model(cfg)
@@ -5698,6 +5776,7 @@ def tp_train_bf16(torch, np, mesh, name):
             for c in kernels.values():
                 c.launches = 0
             before = dict(comm.STATS)
+            kinds0 = dict(comm.STATS["kinds"])
             torch.cuda.synchronize()
             with profile(activities=[ProfilerActivity.CPU,
                                      ProfilerActivity.CUDA]) as prof:
@@ -5708,6 +5787,9 @@ def tp_train_bf16(torch, np, mesh, name):
                 fn(state, b)
                 torch.cuda.synchronize()
                 wall_ms = (time.perf_counter() - t0) * 1e3
+            kinds = {k: v - kinds0.get(k, 0)
+                     for k, v in comm.STATS["kinds"].items()
+                     if v - kinds0.get(k, 0)}
             counts = report_trace(torch, prof,
                                   f"14e {name} rank {mesh.rank} step",
                                   wall_ms)
@@ -5718,6 +5800,7 @@ def tp_train_bf16(torch, np, mesh, name):
             bad = comm.all_reduce(torch.tensor(0 if ok else 1),
                                   mesh.axis_names, mesh)
             traced = {"wall_ms": wall_ms, "launched": launched,
+                      "kinds": kinds,
                       "trace": {k: counts.get(k, 0) for k in kernels},
                       "comm": {k: comm.STATS[k] - before[k] for k in
                                ("calls", "seconds", "staged_bytes")}}
@@ -5727,7 +5810,7 @@ def tp_train_bf16(torch, np, mesh, name):
         torch.cuda.empty_cache()
     return {"losses": losses, "launches": launches, "comm_b": stats,
             "peak_b_gib": peak, "report": report, "run_s": run_s,
-            "traced": traced, "traced_ok": int(bad) == 0}
+            "traced": traced, "traced_ok": int(bad) == 0, "tier2": tier2}
 
 
 def tp_train_rank(mesh, ref_path):
@@ -5862,6 +5945,20 @@ def tp_train_path(torch, np, card_line):
             assert tr["launched"] == {
                 "flash_attention_fwd": L, "flash_attention_bwd": L,
                 "rmsnorm_fwd": norms, "rmsnorm_bwd": norms}, tr
+            t2 = a["tier2"]
+            print(f"[13e] (b) {name} rank {r['rank']}: run(waste_report=True)"
+                  f"'s traced step: {t2['nodes']} nodes in "
+                  f"{t2['trace_s']:.2f} s, kernel nodes {t2['kernel_nodes']} "
+                  f"against a step's launches {tr['launched']}; collective "
+                  f"nodes {t2['collective_nodes']} against a step's "
+                  f"collectives {tr['kinds']}; tier-2 findings "
+                  f"{t2['findings']} | {card_line}", flush=True)
+            assert t2["kernel_nodes"] == {
+                "ops.attention": tr["launched"]["flash_attention_fwd"],
+                "ops.attention.bwd": tr["launched"]["flash_attention_bwd"],
+                "ops.rmsnorm": tr["launched"]["rmsnorm_fwd"],
+                "ops.rmsnorm.bwd": tr["launched"]["rmsnorm_bwd"]}, t2
+            assert t2["collective_nodes"] == tr["kinds"], (t2, tr["kinds"])
             cb, ct = a["comm_b"], tr["comm"]
             print(f"[14e] (b) {name} rank {r['rank']} bf16 run(): losses "
                   f"{a['losses']}; launches {L_} over {s} steps; run "
@@ -5877,6 +5974,58 @@ def tp_train_path(torch, np, card_line):
             for k, v in L_.items():
                 total[k] = total.get(k, 0) + v
     return total
+
+
+DRYRUN_CELLS = (("qwen3-1.7b", "train_4k,prefill_32k,decode_32k"),
+                (GRANITE, "decode_32k"))
+
+
+def dryrun_path(torch, card_line):
+    """13e(3): ``python -m repro_torch.launch.dryrun --arch ... --shape
+    ... --mesh single`` (``main``, in this process) for DRYRUN_CELLS on
+    fake CUDA tensors at full width and depth, rank 0 of the 16 x 16
+    mesh: every record "ok", and the card's allocated and peak bytes
+    unchanged by each (nothing is allocated). Each record's dominant
+    term, roofline fraction, trace seconds and per-rank memory printed:
+    a model of 256 cards, not a measurement."""
+    from repro_torch.launch import dryrun
+    # torch makes one 4-byte CUDA tensor (and frees it) the first time
+    # it makes a fake tensor of each CUDA device name
+    # (fake_tensor.py:init_gpu_context): the smoke config's cells first,
+    # outside the gate
+    for shape in ("train_4k", "decode_32k"):
+        dryrun.run_cell(QWEN3, shape, False, "dp_tp", smoke=True)
+    recs = []
+    for arch, shapes in DRYRUN_CELLS:
+        torch.cuda.synchronize()
+        before = (torch.cuda.memory_allocated(),
+                  torch.cuda.max_memory_allocated())
+        dryrun.main(["--arch", arch, "--shape", shapes, "--mesh", "single",
+                     "--force", "--tag", "chip_smoke"])
+        torch.cuda.synchronize()
+        after = (torch.cuda.memory_allocated(),
+                 torch.cuda.max_memory_allocated())
+        assert after == before, (arch, before, after)
+        for shape in shapes.split(","):
+            path = dryrun.OUT_DIR / f"{arch}_{shape}_single_chip_smoke.json"
+            recs.append(json.loads(path.read_text()))
+    for r in recs:
+        assert r["status"] == "ok", r
+        m = r["memory"]
+        print(f"[13e] dry run {r['arch']} {r['shape']} on {r['mesh']} "
+              f"({r['strategy']}, remat {r['remat']}), rank {r['rank']}: "
+              f"traced in {r['trace_s']} s, {r['nodes']} nodes, kernel nodes "
+              f"{r['kernel_nodes']}; dominant {r['dominant']}, roofline "
+              f"fraction {r['roofline_fraction']:.4f} (compute "
+              f"{r['t_compute_s']:.4g} s, memory {r['t_memory_s']:.4g} s, "
+              f"collective {r['t_collective_s']:.4g} s; modelled, not "
+              f"measured); per rank: arguments "
+              f"{m['argument_size_in_bytes'] / 2**30:.2f} GiB, peak "
+              f"temporaries {m['temp_size_in_bytes'] / 2**30:.2f} GiB "
+              f"(liveness estimate), flops {r['flops_per_device']:.4g}, "
+              f"collectives {r['collectives']}; card memory unchanged | "
+              f"{card_line}", flush=True)
+    return recs
 
 
 def b5_decode_host_path(torch):
@@ -6095,6 +6244,7 @@ def main() -> int:
                                     torch, np)
     phase("13c zoo lint", lint_zoo, torch)
     by_path["matrix"] = phase("13d matrix", matrix_on_card, torch)
+    phase("13e dry run", dryrun_path, torch, card)
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     by_path["tp_serve"] = phase("14b/c tp_serve", tp_serve_path, torch, np,

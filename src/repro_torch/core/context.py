@@ -20,16 +20,18 @@ from typing import Dict, List, Optional, Tuple
 import torch
 
 # frames of torch itself, of this file, of the tier-1 recorder, of the
-# abstract tracer and of the kernels' trace-time twins are not user
-# frames; the recorder's ``record`` and the tracer's ``_traced`` are
-# where the profiled function was entered
+# abstract tracer, of the kernels' trace-time twins and of the
+# collectives (a collective's frame is its caller's, the code that
+# placed it) are not user frames; the recorder's ``record`` and the
+# tracer's ``_traced`` are where the profiled function was entered
 _TORCH = os.path.dirname(torch.__file__) + os.sep
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _INTERNAL = frozenset({
     os.path.join(_HERE, "context.py"),
     os.path.join(_HERE, "interpreter.py"),
     os.path.join(_HERE, "graph_trace.py"),
-    os.path.join(os.path.dirname(_HERE), "kernels", "traced.py")})
+    os.path.join(os.path.dirname(_HERE), "kernels", "traced.py"),
+    os.path.join(os.path.dirname(_HERE), "sharding", "comm.py")})
 _ENTRIES = frozenset({(os.path.join(_HERE, "interpreter.py"), "record"),
                       (os.path.join(_HERE, "graph_trace.py"), "_traced")})
 _ENTRY = "<entry>"

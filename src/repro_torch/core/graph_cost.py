@@ -22,9 +22,13 @@ reference's totals after its multiplication. Per node:
                    PyTorch materialises every result: these totals are
                    not the fused reference's);
     collectives    ``_c10d_functional`` operations pay the ring model's
-                   wire bytes (``_wire``, reference :216), the group size
-                   read from the node (``all_reduce``, which names its
-                   group only: the model's ``default_participants``).
+                   wire bytes (``_wire``, reference :216) over their own
+                   group's size: the group name's ``/<size>`` suffix
+                   (``sharding/comm.py:group_name``), else an int
+                   argument that gives it, else the model's
+                   ``default_participants``. A broadcast pays what an
+                   all-gather of its payload pays (a pipelined ring: each
+                   rank but the source receives the payload once).
 
 ``GraphCostModel.node_cost`` is what the tier-2 waste analysis reads per
 node (``core/graph_waste.py``).
@@ -60,12 +64,14 @@ _FREE = frozenset({"empty", "empty_like", "new_empty", "empty_strided",
                    "new_empty_strided", "detach", "alias", "lift_fresh",
                    "_unsafe_view", "wait_tensor", "sym_size", "sym_numel",
                    "sym_stride", "getitem"})
-# _c10d_functional ops -> (kind, position of the group size, or None)
+# _c10d_functional ops -> (kind, position of the group size or None,
+# position of the group name)
 COLLECTIVES = {
-    "all_gather_into_tensor": ("all-gather", 1),
-    "all_reduce": ("all-reduce", None),
-    "reduce_scatter_tensor": ("reduce-scatter", 2),
-    "all_to_all_single": ("all-to-all", None),
+    "all_gather_into_tensor": ("all-gather", 1, 2),
+    "all_reduce": ("all-reduce", None, 2),
+    "reduce_scatter_tensor": ("reduce-scatter", 2, 3),
+    "all_to_all_single": ("all-to-all", None, 3),
+    "broadcast": ("broadcast", None, 2),
 }
 
 
@@ -89,7 +95,7 @@ def _wire(kind: str, result_bytes: float, n: int) -> float:
     if n <= 1:
         return 0.0
     frac = (n - 1) / n
-    if kind == "all-gather":
+    if kind in ("all-gather", "broadcast"):
         return result_bytes * frac
     if kind == "all-reduce":
         return 2.0 * result_bytes * frac
@@ -152,12 +158,33 @@ def collective_of(node: fx.Node):
     spec = COLLECTIVES.get(target.overloadpacket.__name__)
     if spec is None:
         return None
-    kind, pos = spec
-    n = None
-    if pos is not None and pos < len(node.args) \
+    kind, pos, _ = spec
+    name = group_of(node)
+    n = None if name is None else group_size(name)
+    if n is None and pos is not None and pos < len(node.args) \
             and isinstance(node.args[pos], int):
         n = int(node.args[pos])
     return kind, n
+
+
+def group_of(node: fx.Node):
+    """The group name a collective node passes (None: not one)."""
+    target = node.target
+    if not isinstance(target, torch._ops.OpOverload) or \
+            target.namespace != "_c10d_functional":
+        return None
+    spec = COLLECTIVES.get(target.overloadpacket.__name__)
+    if spec is None or spec[2] >= len(node.args):
+        return None
+    name = node.args[spec[2]]
+    return name if isinstance(name, str) else None
+
+
+def group_size(name: str):
+    """The size a group name carries after its last slash
+    (``"data,model/4"`` -> 4), else None."""
+    head, sep, tail = name.rpartition("/")
+    return int(tail) if sep and tail.isdigit() else None
 
 
 class GraphCostModel:

@@ -7,8 +7,9 @@ trace_step``: the forward, autograd's backward and the recompute of
 ``torch.utils.checkpoint``) for the paper's waste categories:
 
   redundant collectives — the same source tensor gathered / reduced more
-                          than once (the same kind, operand shape and
-                          producing operation);
+                          than once over the same group (the same kind,
+                          group and operand value number: two layers'
+                          same-shaped reductions are not one);
   recompute (dead work) — a matrix product or convolution computed more
                           than once on the same operands (the same value
                           numbers: remat's recompute or a missed reuse),
@@ -114,23 +115,19 @@ def analyze_waste(traced, top_k: int = 20,
     rep = WasteReport()
     num = Numbering()
     costs = {}
-    for node in graph.nodes:
-        num.number(node)
-        costs[node] = cm.node_cost(node)
-
     # --- redundant collectives: same (kind, operand fingerprint) ---------
     seen: Dict[tuple, List] = defaultdict(list)
     for node in graph.nodes:
-        if node.op != "call_function":
-            continue
-        coll = collective_of(node)
+        coll = collective_of(node) if node.op == "call_function" else None
+        if coll is not None:
+            # the collected VALUE as the collective reads it (value
+            # numbers, as for recompute below) and every other argument
+            # (the group and its size, the reduction)
+            fp = (coll[0], num.key(tuple(node.args)))
+        num.number(node)
+        costs[node] = cm.node_cost(node)
         if coll is None:
             continue
-        src = node.args[0] if node.args else None
-        prod = src.op if not isinstance(src, fx.Node) or src.op != \
-            "call_function" else op_name(src)
-        fp = (coll[0], _type_str(src.meta.get("val"))
-              if isinstance(src, fx.Node) else "?", prod)
         seen[fp].append({
             "kind": coll[0], "shape": _type_str(node.meta.get("val")),
             "wire_bytes": costs[node].coll_wire_bytes, "mult": 1.0,
@@ -259,6 +256,9 @@ def analyze_waste(traced, top_k: int = 20,
     }
     for k, v in rep.totals.items():
         rep.profile.bump_total(k, v)
+    rep.profile.meta["collective_nodes"] = {
+        kind: sum(len(items) for fp, items in seen.items() if fp[0] == kind)
+        for kind in sorted({fp[0] for fp in seen})}
     if isinstance(traced, Traced):
         rep.profile.meta["trace_s"] = traced.seconds
         rep.profile.meta["nodes"] = traced.nodes

@@ -300,14 +300,16 @@ def active_recorder() -> Optional[Recorder]:
     return mode if isinstance(mode, Recorder) else None
 
 
-def recorded(name: str, writes: Optional[Callable[[Dict], Tuple]] = None,
+def recorded(name: Optional[str],
+             writes: Optional[Callable[[Dict], Tuple]] = None,
              traced: Optional[Callable] = None):
     """Decorate a kernel entry point so that under a recording it records
-    as one operation ``ops.<name>``; `writes` maps its bound arguments to
-    the tensors it writes in place. Under an abstract trace (its first
-    argument a fake tensor, ``core/graph_trace.py``) it calls `traced`,
-    its one-node twin (``kernels/traced.py``), with the same arguments.
-    Otherwise the entry point runs as it is."""
+    as one operation ``ops.<name>`` (a plain entry point, ``name`` None,
+    records op by op); `writes` maps its bound arguments to the tensors
+    it writes in place. Under an abstract trace (its first argument a
+    fake tensor, ``core/graph_trace.py``) it calls `traced`, its twin
+    (``kernels/traced.py``), with the same arguments. Otherwise the
+    entry point runs as it is."""
     def deco(fn):
         sig = inspect.signature(fn)
 
@@ -317,7 +319,7 @@ def recorded(name: str, writes: Optional[Callable[[Dict], Tuple]] = None,
                                                           FakeTensor):
                 return traced(*args, **kwargs)
             rec = active_recorder()
-            if rec is None:
+            if rec is None or name is None:
                 return fn(*args, **kwargs)
             written = ()
             if writes is not None:

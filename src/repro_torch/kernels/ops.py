@@ -7,13 +7,16 @@ silent compare) or raises; a CPU tensor takes the kernel's
 plain version from ``ref.py``. There is no switch and no fallback. The
 paged scatter/gather and the masked attention of the dense per-slot cache
 are plain PyTorch on every device, as the reference left them to XLA.
+``paged_decode_lse`` and ``paged_window_lse`` are B1 and B2 on one
+rank's chunk of a page-chunked pool, with the lse that ranks combine.
 
 Under a tier-1 recording (``core/interpreter.py``) each entry point
 records itself as one operation ``ops.<name>`` on every device: a LOAD
 per tensor input, a STORE per output and per pool written in place.
 Under an abstract trace on fake tensors (tiers 0 and 2,
 ``core/graph_trace.py``) each calls its twin in ``kernels/traced.py``:
-one graph node, shapes only. Outside both it runs as it is.
+one graph node, shapes only (``paged_update`` traces as its widest
+store). Outside both it runs as it is.
 """
 from __future__ import annotations
 
@@ -35,7 +38,8 @@ from repro_torch.kernels.silent_compare import silent_compare
 # paper's Def.-2 silent-store semantics for same-dtype overwrites
 COUNTER_TOL = 0.0
 
-paged_update = _ref.paged_update
+paged_update = recorded(None, traced=_traced.paged_update)(
+    _ref.paged_update)
 paged_gather = _ref.paged_gather
 paged_store_counts = _ref.paged_store_counts
 
@@ -96,6 +100,32 @@ def paged_window(q, k_win, v_win, pool_k, pool_v, pt, idx, *,
         q, k_win, v_win, pool_k, pool_v, pt, idx, store=store,
         tol=COUNTER_TOL)
     return out, ck, cv, (cnt if counters else None)
+
+
+@recorded("paged_decode", writes=lambda a: (a["pool_k"], a["pool_v"]),
+          traced=_traced.paged_decode_lse)
+def paged_decode_lse(q, k_new, v_new, pool_k, pool_v, pt, idx, *,
+                     tol: float = COUNTER_TOL):
+    """``paged_decode`` on a rank's chunk of a page-chunked pool (its
+    localized table ``pt``), returning the kernel's lse for the ranks'
+    combine (``serve/flash_decode.py``): ``(out, lse (B, Hq), cnt)``."""
+    return paged_decode_attention(q, k_new, v_new, pool_k, pool_v, pt, idx,
+                                  tol=tol)
+
+
+@recorded("paged_window", writes=lambda a: (
+    (a["pool_k"], a["pool_v"]) if a["store"] else ()),
+    traced=_traced.paged_window_lse)
+def paged_window_lse(q, k_win, v_win, pool_k, pool_v, pt, idx, *,
+                     store: bool = True, chunk: bool = False,
+                     tol: float = COUNTER_TOL):
+    """``paged_window`` on a rank's chunk, returning the kernel's lse:
+    ``(out, lse (B, Hq, S), cnt)``; ``chunk`` the defer mode that takes
+    a window row only where the table gives it to this rank."""
+    out, lse, cnt, _, _ = paged_window_attention(
+        q, k_win, v_win, pool_k, pool_v, pt, idx, store=store, tol=tol,
+        chunk=chunk)
+    return out, lse, cnt
 
 
 @recorded("silent_count", traced=_traced.silent_count)

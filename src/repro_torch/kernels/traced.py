@@ -16,7 +16,9 @@ The operators are for tracing only: their eager bodies raise, and the
 entry points call them only when their first argument is a fake tensor
 (``core/interpreter.py:recorded``), so an eager call runs exactly as
 before. The masked attention over a cache is plain PyTorch on every
-device and traces as its composition.
+device and traces as its composition; the paged scatter is plain too,
+but its store of the kept rows is sized by data, so it traces as its
+widest store (``paged_update``, ``widest_store``).
 
 ``label`` names a node as tier 1 names the entry point (``ops.<name>``),
 a backward as ``ops.<name>.bwd``.
@@ -199,17 +201,51 @@ _paged_window.register_fake(_window_fake)
 _paged_window_defer.register_fake(_window_fake)
 
 
+def paged_decode_lse(q, k_new, v_new, pool_k, pool_v, pt, idx, *,
+                     tol: float = 0.0) -> Triple:
+    return _paged_decode(q, k_new, v_new, pool_k, pool_v, pt, idx)
+
+
+def paged_window_lse(q, k_win, v_win, pool_k, pool_v, pt, idx, *,
+                     store: bool = True, chunk: bool = False,
+                     tol: float = 0.0) -> Triple:
+    op = _paged_window if store else _paged_window_defer
+    return op(q, k_win, v_win, pool_k, pool_v, pt, idx)
+
+
 def paged_decode(q, k_new, v_new, pool_k, pool_v, pt, idx, *,
                  counters: bool = False):
-    out, _, cnt = _paged_decode(q, k_new, v_new, pool_k, pool_v, pt, idx)
+    out, _, cnt = paged_decode_lse(q, k_new, v_new, pool_k, pool_v, pt, idx)
     return out, pool_k, pool_v, (cnt if counters else None)
 
 
 def paged_window(q, k_win, v_win, pool_k, pool_v, pt, idx, *,
                  store: bool = True, counters: bool = False):
-    op = _paged_window if store else _paged_window_defer
-    out, _, cnt = op(q, k_win, v_win, pool_k, pool_v, pt, idx)
+    out, _, cnt = paged_window_lse(q, k_win, v_win, pool_k, pool_v, pt, idx,
+                                   store=store)
     return out, pool_k, pool_v, (cnt if counters else None)
+
+
+# ----------------------------------------------------------------------
+# Masked row stores (plain PyTorch, not kernels)
+# ----------------------------------------------------------------------
+def widest_store(dst: torch.Tensor, index, src: torch.Tensor) -> None:
+    """A masked store ``dst[index[keep]] = src[keep]`` as a trace records
+    it: which rows are kept is data, which a trace cannot size, so every
+    candidate row is stored (``index``, a tuple of integer tensors of
+    src's leading shape, clamped into dst), the widest store the call can
+    make."""
+    dst[tuple(i.clamp(0, n - 1) for i, n in zip(index, dst.shape))] = \
+        src.to(dst.dtype)
+
+
+def paged_update(pool_k, pool_v, k_new, v_new, pt, idx, length=None):
+    """``ref.paged_update`` as its widest store."""
+    P, ps = pool_k.shape[:2]
+    _, _, flat = _ref._targets(pool_k, pt, idx, k_new.shape[1])
+    for pool, new in ((pool_k, k_new), (pool_v, v_new)):
+        widest_store(pool.view((P * ps,) + pool.shape[2:]), (flat,), new)
+    return pool_k, pool_v
 
 
 # ----------------------------------------------------------------------

@@ -8,6 +8,10 @@ what one rank needs: its coordinates, its device and one process group
 per set of axes (``group``), made by ``join``. A mesh made by the
 builders below is abstract (no processes): it serves spec computation at
 production sizes, and a mesh of one rank needs no process group at all.
+An abstract mesh at any ``rank`` also traces that rank's step on fake
+tensors (``core/graph_trace.py``): its specs, ``rank_batch`` and cache
+chunks are that rank's, and its collectives are nodes of the trace
+(``sharding/comm.py``), so no process is joined.
 
 ``launch`` starts one process per rank (spawned, never forked: a parent
 that has initialised CUDA cannot fork), joins them into a mesh and runs

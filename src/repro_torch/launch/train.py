@@ -16,7 +16,8 @@ object registry (core/objects.py) and runs the replica scan at init
 (``core/graph_trace.py``: fake tensors of the state's and the batch's
 shapes; the forward, the backward and, under remat, the recompute),
 prints its tier-2 ``summary()`` and merges the tier-2 profile into the
-report (``--profile-out``).
+report (``--profile-out``). Under a strategy each rank traces its own
+step on its rows, its collectives nodes of the trace.
 
 ``--ckpt-dir`` saves the state every ``--ckpt-every`` steps (async) and
 at the end (checkpoint/checkpointer.py); ``--resume`` restarts from its
@@ -99,10 +100,6 @@ def run(arch: str, *, smoke: bool = True, steps: int = 50, batch: int = 8,
         from repro_torch.sharding.rules import make_strategy
         if strategy not in ("dp_tp", "fsdp"):
             raise ValueError(f"strategy {strategy!r}: dp_tp or fsdp")
-        if waste_report:
-            raise NotImplementedError(
-                "the waste report of a sharded step is ROADMAP A11d (its "
-                "collectives are not yet nodes of a fake-tensor trace)")
         mesh = mesh if mesh is not None else make_host_mesh()
         strat = make_strategy(strategy, mesh)
         check_strategy(model, strat)
@@ -140,8 +137,8 @@ def run(arch: str, *, smoke: bool = True, steps: int = 50, batch: int = 8,
         start_step = int(state.step)
         if rank0:
             print(f"[train] resumed from step {start_step}")
-    tier2 = waste_tier2(cfg, step_fn, state, batch, seq, dev) \
-        if waste_report else None
+    tier2 = waste_tier2(cfg, step_fn, state, batch, seq, dev,
+                        strat, microbatches, rank0) if waste_report else None
     detectors = None
     if profile:
         detectors = TrainingDetectors(
@@ -225,20 +222,27 @@ def _write(ckpt: Checkpointer, step: int, state, wait: bool) -> None:
         ckpt.save_async(step, state)
 
 
-def waste_tier2(cfg, step_fn, state, batch: int, seq: int, dev):
+def waste_tier2(cfg, step_fn, state, batch: int, seq: int, dev,
+                strat=None, microbatches: int = 1, verbose: bool = True):
     """Tier 2 of one train step, traced on fake tensors of the state's
-    and a (batch, seq) batch's shapes: prints the trace line and the
-    ``summary()``, returns the tier-2 profile (``meta``: ``trace_s``,
-    ``nodes``, ``kernel_nodes``)."""
+    and a (batch, seq) batch's shapes — under a strategy this rank's
+    step on its share of the state and its rows of the batch
+    (``rank_batch``), every collective a node (sharding/comm.py): prints
+    the trace line and the ``summary()`` (with ``verbose``), returns the
+    tier-2 profile (``meta``: ``trace_s``, ``nodes``,
+    ``kernel_nodes``)."""
     from repro_torch.launch.lint import _train_batch
-    traced = trace_step(step_fn, state, _train_batch(
-        cfg, batch, seq, mode=abstract_mode(), device=dev))
+    fake = _train_batch(cfg, batch, seq, mode=abstract_mode(), device=dev)
+    if strat is not None:
+        fake = rank_batch(fake, strat, microbatches)
+    traced = trace_step(step_fn, state, fake)
     rep = analyze_waste(traced)
-    print(f"[train] tier 2 (train step): {traced.nodes} nodes, kernel "
-          f"nodes {dict(sorted(traced.kernel_nodes().items()))}; traced "
-          f"in {traced.seconds:.2f} s; {len(rep.profile.findings)} "
-          f"findings")
-    print(rep.summary())
+    if verbose:
+        print(f"[train] tier 2 (train step): {traced.nodes} nodes, kernel "
+              f"nodes {dict(sorted(traced.kernel_nodes().items()))}; "
+              f"traced in {traced.seconds:.2f} s; "
+              f"{len(rep.profile.findings)} findings")
+        print(rep.summary())
     return rep.profile
 
 

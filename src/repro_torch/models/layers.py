@@ -201,7 +201,7 @@ def _store_other_rows(full, k, v, S: int, spec, split) -> None:
     positions)."""
     mesh, axes, lo, n = split
     kv = comm.all_gather(torch.stack([k, v]), axes, mesh, dim=1)
-    idx = full["idx"].clone()
+    idx = full["idx"].expand(kv.shape[1]).clone()      # every slot's
     mine = torch.zeros(idx.shape[0], dtype=torch.bool, device=idx.device)
     mine[lo:lo + n] = True
     if "pt" in full:

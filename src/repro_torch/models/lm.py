@@ -47,7 +47,7 @@ from repro_torch.models import params as P
 from repro_torch.models import ssm as SSM
 from repro_torch.models import xlstm as XL
 from repro_torch.sharding import comm
-from repro_torch.sharding.ctx import current_sharder, shard
+from repro_torch.sharding.ctx import current_sharder, shard, sharding_ctx
 
 
 def _mask_pad_vocab(logits: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -340,7 +340,7 @@ class LM:
         else:
             raise ValueError(f"remat={self.remat!r}: none, full or dots")
         return ckpt.checkpoint(self._superblock, p_l, shared, x, aux, src,
-                               use_reentrant=False, context_fn=ctx)
+                               use_reentrant=False, context_fn=_keep(ctx))
 
     # ---------------------------- fsdp ---------------------------------
     def _fsdp_plan(self, mesh):
@@ -994,3 +994,23 @@ class LM:
 # the leaves a cached forward returns per layer, restacked over the
 # layers: write indices, kernel counters, a deferred verify window's K/V
 _PER_LAYER = ("idx", "kcnt", "win_k", "win_v")
+
+
+def _keep(context_fn):
+    """A checkpoint's ``context_fn`` whose recompute also runs under the
+    sharder active at the forward: autograd runs the backward of CUDA
+    tensors on a device thread of its own, which does not see this
+    thread's context variables, so a recomputed sharded superblock would
+    take the unsharded branches."""
+    import contextlib
+    sharder = current_sharder()
+
+    @contextlib.contextmanager
+    def recompute(ctx):
+        with ctx, sharding_ctx(sharder):
+            yield
+
+    def contexts():
+        fwd, rec = context_fn()
+        return fwd, recompute(rec)
+    return contexts

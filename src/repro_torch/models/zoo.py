@@ -23,3 +23,12 @@ def count_params_analytic(cfg: ModelConfig, active_only: bool = False) -> int:
         total -= (m.num_experts - m.experts_per_token) * per_expert \
             * cfg.num_layers
     return int(total)
+
+
+def model_flops_per_token(cfg: ModelConfig) -> float:
+    """MODEL_FLOPS/token = 6*N (dense) or 6*N_active (MoE), N without the
+    embedding table (its gather is not a product): the roofline's
+    "useful flops" convention (attention's own flops are not in it)."""
+    n = count_params_analytic(cfg, active_only=True)
+    n -= cfg.padded_vocab * cfg.d_model
+    return 6.0 * n

@@ -796,14 +796,15 @@ class ServeEngine:
         """Abstract trace of one decode tick over the engine's own
         parameters and cache, every slot active (``core/graph_trace.py``:
         fake tensors, nothing runs or is written): the tier-2 subject,
-        the counterpart of the reference's ``lowered_tick``."""
+        the counterpart of the reference's ``lowered_tick``. Under a
+        strategy it is this rank's tick over its slices and its chunk of
+        the cache, each collective a node (``sharding/comm.py``); the
+        engine may then hold fake parameters on a mesh with no process
+        group, and trace any rank of any layout."""
         from repro_torch.core.graph_trace import trace_step
-        if self.strategy is not None:
-            raise NotImplementedError(
-                "the traced tick of a tp_serve engine is ROADMAP A11d")
         active = torch.ones((self.num_slots,), dtype=torch.bool,
                             device=self.device)
-        return trace_step(self._tick_fn, self.params, self.cache,
+        return trace_step(self._tick_fn, self._step_params, self.cache,
                           self.tokens, active)
 
     def throughput(self) -> Dict[str, float]:

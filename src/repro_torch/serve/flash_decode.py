@@ -17,14 +17,17 @@ collectives (sharding/comm.py). The plan:
 
 The paged functions read a rank's chunk through its localized page
 table ``where(owned, pt - off, -1)``. On CUDA tensors they run the
-port's kernels on it — B1 (``paged_decode_attention``) for a decode, B2
-(``paged_window_attention``, store mode) for a window — and combine by
+port's kernels on it — B1 (``ops.paged_decode_lse``) for a decode, B2
+(``ops.paged_window_lse``, store mode) for a window — and combine by
 each kernel's lse, as the reference's Pallas branches do: a kernel
 stores and attends only rows on pages this rank owns (a page unmapped
 in the localized table is dropped and masked), so every row is stored
 and counted by exactly one rank. On CPU tensors they run the
-reference's plain bodies. The dense and cross functions are plain
-PyTorch on every device, as their reference bodies are einsums.
+reference's plain bodies. Under an abstract trace (fake tensors) they
+take the kernels' route whatever the device, where ``ops`` makes each
+kernel one node, so a traced tick holds the card's program.
+The dense and cross functions are plain PyTorch on every device, as
+their reference bodies are einsums.
 
 Store counters: a rank's kernel counts [stored, silent, dropped] over
 its chunk; ``global_counts`` sums the stored and silent counts over the
@@ -37,11 +40,32 @@ import math
 from typing import List, Optional, Sequence, Tuple
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
-from repro_torch.kernels import ref
+from repro_torch.kernels import ops, ref
+from repro_torch.kernels import traced as _traced
 from repro_torch.sharding import comm
 
 _MASK = -1e30
+
+
+def _kernel_route(q: torch.Tensor) -> bool:
+    """Whether a paged function runs a kernel on its chunk (through
+    ``kernels/ops.py``): on CUDA tensors, and under an abstract trace
+    (fake tensors, whatever their device), where the kernel is one node
+    and the trace is the card's program."""
+    return q.device.type == "cuda" or isinstance(q, FakeTensor)
+
+
+def _store_rows(dst: torch.Tensor, index, keep: torch.Tensor,
+                src: torch.Tensor) -> None:
+    """``dst[index[keep]] = src[keep]`` in place (``index`` a tuple of
+    integer tensors of keep's shape); under an abstract trace its widest
+    store (``kernels/traced.py:widest_store``)."""
+    if isinstance(dst, FakeTensor):
+        _traced.widest_store(dst, index, src)
+        return
+    dst[tuple(i[keep] for i in index)] = src[keep].to(dst.dtype)
 
 
 def _gather_parts(parts: Sequence[torch.Tensor], seq_axes, mesh
@@ -140,8 +164,8 @@ def store_dense_rows(ck, cv, k_new, v_new, idx, *, off: int, total: int,
     lpos = pos - off
     mine = keep & (lpos >= 0) & (lpos < chunk)
     bidx = torch.arange(B, device=dev)[:, None].expand(B, S)
-    ck[bidx[mine], lpos[mine]] = k_new[mine].to(ck.dtype)
-    cv[bidx[mine], lpos[mine]] = v_new[mine].to(cv.dtype)
+    _store_rows(ck, (bidx, lpos), mine, k_new)
+    _store_rows(cv, (bidx, lpos), mine, v_new)
 
 
 def decode_attention_sharded(q, k_new, v_new, ck, cv, idx, *, mesh,
@@ -246,10 +270,9 @@ def decode_paged_attention_sharded(q, k_new, v_new, ck, cv, pt, idx, *,
     this rank's store, as ``global_counts`` takes them."""
     chunk = ck.shape[0]
     loc, owned = _localize(pt, mesh.index(seq_axes) * chunk, chunk)
-    if q.device.type == "cuda":
-        from repro_torch.kernels.paged_attention import paged_decode_attention
-        o_l, lse, cnt = paged_decode_attention(q, k_new, v_new, ck, cv, loc,
-                                               idx, tol=tol)
+    if _kernel_route(q):
+        o_l, lse, cnt = ops.paged_decode_lse(q, k_new, v_new, ck, cv, loc,
+                                             idx, tol=tol)
         out = _lse_combine(o_l, lse[:, None, :], seq_axes, mesh, q.dtype)
         return out, ck, cv, cnt
     out, cnt = _paged_plain(q, k_new, v_new, ck, cv, loc, owned, idx,
@@ -274,10 +297,9 @@ def verify_paged_attention_sharded(q, k_new, v_new, ck, cv, pt, idx, *,
     partials combine. Returns (out (B,W,Hq,D), ck, cv, counters)."""
     chunk = ck.shape[0]
     loc, owned = _localize(pt, mesh.index(seq_axes) * chunk, chunk)
-    if q.device.type == "cuda":
-        from repro_torch.kernels.flash_prefill import paged_window_attention
-        o_l, lse, cnt, ck, cv = paged_window_attention(
-            q, k_new, v_new, ck, cv, loc, idx, store=True, tol=tol)
+    if _kernel_route(q):
+        o_l, lse, cnt = ops.paged_window_lse(q, k_new, v_new, ck, cv, loc,
+                                             idx, store=True, tol=tol)
         # lse: (B, Hq, W) -> (B, W, Hq) to match o_l
         out = _lse_combine(o_l, lse.transpose(1, 2), seq_axes, mesh,
                            q.dtype)
@@ -312,10 +334,9 @@ def defer_paged_attention_sharded(q, k_new, v_new, ck, cv, pt, idx, *,
     loc, _ = _localize(pt, me * chunk, chunk)
     if me == 0:
         loc = torch.where(pt < 0, ref.UNMAPPED_MINE, loc).to(pt.dtype)
-    if q.device.type == "cuda":
-        from repro_torch.kernels.paged_verify import paged_verify_attention
-        o_l, lse, _, _, _ = paged_verify_attention(
-            q, k_new, v_new, ck, cv, loc, idx, mode="defer", chunk=True)
+    if _kernel_route(q):
+        o_l, lse, _ = ops.paged_window_lse(q, k_new, v_new, ck, cv, loc,
+                                           idx, store=False, chunk=True)
         return _lse_combine(o_l, lse.transpose(1, 2), seq_axes, mesh,
                             q.dtype)
     o_l, lse, _, _, _ = ref.paged_window_ref(

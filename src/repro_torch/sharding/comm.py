@@ -28,20 +28,54 @@ this rank's block, an all-gather), ``gather_weight`` gathers a
 fsdp-sharded weight (backward: reduce-scatter), ``mean_over`` makes a
 rank's loss the mean over the ranks (backward: 1/n). Without grad
 they cost what the plain collectives cost.
+
+Under an abstract trace (``core/graph_trace.py``: the tensor is a fake
+tensor) a collective runs no process group and counts nothing in
+``STATS``: it emits the ``torch.ops._c10d_functional`` operation that
+the program asks for, and its ``wait_tensor``, so that it is a node of
+the trace with the shapes the real call gives — ``all_reduce`` as
+``all_reduce``, ``all_gather`` as ``all_gather_into_tensor``,
+``reduce_scatter`` as ``reduce_scatter_tensor`` (gloo runs it as a whole
+all-reduce; the trace models what NCCL would run), ``ordered_sum`` as
+an all-gather and the adds in rank order, ``broadcast`` as
+``broadcast``. The group is named by ``group_name``, which carries the
+group's size for the cost model's ring (``core/graph_cost.py``). The
+differentiable collectives call these in their forward and backward, so
+a traced step's backward holds its collectives too. A mesh with no
+process group (``launch/mesh.py:Mesh(..., rank=r)``) traces so.
 """
 from __future__ import annotations
 
 import time
+from collections import Counter
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
 # per process: collectives run, their seconds, bytes staged through the
-# host for gloo (device -> host and back)
-STATS = {"calls": 0, "seconds": 0.0, "staged_bytes": 0}
+# host for gloo (device -> host and back), and the calls by the kind a
+# trace records them as ("all-reduce", "all-gather", "reduce-scatter",
+# "broadcast"; ordered_sum is an all-gather)
+STATS = {"calls": 0, "seconds": 0.0, "staged_bytes": 0, "kinds": Counter()}
 
 
 def reset_stats() -> None:
-    STATS.update(calls=0, seconds=0.0, staged_bytes=0)
+    STATS.update(calls=0, seconds=0.0, staged_bytes=0, kinds=Counter())
+
+
+def group_name(mesh, axes) -> str:
+    """The name a traced collective gives its group: the axes and, after
+    a slash, the group's size (``"data,model/4"``), which
+    ``core/graph_cost.py:group_size`` reads back."""
+    return f"{','.join(mesh.axes_of(axes))}/{mesh.axis_size(axes)}"
+
+
+def _c10d():
+    return torch.ops._c10d_functional
+
+
+def _node(x: torch.Tensor) -> torch.Tensor:
+    return _c10d().wait_tensor(x)
 
 
 def _dist():
@@ -88,11 +122,15 @@ def _bits(t: torch.Tensor) -> torch.Tensor:
 
 
 class _Timed:
+    def __init__(self, kind: str):
+        self.kind = kind
+
     def __enter__(self):
         self.t0 = time.perf_counter()
 
     def __exit__(self, *exc):
         STATS["calls"] += 1
+        STATS["kinds"][self.kind] += 1
         STATS["seconds"] += time.perf_counter() - self.t0
 
 
@@ -101,9 +139,13 @@ def all_reduce(t: torch.Tensor, axes, mesh, op: str = "sum") -> torch.Tensor:
     ``axes``; floating tensors reduce in float32."""
     if mesh.axis_size(axes) == 1:
         return t
+    if isinstance(t, FakeTensor):
+        w = t.float() if t.is_floating_point() else t
+        return _node(_c10d().all_reduce(w.contiguous(), op, group_name(
+            mesh, axes))).to(t.dtype)
     dist = _dist()
     red = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
-    with _Timed():
+    with _Timed("all-reduce"):
         w = _wide(_to_wire(mesh, t), t)
         dist.all_reduce(w, op=red, group=mesh.group(axes))
         return _from_wire(mesh, w.to(t.dtype), t)
@@ -115,14 +157,25 @@ def all_gather(t: torch.Tensor, axes, mesh, dim: int = -1) -> torch.Tensor:
     n = mesh.axis_size(axes)
     if n == 1:
         return t
+    if isinstance(t, FakeTensor):
+        whole = _gathered(t, axes, mesh)
+        return whole if dim % t.ndim == 0 else torch.cat(
+            whole.chunk(n, dim=0), dim=dim)
     dist = _dist()
-    with _Timed():
+    with _Timed("all-gather"):
         w = _to_wire(mesh, _bits(t))
         parts = [torch.empty_like(w) for _ in range(n)]
         dist.all_gather(parts, w, group=mesh.group(axes))
         parts = [_from_wire(mesh, p, t).view(t.dtype).view(t.shape)
                  for p in parts]
         return torch.cat(parts, dim=dim)
+
+
+def _gathered(t: torch.Tensor, axes, mesh) -> torch.Tensor:
+    """The traced all-gather of t: the ranks' tensors stacked along dim
+    0 (``all_gather_into_tensor``'s layout)."""
+    return _node(_c10d().all_gather_into_tensor(
+        t.contiguous(), mesh.axis_size(axes), group_name(mesh, axes)))
 
 
 def reduce_scatter(t: torch.Tensor, axes, mesh, dim: int = 0
@@ -133,8 +186,13 @@ def reduce_scatter(t: torch.Tensor, axes, mesh, dim: int = 0
     n = mesh.axis_size(axes)
     if n == 1:
         return t
+    if isinstance(t, FakeTensor):
+        w = (t.float() if t.is_floating_point() else t).movedim(dim, 0)
+        out = _node(_c10d().reduce_scatter_tensor(
+            w.contiguous(), "sum", n, group_name(mesh, axes)))
+        return out.movedim(0, dim).to(t.dtype).contiguous()
     dist = _dist()
-    with _Timed():
+    with _Timed("reduce-scatter"):
         w = _wide(_to_wire(mesh, t), t)
         dist.all_reduce(w, group=mesh.group(axes))
         blk = w.shape[dim] // n
@@ -154,8 +212,15 @@ def ordered_sum(t: torch.Tensor, axes, mesh) -> torch.Tensor:
     n = mesh.axis_size(axes)
     if n == 1:
         return t
+    if isinstance(t, FakeTensor):
+        parts = _gathered(t.reshape((1,) + tuple(t.shape)), axes, mesh)
+        acc = None
+        for x in parts.unbind(0):
+            x = x.float() if t.is_floating_point() else x
+            acc = x if acc is None else acc + x
+        return acc.to(t.dtype)
     dist = _dist()
-    with _Timed():
+    with _Timed("all-gather"):
         w = _to_wire(mesh, _bits(t))
         parts = [torch.empty_like(w) for _ in range(n)]
         dist.all_gather(parts, w, group=mesh.group(axes))
@@ -172,8 +237,11 @@ def broadcast(t: torch.Tensor, src: int, axes, mesh) -> torch.Tensor:
     rank of them (t gives the shape and dtype elsewhere)."""
     if mesh.axis_size(axes) == 1:
         return t
+    if isinstance(t, FakeTensor):
+        return _node(_c10d().broadcast(t.contiguous(), src,
+                                       group_name(mesh, axes)))
     dist = _dist()
-    with _Timed():
+    with _Timed("broadcast"):
         w = _to_wire(mesh, _bits(t)).clone()
         dist.broadcast(w, src=mesh.peers(axes)[src],
                        group=mesh.group(axes))

@@ -184,6 +184,82 @@ def serve_case(model, params, case: str, strategy=None):
     return eng, det
 
 
+@contextlib.contextmanager
+def count_kernels():
+    """Within: each kernel entry point's calls (``kernels/ops.py``; the
+    cache-free attention only; the chunked paged functions of
+    serve/flash_decode.py, each a B1 or B2 launch on the card) counted by
+    the label its traced node has, in the dict this yields; restored on
+    exit. A CPU call runs the plain version: this counts what the card
+    would launch."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import traced as T
+    from repro_torch.serve import flash_decode as FD
+    counts = {}
+
+    def counted(label, fn, take=lambda *a, **k: True):
+        def wrapped(*a, **k):
+            if take(*a, **k):
+                counts[label] = counts.get(label, 0) + 1
+            return fn(*a, **k)
+        return wrapped
+
+    def cache_free(q, k, v, causal=True, q_offset=0, kv_len=None,
+                   kv_valid=None):
+        return T.cache_free(q_offset, kv_len, kv_valid)
+    patched = [(ops, "rmsnorm", "ops.rmsnorm", None),
+               (ops, "attention", "ops.attention", cache_free),
+               (ops, "paged_decode", "ops.paged_decode", None),
+               (ops, "paged_window", "ops.paged_window", None),
+               (FD, "decode_paged_attention_sharded", "ops.paged_decode",
+                None),
+               (FD, "verify_paged_attention_sharded", "ops.paged_window",
+                None),
+               (FD, "defer_paged_attention_sharded", "ops.paged_window",
+                None)]
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _, _ in patched]
+    for mod, name, label, take in patched:
+        setattr(mod, name, counted(label, getattr(mod, name),
+                                   *(() if take is None else (take,))))
+    try:
+        yield counts
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def collective_nodes(traced) -> dict:
+    """A trace's collective nodes by kind (core/graph_cost.py)."""
+    from collections import Counter
+    from repro_torch.core.graph_cost import collective_of
+    return dict(Counter(c[0] for c in map(collective_of, traced.graph.nodes)
+                        if c))
+
+
+def forward_kernel_nodes(traced) -> dict:
+    """A trace's kernel nodes, backwards left out (on the CPU they are
+    the plain versions' autograd, no call of their own)."""
+    return {k: v for k, v in traced.kernel_nodes().items()
+            if not k.endswith(".bwd")}
+
+
+def tick_check(eng) -> dict:
+    """The engine's traced tick against one real tick, every slot active
+    (at the end of a run; it writes the cache): the trace's collective
+    nodes by kind and forward kernel nodes, the real tick's collectives
+    by kind (``comm.STATS``) and kernel calls (``count_kernels``)."""
+    import torch
+    from repro_torch.sharding import comm
+    traced = eng.traced_tick()
+    active = torch.ones((eng.num_slots,), dtype=torch.bool)
+    comm.reset_stats()
+    with count_kernels() as calls:
+        eng._tick_fn(eng._step_params, eng.cache, eng.tokens, active)
+    return {"nodes": collective_nodes(traced),
+            "kernel_nodes": forward_kernel_nodes(traced),
+            "collectives": dict(comm.STATS["kinds"]), "kernel_calls": calls}
+
+
 def serve_rank(mesh, ref_params, cases):
     """This rank's tp_serve engines (``ref_params``: the reference's
     weights by config): per case its tokens, stats, page table,
@@ -263,6 +339,7 @@ def serve_rank(mesh, ref_params, cases):
             "sharder": (strategy.sharder().pool_pages,
                         strategy.sharder().seq_len),
         }
+        out[case]["tick"] = tick_check(eng)
     return {"rank": mesh.rank, "cases": out}
 
 
@@ -308,6 +385,10 @@ TRAIN_CASES = {
 }
 
 
+# the cases whose last step is also traced (train_case's ``trace``)
+TRACED_CASES = ("wide-dp_tp", "wide-fsdp")
+
+
 def train_overrides(kind: str) -> dict:
     """Config fields of a training case's config ("wide" or "plain"), in
     float32."""
@@ -339,18 +420,22 @@ def port_state(host: dict):
                       step=torch.tensor(host["step"], dtype=torch.int32))
 
 
-def train_case(model, state, case: str, strategy=None):
+def train_case(model, state, case: str, strategy=None, trace=False):
     """TRAIN_STEPS steps of ``case`` from ``state`` (this rank's share
     under a ``strategy``) with the training detectors on: per step (loss,
     nll, grad norm, lr), the whole state after (numpy by checkpoint key),
     the detectors' report, and the eval step's logits of the last batch's
     rows here (``block``: this rank's (index, count) over the batch
-    axes)."""
+    axes). With ``trace`` the last step is traced first (fake tensors)
+    and "step" holds its collective and forward kernel nodes against the
+    real step's collectives (``comm.STATS``) and kernel calls."""
     import torch
     from repro_torch.checkpoint.checkpointer import flatten
     from repro_torch.configs.base import ProfilerConfig, TrainConfig
     from repro_torch.core.detectors import TrainingDetectors
+    from repro_torch.core.graph_trace import trace_step
     from repro_torch.data.synthetic import stream
+    from repro_torch.sharding import comm
     from repro_torch.train import state as TS
     from repro_torch.train.step import (make_eval_step, make_train_step,
                                         rank_batch)
@@ -361,15 +446,25 @@ def train_case(model, state, case: str, strategy=None):
              dict(mesh=strategy.mesh, specs=strategy.param_specs(model)))
     det = TrainingDetectors(ProfilerConfig(enabled=True), **shard)
     data = stream(model.cfg, B, TRAIN_SEQ, seed=0)
-    rows = []
+    rows, checked = [], None
     for step in range(TRAIN_STEPS):
         b = next(data)
         det.on_batch(step, b)
         mine = b if strategy is None else rank_batch(b, strategy,
                                                      tc.microbatches)
         before = state.params
-        state, m = fn(state, {k: torch.from_numpy(v) for k, v in
-                              mine.items()})
+        batch = {k: torch.from_numpy(v) for k, v in mine.items()}
+        if trace and step == TRAIN_STEPS - 1:
+            traced = trace_step(fn, state, batch)
+            comm.reset_stats()
+            with count_kernels() as calls:
+                state, m = fn(state, batch)
+            checked = {"nodes": collective_nodes(traced),
+                       "kernel_nodes": forward_kernel_nodes(traced),
+                       "collectives": dict(comm.STATS["kinds"]),
+                       "kernel_calls": calls}
+        else:
+            state, m = fn(state, batch)
         det.on_step(step, before, state.params)
         rows.append(tuple(float(m[k]) for k in ("loss", "nll", "grad_norm",
                                                 "lr")))
@@ -384,7 +479,7 @@ def train_case(model, state, case: str, strategy=None):
                 strategy.mesh.index(strategy.batch_axes),
                 strategy.mesh.axis_size(strategy.batch_axes)),
             "state": {k: v.numpy().copy() for k, v in
-                      flatten(whole).items()}}
+                      flatten(whole).items()}, "step": checked}
 
 
 def train_rank(mesh, hosts, cases, ckpt_root=None):
@@ -411,7 +506,8 @@ def train_rank(mesh, hosts, cases, ckpt_root=None):
                    for k, t in mine.items() if k != ".step")
         pspecs = flatten(strategy.param_specs(model),
                          is_leaf=lambda x: isinstance(x, PS))
-        res = train_case(model, state, case, strategy)
+        res = train_case(model, state, case, strategy,
+                         trace=case in TRACED_CASES)
         res["layout"] = {
             "held": held,
             "sharded": sorted(k for k, s in pspecs.items() if any(s)),
@@ -781,7 +877,15 @@ def layout_rank(mesh, hosts, cases):
                        int(moe["w_up"].shape[1]),
                        pool_pages=strategy.sharder().pool_pages)
             out[case] = res
-    return {"rank": mesh.rank, "coords": dict(mesh.coords), "cases": out}
+    loop = None
+    if mesh.shape["data"] > 1:
+        # the dense family's token loop (a scalar write index) with the
+        # slots split over 'data'
+        calls["split"] = 0
+        loop = loop_run(LAYOUT_ARCHS["qwen"], hosts["qwen"], mesh)[:2] \
+            + (calls["split"],)
+    return {"rank": mesh.rank, "coords": dict(mesh.coords), "cases": out,
+            "loop": loop}
 
 
 # ----------------------------------------------------------------------
@@ -821,7 +925,7 @@ def loop_run(arch: str, host, mesh=None):
     from repro_torch.serve.decode import shard_params
     from repro_torch.sharding.rules import make_strategy
     cfg = dataclasses.replace(registry.get_config(arch).smoke(),
-                              dtype="float32", **LOOP_ARCHS[arch])
+                              dtype="float32", **LOOP_ARCHS.get(arch, {}))
     model = build_model(cfg)
     params = from_reference(host, device="cpu")
     strategy = None if mesh is None else make_strategy("tp_serve", mesh)

@@ -33,6 +33,7 @@ import sys
 
 import jax
 import jax.numpy as jnp
+import numpy as np
 import pytest
 
 import _torch_ranks as R
@@ -202,6 +203,40 @@ def test_port_unsharded_kernel_report_matches_reference(runs, case):
     for key in ("tokens", "stats", "report", "scan"):
         assert got[key] == want[key], key
     assert (got["kernel"] == want["kernel"]) == (case not in KERNEL_DIFFERS)
+
+
+def test_dense_token_loop_with_data_split_matches_reference(runs):
+    """``make_serve_step`` of qwen3's smoke config (the dense family, one
+    write index for the batch) with the slots over 'data' (the layouts
+    with 'data' 2): the forward runs each rank's block of the slots and
+    stores the other ranks' rows, as the engine's does; its logits within
+    1e-5 of the largest of the reference's unsharded loop, the greedy
+    tokens equal. A token loop's scalar index could not take the other
+    ranks' rows before (the trace of the dry run's decode cell found it,
+    ROADMAP § C)."""
+    ref_model, ref_params = smoke_models(arch=R.LAYOUT_ARCHS["qwen"])[:2]
+    toks, _ = R.loop_inputs(ref_model.cfg)
+    cache = ref_model.init_cache(ref_params, R.LOOP_BATCH, R.LOOP_LEN,
+                                 kv_dtype=jnp.float32)
+    tok, logits, out = jnp.asarray(toks), [], []
+    for _ in range(R.LOOP_STEPS):
+        lg, cache = ref_model.decode_step(ref_params, cache, tok)
+        logits.append(np.asarray(lg))
+        tok = jnp.argmax(lg[:, -1:], axis=-1).astype(jnp.int32)
+        out.append(np.asarray(tok))
+    want, want_tokens = np.stack(logits), np.concatenate(out, axis=1)
+    split = [s for s in MESHES if s[0] > 1]
+    assert split
+    for shape in split:
+        for rank in runs[2][shape]:
+            got, tokens, splits = rank["loop"]
+            np.testing.assert_allclose(got, want, rtol=0,
+                                       atol=1e-5 * float(np.abs(want).max()))
+            np.testing.assert_array_equal(tokens, want_tokens)
+            assert splits > 0
+    for shape in MESHES:
+        if shape[0] == 1:
+            assert all(r["loop"] is None for r in runs[2][shape])
 
 
 def test_tp_layout_tokens_match_the_reference_tp_serve_engine(runs):

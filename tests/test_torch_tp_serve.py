@@ -19,7 +19,9 @@ case the port's unsharded engine's: there the two frameworks' silent
 counts differ already unsharded); the paged tokens must also equal the
 reference's own tp_serve engine on an Auto-axes (1, 4) mesh of host
 devices (a subprocess). Each rank's leaves must equal its slice of the
-reference's tree, and the sharded functions must have run.
+reference's tree, and the sharded functions must have run. Each
+engine's traced tick has the collectives and kernel calls of one real
+tick.
 """
 import json
 import os
@@ -185,6 +187,26 @@ def test_tp_serve_took_the_sharded_path(runs, n, case):
         wide = R.serve_config(case) == "wide"
         assert got["sharded_attn"] == (["wk", "wo", "wq", "wv"] if wide
                                        else [])
+
+
+@pytest.mark.parametrize("n", RANKS)
+@pytest.mark.parametrize("case", CASES)
+def test_tp_serve_traced_tick_equals_its_collectives_and_kernel_calls(
+        runs, n, case):
+    """The engine's traced tick (ROADMAP A11d) against one real tick of
+    the same engine, every slot active: its collective nodes by kind
+    equal the collectives the tick ran on this rank (``comm.STATS``), its
+    kernel nodes the kernel calls (a B1 a layer on a chunked pool, B5
+    four a layer and the final norm)."""
+    layers = runs[0][case][0].model.cfg.num_layers
+    for rank in runs[2][n]:
+        tick = rank["cases"][case]["tick"]
+        assert tick["nodes"] == tick["collectives"]
+        assert tick["nodes"]
+        assert tick["kernel_nodes"] == tick["kernel_calls"]
+        assert tick["kernel_nodes"]["ops.rmsnorm"] == 4 * layers + 1
+        if R.SERVE_CASES[case]["kv_layout"] == "paged":
+            assert tick["kernel_nodes"]["ops.paged_decode"] == layers
 
 
 def test_tp_serve_tokens_match_the_reference_tp_serve_engine(runs):

@@ -42,7 +42,9 @@ strategy trains (``train/step.py:SHARDED_FAMILIES``: vlm and audio under
 both, hybrid and ssm under fsdp) take 2 f32 steps of their smoke configs
 on 2 ranks against the port's unsharded steps (loss and grad norm 1e-5
 relative, master 1e-5 of each leaf's largest); the rest raise, naming
-ROADMAP A11e.
+ROADMAP A11e. The wide config's default cases' last step is also traced
+on fake tensors first: its collective nodes by kind equal the collectives that
+step ran (``comm.STATS``), its forward kernel nodes its kernel calls.
 """
 import dataclasses
 import json
@@ -217,6 +219,22 @@ def test_sharded_steps_match_unsharded(runs, case, shape):
 
 
 @pytest.mark.parametrize("shape", MESHES, ids=_mesh_id)
+@pytest.mark.parametrize("case", R.TRACED_CASES)
+def test_sharded_step_nodes_equal_its_collectives_and_kernel_calls(
+        runs, case, shape):
+    """The last step traced on fake tensors before it ran (ROADMAP A11d):
+    its collective nodes by kind equal the collectives the real step ran
+    on this rank (``comm.STATS``), and its forward kernel nodes the
+    kernel entry points it called."""
+    for rank in runs[2][shape]:
+        step = rank["cases"][case]["step"]
+        assert step["nodes"] == step["collectives"]
+        assert step["nodes"]
+        assert step["kernel_nodes"] == step["kernel_calls"]
+        assert step["kernel_nodes"]["ops.attention"] > 0
+
+
+@pytest.mark.parametrize("shape", MESHES, ids=_mesh_id)
 @pytest.mark.parametrize("case", ["wide-dp_tp", "wide-fsdp", "plain-dp_tp",
                                   "plain-fsdp"])
 def test_sharded_eval_step_matches_unsharded(runs, case, shape):
@@ -342,8 +360,19 @@ def test_sharded_driver_options_name_their_roadmap_items():
             for p in scans] == [sorted((f.kind, f.count, f.bytes)
                                        for f in scans[1].findings)] * 2
     assert scans[1].findings
-    with pytest.raises(NotImplementedError, match="A11d"):
-        pt_train.run("qwen3-1.7b", waste_report=True, **kw)
+    # the waste report of a sharded step (ROADMAP A11d): on the one-rank
+    # host mesh the step's kernel nodes are the unsharded step's, and its
+    # one finding is the fused loss's recomputed logits product (dp_tp
+    # takes the vocab-parallel loss, whose backward recomputes it)
+    reports = [pt_train.run("qwen3-1.7b", waste_report=True, **k)[1]
+               for k in (kw, {k: v for k, v in kw.items()
+                              if k != "strategy"})]
+    assert [p.tiers for p in reports] == [[2], [2]]
+    assert reports[0].meta["kernel_nodes"] == reports[1].meta["kernel_nodes"]
+    assert [(f.kind, f.count) for f in reports[0].findings] == \
+        [("recompute", 2)]
+    assert "fused_xent.py" in reports[0].findings[0].c1[0]
+    assert reports[1].findings == []
     for arch, strategy in (("granite-moe-3b-a800m", "dp_tp"),
                            ("granite-moe-3b-a800m", "fsdp"),
                            ("zamba2-1.2b", "dp_tp"),

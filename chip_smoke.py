@@ -320,7 +320,23 @@ slots, then plain decode (B1 on the chunk); then zamba2, whisper and the vlm
 smoke configs through ``make_serve_step`` on chunked caches. Held to
 the unsharded engine and the unsharded card runs in this process
 (``tp_layout_path``); B2's defer mode on a chunk is checked and timed
-with the kernel phases (``tp_defer_chunk_kernels``).
+with the kernel phases (``tp_defer_chunk_kernels``). (14g) The MoE,
+hybrid and ssm families' train steps sharded as 14e's, at full width cut
+in depth (``TP_FAMILY_CASES``: granite-moe-3b-a800m 1 of 32 layers under
+dp_tp, its experts over 'model', and under fsdp, its rows routed as the
+whole batch's; zamba2-1.2b 8 of 38, one superblock and the 2-block
+Mamba2 tail, and xlstm-1.3b 8 of 48, one superblock, under dp_tp, their
+recurrent blocks on leaves gathered whole; the bytes each stages are
+reckoned first): (a) one f32 step, at the schedule's second (its first
+has lr 0), against the unsharded step on the card with 14e's gates, each
+leaf's gradient within GRAD_TOL of its largest element, and granite's
+expert choices equal to the unsharded step's but at near-ties, its kept
+choices summed over the ranks off by no more than the choices that
+moved there; (b) granite under dp_tp through
+``launch.train.run`` in bf16 with 14e(b)'s gates (``check_tp_train_bf16``),
+printed beside the unsharded bf16 step. Its B4 rank shapes (granite's
+dp_tp heads and fsdp rows, zamba2's shared block on a dp_tp rank) are
+checked and timed with the kernel phases (``check_tp_train_kernels``).
 
 Each phase prints its seconds (``[phase]`` lines). The line before the
 last lists the card; the last line is the JSON
@@ -5574,18 +5590,28 @@ def tp_checkpoint(torch, np, card_line):
 
 
 def check_tp_train_kernels(torch, timer, entries):
-    """14e's kernels at a rank's shapes (run with the kernel phases): B4
-    on dp_tp's heads (B 4, Hq 8 over Hkv 4, D 128) and on fsdp's rows (B
-    2, Hq 16, Hkv 8), B5 at the q- and k-norms' half rows (32768 and
+    """14e's and 14g's kernels at a rank's shapes (run with the kernel
+    phases): B4 on dp_tp's heads (B 4; qwen3 Hq 8 over Hkv 4, D 128;
+    granite Hq 12 over Hkv 4, D 64; zamba2's shared block Hq 16 over Hkv
+    16, D 64) and on fsdp's rows (B 2; qwen3 Hq 16, Hkv 8; granite Hq 24,
+    Hkv 8, D 64), B5 at the q- and k-norms' half rows (32768 and
     16384 x 128) and fsdp's block norm (2048 x 2048), B3 on half the
     embedding leaf (75968 x 2048 bf16), each against its plain version
     and timed as in phases 4 and 7a. The numbers go into the entries'
     ``by_shape``."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.silent_compare import silent_compare
+    gq, gkv, gd = GRANITE_HEADS
+    zq, zkv, zd = ZAMBA_HEADS
     for tag, heads, batch in (("qwen3-1.7b dp_tp rank", (HQ // 2, HKV // 2,
                                                          D), TB),
-                              ("qwen3-1.7b fsdp rank", QWEN3_HEADS, TB // 2)):
+                              ("qwen3-1.7b fsdp rank", QWEN3_HEADS, TB // 2),
+                              # 14g's
+                              ("granite dp_tp rank", (gq // 2, gkv // 2, gd),
+                               TB),
+                              ("granite fsdp rank", GRANITE_HEADS, TB // 2),
+                              ("zamba2 dp_tp rank (shared block)",
+                               (zq // 2, zkv // 2, zd), TB)):
         nums = flash_on_training_inputs(torch, timer, tag, heads,
                                         batch=batch)
         for key, num in nums.items():
@@ -5647,13 +5673,112 @@ def tp_train_reckon(cfg, layers):
     return n, {"dp_tp": dp_tp, "fsdp": fsdp}
 
 
-def tp_train_f32(torch, np, mesh, name, ref_path):
-    """14e(a) on one rank: the f32 step at full width and TP_TRAIN_LAYERS
-    from seed 0 under ``name``, TP_TRAIN_STEPS steps of the stream's 4 x
-    1024 batches, each rank on its rows; the share's element counts
-    against ``state_specs``; the master after the steps against the
-    unsharded step's (``ref_path``: its whole master) on this rank's
-    blocks; the peak memory."""
+@contextlib.contextmanager
+def count_moe_choices(margins=False):
+    """Within: the MoE layers' expert choices of every forward
+    (``models/moe.py``: ``_route`` of a whole batch, ``_route_rows`` of
+    a rank's rows, whose kept mask is False on the other ranks'
+    positions), kept and dropped past capacity, summed on the device and
+    read once on exit into the dict this yields; and under "calls", by
+    forward, the offset of this rank's first token in the whole batch,
+    its tokens' ordered top-K choices (int32, tokens x K) and, with
+    ``margins``, each token's f32 margin: the least gap between
+    consecutive probabilities among its K + 1 largest, below which
+    rounding can reorder its choices."""
+    import torch
+    from repro_torch.models import moe as M
+    counts, kept, choices, calls = {}, [], [0], []
+
+    def record(offset, idx, p, cfg, x, layout):
+        K = cfg.moe.experts_per_token
+        gap = None
+        if margins:
+            with torch.no_grad():
+                probs = M._gates(p, cfg, x.detach(), layout)[0]
+                top = torch.topk(probs.reshape(-1, probs.shape[-1]), K + 1,
+                                 dim=-1).values
+                gap = (top[:, :-1] - top[:, 1:]).min(dim=-1).values
+        calls.append((offset, idx.reshape(-1, K).to(torch.int32), gap))
+
+    def route(p, cfg, x, layout=None):
+        out = saved[0](p, cfg, x, layout)
+        kept.append(out[3].sum())
+        choices[0] += out[3].numel()
+        record(0, out[0], p, cfg, x, layout)
+        return out
+
+    def route_rows(p, cfg, x, mesh, axes, layout=None):
+        out = saved[1](p, cfg, x, mesh, axes, layout)
+        T_l, K = x.shape[0] * x.shape[1], cfg.moe.experts_per_token
+        kept.append(out[5].sum())
+        choices[0] += T_l * K
+        lo = out[1]
+        record(mesh.index(axes) * T_l, out[2].reshape(-1, K)[lo:lo + T_l],
+               p, cfg, x, layout)
+        return out
+    saved = (M._route, M._route_rows)
+    M._route, M._route_rows = route, route_rows
+    try:
+        yield counts
+    finally:
+        M._route, M._route_rows = saved
+        k = int(torch.stack(kept).sum()) if kept else 0
+        counts.update(kept=k, dropped=choices[0] - k, calls=[
+            (off, idx.cpu().numpy(), None if gap is None else
+             gap.cpu().numpy()) for off, idx, gap in calls])
+
+
+@contextlib.contextmanager
+def step_grads():
+    """Within: the train step's gradients of its last step as it hands
+    them to the clip (``optim/adamw.py:clip_by_global_norm_``): summed
+    over the batch axes, each leaf in the optimizer's layout (a rank's
+    ZeRO block under a strategy), cloned into the list this yields."""
+    import torch
+    from repro_torch.models.params import tree_map
+    from repro_torch.optim import adamw
+    inner, kept = adamw.clip_by_global_norm_, []
+
+    def clip(tree, *args, **kwargs):
+        kept[:] = [tree_map(torch.clone, tree)]
+        return inner(tree, *args, **kwargs)
+    adamw.clip_by_global_norm_ = clip
+    try:
+        yield kept
+    finally:
+        adamw.clip_by_global_norm_ = inner
+
+
+def leaf_rel_diffs(got, want, specs, mesh, prefix=""):
+    """{leaf: max |got - want's block| / max |want|} over trees of one
+    structure: ``got`` this rank's blocks (``specs``), ``want`` whole
+    leaves on the host; a leaf whose whole is 0 everywhere is divided by
+    1."""
+    from repro_torch.sharding.rules import local_slice
+    if isinstance(got, dict):
+        out = {}
+        for k in got:
+            out.update(leaf_rel_diffs(got[k], want[k], specs[k], mesh,
+                                      f"{prefix}/{k}"))
+        return out
+    big = float(want.abs().max()) or 1.0
+    block = local_slice(want, specs, mesh).to(got.device)
+    return {prefix: float((got - block).abs().max()) / big}
+
+
+def tp_train_f32(torch, np, mesh, name, ref_path, arch=QWEN3,
+                 layers=TP_TRAIN_LAYERS, steps=TP_TRAIN_STEPS, first=0,
+                 grads=False):
+    """14e(a) (14g(a)) on one rank: the f32 step of ``arch`` at full width
+    and ``layers`` layers from seed 0 under ``name``, ``steps`` steps
+    from the schedule's step ``first`` on the stream's 4 x 1024 batches,
+    each rank on its rows: rows (loss, grad norm, lr), the share's
+    element counts against ``state_specs``, the master after the steps
+    against the unsharded step's (``ref_path``: its whole master) on
+    this rank's blocks, with ``grads`` each leaf's gradient of the last
+    step against the unsharded step's (``ref_path`` + ".grad") relative
+    to the leaf's largest, the MoE choices kept and dropped here, the
+    step wall, the collectives and the peak memory."""
     from repro_torch.configs import registry
     from repro_torch.configs.base import TrainConfig
     from repro_torch.data.synthetic import batch_at
@@ -5665,9 +5790,8 @@ def tp_train_f32(torch, np, mesh, name, ref_path):
     from repro_torch.train import state as TS
     from repro_torch.train.step import make_train_step, rank_batch
     dev = mesh.device
-    with registry_override(QWEN3, num_layers=TP_TRAIN_LAYERS,
-                           dtype="float32"):
-        cfg = registry.get_config(QWEN3)
+    with registry_override(arch, num_layers=layers, dtype="float32"):
+        cfg = registry.get_config(arch)
         model = build_model(cfg)
         strat = make_strategy(name, mesh)
         torch.cuda.synchronize()
@@ -5675,6 +5799,7 @@ def tp_train_f32(torch, np, mesh, name, ref_path):
         torch.cuda.reset_peak_memory_stats()
         state = TS.create(model, 0, compute_dtype=torch.float32, device=dev,
                           strategy=strat)
+        state = state._replace(step=state.step + first)
         specs = TS.state_specs(model, strat)
         whole = [tuple(d.shape) for d in tree_leaves(model.decl())]
         share = all(
@@ -5684,21 +5809,24 @@ def tp_train_f32(torch, np, mesh, name, ref_path):
                                (state.opt.m, specs.opt.m),
                                (state.opt.v, specs.opt.v))
             for t, s, w in zip(tree_leaves(part), tree_leaves(spec), whole))
-        tc = TrainConfig(learning_rate=3e-4, total_steps=TP_TRAIN_STEPS,
-                         warmup_steps=1, remat="none")
-        fn = make_train_step(model, tc, strat)
+        fn = make_train_step(model, TrainConfig(
+            learning_rate=3e-4, total_steps=first + steps, warmup_steps=1,
+            remat="none"), strat)
         rows, tokens = [], None
         comm.reset_stats()
         t0 = time.perf_counter()
-        for step in range(TP_TRAIN_STEPS):
-            b = rank_batch(batch_at(cfg, TB, TSEQ, seed=0, step=step), strat)
-            tokens = int(b["tokens"].size)
-            state, m = fn(state, {k: torch.from_numpy(v).to(dev)
-                                  for k, v in b.items()})
-            rows.append((float(m["loss"]), float(m["grad_norm"]),
-                         float(m["lr"])))
+        with count_moe_choices() as choices, (
+                step_grads() if grads else contextlib.nullcontext()) as g:
+            for step in range(steps):
+                b = rank_batch(batch_at(cfg, TB, TSEQ, seed=0, step=step),
+                               strat)
+                tokens = int(b["tokens"].size)
+                state, m = fn(state, {k: torch.from_numpy(v).to(dev)
+                                      for k, v in b.items()})
+                rows.append((float(m["loss"]), float(m["grad_norm"]),
+                             float(m["lr"])))
         torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) / TP_TRAIN_STEPS
+        wall = (time.perf_counter() - t0) / steps
         stats = dict(comm.STATS)
         peak = torch.cuda.max_memory_allocated() / 2**30
         ref = torch.load(ref_path, mmap=True, map_location="cpu")
@@ -5707,19 +5835,76 @@ def tp_train_f32(torch, np, mesh, name, ref_path):
             w, s, mesh).to(t.device)).abs().max())),
             state.master, ref, specs.master)
         del state, ref
+        grad = None
+        if grads:
+            rel = leaf_rel_diffs(g[0], torch.load(
+                ref_path + ".grad", mmap=True, map_location="cpu"),
+                specs.master, mesh)
+            grad = max(rel.items(), key=lambda kv: kv[1])
+        del g
         torch.cuda.empty_cache()
     return {"rows": rows, "share": share, "master_diff": max(diff),
-            "peak_gib": peak, "tokens": tokens, "wall_s": wall,
-            "comm": stats}
+            "grad_rel": grad, "peak_gib": peak, "tokens": tokens,
+            "wall_s": wall, "comm": stats, "choices": choices,
+            "coords": dict(mesh.coords)}
 
 
-def tp_train_bf16(torch, np, mesh, name):
-    """14e(b) on one rank: ``launch.train.run(strategy=name, mesh=mesh,
-    profile=True)`` at full width and TP_TRAIN_LAYERS, TP_TRAIN_STEPS
-    steps of 4 x 1024 tokens in bf16 with the kernels' launch counts set
-    to 0 just before and read just after, its collectives and peak
-    memory; then one traced sharded step (the ranks agree on each retake:
-    every step runs collectives)."""
+def unsharded_f32_steps(torch, arch, layers, path, steps=TP_TRAIN_STEPS,
+                        first=0, grads=False):
+    """The unsharded f32 step that 14e(a) and 14g(a) hold their ranks to:
+    ``arch`` at ``layers`` layers on the card, ``steps`` steps from seed
+    0 and the schedule's step ``first`` on the stream's batches, its
+    master saved to ``path`` (with ``grads`` its last step's gradients
+    to ``path`` + ".grad"). Returns rows (loss, grad norm, lr a step),
+    the MoE choices (with each token's margin), the step wall and the
+    peak."""
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data.synthetic import batch_at
+    from repro_torch.models.zoo import build_model
+    from repro_torch.train import state as TS
+    from repro_torch.train.step import make_train_step
+    with registry_override(arch, num_layers=layers, dtype="float32"):
+        cfg = registry.get_config(arch)
+        model = build_model(cfg)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        state = TS.create(model, 0, compute_dtype=torch.float32,
+                          device="cuda")
+        state = state._replace(step=state.step + first)
+        fn = make_train_step(model, TrainConfig(
+            learning_rate=3e-4, total_steps=first + steps, warmup_steps=1,
+            remat="none"))
+        rows, t0 = [], time.perf_counter()
+        with count_moe_choices(margins=True) as choices, (
+                step_grads() if grads else contextlib.nullcontext()) as g:
+            for step in range(steps):
+                b = batch_at(cfg, TB, TSEQ, seed=0, step=step)
+                state, m = fn(state, {k: torch.from_numpy(v).cuda()
+                                      for k, v in b.items()})
+                rows.append((float(m["loss"]), float(m["grad_norm"]),
+                             float(m["lr"])))
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / steps
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        torch.save(state.master, path)
+        if grads:
+            torch.save(g[0], path + ".grad")
+        del state, fn, model, g
+        torch.cuda.empty_cache()
+    return {"rows": rows, "choices": choices, "wall_s": wall,
+            "peak_gib": peak}
+
+
+def tp_train_bf16(torch, np, mesh, name, arch=QWEN3,
+                  layers=TP_TRAIN_LAYERS, label="14e"):
+    """14e(b) (14g(b)) on one rank: ``launch.train.run(strategy=name,
+    mesh=mesh, profile=True)`` for ``arch`` at full width and ``layers``
+    layers, TP_TRAIN_STEPS steps of 4 x 1024 tokens in bf16 with the
+    kernels' launch counts set to 0 just before and read just after, its
+    collectives and peak memory; then one traced sharded step (the ranks
+    agree on each retake: every step runs collectives)."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.configs import registry
     from repro_torch.configs.base import TrainConfig
@@ -5737,9 +5922,9 @@ def tp_train_bf16(torch, np, mesh, name):
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    with registry_override(QWEN3, num_layers=TP_TRAIN_LAYERS):
+    with registry_override(arch, num_layers=layers):
         t0 = time.perf_counter()
-        losses, merged = run(QWEN3, smoke=False, steps=TP_TRAIN_STEPS,
+        losses, merged = run(arch, smoke=False, steps=TP_TRAIN_STEPS,
                              batch=TB, seq=TSEQ, profile=True,
                              waste_report=True, strategy=name, mesh=mesh)
         torch.cuda.synchronize()
@@ -5758,7 +5943,7 @@ def tp_train_bf16(torch, np, mesh, name):
         tier2["findings"] = sorted((f.kind, f.count, f.flops, f.bytes)
                                    for f in merged.findings if f.tier == 2)
         # one traced step from a fresh state
-        cfg = registry.get_config(QWEN3)
+        cfg = registry.get_config(arch)
         model = build_model(cfg)
         strat = make_strategy(name, mesh)
         state = TS.create(model, 0, device=mesh.device, strategy=strat)
@@ -5791,7 +5976,7 @@ def tp_train_bf16(torch, np, mesh, name):
                      for k, v in comm.STATS["kinds"].items()
                      if v - kinds0.get(k, 0)}
             counts = report_trace(torch, prof,
-                                  f"14e {name} rank {mesh.rank} step",
+                                  f"{label} {name} rank {mesh.rank} step",
                                   wall_ms)
             launched = {k: c.launches for k, c in kernels.items()}
             ok = all(counts.get(k, 0) == n * KERNELS_PER_LAUNCH.get(k, 1)
@@ -5841,16 +6026,10 @@ def tp_train_path(torch, np, card_line):
     one traced step's kernels equal to its launches; printed: step wall,
     collectives, staged bytes, busy share, peaks against the unsharded
     step's. Returns the launches of (b), summed over the ranks."""
-    import math
     import shutil
     import tempfile
     from repro_torch.configs import registry
-    from repro_torch.configs.base import TrainConfig
-    from repro_torch.data.synthetic import batch_at
     from repro_torch.launch.mesh import launch
-    from repro_torch.models.zoo import build_model
-    from repro_torch.train import state as TS
-    from repro_torch.train.step import make_train_step
 
     cfg = registry.get_config(QWEN3)
     L = TP_TRAIN_LAYERS
@@ -5869,31 +6048,10 @@ def tp_train_path(torch, np, card_line):
     tmp = tempfile.mkdtemp(prefix="tp_train_", dir=root)
     try:
         # the unsharded f32 step at the same depth, on the card
-        with registry_override(QWEN3, num_layers=L, dtype="float32"):
-            scfg = registry.get_config(QWEN3)
-            model = build_model(scfg)
-            torch.cuda.synchronize()
-            torch.cuda.empty_cache()
-            torch.cuda.reset_peak_memory_stats()
-            state = TS.create(model, 0, compute_dtype=torch.float32,
-                              device="cuda")
-            fn = make_train_step(model, TrainConfig(
-                learning_rate=3e-4, total_steps=TP_TRAIN_STEPS,
-                warmup_steps=1, remat="none"))
-            want, t0 = [], time.perf_counter()
-            for step in range(TP_TRAIN_STEPS):
-                b = batch_at(scfg, TB, TSEQ, seed=0, step=step)
-                state, m = fn(state, {k: torch.from_numpy(v).cuda()
-                                      for k, v in b.items()})
-                want.append((float(m["loss"]), float(m["grad_norm"]),
-                             float(m["lr"])))
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) / TP_TRAIN_STEPS
-            peak_unsharded = torch.cuda.max_memory_allocated() / 2**30
-            ref_path = os.path.join(tmp, "master.pt")
-            torch.save(state.master, ref_path)
-            del state, fn, model
-            torch.cuda.empty_cache()
+        ref_path = os.path.join(tmp, "master.pt")
+        ref = unsharded_f32_steps(torch, QWEN3, L, ref_path)
+        want, wall = ref["rows"], ref["wall_s"]
+        peak_unsharded = ref["peak_gib"]
         print(f"[14e] unsharded f32 step at {L} layers on the card: "
               f"{want} (loss, grad norm, lr a step), {wall:.2f} s a step, "
               f"peak {peak_unsharded:.2f} GiB | {card_line}", flush=True)
@@ -5906,7 +6064,6 @@ def tp_train_path(torch, np, card_line):
         shutil.rmtree(tmp, ignore_errors=True)
 
     allow = 2 * sum(r[2] for r in want)
-    norms = 4 * L + 1
     total = {}
     for name in TP_TRAIN_STRATEGIES:
         for r in ranks:
@@ -5930,49 +6087,374 @@ def tp_train_path(torch, np, card_line):
             assert loss_rel <= 1e-5 and gn_rel <= 1e-4, (name, a["rows"])
             assert a["master_diff"] <= allow, (name, a["master_diff"])
             assert a["share"] and a["tokens"] == tok, (name, a["tokens"])
-            L_ = a["launches"]
-            s = TP_TRAIN_STEPS
-            assert L_["flash_attention_fwd"] == L * s, L_
-            assert L_["flash_attention_bwd"] == L * s, L_
-            assert L_["rmsnorm_fwd"] == norms * s, L_
-            assert L_["rmsnorm_bwd"] == norms * s, L_
-            checked = a["report"]["checked"].get("silent_param_store", 0)
-            assert L_["silent_compare"] == checked > 0, (L_, checked)
-            assert a["report"] == ranks[0][name]["report"], name
-            assert all(math.isfinite(x) for x in a["losses"]), a["losses"]
-            tr = a["traced"]
-            assert a["traced_ok"], tr
-            assert tr["launched"] == {
-                "flash_attention_fwd": L, "flash_attention_bwd": L,
-                "rmsnorm_fwd": norms, "rmsnorm_bwd": norms}, tr
-            t2 = a["tier2"]
-            print(f"[13e] (b) {name} rank {r['rank']}: run(waste_report=True)"
-                  f"'s traced step: {t2['nodes']} nodes in "
-                  f"{t2['trace_s']:.2f} s, kernel nodes {t2['kernel_nodes']} "
-                  f"against a step's launches {tr['launched']}; collective "
-                  f"nodes {t2['collective_nodes']} against a step's "
-                  f"collectives {tr['kinds']}; tier-2 findings "
-                  f"{t2['findings']} | {card_line}", flush=True)
-            assert t2["kernel_nodes"] == {
-                "ops.attention": tr["launched"]["flash_attention_fwd"],
-                "ops.attention.bwd": tr["launched"]["flash_attention_bwd"],
-                "ops.rmsnorm": tr["launched"]["rmsnorm_fwd"],
-                "ops.rmsnorm.bwd": tr["launched"]["rmsnorm_bwd"]}, t2
-            assert t2["collective_nodes"] == tr["kinds"], (t2, tr["kinds"])
-            cb, ct = a["comm_b"], tr["comm"]
-            print(f"[14e] (b) {name} rank {r['rank']} bf16 run(): losses "
-                  f"{a['losses']}; launches {L_} over {s} steps; run "
-                  f"{a['run_s']:.2f} s; collectives {cb['calls']} in "
-                  f"{cb['seconds']:.2f} s, {cb['staged_bytes']} bytes "
-                  f"staged; traced step wall {tr['wall_ms']:.1f} ms, its "
-                  f"collectives {ct['calls']} in {ct['seconds']:.2f} s, "
-                  f"{ct['staged_bytes']} bytes; kernels in the trace "
-                  f"{tr['trace']}; peak {a['peak_b_gib']:.2f} GiB; tier-3 "
-                  f"checked {a['report']['checked']}, flagged "
-                  f"{a['report']['flagged']} (equal on both ranks) | "
-                  f"{card_line}", flush=True)
-            for k, v in L_.items():
+            check_tp_train_bf16(a, r["rank"], ranks[0][name]["report"],
+                                name, cfg, L, card_line)
+            for k, v in a["launches"].items():
                 total[k] = total.get(k, 0) + v
+    return total
+
+
+def check_tp_train_bf16(a, rank, report0, name, cfg, L, card_line,
+                        labels=("13e", "14e")):
+    """The (b) gates of one rank of a sharded bf16 run (14e, 14g) of
+    ``cfg`` cut to ``L`` layers: per step B4 and B5 launches as the
+    schedule reckons them (``launches_per_forward``) each way, one B3 per
+    checked store, the tier-3 findings equal to rank 0's (``report0``),
+    finite losses, one traced step's kernels equal to its launches, and
+    ``run(waste_report=True)``'s traced step's kernel and collective
+    nodes equal to a step's launches and collectives. Prints them under
+    ``labels`` (the traced step's, the run's)."""
+    import dataclasses
+    import math
+    attn, norms, _, _ = launches_per_forward(
+        dataclasses.replace(cfg, num_layers=L))
+    L_ = a["launches"]
+    s = TP_TRAIN_STEPS
+    assert L_["flash_attention_fwd"] == attn * s, L_
+    assert L_["flash_attention_bwd"] == attn * s, L_
+    assert L_["rmsnorm_fwd"] == norms * s, L_
+    assert L_["rmsnorm_bwd"] == norms * s, L_
+    checked = a["report"]["checked"].get("silent_param_store", 0)
+    assert L_["silent_compare"] == checked > 0, (L_, checked)
+    assert a["report"] == report0, name
+    assert all(math.isfinite(x) for x in a["losses"]), a["losses"]
+    tr = a["traced"]
+    assert a["traced_ok"], tr
+    assert tr["launched"] == {
+        "flash_attention_fwd": attn, "flash_attention_bwd": attn,
+        "rmsnorm_fwd": norms, "rmsnorm_bwd": norms}, tr
+    t2 = a["tier2"]
+    print(f"[{labels[0]}] (b) {name} rank {rank}: run(waste_report=True)"
+          f"'s traced step: {t2['nodes']} nodes in "
+          f"{t2['trace_s']:.2f} s, kernel nodes {t2['kernel_nodes']} "
+          f"against a step's launches {tr['launched']}; collective "
+          f"nodes {t2['collective_nodes']} against a step's "
+          f"collectives {tr['kinds']}; tier-2 findings "
+          f"{t2['findings']} | {card_line}", flush=True)
+    assert t2["kernel_nodes"] == {
+        "ops.attention": tr["launched"]["flash_attention_fwd"],
+        "ops.attention.bwd": tr["launched"]["flash_attention_bwd"],
+        "ops.rmsnorm": tr["launched"]["rmsnorm_fwd"],
+        "ops.rmsnorm.bwd": tr["launched"]["rmsnorm_bwd"]}, t2
+    assert t2["collective_nodes"] == tr["kinds"], (t2, tr["kinds"])
+    cb, ct = a["comm_b"], tr["comm"]
+    print(f"[{labels[1]}] (b) {name} rank {rank} bf16 run(): losses "
+          f"{a['losses']}; launches {L_} over {s} steps; run "
+          f"{a['run_s']:.2f} s; collectives {cb['calls']} in "
+          f"{cb['seconds']:.2f} s, {cb['staged_bytes']} bytes "
+          f"staged; traced step wall {tr['wall_ms']:.1f} ms, its "
+          f"collectives {ct['calls']} in {ct['seconds']:.2f} s, "
+          f"{ct['staged_bytes']} bytes; kernels in the trace "
+          f"{tr['trace']}; peak {a['peak_b_gib']:.2f} GiB; tier-3 "
+          f"checked {a['report']['checked']}, flagged "
+          f"{a['report']['flagged']} (equal on both ranks) | "
+          f"{card_line}", flush=True)
+
+
+# ----------------------------------------------------------------------
+# phase 14g: sharded training of the MoE, hybrid and ssm families
+# ----------------------------------------------------------------------
+# case -> (arch, strategy, layers, (a)'s f32 steps, the schedule's step
+# they start at): full width, the depth cut. granite 1 of 32 (20 of its
+# 40 experts a dp_tp rank), zamba2 8 of 38 (one superblock of 6 Mamba2
+# blocks and the shared block, then the model's 2-block Mamba2 tail) and
+# xlstm 8 of 48 (one superblock: 7 mLSTM blocks and 1 sLSTM), each one
+# step at the schedule's second, whose lr is not 0 (a second step took
+# ~13 s of the script's time for zamba2 and xlstm)
+TP_FAMILY_CASES = {
+    "granite-dp_tp": (GRANITE, "dp_tp", 1, 1, 1),
+    "granite-fsdp": (GRANITE, "fsdp", 1, 1, 1),
+    "zamba2-dp_tp": (ZAMBA, "dp_tp", 8, 1, 1),
+    "xlstm-dp_tp": (XLSTM, "dp_tp", 8, 1, 1),
+}
+TP_FAMILY_BF16 = "granite-dp_tp"            # 14g(b)
+# 14g(a)'s gates beyond 14e's. A token's expert choices may differ
+# from the unsharded step's only where its margin (``count_moe_choices``)
+# is below CHOICE_MARGIN, a near-tie that the sharded sums' rounding can
+# reorder; and the kept choices summed over the ranks differ from the
+# unsharded step's by no more than the choices that moved to another
+# expert (each moves one expert's count by one: it changes the kept
+# choices by at most one). Each leaf's gradient of the step on a rank's
+# block lies within GRAD_TOL of the unsharded gradient's largest element,
+# and GRAD_PER_MOVED more for each choice that moved over the batch: a
+# moved choice changes one token's expert outputs, and with it that
+# token's share of every gradient upstream (one moved choice of 32768
+# read 7.3e-3 to 7.8e-3 of granite's wq on an H100, where zamba2's and
+# xlstm's leaves read at most 2.6e-5). A backward collective that sums
+# where it should keep, or keeps where it should sum, moves a leaf's
+# gradient by about its own size (1.0 on zamba2 with ``gather_from``'s
+# backward planted as a sum).
+GRAD_TOL = 1e-3
+GRAD_PER_MOVED = 2e-2
+CHOICE_MARGIN = 1e-6
+
+
+def choice_flips(got, want):
+    """(tokens whose ordered choices differ, choices moved to another
+    expert, the largest margin among those tokens) of one rank's MoE
+    forwards ``got`` against the unsharded run's ``want`` (both
+    ``count_moe_choices``' "calls"), forward by forward on the rank's
+    tokens."""
+    import numpy as np
+    assert len(got) == len(want), (len(got), len(want))
+    tokens = moved = 0
+    worst = 0.0
+    for (off, idx, _), (_, w_idx, w_gap) in zip(got, want):
+        w = w_idx[off:off + len(idx)]
+        diff = (idx != w).any(axis=-1)
+        tokens += int(diff.sum())
+        moved += sum(len(set(a) - set(b)) for a, b in zip(idx[diff],
+                                                           w[diff]))
+        if diff.any():
+            worst = max(worst, float(w_gap[off:off + len(idx)][diff].max()))
+    return tokens, moved, worst
+
+
+def tp_family_reckon(cfg, layers, name):
+    """(parameters, bytes) one rank of two stages through the host in a
+    bf16 train step of ``cfg`` at ``layers`` layers under ``name``, as
+    ``tp_train_reckon`` counts them: under dp_tp the f32 activations'
+    collectives both ways (four a layer with attention, the embedding's
+    and the loss's), each recurrent block's leaves that are blocks
+    gathered whole (a block out, the whole leaf back, bf16), the MoE
+    layer's routing choices and gates (int32 and f32, tokens x K) and
+    the ZeRO reshards of the tp-sharded gradients and params; under fsdp
+    (data-parallel) the weights gathered forward, the gradients summed
+    in f32 and the params gathered for the reshard, and the routing's
+    choices gathered over both ranks."""
+    import dataclasses
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models.lm import make_schedule
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.models.zoo import build_model
+    from repro_torch.sharding.rules import make_strategy
+    cfg = dataclasses.replace(cfg, num_layers=layers)
+    model = build_model(cfg)
+    n = sum(d.size for d in tree_leaves(model.decl()))
+    act = 4 * TB * TSEQ * cfg.d_model
+    sch = make_schedule(cfg)
+    moe = 0
+    if cfg.moe is not None:
+        moe = 2 * 4 * TB * TSEQ * cfg.moe.experts_per_token * layers
+    if name == "fsdp":
+        return n, 1.5 * 2 * n + 2 * 4 * n + 1.5 * 2 * n + moe
+    attn = sch.n_super * sum(t in ("dense", "moe", "shared")
+                             for t in sch.pattern)
+    specs = make_strategy(name, Mesh((1, 2), ("data", "model"))
+                          ).param_specs(model)
+    decl = model.decl()
+    blocks = [(decl["main"][sub], specs["main"][sub]) for sub in decl["main"]
+              if sub.endswith(("_mamba", "_mlstm", "_slstm"))]
+    if "tail" in decl:
+        blocks.append((decl["tail"], specs["tail"]))
+    recurrent = sum(d.size for dt, st in blocks for d, s in
+                    zip(tree_leaves(dt), tree_leaves(st)) if any(s))
+    return n, ((4 * attn + 2) * 2 * act + 1.5 * 2 * recurrent
+               + 2 * 1.5 * 2 * n + moe)
+
+
+def tp_family_rank(mesh, refs):
+    """One rank of 14g: (a) for each case (``refs``: the unsharded
+    master's path by case), then (b) for TP_FAMILY_BF16."""
+    import torch
+    import numpy as np
+    # as in the parent process: no TF32 in the f32 products and
+    # convolutions (zamba2's)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {"rank": mesh.rank}
+    for case, (arch, name, layers, steps, first) in TP_FAMILY_CASES.items():
+        out[case] = tp_train_f32(torch, np, mesh, name, refs[case], arch,
+                                 layers, steps, first, grads=True)
+    arch, name, layers, _, _ = TP_FAMILY_CASES[TP_FAMILY_BF16]
+    out[TP_FAMILY_BF16].update(tp_train_bf16(
+        torch, np, mesh, name, arch=arch, layers=layers, label="14g"))
+    return out
+
+
+def tp_family_unsharded_bf16(torch, arch, layers, card_line):
+    """The unsharded bf16 step 14g(b)'s ranks are printed beside: one
+    step, then one traced step's wall and busy share, and the peak."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data.synthetic import batch_at
+    from repro_torch.models.zoo import build_model
+    from repro_torch.train import state as TS
+    from repro_torch.train.step import make_train_step
+    with registry_override(arch, num_layers=layers):
+        cfg = registry.get_config(arch)
+        model = build_model(cfg)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        state = TS.create(model, 0, device="cuda")
+        fn = make_train_step(model, TrainConfig(
+            learning_rate=3e-4, total_steps=2, warmup_steps=1,
+            remat="none"))
+        b = {k: torch.from_numpy(v).cuda() for k, v in
+             batch_at(cfg, TB, TSEQ, seed=0, step=0).items()}
+        fn(state, b)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(LEAD_IN):
+                torch.cuda._sleep(100)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn(state, b)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        report_trace(torch, prof, f"14g {arch} unsharded bf16 step",
+                     wall_ms)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        del state, fn, model
+        torch.cuda.empty_cache()
+    print(f"[14g] unsharded bf16 step of {arch} at {layers} layers: traced "
+          f"wall {wall_ms:.1f} ms, peak {peak:.2f} GiB | {card_line}",
+          flush=True)
+
+
+def tp_family_path(torch, np, card_line):
+    """14g: the MoE, hybrid and ssm families' train steps sharded over a
+    (1, 2) mesh of two ranks spawned on the card (gloo, staged through
+    the host), at full width cut to TP_FAMILY_CASES' depths: granite
+    under dp_tp (its experts over 'model') and fsdp (its rows routed as
+    the whole batch's), zamba2 and xlstm under dp_tp (their recurrent
+    blocks on leaves gathered whole). (a) f32 from the seed-0 weights on
+    the stream's 4 x 1024 batches (the steps and the schedule's step they
+    start at by case), against the unsharded step on the
+    card at the same depth (run here first): first loss within 1e-5
+    relative, grad norm within 1e-4, the master after the steps within
+    2 lr a step (a sanity bound: an AdamW step moves an element by about
+    lr whatever its gradient), each leaf's gradient within GRAD_TOL of
+    the unsharded gradient's largest element (and GRAD_PER_MOVED more
+    for each expert choice that moved), each rank's share of the
+    state its ``state_specs`` block; for granite each token's expert
+    choices equal to the unsharded step's but at near-ties (margin below
+    CHOICE_MARGIN) and the kept choices summed over the ranks of the
+    batch axes off the unsharded step's by no more than the choices
+    that moved (``choice_flips``: exactly equal where none moved); (b) for
+    granite under dp_tp, ``launch.train.run`` in bf16 with the detectors
+    on (``check_tp_train_bf16``: B4 and B5 launches a rank as the cut
+    config reckons them, one B3 per checked store on the rank's blocks,
+    the tier-3 findings equal on both ranks, one traced step's kernels
+    equal to its launches), its step wall, collectives, staged bytes,
+    busy share and peak printed beside the unsharded step's. The bytes
+    each case stages through the host are reckoned first. Returns the
+    launches of (b), summed over the ranks."""
+    import shutil
+    import tempfile
+    from repro_torch.configs import registry
+    from repro_torch.launch.mesh import launch
+
+    for case, (arch, name, L, _, _) in TP_FAMILY_CASES.items():
+        cfg = registry.get_config(arch)
+        n, staged = tp_family_reckon(cfg, L, name)
+        print(f"[14g] reckoning: {case} at {L} of {cfg.num_layers} layers "
+              f"({n / 1e6:.0f} M parameters): a bf16 step stages "
+              f"{staged / 1e9:.2f} GB (~{staged / GLOO_BYTES_S:.1f} s) a "
+              f"rank through the host at ~{GLOO_BYTES_S / 1e9:.0f} GB/s",
+              flush=True)
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(root, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="tp_family_", dir=root)
+    try:
+        want, refs = {}, {}
+        for case, (arch, _, L, steps, first) in TP_FAMILY_CASES.items():
+            if arch not in want:
+                path = os.path.join(tmp, f"{arch}.pt")
+                want[arch] = w = unsharded_f32_steps(
+                    torch, arch, L, path, steps, first, grads=True)
+                w["path"] = path
+                near = sum(int((gap < CHOICE_MARGIN).sum())
+                           for _, _, gap in w["choices"]["calls"])
+                print(f"[14g] unsharded f32 step of {arch} at {L} layers on "
+                      f"the card: {w['rows']} (loss, grad norm, lr a step), "
+                      f"MoE choices kept {w['choices']['kept']} dropped "
+                      f"{w['choices']['dropped']}, tokens with a margin "
+                      f"below {CHOICE_MARGIN:.0e}: {near}; "
+                      f"{w['wall_s']:.2f} s a "
+                      f"step, peak {w['peak_gib']:.2f} GiB | {card_line}",
+                      flush=True)
+            refs[case] = want[arch]["path"]
+        arch, _, L, _, _ = TP_FAMILY_CASES[TP_FAMILY_BF16]
+        tp_family_unsharded_bf16(torch, arch, L, card_line)
+        t0 = time.perf_counter()
+        ranks = launch(tp_family_rank, (1, 2), args=(refs,),
+                       device="cuda:0", timeout_s=600)
+        print(f"[14g] two ranks spawned and run in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    total = {}
+    for case, (arch, name, L, steps, _) in TP_FAMILY_CASES.items():
+        w = want[arch]
+        allow = 2 * sum(r[2] for r in w["rows"])
+        summed = {"kept": 0, "dropped": 0}
+        flips = [choice_flips(r[case]["choices"]["calls"],
+                              w["choices"]["calls"]) for r in ranks]
+        # each 'model' rank under dp_tp routes its data rank's rows
+        batch = [name == "fsdp" or r[case]["coords"]["model"] == 0
+                 for r in ranks]
+        moved = sum(f[1] for f, b in zip(flips, batch) if b)
+        grad_tol = GRAD_TOL + GRAD_PER_MOVED * moved
+        for r, flip, counted in zip(ranks, flips, batch):
+            a = r[case]
+            loss_rel = abs(a["rows"][0][0] - w["rows"][0][0]) / abs(
+                w["rows"][0][0])
+            gn_rel = max(abs(g[1] - x[1]) / abs(x[1])
+                         for g, x in zip(a["rows"], w["rows"]))
+            tok = TB * TSEQ // (1 if name == "dp_tp" else 2)
+            c = a["comm"]
+            leaf, grad_rel = a["grad_rel"]
+            print(f"[14g] (a) {case} rank {r['rank']} f32: rows "
+                  f"{a['rows']}; first loss {loss_rel:.2e} relative from "
+                  f"the unsharded step's (tol 1e-5), grad norm "
+                  f"{gn_rel:.2e} (tol 1e-4), gradient by leaf at most "
+                  f"{grad_rel:.2e} of the leaf's largest ({leaf}; tol "
+                  f"{grad_tol:.2e} with {moved} choice(s) moved), master "
+                  f"after "
+                  f"{steps} step(s) max |diff| "
+                  f"{a['master_diff']:.2e} (sanity bound {allow:.2e}); "
+                  f"share of the state its state_specs block: "
+                  f"{a['share']}; MoE choices here kept "
+                  f"{a['choices']['kept']} dropped "
+                  f"{a['choices']['dropped']}, tokens whose choices "
+                  f"differ {flip[0]} (choices moved {flip[1]}, largest "
+                  f"margin among them {flip[2]:.2e}, tol "
+                  f"{CHOICE_MARGIN:.0e}); tokens {a['tokens']} a "
+                  f"step; {a['wall_s']:.2f} s a step against the "
+                  f"unsharded {w['wall_s']:.2f} s, collectives "
+                  f"{c['calls']} in {c['seconds']:.2f} s, "
+                  f"{c['staged_bytes']} bytes staged; peak "
+                  f"{a['peak_gib']:.2f} GiB against the unsharded step's "
+                  f"{w['peak_gib']:.2f} GiB | {card_line}", flush=True)
+            assert loss_rel <= 1e-5 and gn_rel <= 1e-4, (case, a["rows"])
+            assert a["master_diff"] <= allow, (case, a["master_diff"])
+            assert grad_rel <= grad_tol, (case, leaf, grad_rel, moved)
+            assert flip[2] < CHOICE_MARGIN, (case, flip)
+            assert a["share"] and a["tokens"] == tok, (case, a["tokens"])
+            if counted:
+                for k in summed:
+                    summed[k] += a["choices"][k]
+        want_kept = {k: w["choices"][k] for k in summed}
+        print(f"[14g] (a) {case}: MoE choices summed over the batch axes' "
+              f"ranks {summed}, unsharded {want_kept}, choices moved at "
+              f"near-ties {moved}", flush=True)
+        assert sum(summed.values()) == sum(want_kept.values()), case
+        assert abs(summed["kept"] - want_kept["kept"]) <= moved, (
+            case, summed, want_kept, moved)
+        assert (w["choices"]["kept"] > 0) == (arch == GRANITE), case
+    arch, name, L, _, _ = TP_FAMILY_CASES[TP_FAMILY_BF16]
+    cfg = registry.get_config(arch)
+    for r in ranks:
+        a = r[TP_FAMILY_BF16]
+        check_tp_train_bf16(a, r["rank"], ranks[0][TP_FAMILY_BF16]["report"],
+                            name, cfg, L, card_line, labels=("14g", "14g"))
+        for k, v in a["launches"].items():
+            total[k] = total.get(k, 0) + v
     return total
 
 
@@ -6181,7 +6663,7 @@ def main() -> int:
     phase("14a tp_serve chunks", tp_chunk_kernels, torch, np, timer)
     phase("14a defer on chunks", tp_defer_chunk_kernels, torch, np, timer,
           entries)
-    phase("14e kernels", check_tp_train_kernels, torch, timer, entries)
+    phase("14e/14g kernels", check_tp_train_kernels, torch, timer, entries)
     t14 = time.perf_counter() - t14
     # each main path is driven with the launch counts set to 0 just
     # before it and read just after
@@ -6255,6 +6737,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     by_path["tp_train"] = phase("14e sharded training", tp_train_path,
                                 torch, np, card)
+    torch.cuda.empty_cache()
+    by_path["tp_train families"] = phase(
+        "14g sharded training of the other families", tp_family_path, torch,
+        np, card)
     print(f"[phase] 14 in all: {t14 + time.perf_counter() - t0:.1f} s",
           flush=True)
     # last: its traced step holds ~0.3 M kernels (~0.9 M at 48 layers),

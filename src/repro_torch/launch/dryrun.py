@@ -33,9 +33,9 @@ rank's argument, output and peak temporary bytes, the last an estimate:
 ``trace_memory``), ``flops_per_device`` and the roofline terms of
 ``launch/roofline.py:analyze_traced`` (``dominant``,
 ``roofline_fraction``): a model of the mesh's cards, not a measurement.
-A cell that raises records ``status: "error"`` with the message (e.g.
-the families a strategy does not train yet, ROADMAP A11e); a cell the
-assignment skips records ``status: "skipped"``. Records are written as
+A cell that raises records ``status: "error"`` with the message; a
+cell the assignment skips records ``status: "skipped"``. Every family
+traces under both training strategies. Records are written as
 JSON under ``experiments/dryrun_torch/``.
 """
 from __future__ import annotations
@@ -62,8 +62,7 @@ from repro_torch.serve.decode import make_serve_step, shard_params
 from repro_torch.sharding.ctx import sharding_ctx
 from repro_torch.sharding.rules import make_strategy, shard_tree
 from repro_torch.train import state as TS
-from repro_torch.train.step import (check_strategy, make_eval_step,
-                                    make_train_step, rank_batch)
+from repro_torch.train.step import make_eval_step, make_train_step, rank_batch
 
 OUT_DIR = Path(__file__).resolve().parents[3] / "experiments" / "dryrun_torch"
 
@@ -197,9 +196,6 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, strategy_name: str,
     elif shape.kind == "prefill":
         strat = make_strategy(strategy_name if strategy_name != "tp_serve"
                               else "dp_tp", mesh)
-        # the training forward: what the strategy does not train it
-        # does not run either
-        check_strategy(model, strat)
         params = _own(shard_tree(model.abstract_params(
             device=device, mode=mode, dtype=bf16), strat.param_specs(model),
             mesh))

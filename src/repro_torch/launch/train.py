@@ -67,7 +67,7 @@ from repro_torch.launch.serve import resolve_device
 from repro_torch.models.zoo import build_model
 from repro_torch.runtime.fault import FleetMonitor
 from repro_torch.train import state as TS
-from repro_torch.train.step import check_strategy, make_train_step, rank_batch
+from repro_torch.train.step import make_train_step, rank_batch
 
 
 LOG_EVERY = 10
@@ -102,7 +102,6 @@ def run(arch: str, *, smoke: bool = True, steps: int = 50, batch: int = 8,
             raise ValueError(f"strategy {strategy!r}: dp_tp or fsdp")
         mesh = mesh if mesh is not None else make_host_mesh()
         strat = make_strategy(strategy, mesh)
-        check_strategy(model, strat)
         rank0 = mesh.rank == 0
         if mesh.device is not None:
             device = str(mesh.device)

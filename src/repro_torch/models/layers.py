@@ -119,12 +119,17 @@ def whole_leaves(p, layout, mesh):
     """``p`` with every leaf that ``layout`` (the sub-block's spec tree,
     ``lm._layer_layout``) says is a block gathered whole: the recurrent
     blocks, which have no tensor-parallel branch, run on whole weights
-    under tp_serve, each rank the whole block."""
+    under tp_serve and dp_tp, each rank the whole block on its rows.
+    The gather is ``comm.gather_from``: every 'model' rank runs the
+    whole block on the same rows, so the whole gradient is the same on
+    each and the backward keeps the rank's block with no sum. Its
+    forward is the plain all-gather, so serving (no gradient) takes it
+    too."""
     def leaf(t, spec):
         dims = [i for i, e in enumerate(spec) if e is not None]
         if not dims:
             return t
-        return comm.all_gather(t, spec[dims[0]], mesh, dim=dims[0])
+        return comm.gather_from(t, spec[dims[0]], mesh, dim=dims[0])
     from repro_torch.sharding.rules import map2
     return map2(leaf, p, layout)
 
@@ -141,7 +146,8 @@ def whole_leaves(p, layout, mesh):
 # rows too, so every rank's copy of the cache holds every slot's rows in
 # the same step; an MoE layer routes the rows of every slot
 # (``gather_rows``), since its capacity is per group of the whole
-# batch's tokens.
+# batch's tokens, and a router's product of a few rows rounds otherwise
+# than the whole batch's, whose bits the engine's must equal.
 # ----------------------------------------------------------------------
 _DATA_ROWS: contextvars.ContextVar = contextvars.ContextVar(
     "data_rows", default=None)
@@ -167,6 +173,19 @@ def gather_rows(t: torch.Tensor) -> torch.Tensor:
         return t
     mesh, axes = split[0], split[1]
     return comm.all_gather(t.contiguous(), axes, mesh, dim=0)
+
+
+def batch_rows():
+    """(mesh, batch axes) when the active sharder's forward runs on this
+    rank's block of the rows of a batch split over more than one rank
+    without gathering them (the train and eval steps:
+    ``Sharder.rank_rows``), else None. The MoE layer then routes the
+    rank's tokens as the whole batch's."""
+    s = current_sharder()
+    if (s is None or not s.rank_rows
+            or s.mesh.axis_size(s.batch_axes) == 1):
+        return None
+    return s.mesh, s.batch_axes
 
 
 def local_rows(t: torch.Tensor) -> torch.Tensor:

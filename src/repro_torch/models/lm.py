@@ -183,10 +183,11 @@ def _cached_xattn(p_attn, cfg: ModelConfig, x: torch.Tensor,
 
 def _layer_layout(*path):
     """The spec tree of one layer of the stacked params at ``path`` (as
-    ("main", "b0_moe")) as the serving steps hold them: the tree
-    ``serve.decode.shard_params`` bound on the sharder, its layer dim
-    dropped; None without one (unsharded, no tensor-parallel 'model', or
-    a strategy that bound none)."""
+    ("main", "b0_moe")) as the steps hold them: the tree that
+    ``serve.decode.shard_params`` or the train and eval step factories
+    bound on the sharder, its layer dim dropped; None without one
+    (unsharded, no tensor-parallel 'model', or a strategy that bound
+    none)."""
     s = current_sharder()
     if s is None or s.param_specs is None or L.tp_mesh() is None:
         return None
@@ -208,9 +209,11 @@ def _apply_sub(p, cfg: ModelConfig, typ: str, x: torch.Tensor, *,
     its MLP; an xattn block attends across to the image tokens ``src``
     (cache-free) or to the cache's cross K/V, each half behind its tanh
     gate, and leaves the cache as it was. ``layout`` is the sub-block's
-    spec tree under tp_serve (``_layer_layout``): the MoE layer runs a
-    rank's block of the experts, a recurrent block gathers its blocks
-    whole."""
+    spec tree under tp_serve or dp_tp (``_layer_layout``): the MoE layer
+    runs a rank's block of the experts, a recurrent block gathers its
+    blocks whole. Where each rank's forward holds its block of the
+    batch's rows (``L.batch_rows``) the MoE layer routes them as the
+    whole batch's."""
     if typ in ("dense", "shared"):
         x, nc = L.apply_dense_block(p, cfg, x, cache=cache, spec=spec)
         return x, nc, None
@@ -219,11 +222,12 @@ def _apply_sub(p, cfg: ModelConfig, typ: str, x: torch.Tensor, *,
             p["attn"], cfg, L.apply_rmsnorm(p["ln1"], x, cfg.norm_eps),
             cache=cache, spec=spec)
         x = x + h
-        # over 'data' ranks the layer routes every slot's rows
-        # (L.data_rows): capacity is per group of the whole batch
+        # a serving 'data' rank routes every slot's rows (L.data_rows), a
+        # train or eval step its own as the whole batch's (L.batch_rows)
         h, aux = M.apply_moe(p["moe"], cfg, L.gather_rows(
             L.apply_rmsnorm(p["ln2"], x, cfg.norm_eps)),
-            layout=None if layout is None else layout["moe"])
+            layout=None if layout is None else layout["moe"],
+            rows=L.batch_rows())
         return x + L.local_rows(h), nc, aux
     if typ == "xattn":
         if cache is None:
@@ -317,8 +321,11 @@ class LM:
                     src: Optional[torch.Tensor] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
         for i, typ in enumerate(self.sched.pattern):
-            p = shared if typ == "shared" else p_l[f"b{i}_{typ}"]
-            x, _, a = _apply_sub(p, self.cfg, typ, x, src=src)
+            name = f"b{i}_{typ}"
+            p, layout = ((shared, None) if typ == "shared" else
+                         (p_l[name], _layer_layout("main", name)))
+            x, _, a = _apply_sub(p, self.cfg, typ, x, src=src,
+                                 layout=layout)
             if a is not None:
                 aux = aux + a
         return x, aux
@@ -530,9 +537,10 @@ class LM:
         if sch.tail:
             # the tail is not checkpointed, as in the reference
             tail = P.tree_map(lambda t: t.unbind(0), params["tail"])
+            layout = _layer_layout("tail")
             for li in range(len(sch.tail)):
                 x, _, _ = _apply_sub(P.tree_map(lambda ts: ts[li], tail),
-                                     cfg, sch.tail[li], x)
+                                     cfg, sch.tail[li], x, layout=layout)
         x = L.apply_rmsnorm(params["final_norm"], x, cfg.norm_eps)
         return x, aux
 

@@ -152,7 +152,7 @@ class ServeEngine:
         # slices, those sharded on 'embed' whole: decode.shard_params)
         self._step_params = params
         if strategy is not None:
-            self._sharder = self._check_strategy(strategy)
+            self._sharder = self._serving_sharder(strategy)
             params, self._step_params = shard_params(model, strategy,
                                                      params)
         self.params = params
@@ -294,7 +294,7 @@ class ServeEngine:
                 row_elems={n: row(n) for n in self._kv_names})
 
     # --------------------------- tensor parallel ----------------------
-    def _check_strategy(self, strategy):
+    def _serving_sharder(self, strategy):
         """The strategy's sharder: the engine serves under tp_serve, over
         any (data, model) mesh (the slots over 'data' when they divide,
         the cache chunked over 'model', an MoE model's experts over

@@ -15,8 +15,9 @@ A Sharder also records the global extents of the cache allocated under
 it (``pool_pages``, ``seq_len``, ``cross_len``): a rank's pool holds
 only its chunk, so the layers cannot read the global page count off the
 tensor they get; and, for serving, the spec tree of the params the
-steps run on (``param_specs``), from which the layers that run a block
-of a leaf or take it whole learn which leaves are blocks.
+steps run on (``param_specs``, bound by the serving, train and eval
+step factories), from which the layers that run a block of a leaf or
+take it whole learn which leaves are blocks.
 """
 from __future__ import annotations
 
@@ -42,10 +43,17 @@ class Sharder:
         self.pool_pages: Optional[int] = None
         self.seq_len: Optional[int] = None
         self.cross_len: Optional[int] = None
-        # the spec tree of the params the serving steps run on
-        # (serve.decode.shard_params): which leaves are a rank's blocks,
-        # and of which dim (None: not bound, every leaf as given)
+        # the spec tree of the params the steps run on
+        # (serve.decode.shard_params, the train and eval step factories):
+        # which leaves are a rank's blocks, and of which dim (None: not
+        # bound, every leaf as given)
         self.param_specs = None
+        # whether the steps run each rank's forward on its block of the
+        # batch's rows over ``batch_axes`` (the train and eval steps,
+        # ``train/step.py:rank_batch``); the serving steps split the
+        # slots themselves (models/layers.py ``data_rows``) or run the
+        # whole batch on every rank
+        self.rank_rows = False
 
     def _divisible(self, shape, spec) -> bool:
         for dim, names in zip(shape, tuple(spec) + (None,) * len(shape)):
@@ -84,9 +92,11 @@ class Sharder:
         setattr(self, attr, value)
 
 
-    def bind_params(self, specs) -> None:
-        """Record the spec tree of the params the steps run on."""
+    def bind_params(self, specs, rank_rows: bool = False) -> None:
+        """Record the spec tree of the params the steps run on, and
+        whether those steps run each rank on its rows (``rank_rows``)."""
         self.param_specs = specs
+        self.rank_rows = rank_rows
 
 
 @contextlib.contextmanager

@@ -11,10 +11,15 @@ ones).
 
 Under a strategy (sharding/rules.py) every rank runs this step on its
 own blocks: its rows of the batch (``rank_batch``), its params in the
-strategy's param layout, its master and moments in the ZeRO layout
-(``train/state.py:state_specs``). The model's forward places the
-collectives (models/layers.py, models/lm.py, train/fused_xent.py), and
-each rank's gradient is its rows' part of the whole batch's loss's.
+strategy's param layout (bound on the sharder, so that each layer knows
+which of its leaves are blocks), its master and moments in the ZeRO
+layout (``train/state.py:state_specs``). Every model family trains
+under both strategies. The model's forward places the collectives
+(models/layers.py, models/lm.py, models/moe.py, train/fused_xent.py):
+under dp_tp the MoE experts run over 'model' and the recurrent blocks
+on leaves gathered whole; the MoE layer routes a rank's rows as the
+whole batch's (its groups, capacity and aux loss), and each rank's
+gradient is its rows' part of the whole batch's loss's.
 The step then sums each gradient over the batch axes its layout does
 not shard (the fsdp gather's backward already reduce-scattered over the
 others) — once — and reshards it to the ZeRO layout, where the
@@ -37,17 +42,6 @@ from repro_torch.sharding import comm
 from repro_torch.sharding.ctx import sharding_ctx
 from repro_torch.train import state as S
 
-# the model families each strategy trains; the others raise, naming the
-# ROADMAP item that would add them. dp_tp needs a tensor-parallel
-# training branch in every layer: the MoE experts over 'model' (becd),
-# the Mamba2 block's ssm_inner and the xLSTM blocks have none. fsdp's
-# compute is data-parallel over gathered weights, which holds for every
-# family whose loss is a mean over the batch's rows: the MoE layer's
-# capacity and aux loss are taken over the whole batch, not a rank's rows
-SHARDED_FAMILIES = {"dp_tp": ("dense", "vlm", "audio"),
-                    "fsdp": ("dense", "vlm", "audio", "hybrid", "ssm")}
-
-
 def _like(tree, leaves):
     """``leaves`` (in ``tree_leaves`` order) put back into ``tree``'s shape."""
     it = iter(leaves)
@@ -68,15 +62,6 @@ def _compress_int8_ef(g: torch.Tensor, mesh=None,
     scale = torch.clamp(amax, min=1e-8) / 127.0
     q = torch.clamp(torch.round(gf / scale), -127, 127).to(torch.int8)
     return (q.to(torch.float32) * scale).to(g.dtype)
-
-
-def check_strategy(model, strategy) -> None:
-    """Raise for a model family the strategy does not train."""
-    fam = model.cfg.family
-    if fam not in SHARDED_FAMILIES.get(strategy.name, ()):
-        raise NotImplementedError(
-            f"training the {fam!r} family under {strategy.name!r} is "
-            f"ROADMAP A11e")
 
 
 def rank_batch(batch: Dict[str, Any], strategy,
@@ -112,8 +97,7 @@ def make_train_step(model, tc: TrainConfig, strategy=None):
     model.remat = tc.remat
     sharder = specs = mesh = None
     if strategy is not None:
-        check_strategy(model, strategy)
-        sharder = strategy.sharder()
+        sharder = _bound_sharder(model, strategy)
         specs = S.state_specs(model, strategy)
         mesh = strategy.mesh
 
@@ -201,11 +185,23 @@ def _fresh_params(master, params, specs, mesh):
             master, params, specs.master, specs.params)
 
 
+def _bound_sharder(model, strategy):
+    """The strategy's sharder with its param layout bound
+    (``Sharder.bind_params``), from which the layers learn which of a
+    layer's leaves are this rank's blocks (``lm._layer_layout``), and
+    with each rank's forward on its rows of the batch (``rank_batch``),
+    which the MoE layer routes as the whole batch's."""
+    sharder = strategy.sharder()
+    sharder.bind_params(strategy.param_specs(model), rank_rows=True)
+    return sharder
+
+
 def make_eval_step(model, strategy=None):
     """Forward-only step (prefill / eval): batch -> (logits, aux). Under a
     ``strategy`` each rank passes its params and its rows of the batch,
     and gets its rows' logits, every vocab entry whole."""
-    sharder = strategy.sharder() if strategy is not None else None
+    sharder = (_bound_sharder(model, strategy) if strategy is not None
+               else None)
 
     def eval_step(params, batch):
         with torch.no_grad(), sharding_ctx(sharder):

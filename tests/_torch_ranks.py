@@ -674,52 +674,191 @@ def grad_rank(mesh):
     return out
 
 
-# every family a strategy trains (train/step.py:SHARDED_FAMILIES), at
-# its smoke config in float32: 2 steps of 4 x 32 tokens
+# the vlm, audio, hybrid and ssm families at their smoke configs in
+# float32, 2 steps of 4 x 32 tokens (test_torch_train_sharded.py; the
+# MoE family and dp_tp of the hybrid and ssm families are
+# test_torch_train_families_sharded.py's FAMILIES_SHARDED)
 FAMILY_CASES = (
     ("llama-3.2-vision-90b", "dp_tp"), ("llama-3.2-vision-90b", "fsdp"),
     ("whisper-large-v3", "dp_tp"), ("whisper-large-v3", "fsdp"),
     ("zamba2-1.2b", "fsdp"), ("xlstm-1.3b", "fsdp"))
 
 
-def family_steps(arch: str, strategy=None, mesh=None):
-    """2 f32 steps of ``arch``'s smoke config from the port's seed-0 state
-    (this rank's share under ``strategy``): (loss, grad norm) a step and
-    the whole master after, by checkpoint key."""
+@contextlib.contextmanager
+def count_choices():
+    """Within: the MoE layers' expert choices of every real forward
+    (``models/moe.py``: ``_route`` of the whole batch, ``_route_rows`` of
+    a rank's rows, whose kept mask is False on the other ranks'
+    positions), kept and dropped past capacity, summed in the dict this
+    yields; restored on exit."""
+    from torch._subclasses.fake_tensor import FakeTensor
+    from repro_torch.models import moe as M
+    counts = {"kept": 0, "dropped": 0}
+
+    def count(keep, choices):
+        if not isinstance(keep, FakeTensor):
+            kept = int(keep.sum())
+            counts["kept"] += kept
+            counts["dropped"] += choices - kept
+
+    def route(p, cfg, x, *args):
+        out = saved[0](p, cfg, x, *args)
+        count(out[3], out[3].numel())
+        return out
+
+    def route_rows(p, cfg, x, *args):
+        out = saved[1](p, cfg, x, *args)
+        count(out[5], x.shape[0] * x.shape[1] * cfg.moe.experts_per_token)
+        return out
+    saved = (M._route, M._route_rows)
+    M._route, M._route_rows = route, route_rows
+    try:
+        yield counts
+    finally:
+        M._route, M._route_rows = saved
+
+
+def family_config(arch: str, layers=None, dispatch=None):
+    """``arch``'s smoke config in float32 (``layers``: its depth;
+    ``dispatch``: its MoE layer's dispatch path)."""
+    from repro_torch.configs import registry
+    cfg = registry.get_config(arch).smoke()
+    fields = {"dtype": "float32"}
+    if layers:
+        fields["num_layers"] = layers
+    if dispatch:
+        fields["moe"] = dataclasses.replace(cfg.moe, dispatch=dispatch)
+    return dataclasses.replace(cfg, **fields)
+
+
+def family_run(arch: str, strategy=None, mesh=None, layers=None,
+               dispatch=None, remat="none", trace=False):
+    """2 f32 steps under ``remat`` of ``arch``'s smoke config
+    (``family_config`` of ``layers`` and ``dispatch``) from the
+    port's seed-0 state (this rank's share under ``strategy``), each
+    rank on its rows of the stream's 4 x 32 batches. Returns "rows"
+    ((loss, nll, moe_aux, grad norm) a step), "master" (whole, by
+    checkpoint key), "choices" (the MoE layers' kept and dropped expert
+    choices of this rank's forwards, ``count_choices``), "router" (the
+    first MoE layer's router gradient on the first batch after the
+    step's sum over the batch axes its layout does not shard: the whole
+    batch's on every rank; None for other families) and "coords". With
+    ``trace`` the last step is traced on fake tensors first and "step"
+    holds its collective and forward kernel nodes against the real
+    step's collectives (``comm.STATS``) and kernel calls."""
     import torch
     from repro_torch.checkpoint.checkpointer import flatten
-    from repro_torch.configs import registry
     from repro_torch.configs.base import TrainConfig
+    from repro_torch.core.graph_trace import trace_step
     from repro_torch.data.synthetic import stream
     from repro_torch.models.zoo import build_model
+    from repro_torch.sharding import comm
     from repro_torch.sharding.rules import make_strategy
     from repro_torch.train import state as TS
     from repro_torch.train.step import make_train_step, rank_batch
-    cfg = dataclasses.replace(registry.get_config(arch).smoke(),
-                              dtype="float32")
+    cfg = family_config(arch, layers, dispatch)
     model = build_model(cfg)
     strat = None if strategy is None else make_strategy(strategy, mesh)
     fn = make_train_step(model, TrainConfig(
-        learning_rate=3e-4, total_steps=2, warmup_steps=1, remat="none"),
+        learning_rate=3e-4, total_steps=2, warmup_steps=1, remat=remat),
         strat)
     state = TS.create(model, 0, compute_dtype=torch.float32, device="cpu",
                       strategy=strat)
     data = stream(cfg, 4, TRAIN_SEQ, seed=0)
-    rows = []
-    for _ in range(2):
-        b = next(data)
-        b = b if strat is None else rank_batch(b, strat)
-        state, m = fn(state, {k: torch.from_numpy(v) for k, v in b.items()})
-        rows.append((float(m["loss"]), float(m["grad_norm"])))
+    rows, router, checked = [], None, None
+    with count_choices() as choices:
+        for step in range(2):
+            b = next(data)
+            b = b if strat is None else rank_batch(b, strat)
+            batch = {k: torch.from_numpy(v) for k, v in b.items()}
+            if step == 0 and cfg.moe is not None:
+                router = _router_grad(model, state.params, batch, strat)
+            if trace and step == 1:
+                traced = trace_step(fn, state, batch)
+                comm.reset_stats()
+                with count_kernels() as calls:
+                    state, m = fn(state, batch)
+                checked = {"nodes": collective_nodes(traced),
+                           "kernel_nodes": forward_kernel_nodes(traced),
+                           "collectives": dict(comm.STATS["kinds"]),
+                           "kernel_calls": calls}
+            else:
+                state, m = fn(state, batch)
+            rows.append(tuple(float(m[k]) for k in
+                              ("loss", "nll", "moe_aux", "grad_norm")))
     if strat is not None:
         state = TS.gather_state(state, model, strat)
-    return rows, {k: v.numpy().copy() for k, v in
-                  flatten(state.master).items()}
+    return {"rows": rows, "master": {k: v.numpy().copy() for k, v in
+                                     flatten(state.master).items()},
+            "choices": dict(choices), "router": router, "step": checked,
+            "coords": None if mesh is None else dict(mesh.coords)}
+
+
+def _router_grad(model, params, batch, strat):
+    """The gradient of the loss by the first MoE layer's router (every
+    layer, stacked), as the train step takes it (sharding_ctx, then the
+    sum over the batch axes the router's layout does not shard)."""
+    import torch
+    from repro_torch.models.params import tree_map
+    from repro_torch.sharding import comm
+    from repro_torch.sharding.ctx import sharding_ctx
+    from repro_torch.sharding.rules import spec_axes
+    live = tree_map(lambda t: t.detach().requires_grad_(True), params)
+    router = live["main"]["b0_moe"]["moe"]["router"]
+    sharder = None if strat is None else strat.sharder()
+    with torch.enable_grad(), sharding_ctx(sharder):
+        loss, _ = model.loss(live, batch)
+        (g,) = torch.autograd.grad(loss, [router])
+    if strat is not None:
+        spec = strat.param_specs(model)["main"]["b0_moe"]["moe"]["router"]
+        g = comm.all_reduce(g, tuple(a for a in strat.batch_axes
+                                     if a not in spec_axes(spec)),
+                            strat.mesh)
+    return g.numpy().copy()
+
+
+def family_steps(arch: str, strategy=None, mesh=None):
+    """``family_run``'s (loss, grad norm) a step and whole master."""
+    r = family_run(arch, strategy, mesh)
+    return [(row[0], row[3]) for row in r["rows"]], r["master"]
 
 
 def family_rank(mesh, cases):
     """``family_steps`` of every (arch, strategy) of ``cases`` here."""
     return {f"{a}-{s}": family_steps(a, s, mesh) for a, s in cases}
+
+
+# case -> (arch, strategy, family_run's keywords);
+# test_torch_train_families_sharded.py runs each on (1, 2) and
+# FAMILIES_SHARDED_22 on (2, 2) too
+FAMILIES_SHARDED = {
+    "granite-dp_tp": ("granite-moe-3b-a800m", "dp_tp", {}),
+    "granite-fsdp": ("granite-moe-3b-a800m", "fsdp", {}),
+    # the one-hot einsum dispatch, with the same two copy_to points
+    "granite-einsum-dp_tp": ("granite-moe-3b-a800m", "dp_tp",
+                             {"dispatch": "einsum"}),
+    # the recompute of each superblock keeps the layout and the routing
+    "granite-dots-dp_tp": ("granite-moe-3b-a800m", "dp_tp",
+                           {"remat": "dots"}),
+    # two superblocks of 6 Mamba2 blocks and the shared block, then a
+    # tail of 2 (the smoke config's 12 layers have no tail)
+    "zamba2-dp_tp": ("zamba2-1.2b", "dp_tp", {"layers": 14}),
+    "xlstm-dp_tp": ("xlstm-1.3b", "dp_tp", {}),
+}
+FAMILIES_SHARDED_22 = ("granite-dp_tp",)
+# the case whose last step is traced on fake tensors on (1, 2)
+FAMILIES_TRACED = "granite-dp_tp"
+
+
+def families_rank(mesh, cases, traced=None):
+    """``family_run`` of every case of ``cases`` on this rank (the case
+    ``traced`` with its last step traced)."""
+    out = {}
+    for case in cases:
+        arch, strategy, kw = FAMILIES_SHARDED[case]
+        out[case] = family_run(arch, strategy, mesh, trace=case == traced,
+                               **kw)
+    return out
 
 
 # ----------------------------------------------------------------------

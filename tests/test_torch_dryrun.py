@@ -23,8 +23,9 @@ exactly under fsdp, whose compute is data-parallel over every rank, and
 within [1, 1.25] of it under dp_tp and tp_serve, where the smoke
 config's attention projections (under 16 Ki elements, so replicated by
 sharding/rules.py) run again on each 'model' rank (measured 1.19 train,
-1.18 prefill, 1.003 decode). The cells ROADMAP A11e has not ported
-record status "error" naming it.
+1.18 prefill, 1.003 decode). ``main`` records every cell of the smoke
+configs "ok" on the production mesh's rank 0, the MoE family's train and
+prefill cells included.
 """
 import json
 import math
@@ -260,20 +261,29 @@ def test_run_cell_of_the_smoke_config_on_a_2x2_mesh(shape, strategy):
 
 
 def test_main_records_ok_and_a11e_cells(tmp_path, monkeypatch):
-    """``main`` writes one JSON record a cell: the smoke config's decode
-    cell "ok" on the production mesh's rank 0, and the cells A11e has not
-    ported "error" with its message."""
+    """``main`` writes one JSON record a cell, each "ok" on the production
+    mesh's rank 0 at the smoke configs: qwen3's and granite's decode,
+    train and prefill cells, granite's train and prefill (dp_tp) with the
+    MoE layer's routing collectives among its nodes (the choices'
+    all-gather over 'data', the aux's means all-reduced), and zamba2's
+    decode cell (its train_4k traces one node per SSD chunk, ~100 s
+    here)."""
     monkeypatch.setattr(dryrun, "OUT_DIR", tmp_path)
-    dryrun.main(["--arch", "qwen3-1.7b,granite-moe-3b-a800m,zamba2-1.2b",
-                 "--shape", "decode_32k,train_4k", "--mesh", "single",
-                 "--device", "cpu", "--smoke", "--tag", "t"])
+    kw = ["--mesh", "single", "--device", "cpu", "--smoke", "--tag", "t"]
+    dryrun.main(["--arch", "qwen3-1.7b,granite-moe-3b-a800m", "--shape",
+                 "decode_32k,train_4k,prefill_32k"] + kw)
+    dryrun.main(["--arch", "zamba2-1.2b", "--shape", "decode_32k"] + kw)
     recs = {(r["arch"], r["shape"]): r for r in
             (json.loads(p.read_text()) for p in tmp_path.glob("*.json"))}
-    assert len(recs) == 6
-    ok = recs[("qwen3-1.7b", "decode_32k")]
-    assert ok["status"] == "ok" and ok["mesh"] == "16x16"
-    assert ok["chips"] == 256 and ok["trace_s"] >= 0
-    assert ok["collectives"]
-    for arch in ("granite-moe-3b-a800m", "zamba2-1.2b"):
-        err = recs[(arch, "train_4k")]
-        assert err["status"] == "error" and "A11e" in err["error"], err
+    assert len(recs) == 7
+    for rec in recs.values():
+        assert rec["status"] == "ok" and rec["mesh"] == "16x16", rec
+        assert rec["chips"] == 256 and rec["trace_s"] >= 0
+        assert rec["collectives"]
+    for shape in ("train_4k", "prefill_32k"):
+        moe, dense = (recs[(arch, shape)] for arch in
+                      ("granite-moe-3b-a800m", "qwen3-1.7b"))
+        assert moe["strategy"] == "dp_tp"
+        # the routing's all-gather of the choices over 'data' and the
+        # aux's all-reduce, a layer each, on top of a dense model's
+        assert moe["num_collectives"] > dense["num_collectives"]

@@ -37,12 +37,14 @@ Tolerances:
 The driver (``run(strategy="dp_tp", mesh=)``) resumes bit for bit, and
 its checkpoint restores in the unsharded port; the eval step's logits
 of each rank's rows equal the unsharded forward's within 1e-5 of the
-largest logit. The other families a
-strategy trains (``train/step.py:SHARDED_FAMILIES``: vlm and audio under
-both, hybrid and ssm under fsdp) take 2 f32 steps of their smoke configs
-on 2 ranks against the port's unsharded steps (loss and grad norm 1e-5
-relative, master 1e-5 of each leaf's largest); the rest raise, naming
-ROADMAP A11e. The wide config's default cases' last step is also traced
+largest logit. The vlm and audio families under both strategies and the
+hybrid and ssm families under fsdp take 2 f32 steps of their smoke
+configs on 2 ranks against the port's unsharded steps (loss and grad
+norm 1e-5 relative, master 1e-5 of each leaf's largest); the MoE family
+under both and the hybrid and ssm families under dp_tp are
+test_torch_train_families_sharded.py's, and take one step each here on
+the one-rank host mesh through the driver. The wide config's default
+cases' last step is also traced
 on fake tensors first: its collective nodes by kind equal the collectives that
 step ran (``comm.STATS``), its forward kernel nodes its kernel calls.
 """
@@ -332,8 +334,8 @@ def test_sharded_driver_resumes_bit_exact_and_restores_unsharded(runs):
 
 @pytest.mark.parametrize("arch,strategy", R.FAMILY_CASES)
 def test_sharded_families_match_unsharded(runs, arch, strategy):
-    """Every other family a strategy trains (the vlm and audio families
-    under both, the hybrid and ssm families under fsdp), 2 f32 steps of
+    """The vlm and audio families under both strategies and the hybrid
+    and ssm families under fsdp, 2 f32 steps of
     its smoke config on 2 ranks: loss and grad norm within 1e-5
     relative, the master within 1e-5 of each leaf's largest magnitude,
     of the port's unsharded steps (held to the reference by each
@@ -373,12 +375,20 @@ def test_sharded_driver_options_name_their_roadmap_items():
         [("recompute", 2)]
     assert "fused_xent.py" in reports[0].findings[0].c1[0]
     assert reports[1].findings == []
+    # every family trains under both strategies (ROADMAP A11e): on the
+    # one-rank host mesh a step's losses are the unsharded driver's
+    fam = dict(kw, seq=16)
+    unsharded = {k: v for k, v in fam.items() if k != "strategy"}
+    want = {}
     for arch, strategy in (("granite-moe-3b-a800m", "dp_tp"),
                            ("granite-moe-3b-a800m", "fsdp"),
                            ("zamba2-1.2b", "dp_tp"),
                            ("xlstm-1.3b", "dp_tp")):
-        with pytest.raises(NotImplementedError, match="A11e"):
-            pt_train.run(arch, **dict(kw, strategy=strategy))
+        losses, _ = pt_train.run(arch, **dict(fam, strategy=strategy))
+        if arch not in want:
+            want[arch] = pt_train.run(arch, **unsharded)[0]
+        np.testing.assert_allclose(losses, want[arch], rtol=1e-6,
+                                   err_msg=arch)
     losses, _ = pt_train.run("qwen3-1.7b", **kw)
     want, _ = pt_train.run("qwen3-1.7b", **{k: v for k, v in kw.items()
                                             if k != "strategy"})

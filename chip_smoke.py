@@ -225,11 +225,15 @@ against CPU; 8. runs zamba2-1.2b (38 Mamba2 blocks, one shared attention
    image tokens, d_model 8192, 64 heads over 8 kv heads of 128) at full
    layer width, cut to one period (6.38 B parameters): B4 at its heads (G
    8) causal and non-causal 1024 x 1024 in both dtypes and a decode step's
-   one query over the 1024 image tokens, B5 at width 8192 (the general
-   route) at decode and training rows, each against its plain version,
-   two calls bit-identical, kernels and grids from the trace, timed
-   beside SDPA or ``F.rms_norm`` (12a, run with the other kernel
-   phases); the token-loop serving driver's functions (batch 8, prompt
+   one query over the 1024 image tokens (the few-row route, also at
+   whisper's tier-1 1 x 128, both dtypes, causal and not; timed beside
+   the tiled route and by key splits), B5 at width 8192 (the wide route)
+   at decode and training rows, at 4104 and 8184 (wide, the backward's
+   last thread partly live) and on the general route at misaligned 8192
+   rows and at 8200, each against its plain
+   version, two calls bit-identical, routes, kernels and grids from the
+   trace, timed beside SDPA or ``F.rms_norm`` (12a, run with the other
+   kernel phases); the token-loop serving driver's functions (batch 8, prompt
    128 + 32, tier 1 once): 11 B5 and 1 B4 launches a decode forward and
    one forward more in tier 1's microstep, prefill and decode tok/s, a
    traced decode step (12b); the loss and every gradient at 4 x 1024
@@ -392,11 +396,15 @@ def retake_pause(attempt: int) -> None:
 class Timer:
     """Mean time of one call in ms from CUDA events around each call,
     with the 50 MB L2 flushed before every call (each layer's pool is
-    cold on the main path: 27 other layers run between two visits)."""
+    cold on the main path: 27 other layers run between two visits). The
+    flush writes 64 MB, so L2 holds dirty lines that a call's reads must
+    first write back; with ``clean`` it reads them instead."""
 
-    def __init__(self, torch):
+    def __init__(self, torch, clean=False):
         self.torch = torch
-        self.flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+        buf = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+        words = buf.view(torch.int32)
+        self.flush = (lambda: words.sum()) if clean else buf.zero_
         self.flush_names = set()      # the flush's own kernels (device())
 
     def __call__(self, fn, iters: int = 20, warmup: int = 3) -> float:
@@ -405,7 +413,7 @@ class Timer:
             fn()
         pairs = []
         for _ in range(iters):
-            self.flush.zero_()
+            self.flush()
             s = torch.cuda.Event(enable_timing=True)
             e = torch.cuda.Event(enable_timing=True)
             s.record()
@@ -441,14 +449,14 @@ class Timer:
             if not self.flush_names:
                 with profile(activities=acts) as prof:
                     for _ in range(3):
-                        self.flush.zero_()
+                        self.flush()
                     torch.cuda.synchronize()
                 self.flush_names = {e.name for e in kernels(prof)}
             with profile(activities=acts) as prof:
-                self.flush.zero_()
+                self.flush()
                 torch.cuda.synchronize()
                 for _ in range(iters):
-                    self.flush.zero_()
+                    self.flush()
                     fn()
                 torch.cuda.synchronize()
             evs = kernels(prof)
@@ -1085,8 +1093,9 @@ def norm_fwd_sweep(torch, timer, tag, x, scale, want_rstd):
 
 def rmsnorm_case(torch, rows, width, x_dtype, s_dtype, strided, seed):
     """Forward (with rstd) and backward kernels against their plain
-    versions on one set of inputs. Returns (max |err| of y, max |err| of
-    dx and dscale, relative errors, inputs)."""
+    versions on one set of inputs; ``strided``: rows of a wider buffer
+    (True), or one element into it ("misaligned"). Returns (max |err| of
+    y, max |err| of dx and dscale, inputs)."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.rmsnorm import (fwd_plan_for, plan_for,
                                             rmsnorm_backward,
@@ -1094,8 +1103,10 @@ def rmsnorm_case(torch, rows, width, x_dtype, s_dtype, strided, seed):
     g = torch.Generator(device="cuda").manual_seed(seed)
     xdt, sdt = getattr(torch, x_dtype), getattr(torch, s_dtype)
     if strided:       # rows of a wider buffer: read by stride, no copy
+        # ("misaligned": one element in, so no row is 16-byte aligned)
+        off = width + (strided == "misaligned")
         x = (3 * torch.randn((rows, 3 * width), generator=g,
-                             device="cuda")).to(xdt)[:, width:2 * width]
+                             device="cuda")).to(xdt)[:, off:off + width]
     else:
         x = (3 * torch.randn((rows, width), generator=g,
                              device="cuda")).to(xdt)
@@ -1133,8 +1144,10 @@ def rmsnorm_case(torch, rows, width, x_dtype, s_dtype, strided, seed):
     rel_dx, rel_ds = (float((a.float() - b.float()).abs().max())
                       / max(float(b.float().abs().max()), 1e-30)
                       for a, b in ((dx, want_dx), (ds, want_ds)))
+    layout = {True: " strided", "misaligned": " misaligned"}.get(strided,
+                                                               "")
     print(f"[kernels] rmsnorm {rows:6d} x {width:5d} x {x_dtype:8s} scale "
-          f"{s_dtype:8s}{' strided' if strided else '        '} | out max "
+          f"{s_dtype:8s}{layout:11s} | out max "
           f"rel err {rel:.3e} (tol {tol}), rstd {rel_r:.3e} (tol "
           f"{RMS_RSTD_TOL}) | dx max rel err {rel_dx:.3e} (tol {tol_dx}), "
           f"dscale {rel_ds:.3e} (tol {tol_ds}) | forward {fplan.route} route, {fplan.blocks} blocks "
@@ -3887,39 +3900,125 @@ def vlm_weights(torch, on_cpu=False):
         lm.LM.init = init
 
 
+# the few-row route's key splits timed at the vlm decode shape (the
+# wrapper's choice among them)
+FEW_SPLIT_SWEEP = (1, 2, 4, 8, 16)
+
+
+@contextlib.contextmanager
+def patched(module, **values):
+    """``module``'s attributes set to ``values`` for the block: a route
+    or a split count the wrapper would not choose, timed for comparison."""
+    old = {name: getattr(module, name) for name in values}
+    for name, value in values.items():
+        setattr(module, name, value)
+    try:
+        yield
+    finally:
+        for name, value in old.items():
+            setattr(module, name, value)
+
+
+def few_splits_forced(fa, skv, ns):
+    """``few_splits``' constants that give ``ns`` splits of ``skv`` keys
+    where the SMs allow as many (at the vlm decode shape, every ns of
+    ``FEW_SPLIT_SWEEP``)."""
+    return patched(fa, FEW_BLOCKS_PER_SM=fa.FEW_MAX_SPLITS,
+                   FEW_SPLIT_TILES=-(-skv // fa.FEW_KEYS) // ns)
+
+
+def few_route_grid(torch, q, k, v, causal):
+    """The forward's kernel and grid from the trace of one call, and the
+    route the wrapper picks: ((kernel, grid), route)."""
+    from repro_torch.kernels import flash_attention as fa
+    grids = launch_grids(torch, lambda: fa.flash_attention_forward(
+        q, k, v, causal), ("flash_attention_fwd",))
+    assert len(grids) == 1, grids
+    return grids[0], fa.fwd_route(q.shape[1], q.shape[2], k.shape[2])
+
+
+def check_few_rows(torch):
+    """B4's few-row route (G * Sq <= 16) against the plain version at the
+    vlm decode shape (B 8, one query of Hq 64 over 1024 image tokens of
+    Hkv 8, D 128) and tier 1's whisper cross-attention (B 1, one query
+    over 128 frames, Hq = Hkv = 20, D 64), in float32 and bfloat16, causal
+    and not (``flash_case``, which also checks the tiled backward); each
+    call's route, kernel and grid from the trace: the few-row kernel on a
+    grid of (splits, Hkv, B) = ``few_splits``."""
+    from repro_torch.kernels import flash_attention as fa
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for arch, batch, skv, (hq, hkv, d) in (
+            (VLM, B, VLM_IMAGE, VLM_HEADS), (WHISPER, 1, 128, WHISPER_HEADS)):
+        for dtype in ("float32", "bfloat16"):
+            for causal in (False, True):
+                _, _, (q, k, v, _, _, _) = flash_case(
+                    torch, dtype, 1, skv, causal, seed=skv + hq + causal,
+                    d=d, hq=hq, hkv=hkv, batch=batch)
+                (kernel, grid), route = few_route_grid(torch, q, k, v,
+                                                       causal)
+                ns, _ = fa.few_splits(batch, skv, hkv, sms)
+                print(f"[kernels] flash attention forward, {arch} 1 x {skv} "
+                      f"{dtype} causal {causal}: route {route}, {kernel} on "
+                      f"grid {grid} (splits {ns})", flush=True)
+                want = "few_tc" if dtype == "bfloat16" else "few_kernel"
+                assert route == "few" and want in kernel, (route, kernel)
+                assert grid == (ns, hkv, batch), (grid, ns)
+
+
 def flash_decode_cross(torch, timer):
     """B4 at a decode step's cross-attention: B 8, one query of Hq 64
     over the 1024 image tokens' K/V (Hkv 8, D 128), non-causal, bf16 (the
     cached f32 K/V cast to the activations' dtype, as ``_cached_xattn``
-    does). Against the plain version in float32 and bfloat16, two calls
-    bit-identical, one kernel in the trace; timed by device time beside
-    SDPA and the plain version. Returns the forward's numbers."""
+    does), on the few-row route: two calls bit-identical, one kernel in
+    the trace; timed by device time beside SDPA, the plain version and
+    the tiled route it replaced, and again behind a flush that leaves L2
+    clean, with the key splits of ``FEW_SPLIT_SWEEP`` behind either
+    flush; then whisper's one-query tier-1 shape beside SDPA and the
+    tiled route. Returns the vlm forward's numbers."""
     import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import flash_attention_forward
+    check_few_rows(torch)
     hq, hkv, d = VLM_HEADS
-    flash_case(torch, "float32", 1, VLM_IMAGE, False, seed=11, d=d, hq=hq,
-               hkv=hkv, batch=B)
     err, _, (q, k, v, _, _, _) = flash_case(
         torch, "bfloat16", 1, VLM_IMAGE, False, seed=12, d=d, hq=hq,
         hkv=hkv, batch=B)
     a, b = (flash_attention_forward(q, k, v, False) for _ in range(2))
-    grids = launch_grids(torch, lambda: flash_attention_forward(q, k, v,
-                                                                False),
-                         ("flash_attention_fwd",))
+    (kernel, grid), route = few_route_grid(torch, q, k, v, False)
     torch.cuda.synchronize()
     same = torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
     print(f"[kernels] flash attention, {VLM} decode cross-attention: two "
-          f"calls bit-identical {same}; one call in the trace {grids}",
-          flush=True)
-    assert same and len(grids) == 1, (same, grids)
+          f"calls bit-identical {same}; one call in the trace: route "
+          f"{route}, {kernel} on grid {grid}", flush=True)
+    assert same and route == "few" and "few_tc" in kernel, (same, kernel)
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-    calls = {"fwd": lambda: flash_attention_forward(q, k, v, False),
+    def fwd():
+        return flash_attention_forward(q, k, v, False)
+
+    def tiled():
+        with patched(fa, fwd_route=lambda *shape: "tile"):
+            return fwd()
+    calls = {"fwd": fwd,
              "plain": lambda: ref.flash_attention_ref(q, k, v, False),
              "sdpa": lambda: F.scaled_dot_product_attention(
-                 qt, kt, vt, enable_gqa=True)}
+                 qt, kt, vt, enable_gqa=True),
+             "tile": tiled}
     dev = {key: timer.device(fn) for key, fn in calls.items()}
     ev = {key: timer(calls[key]) for key in ("fwd", "sdpa")}
+    # the same calls behind a flush that leaves L2 clean: what the
+    # write-back of the usual flush's dirty lines adds to each
+    clean = Timer(torch, clean=True)
+    dev_clean = {key: clean.device(calls[key])
+                 for key in ("fwd", "sdpa", "tile")}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    sweeps = {}
+    for name, t in (("usual", timer), ("clean", clean)):
+        sweeps[name] = {}
+        for ns in FEW_SPLIT_SWEEP:
+            with few_splits_forced(fa, VLM_IMAGE, ns):
+                assert fa.few_splits(B, VLM_IMAGE, hkv, sms)[0] == ns
+                sweeps[name][ns] = t.device(fwd)
     isz = q.element_size()
     # q and out, K and V, lse; 4 D flops a (query, key) pair
     nbytes = 2 * B * hq * d * isz + 2 * B * VLM_IMAGE * hkv * d * isz \
@@ -3930,14 +4029,54 @@ def flash_decode_cross(torch, timer):
     print(f"[kernels] flash_attention_fwd on {VLM}'s decode cross-attention "
           f"(B {B}, Sq 1, Skv {VLM_IMAGE}, Hq {hq}, Hkv {hkv}, D {d}, bf16, "
           f"non-causal), device time: kernel {ms:.4f} ms ({b_ms / ms:.3f} "
-          f"of the bound) | plain {dev['plain']:.4f} ms | SDPA "
+          f"of the bound; few-row route, grid {grid}) | tiled route "
+          f"{dev['tile']:.4f} ms | plain {dev['plain']:.4f} ms | SDPA "
           f"{dev['sdpa']:.4f} ms (kernel / SDPA {ms / dev['sdpa']:.2f}) | "
           f"bound {b_ms:.4f} ms ({by}: {nbytes / 1e6:.2f} MB, "
           f"{flops / 1e9:.3f} GFLOP) | CUDA events: kernel {ev['fwd']:.4f} "
           f"ms, SDPA {ev['sdpa']:.4f} ms", flush=True)
+    for name, sweep in sweeps.items():
+        print(f"[kernels] flash_attention_fwd on {VLM}'s decode "
+              f"cross-attention by key splits, device ms behind the "
+              f"{name} L2 flush: " + ", ".join(
+                  f"{ns}: {t:.4f}" for ns, t in sweep.items()), flush=True)
+    print(f"[kernels] flash_attention_fwd on {VLM}'s decode cross-attention, "
+          f"device time behind an L2 flush by reads (no dirty lines): "
+          f"kernel {dev_clean['fwd']:.4f} ms | SDPA {dev_clean['sdpa']:.4f} "
+          f"ms (kernel / SDPA {dev_clean['fwd'] / dev_clean['sdpa']:.2f}) | "
+          f"tiled route {dev_clean['tile']:.4f} ms", flush=True)
+    whisper_few_times(torch, timer)
     return {"max_abs_err": err, "ms": ms, "plain_ms": dev["plain"],
             "bound_ms": b_ms, "bound_by": by, "library_ms": dev["sdpa"],
-            "event_ms": ev["fwd"]}
+            "event_ms": ev["fwd"], "tile_ms": dev["tile"],
+            "clean_ms": dev_clean["fwd"],
+            "clean_library_ms": dev_clean["sdpa"]}
+
+
+def whisper_few_times(torch, timer):
+    """Tier 1's whisper cross-attention (B 1, one query over 128 frames,
+    Hq = Hkv = 20, D 64, bf16) on the few-row route, by device time
+    beside SDPA and the tiled route."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.flash_attention import flash_attention_forward
+    hq, hkv, d = WHISPER_HEADS
+    _, _, (q, k, v, _, _, _) = flash_case(
+        torch, "bfloat16", 1, 128, False, seed=128, d=d, hq=hq, hkv=hkv,
+        batch=1)
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    def tiled():
+        with patched(fa, fwd_route=lambda *shape: "tile"):
+            return flash_attention_forward(q, k, v, False)
+    dev = {key: timer.device(fn) for key, fn in {
+        "fwd": lambda: flash_attention_forward(q, k, v, False),
+        "tile": tiled,
+        "sdpa": lambda: F.scaled_dot_product_attention(qt, kt, vt)}.items()}
+    print(f"[kernels] flash_attention_fwd on {WHISPER}'s tier-1 "
+          f"cross-attention (B 1, Sq 1, Skv 128, Hq {hq}, Hkv {hkv}, D {d}, "
+          f"bf16), device time: few-row route {dev['fwd']:.4f} ms | tiled "
+          f"route {dev['tile']:.4f} ms | SDPA {dev['sdpa']:.4f} ms",
+          flush=True)
 
 
 def check_vlm_kernels(torch, timer, entries):
@@ -3947,12 +4086,15 @@ def check_vlm_kernels(torch, timer, entries):
     cross-attention (non-causal), in bfloat16 and float32 against the
     plain versions, two calls bit-identical, each call's kernels and
     grids from the trace, timed beside SDPA; a decode step's
-    cross-attention (``flash_decode_cross``). B5 at width 8192 (the
-    general route) at the decode rows (8) and the training rows (4096),
-    strided rows too, in every dtype pair; the forward timed beside
-    ``F.rms_norm`` at the decode rows (f32 scale), forward and backward
-    at the training rows (bf16 scale). The numbers go into the entries'
-    ``by_shape``."""
+    cross-attention on the few-row route (``flash_decode_cross``). B5 at
+    width 8192 (the wide route) at the decode rows (8) and the training
+    rows (4096), strided rows too, at 4104 and 8184 (a multiple of 8 but
+    not of 16), and on the general route at 8192 rows that are not
+    16-byte aligned and at 8200, in every dtype pair; the
+    forward timed beside ``F.rms_norm`` at the decode rows (f32 scale),
+    forward and backward at the training rows (bf16 scale). The numbers
+    go into the entries' ``by_shape``."""
+    from repro_torch.kernels.rmsnorm import fwd_plan_for, plan_for
     for causal, tag in ((True, "train causal"),
                         (False, f"train cross {TSEQ} x {VLM_IMAGE}")):
         nums = flash_on_training_inputs(torch, timer, VLM, VLM_HEADS, causal)
@@ -3964,10 +4106,21 @@ def check_vlm_kernels(torch, timer, entries):
     seed = 1700
     for x_dtype, s_dtype in (("float32", "float32"), ("bfloat16", "float32"),
                              ("bfloat16", "bfloat16")):
-        for rows, strided in ((B, False), (TB * TSEQ, False), (131, True)):
+        for rows, width, strided, route in (
+                (B, VLM_WIDTH, False, "wide"),
+                (TB * TSEQ, VLM_WIDTH, False, "wide"),
+                (131, VLM_WIDTH, True, "wide"),
+                (131, VLM_WIDTH, "misaligned", "general"),
+                (33, VLM_WIDTH + 8, False, "general"),
+                # a multiple of 8 but not of 16: the backward's last
+                # thread holds live and dead chunks
+                (33, 4104, False, "wide"),
+                (131, VLM_WIDTH - 8, True, "wide")):
             seed += 1
-            rmsnorm_case(torch, rows, VLM_WIDTH, x_dtype, s_dtype, strided,
-                         seed)
+            _, _, (x, scale, dy, _) = rmsnorm_case(
+                torch, rows, width, x_dtype, s_dtype, strided, seed)
+            routes = (fwd_plan_for(x, scale).route, plan_for(x, dy).route)
+            assert routes == (route, route), (rows, width, strided, routes)
     norm_forward_times(torch, timer, entries, f"{VLM} decode", B, VLM_WIDTH)
     norm_train_times(torch, timer, entries, f"{VLM} train", TB * TSEQ,
                      VLM_WIDTH)

@@ -20,19 +20,63 @@
 // delta = rowsum(dout * out), dS = p (dP - delta) / sqrt(D) with
 // dP = dout v^T; dq = dS k, dk = dS^T q, dv = p^T dout.
 //
-// What bounds it on the H100: operations. At the training shapes (S 1024,
-// D 128, causal) a forward does ~2 S^2 D flops per head against ~4 S D
-// bytes per head, about 1000 flops per byte, far above the bf16 ridge
-// (~295). So the products belong on the tensor cores.
+// What bounds it on the H100: operations at the training shapes, bytes
+// at a few query rows. At S 1024, D 128, causal a forward does ~2 S^2 D
+// flops per head against ~4 S D bytes per head, about 1000 flops per
+// byte, far above the bf16 ridge (~295): the products belong on the
+// tensor cores. A decode step's cross-attention (llama-3.2-vision-90b: B
+// 8, one query of 64 heads over 1024 image tokens of 8 kv heads, D 128)
+// does 2 G flops per K/V byte (16 at G 8), far below the ridge: the
+// bound is reading K and V once (33.8 MB, 10 us), and the latency of
+// reading them with few blocks.
 //
-// Two routes, chosen by dtype in dispatch():
-// * bfloat16 (the training path): every product runs on the tensor cores
-//   as mma.sync m16n8k16 (bf16 operands, f32 accumulators), fragments
-//   loaded by ldmatrix (.trans where an operand is needed transposed: V in
-//   P.V, K in dS.K, Q and dO in the dK/dV products). Tiles live in shared
-//   memory as bf16, rows unpadded, the 16-byte chunks of a row XOR-swizzled
-//   with the row so ldmatrix and the cp.async stores are free of bank
-//   conflicts. K/V (forward, dQ) or Q/dO (dK/dV) tiles stream through a
+// Three forward routes, picked by the wrapper (kernels/flash_attention.py:
+// fwd_route, from G = Hq / Hkv and Sq) and checked again in the C entry;
+// the backward has the tiled routes only:
+// * few rows (G * Sq <= FEW_ROWS = 16: a decode step's cross-attention,
+//   tier 1's one-query whisper cross-attention, any short query block).
+//   The tiled kernels give each query head a block of 128 (bf16) or 64
+//   (f32) row slots, one of them live at decode, and read a kv head's K/V
+//   once for each of its G query heads: 8x the bytes and a 128-row mma
+//   for one row of work, 6.5x SDPA's time at the vlm shape (PERF.md).
+//   Here, as paged_split.cuh does for the paged decode (K/V read by
+//   stride instead of through a page table), a block stacks the G query
+//   heads x Sq rows of one kv head (row i = r G + g) and reads that
+//   head's K/V once per split. Grid (splits, Hkv, B): the keys are cut
+//   into splits of a multiple of FEW_KEYS so that the blocks cover the
+//   SMs twice, but no split under 4 tiles (the wrapper's few_splits: 4
+//   splits of 256 keys at the vlm shape, 256 blocks, two an SM;
+//   whisper's 128 keys take one), since a split's merge costs its block
+//   round trips to L2 that streaming a tile or two does not repay: at
+//   the vlm shape 1 split and 8 or more take ~1.5x the time of 2 or 4.
+//   Between 2 and 4 the two L2 flushes of chip_smoke's timer disagree by
+//   a few %; the choice of 4 follows the flush that leaves L2 clean
+//   (PERF.md § 6, the sweep by splits). K/V tiles stream through a ring
+//   of FEW_STAGES tiles of 16-byte cp.async copies marked evict-first in
+//   L2 (each line is read once, so it goes before lines another kernel
+//   may read again). Each warp keeps its own online softmax (log2 units)
+//   over its keys, the warps merge in warp order, each split writes (m,
+//   l, acc) to a workspace, and the last split to take an integer ticket
+//   merges them in split order (few_finish) and zeroes the ticket: one
+//   launch, no float atomics, the same bits every call. Under the causal
+//   mask only keys before the last query row exist, so later splits
+//   contribute l = 0.
+//   bfloat16 runs the products on the tensor cores
+//   (flash_fwd_few_tc_kernel: the stacked rows are the A tile, 8 of 16
+//   live at G 8; 16 keys a warp a tile; P rounded to bf16 as the operand
+//   of P.V). The CUDA-core version of the same block (a warp a key row,
+//   as paged_split.cuh's attend_key) spends 5 shuffles a stacked row a
+//   key and timed 2.2x slower in bf16 at the vlm shape (PERF.md § 6),
+//   so it is built for float32 only.
+//   float32 takes the CUDA-core version (flash_fwd_few_kernel), since
+//   the f32 tolerance rules out bf16 and TF32 operands.
+// * tiled, bfloat16 (the training path): every product runs on the
+//   tensor cores as mma.sync m16n8k16 (bf16 operands, f32 accumulators),
+//   fragments loaded by ldmatrix (.trans where an operand is needed
+//   transposed: V in P.V, K in dS.K, Q and dO in the dK/dV products). Tiles
+//   live in shared memory as bf16, rows unpadded, the 16-byte chunks of a row
+//   XOR-swizzled with the row so ldmatrix and the cp.async stores are free of
+//   bank conflicts. K/V (forward, dQ) or Q/dO (dK/dV) tiles stream through a
 //   2-stage ring of cp.async.cg 16-byte copies: tile j+1 loads while tile j
 //   computes. ~96 KB of shared memory per block at D 128.
 //   Forward (FA2 order): 4 warps x 32 rows = a resident 128-row Q tile,
@@ -56,16 +100,17 @@
 //   rounded to bf16 as operands (the TPU's one bf16 pass of the reference
 //   rounded the same operands); every sum is f32. The recompute in (3)
 //   costs 14 D flops per visible pair against the bound's 10 D.
-// * float32: the first, CUDA-core kernels (flash_fwd_kernel, flash_bwd_*),
-//   f32 products at the 67 TFLOP/s rate. TF32 tensor cores keep ~3 digits,
-//   which the f32 tolerances (1e-4 / 2e-4) and the f32 card-against-CPU
-//   checks do not allow. Tiles staged as f32 in shared memory (rows padded
-//   to D+1), each thread a 4 x 4 score tile; launches as the bf16 route
-//   but with 64-row q tiles.
+// * tiled, float32: the first, CUDA-core kernels (flash_fwd_kernel,
+//   flash_bwd_*), f32 products at the 67 TFLOP/s rate. TF32 tensor cores keep
+//   ~3 digits, which the f32 tolerances (1e-4 / 2e-4) and the f32
+//   card-against-CPU checks do not allow. Tiles staged as f32 in shared memory
+//   (rows padded to D+1), each thread a 4 x 4 score tile; launches as the bf16
+//   route but with 64-row q tiles.
 #include <cstdint>
 
 #include "common.cuh"
 #include "mma.cuh"
+#include "paged_split.cuh"
 
 namespace repro_torch {
 namespace {
@@ -829,11 +874,441 @@ __global__ void __launch_bounds__(TW * 32) flash_bwd_dq_tc_kernel(
   store_rows<D>(dq, sdq, dq_acc[0], b, h, qw, Sq, 1.f, 1.f, lane);
 }
 
+// ----------------------------------------------------------------------
+// The few-row forward: a kv head's G * Sq query rows stacked in one tile
+// ----------------------------------------------------------------------
+// the forward's routes (the C entry's `route`)
+constexpr int FWD_TILE = 0, FWD_FEW = 1;
+constexpr int FEW_ROWS = 16;   // stacked rows (query row x head): one m16
+constexpr int FEW_NW = 4;      // warps a block
+constexpr int FEW_NT = FEW_NW * 32;
+constexpr int FEW_KEYS = 64;   // a split's keys are a multiple of this
+constexpr int FEW_STAGES = 3;  // K/V tiles in the ring
+constexpr int FEW_MAX_SPLITS = 16;  // key splits a call
+constexpr int FEW_BURST = 4;   // partial pieces the merge loads at once
+
+struct FewArgs {
+  const void* q;  // (B, Sq, Hq, D), read by stride
+  const void* k;  // (B, Skv, Hkv, D), read by stride
+  const void* v;
+  void* out;      // (B, Sq, Hq, D), contiguous
+  float* lse;     // (B, Hq, Sq)
+  float* part;    // NS > 1: (B, Hkv, NS, FEW_ROWS, D + 2) split partials
+  int* ticket;    // NS > 1: (B, Hkv), zero between calls
+  Strides sq, sk, sv;
+  int Sq, Skv, Hq, Hkv, NS, SK, causal;
+  float scale_log2;
+};
+
+// The keys [lo, hi) of split sp: SK a split, none past Skv, and under
+// the causal mask none past the last query row (Sq <= FEW_ROWS)
+__device__ __forceinline__ void few_keys(const FewArgs& a, int sp, int& lo,
+                                         int& hi) {
+  const int kend = a.causal ? min(a.Skv, a.Sq) : a.Skv;
+  lo = sp * a.SK;
+  hi = min(lo + a.SK, kend);
+}
+
+// After the key loop, each warp's online-softmax state of the block's
+// rows in shared memory: wm, wl (FEW_NW, FEW_ROWS) and wa (FEW_NW,
+// FEW_ROWS, D). Merged in warp order into out and lse (one split), or
+// into this split's partial, after which the last split of the (batch,
+// kv head) to finish merges the NS partials in split order and leaves
+// the ticket at zero.
+template <typename T>
+__device__ __forceinline__ void few_finish(const FewArgs& a, const float* sm,
+                                           int D, int nq) {
+  constexpr int R = FEW_ROWS;
+  const int sp = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int G = a.Hq / a.Hkv, NS = a.NS, D4 = D / 4;
+  const float* wm = sm;
+  const float* wl = wm + FEW_NW * R;
+  const float* wa = wl + FEW_NW * R;
+  const int64_t pstride = (int64_t)R * (D + 2);  // one partial
+  float* P0 = NS == 1 ? nullptr
+                      : a.part + ((int64_t)b * a.Hkv + h) * NS * pstride;
+  T* out = static_cast<T*>(a.out);
+  for (int t = threadIdx.x; t < nq * D4; t += blockDim.x) {
+    const int i = t / D4, d = (t - i * D4) * 4;
+    float mx = -INFINITY, L = 0.f, A[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int w = 0; w < FEW_NW; ++w) mx = fmaxf(mx, wm[w * R + i]);
+    if (mx != -INFINITY) {
+#pragma unroll
+      for (int w = 0; w < FEW_NW; ++w) {  // in warp order
+        const float f = exp2f(wm[w * R + i] - mx);
+        L = fmaf(wl[w * R + i], f, L);
+        const float4 x =
+            *reinterpret_cast<const float4*>(wa + (w * R + i) * D + d);
+        A[0] = fmaf(x.x, f, A[0]);
+        A[1] = fmaf(x.y, f, A[1]);
+        A[2] = fmaf(x.z, f, A[2]);
+        A[3] = fmaf(x.w, f, A[3]);
+      }
+    }
+    if (NS == 1) {
+      const int r = i / G;
+      write_result<T, 4>(out, a.lse, b, r, h * G + i - r * G, d, a.Sq, a.Hq,
+                         D, mx, L, A);
+    } else {
+      float* pp = P0 + sp * pstride;
+      if (d == 0) {
+        pp[i] = mx;
+        pp[R + i] = L;
+      }
+      *reinterpret_cast<float4*>(pp + 2 * R + i * D + d) =
+          make_float4(A[0], A[1], A[2], A[3]);
+    }
+  }
+  if (NS == 1) return;
+  int* ticket = a.ticket + (int64_t)b * a.Hkv + h;
+  if (!last_to_arrive(ticket, NS)) return;
+  if (threadIdx.x == 0) *ticket = 0;  // every split has taken it
+  // The partials' merge in split order, the sums of paged_split.cuh's
+  // combine_partials (the same bits), but each thread loads its row's
+  // maxima and sums and its first FEW_BURST pieces at once, with no
+  // block barrier: one round trip to L2 where that version takes two
+  // and two barriers
+  for (int t = threadIdx.x; t < nq * D4; t += blockDim.x) {
+    const int i = t / D4, d = (t - i * D4) * 4;
+    float ms[FEW_MAX_SPLITS], ls[FEW_MAX_SPLITS];
+    float4 xs[FEW_BURST];
+#pragma unroll
+    for (int s = 0; s < FEW_MAX_SPLITS; ++s) {
+      if (s < NS) {
+        ms[s] = __ldcg(P0 + s * pstride + i);
+        ls[s] = __ldcg(P0 + s * pstride + R + i);
+      }
+    }
+#pragma unroll
+    for (int s = 0; s < FEW_BURST; ++s) {
+      if (s < NS)
+        xs[s] = __ldcg(reinterpret_cast<const float4*>(P0 + s * pstride +
+                                                       2 * R + i * D + d));
+    }
+    float mx = -INFINITY, L = 0.f, A[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int s = 0; s < FEW_MAX_SPLITS; ++s)
+      if (s < NS) mx = fmaxf(mx, ms[s]);
+#pragma unroll
+    for (int s = 0; s < FEW_MAX_SPLITS; ++s) {  // in split order
+      if (s >= NS) break;
+      const float w = ls[s] > 0.f ? exp2f(ms[s] - mx) : 0.f;
+      L = fmaf(ls[s], w, L);
+      const float4 x =
+          s < FEW_BURST ? xs[s]
+                        : __ldcg(reinterpret_cast<const float4*>(
+                              P0 + s * pstride + 2 * R + i * D + d));
+      A[0] = fmaf(x.x, w, A[0]);
+      A[1] = fmaf(x.y, w, A[1]);
+      A[2] = fmaf(x.z, w, A[2]);
+      A[3] = fmaf(x.w, w, A[3]);
+    }
+    const int r = i / G;
+    write_result<T, 4>(out, a.lse, b, r, h * G + i - r * G, d, a.Sq, a.Hq, D,
+                       mx, L, A);
+  }
+}
+
+// Tensor cores (bfloat16): the block's stacked rows are the A tile of
+// mma.sync m16n8k16, their fragments held in registers; the split's keys
+// stream through a ring of FEW_STAGES tiles of FEW_KEYS, and warp w takes
+// keys [16w, 16w + 16) of each tile with its own online softmax (log2
+// units, P rounded to bf16 as the A operand of P.V), so a tile costs a
+// warp 2 D / 16 + D / 8 mma and no block barrier but the ring's.
+template <int D>
+__global__ void __launch_bounds__(FEW_NT) flash_fwd_few_tc_kernel(
+    const FewArgs a) {
+  constexpr int TK = FEW_KEYS, CPR = D / 8;
+  const int sp = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const uint64_t pol = l2_evict_first();  // K and V are read once
+  const int G = a.Hq / a.Hkv, nq = G * a.Sq;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g4 = lane >> 2, c2 = 2 * (lane & 3);
+  const bf16* __restrict__ q = static_cast<const bf16*>(a.q);
+  const bf16* __restrict__ k = static_cast<const bf16*>(a.k);
+  const bf16* __restrict__ v = static_cast<const bf16*>(a.v);
+
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);  // (FEW_ROWS, D)
+  bf16* Ks = Qs + FEW_ROWS * D;                  // FEW_STAGES x (TK, D)
+  bf16* Vs = Ks + FEW_STAGES * TK * D;           // FEW_STAGES x (TK, D)
+
+  // stacked row i = r G + g: query row r of head h G + g (zero past nq)
+  for (int t = threadIdx.x; t < FEW_ROWS * CPR; t += FEW_NT) {
+    const int i = t / CPR, c = t - i * CPR, r = i / G;
+    const bool ok = i < nq;
+    cp_async16(Qs + swz<D>(i, c),
+               ok ? q + at(a.sq, b, r, h * G + i - r * G) + c * 8 : q, ok);
+  }
+  int lo, hi;
+  few_keys(a, sp, lo, hi);
+  const int nt = hi > lo ? (hi - lo + TK - 1) / TK : 0;
+  auto stage = [&](int j) {
+    const int st = j % FEW_STAGES;
+    for (int t = threadIdx.x; t < TK * CPR; t += FEW_NT) {
+      const int r = t / CPR, c = t - r * CPR, key = lo + j * TK + r;
+      const bool ok = key < hi;
+      cp_async16_hint(Ks + st * TK * D + swz<D>(r, c),
+                      ok ? k + at(a.sk, b, key, h) + c * 8 : k, ok, pol);
+      cp_async16_hint(Vs + st * TK * D + swz<D>(r, c),
+                      ok ? v + at(a.sv, b, key, h) + c * 8 : v, ok, pol);
+    }
+  };
+#pragma unroll
+  for (int j = 0; j < FEW_STAGES - 1; ++j) {  // Q rides the first group
+    if (j < nt) stage(j);
+    cp_async_commit();
+  }
+
+  // rows g4 (e 0-1) and g4 + 8 (e 2-3) of the C fragments
+  uint32_t qa[D / 16][4];
+  float o[1][D / 8][4], m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[0][n][e] = 0.f;
+
+  for (int j = 0; j < nt; ++j) {
+    if (j + FEW_STAGES - 1 < nt) stage(j + FEW_STAGES - 1);
+    cp_async_commit();
+    cp_async_wait<FEW_STAGES - 1>();
+    __syncthreads();
+    if (j == 0) {
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        ldsm_x4(qa[kk], Qs + swz<D>(lane & 15, 2 * kk + (lane >> 4)));
+    }
+    const bf16* Kt = Ks + (j % FEW_STAGES) * TK * D;
+    const bf16* Vt = Vs + (j % FEW_STAGES) * TK * D;
+    const int k0 = lo + j * TK + 16 * warp;  // the warp's first key
+    if (k0 < hi) {
+      float s[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        uint32_t kb[4];
+        ldsm_x4(kb, Kt + swz<D>(16 * warp + (lane & 7) + ((lane >> 4) << 3),
+                                2 * kk + ((lane >> 3) & 1)));
+        mma16816(s[0], qa[kk], kb[0], kb[1]);
+        mma16816(s[1], qa[kk], kb[2], kb[3]);
+      }
+      if (k0 + 16 > hi || a.causal) {  // keys past the split, or causal
+#pragma unroll
+        for (int n = 0; n < 2; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int kpos = k0 + 8 * n + c2 + (e & 1);
+            const int i = g4 + 8 * (e >> 1);
+            if (kpos >= hi || (a.causal && kpos > i / G)) s[n][e] = -INFINITY;
+          }
+      }
+      float mx[2], mu[2], alpha[2], sum[2] = {0.f, 0.f};
+      mx[0] = fmaxf(fmaxf(s[0][0], s[0][1]), fmaxf(s[1][0], s[1][1]));
+      mx[1] = fmaxf(fmaxf(s[0][2], s[0][3]), fmaxf(s[1][2], s[1][3]));
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float mn = fmaxf(m[r], quad_max(mx[r]) * a.scale_log2);
+        mu[r] = mn == -INFINITY ? 0.f : mn;  // a row with no key yet
+        alpha[r] = exp2f(m[r] - mu[r]);
+        m[r] = mn;
+      }
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[n][e] = exp2f(fmaf(s[n][e], a.scale_log2, -mu[e >> 1]));
+          sum[e >> 1] += s[n][e];
+        }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + sum[r];
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n) {
+        o[0][n][0] *= alpha[0];
+        o[0][n][1] *= alpha[0];
+        o[0][n][2] *= alpha[1];
+        o[0][n][3] *= alpha[1];
+      }
+      uint32_t p[1][1][4];
+      c_to_a<16>(p[0], s);
+      mma_pv<D, 16, 1>(o, p, Vt, 16 * warp, lane);
+    }
+    __syncthreads();  // the stage is consumed before it is refilled
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // the ring's memory becomes the warps' states
+
+  float* sm = reinterpret_cast<float*>(smem_raw);
+  float* wm = sm;
+  float* wl = wm + FEW_NW * FEW_ROWS;
+  float* wa = wl + FEW_NW * FEW_ROWS;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int i = g4 + 8 * r;
+    const float lt = quad_sum(l[r]);
+    if ((lane & 3) == 0) {
+      wm[warp * FEW_ROWS + i] = m[r];
+      wl[warp * FEW_ROWS + i] = lt;
+    }
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+      *reinterpret_cast<float2*>(wa + (warp * FEW_ROWS + i) * D + 8 * n +
+                                 c2) =
+          make_float2(o[0][n][2 * r], o[0][n][2 * r + 1]);
+  }
+  __syncthreads();
+  few_finish<bf16>(a, sm, D, nq);
+}
+
+// CUDA cores (float32): one warp a key row, as paged_split.cuh's
+// attend_key, each lane holding EPL elements of the NQ stacked rows in
+// registers; the split's keys stream through a ring of FEW_STAGES tiles
+// of 32 rows, warp w taking rows w, w + 4, ... of each.
+template <int D, int NQ>
+__global__ void __launch_bounds__(FEW_NT) flash_fwd_few_kernel(
+    const FewArgs a) {
+  using T = float;
+  constexpr int EPL = D <= 32 ? 1 : D / 32;  // a row's elements a lane
+  constexpr int TK = 32;                     // key rows a tile
+  constexpr int VE = 4;                      // elements a 16-byte copy
+  const int sp = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const uint64_t pol = l2_evict_first();  // K and V are read once
+  const int G = a.Hq / a.Hkv, nq = G * a.Sq;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int e0 = lane * EPL;
+  const bool on = e0 < D;
+  const T* __restrict__ q = static_cast<const T*>(a.q);
+  const T* __restrict__ k = static_cast<const T*>(a.k);
+  const T* __restrict__ v = static_cast<const T*>(a.v);
+
+  float qr[NQ][EPL];  // stacked row i = r G + g: query row r, head h G + g
+#pragma unroll
+  for (int i = 0; i < NQ; ++i) {
+#pragma unroll
+    for (int e = 0; e < EPL; ++e) qr[i][e] = 0.f;
+    if (i < nq && on) {
+      const int r = i / G;
+      load_f<T, EPL>(q + at(a.sq, b, r, h * G + i - r * G) + e0, qr[i]);
+    }
+  }
+
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  T* ks = reinterpret_cast<T*>(smem_raw);  // FEW_STAGES x (TK, D)
+  T* vs = ks + FEW_STAGES * TK * D;
+  int lo, hi;
+  few_keys(a, sp, lo, hi);
+  const int nt = hi > lo ? (hi - lo + TK - 1) / TK : 0;
+  auto stage = [&](int j) {
+    const int st = j % FEW_STAGES;
+    for (int t = threadIdx.x; t < TK * (D / VE); t += FEW_NT) {
+      const int jj = t / (D / VE), u = t - jj * (D / VE);
+      const int key = lo + j * TK + jj;
+      const bool ok = key < hi;
+      cp_async16_hint(ks + (st * TK + jj) * D + u * VE,
+                      ok ? k + at(a.sk, b, key, h) + u * VE : k, ok, pol);
+      cp_async16_hint(vs + (st * TK + jj) * D + u * VE,
+                      ok ? v + at(a.sv, b, key, h) + u * VE : v, ok, pol);
+    }
+  };
+#pragma unroll
+  for (int j = 0; j < FEW_STAGES - 1; ++j) {
+    if (j < nt) stage(j);
+    cp_async_commit();
+  }
+
+  float acc[NQ][EPL], m[NQ], l[NQ];
+#pragma unroll
+  for (int i = 0; i < NQ; ++i) {
+    m[i] = -INFINITY;
+    l[i] = 0.f;
+#pragma unroll
+    for (int e = 0; e < EPL; ++e) acc[i][e] = 0.f;
+  }
+  for (int j = 0; j < nt; ++j) {
+    if (j + FEW_STAGES - 1 < nt) stage(j + FEW_STAGES - 1);
+    cp_async_commit();
+    cp_async_wait<FEW_STAGES - 1>();
+    __syncthreads();
+    const T* kc = ks + (j % FEW_STAGES) * TK * D;
+    const T* vc = vs + (j % FEW_STAGES) * TK * D;
+    for (int jj = warp; jj < TK; jj += FEW_NW) {
+      const int key = lo + j * TK + jj;
+      if (key >= hi) break;
+      float kf[EPL] = {}, vf[EPL] = {};
+      if (on) {
+        load_f<T, EPL>(kc + jj * D + e0, kf);
+        load_f<T, EPL>(vc + jj * D + e0, vf);
+      }
+      // causal: stacked rows i < key G (query rows before the key) do
+      // not see it
+      attend_key<EPL, NQ>(qr, m, l, acc, kf, vf, a.causal ? key * G : 0,
+                          a.scale_log2);
+    }
+    __syncthreads();  // the stage is consumed before it is refilled
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // the ring's memory becomes the warps' states
+
+  float* sm = reinterpret_cast<float*>(smem_raw);
+  float* wm = sm;
+  float* wl = wm + FEW_NW * FEW_ROWS;
+  float* wa = wl + FEW_NW * FEW_ROWS;
+#pragma unroll
+  for (int i = 0; i < NQ; ++i) {
+    if (i >= nq) continue;
+    if (lane == 0) {
+      wm[warp * FEW_ROWS + i] = m[i];
+      wl[warp * FEW_ROWS + i] = l[i];
+    }
+    if (on) {
+#pragma unroll
+      for (int e = 0; e < EPL; ++e)
+        wa[(warp * FEW_ROWS + i) * D + e0 + e] = acc[i][e];
+    }
+  }
+  __syncthreads();
+  few_finish<T>(a, sm, D, nq);
+}
+
 template <typename K>
 cudaError_t set_smem(K kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               (int)bytes);
+}
+
+// Shared memory of a few-row block: its tiles, then (reused) the warps'
+// states
+inline size_t few_smem(size_t tiles, int D) {
+  const size_t merge = sizeof(float) * FEW_NW * FEW_ROWS * (D + 2);
+  return tiles > merge ? tiles : merge;
+}
+
+template <typename K>
+int few_launch(K kernel, size_t tiles, const FewArgs& a, int B, int D,
+               cudaStream_t st) {
+  const size_t smem = few_smem(tiles, D);
+  const cudaError_t e = set_smem(kernel, smem);
+  if (e != cudaSuccess) return (int)e;
+  kernel<<<dim3(a.NS, a.Hkv, B), FEW_NT, smem, st>>>(a);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+int fwd_few_core(const FewArgs& a, int B, cudaStream_t st) {
+  const size_t tiles = sizeof(float) * 2 * FEW_STAGES * 32 * D;
+  const int nq = a.Sq * (a.Hq / a.Hkv);
+  if (nq <= 4)
+    return few_launch(flash_fwd_few_kernel<D, 4>, tiles, a, B, D, st);
+  if (nq <= 8)
+    return few_launch(flash_fwd_few_kernel<D, 8>, tiles, a, B, D, st);
+  return few_launch(flash_fwd_few_kernel<D, FEW_ROWS>, tiles, a, B, D, st);
+}
+
+template <int D>
+int fwd_few_tc(const FewArgs& a, int B, cudaStream_t st) {
+  const size_t tiles =
+      sizeof(bf16) * (FEW_ROWS + 2 * FEW_STAGES * FEW_KEYS) * D;
+  return few_launch(flash_fwd_few_tc_kernel<D>, tiles, a, B, D, st);
 }
 
 template <typename T, int D>
@@ -975,6 +1450,16 @@ struct Fwd<bf16, D> {
 };
 
 template <typename T, int D>
+struct FewFwd {
+  static int run(const FewArgs& a, int B, cudaStream_t st) {
+    if constexpr (sizeof(T) == 2)
+      return fwd_few_tc<D>(a, B, st);
+    else
+      return fwd_few_core<D>(a, B, st);
+  }
+};
+
+template <typename T, int D>
 struct Bwd {
   template <typename... Args>
   static int run(Args... args) { return bwd<T, D>(args...); }
@@ -995,21 +1480,49 @@ struct Bwd<bf16, D> {
 // int64 element strides (batch, row, head) of a (B, S, H, D) tensor whose
 // last dimension is contiguous; for bfloat16, q, k, v and dout are read
 // by 16-byte cp.async copies, so their base pointers and strides must be
-// 16-byte aligned (the wrapper copies what is not). lse and delta are
+// 16-byte aligned (the wrapper copies what is not); the few-row route
+// reads float32 q, k and v by 16-byte copies too. lse and delta are
 // contiguous (B, Hq, Sq) f32.
+// The forward's route (kernels/flash_attention.py: fwd_route): 0 the
+// tiled kernels; 1 the few-row route (tensor cores for bfloat16, CUDA
+// cores for float32). The few-row route takes G * Sq <= FEW_ROWS, a
+// contiguous out,
+// `splits` splits of `split_keys` keys (a multiple of FEW_KEYS; the
+// last split holds the last key) and, with more than one split, `part`
+// ((B, Hkv, splits, FEW_ROWS, D + 2) floats) and `ticket` ((B, Hkv)
+// ints, zero when allocated; each launch leaves them at zero); the
+// tiled route ignores those five.
 extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    const void* v, void* out, float* lse,
                                    int B, int Sq, int Skv, int Hq, int Hkv,
                                    int D, const int64_t* q_st,
                                    const int64_t* k_st, const int64_t* v_st,
                                    const int64_t* o_st, int causal,
-                                   float scale, int dtype, void* stream) {
+                                   float scale, int dtype, int route,
+                                   int splits, int split_keys, float* part,
+                                   int* ticket, void* stream) {
   using namespace repro_torch;
   if (B == 0) return 0;
-  return dispatch<Fwd>(dtype, D, q, k, v, out, lse, B, Sq, Skv, Hq, Hkv,
-                       strides(q_st), strides(k_st), strides(v_st),
-                       strides(o_st), causal, scale,
-                       static_cast<cudaStream_t>(stream));
+  auto st = static_cast<cudaStream_t>(stream);
+  if (route == FWD_TILE)
+    return dispatch<Fwd>(dtype, D, q, k, v, out, lse, B, Sq, Skv, Hq, Hkv,
+                         strides(q_st), strides(k_st), strides(v_st),
+                         strides(o_st), causal, scale, st);
+  const Strides so = strides(o_st);
+  const bool fits =
+      route == FWD_FEW && Hkv > 0 &&
+      Hq % Hkv == 0 && (Hq / Hkv) * Sq <= FEW_ROWS && splits >= 1 &&
+      splits <= FEW_MAX_SPLITS &&
+      split_keys > 0 && split_keys % FEW_KEYS == 0 &&
+      (int64_t)(splits - 1) * split_keys < Skv &&
+      (int64_t)splits * split_keys >= Skv && so.h == D &&
+      so.s == (int64_t)Hq * D && so.b == (int64_t)Sq * Hq * D &&
+      (splits == 1 || (part != nullptr && ticket != nullptr));
+  if (!fits) return (int)cudaErrorInvalidValue;
+  const FewArgs a{q, k, v, out, lse, part, ticket, strides(q_st),
+                  strides(k_st), strides(v_st), Sq, Skv, Hq, Hkv, splits,
+                  split_keys, causal, scale * LOG2E};
+  return dispatch<FewFwd>(dtype, D, a, B, st);
 }
 
 extern "C" int flash_attention_bwd(

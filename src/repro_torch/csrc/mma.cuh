@@ -1,6 +1,7 @@
 // Tensor-core building blocks shared by the bf16 kernels (Hopper, sm_90a):
-// swizzled bf16 tiles in shared memory, cp.async copies, ldmatrix
-// fragments and mma.sync m16n8k16 (bf16 operands, f32 accumulators).
+// swizzled bf16 tiles in shared memory, cp.async copies (with an L2
+// eviction policy for data read once), ldmatrix fragments and mma.sync
+// m16n8k16 (bf16 operands, f32 accumulators).
 // Used by flash_attention.cu (B4) and paged_window.cu (B2's long-window
 // route); paged_split.cuh takes its cp.async copies.
 #pragma once
@@ -38,6 +39,23 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src,
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
                    smem_addr(dst)),
                "l"(src), "r"(valid ? 16 : 0));
+}
+
+// The L2 cache policy of lines a kernel reads once: evicted first
+__device__ __forceinline__ uint64_t l2_evict_first() {
+  uint64_t p;
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n"
+               : "=l"(p));
+  return p;
+}
+
+// cp_async16 under an L2 cache policy (l2_evict_first)
+__device__ __forceinline__ void cp_async16_hint(void* dst, const void* src,
+                                                bool valid, uint64_t policy) {
+  asm volatile(
+      "cp.async.cg.shared.global.L2::cache_hint [%0], [%1], 16, %2, %3;\n" ::
+          "r"(smem_addr(dst)),
+      "l"(src), "r"(valid ? 16 : 0), "l"(policy));
 }
 
 __device__ __forceinline__ void cp_async_commit() {

@@ -21,11 +21,15 @@
 // - Three routes, picked by the wrapper (kernels/rmsnorm.py: row_route,
 //   the backward's too): narrow rows (d <= 128): 16 lanes of 8 elements
 //   a row (16-bit, 16-byte aligned) or 32 lanes of 4, R steps of rows a
-//   warp, sums by shuffles only; wide rows (128 < d <= 4096, 16-byte
-//   aligned): a row per warp (d <= 2048) or two, at most 64 values a
-//   lane, no rounding of d to a power of two (1536 is 192 chunks, 6 a
-//   lane, no idle lane); any other width up to 16384 or alignment: a
-//   block per row, masked scalar loads.
+//   warp, sums by shuffles only; wide rows (128 < d <= 8192, a multiple
+//   of 8, 16-byte aligned): a row per warp (d <= 2048), two (<= 4096) or
+//   four (<= 8192: llama-3.2-vision-90b's 8192 in 128 lanes of 64
+//   values, one round of loads a thread, two rows a block of 256
+//   threads, one a block at decode rows), at most 64 values a lane, no
+//   rounding of d to a power of two (1536 is 192 chunks, 6 a lane, no
+//   idle lane); any other width up to 16384 or alignment (8192 rows that
+//   are not 16-byte aligned, 8200, 10000): a block per row, masked scalar
+//   loads, the row read twice.
 // - A plain grid of ceil(n / rows) blocks (no cross-row combine): rows a
 //   block from a timing sweep (PERF.md), fewer when the rows would not
 //   fill the SMs, so decode rows spread over as many SMs as they can.
@@ -68,13 +72,18 @@
 //   leaves by 16-byte stores (8-byte for 16-bit narrow rows). The
 //   combine keeps 8 partial rows' loads in flight a thread.
 // - The forward's three routes (kernels/rmsnorm.py: row_route, bwd_plan):
-//   wide rows (128 < d <= 4096, d % 8 == 0, 16-byte aligned rows): a
-//   block per row, 8 elements a thread, one block barrier a row;
+//   wide rows (128 < d <= 8192, d % 8 == 0, 16-byte aligned rows): a
+//   block per row, 8 elements a thread up to 4096 (at most 512 threads),
+//   16 above it (512 threads at 8192), one block barrier a row; the ring
+//   holds 4 rows, but 3 for f32 rows above 4096 (4 x 512 x 132 bytes
+//   would pass the 227 KB a block may have);
 //   narrow rows (d <= 128, d % 4 == 0, rows aligned to 4 elements): a
 //   warp per row, 4 elements a lane, several rows a step, the row sums
 //   from shuffles only; any other width up to 16384 or alignment: the
 //   general route, a block per row, masked scalar loads, the partial
-//   kept in the workspace row itself.
+//   kept in the workspace row itself (a read-modify-write of it a row,
+//   which the wide route's registers spare: at 4096 x 8192 that traffic
+//   alone passed the bound's bytes, PERF.md).
 // - dscale's products are rounded multiplies (__fmul_rn), never fused
 //   into the add, so ref.rmsnorm_bwd_blocked reproduces dscale bit for
 //   bit from the same plan.
@@ -93,9 +102,16 @@ constexpr int ROUTE_NARROW = 1;
 constexpr int ROUTE_WIDE = 2;
 constexpr int NARROW_WARPS = 16;  // row workers (warps) of a narrow block
 constexpr int NARROW_D = 128;     // widest narrow row: 4 elements a lane
-constexpr int WIDE_E = 8;         // elements a thread on the wide route
-constexpr int WIDE_MAX_D = 4096;  // 512 threads
+constexpr int WIDE_E = 8;         // elements a thread, wide rows <= 4096
+constexpr int WIDE_E_HI = 16;     // elements a thread, wide rows > 4096
+constexpr int WIDE_MAX_D = 8192;  // 512 threads of 16
+constexpr int WIDE_THREADS = WIDE_MAX_D / WIDE_E_HI;
+constexpr int WIDE_E_MAX_D = WIDE_E * WIDE_THREADS;  // 4096: 8 a thread
 constexpr int WIDE_STAGES = 4;    // rows in the wide ring
+// rows in the ring of f32 rows above 4096: 4 stages of 512 threads x
+// (2 x 16 x 4 + 4) bytes (270 KB) would not fit the 227 KB a block may
+// have, 3 (198 KB) do
+constexpr int WIDE_STAGES_F32_HI = 3;
 constexpr int NARROW_STAGES = 3;  // steps of R rows in a warp's ring
 constexpr int GENERAL_THREADS = 256;
 
@@ -210,15 +226,15 @@ __device__ __forceinline__ void combine(const BwdArgs& a) {
   }
 }
 
-// Wide rows: a block per row, thread t holds columns [8t, 8t + 8); the
-// next WIDE_STAGES - 1 rows in flight. Dynamic shared memory: the ring,
-// [stages][x, dy][threads][8] of T, then [stages][threads] f32 rstd
-// (each thread stages the copies it reads itself: no barrier guards the
-// ring).
-template <typename T>
-__global__ void __launch_bounds__(WIDE_MAX_D / WIDE_E)
+// Wide rows: a block per row, thread t holds columns [E t, E t + E) (E 8
+// up to 4096, 16 above), in 16-byte chunks, each chunk whole (d % 8 ==
+// 0) and live when it starts before d; the next NS - 1 rows in flight.
+// Dynamic shared memory: the ring, [NS][x, dy][threads][E] of T, then
+// [NS][threads] f32 rstd (each thread stages the copies it reads itself:
+// no barrier guards the ring).
+template <typename T, int E, int NS>
+__global__ void __launch_bounds__(WIDE_THREADS)
     rmsnorm_bwd_wide_kernel(const BwdArgs a) {
-  constexpr int E = WIDE_E, NS = WIDE_STAGES;
   constexpr int CE = 16 / sizeof(T);  // elements a 16-byte chunk
   constexpr int NC = E / CE;          // chunks a thread per operand
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -226,16 +242,18 @@ __global__ void __launch_bounds__(WIDE_MAX_D / WIDE_E)
   const int t = threadIdx.x, tpb = blockDim.x, c = t * E;
   T* ring = reinterpret_cast<T*>(smem_raw);
   float* rs = reinterpret_cast<float*>(ring + (int64_t)NS * 2 * tpb * E);
-  const bool on = c < a.d;
   const T* x = static_cast<const T*>(a.x);
   const T* dy = static_cast<const T*>(a.dy);
   T* dx = static_cast<T*>(a.dx);
+  bool live[NC];  // the thread's chunks that hold columns of the row
+#pragma unroll
+  for (int q = 0; q < NC; ++q) live[q] = c + q * CE < a.d;
   int64_t r0, r1;
   row_range(a.n, blockIdx.x, gridDim.x, r0, r1);
   float s[E], acc[E];
 #pragma unroll
   for (int e = 0; e < E; ++e) {
-    s[e] = on ? load_scale(a.s, c + e, a.s_dt) : 0.f;
+    s[e] = live[e / CE] ? load_scale(a.s, c + e, a.s_dt) : 0.f;
     acc[e] = 0.f;
   }
   auto slot = [&](int st, int op) {
@@ -244,13 +262,12 @@ __global__ void __launch_bounds__(WIDE_MAX_D / WIDE_E)
   auto issue = [&](int64_t row, int st) {
     if (row < r1) {
       cp_async_bytes<4>(rs + st * tpb + t, a.rstd + row);
-      if (on) {
 #pragma unroll
-        for (int q = 0; q < NC; ++q) {
-          cp_async16(slot(st, 0) + q * CE, x + row * a.xs + c + q * CE, true);
-          cp_async16(slot(st, 1) + q * CE, dy + row * a.dys + c + q * CE,
-                     true);
-        }
+      for (int q = 0; q < NC; ++q) {
+        if (!live[q]) continue;
+        cp_async16(slot(st, 0) + q * CE, x + row * a.xs + c + q * CE, true);
+        cp_async16(slot(st, 1) + q * CE, dy + row * a.dys + c + q * CE,
+                   true);
       }
     }
     cp_async_commit();
@@ -264,50 +281,48 @@ __global__ void __launch_bounds__(WIDE_MAX_D / WIDE_E)
     const float r = rs[st * tpb + t];
     float xh[E], dv[E];
     float p = 0.f;
-    if (on) {
 #pragma unroll
-      for (int q = 0; q < NC; ++q) {
-        float xv[CE], yv[CE];
+    for (int q = 0; q < NC; ++q) {
+      float xv[CE] = {}, yv[CE] = {};
+      if (live[q]) {
         load_f<T, CE>(slot(st, 0) + q * CE, xv);
         load_f<T, CE>(slot(st, 1) + q * CE, yv);
-#pragma unroll
-        for (int e = 0; e < CE; ++e) {
-          xh[q * CE + e] = __fmul_rn(xv[e], r);
-          dv[q * CE + e] = yv[e];
-        }
       }
 #pragma unroll
-      for (int e = 0; e < E; ++e) p = fmaf(dv[e] * s[e], xh[e], p);
+      for (int e = 0; e < CE; ++e) {
+        xh[q * CE + e] = __fmul_rn(xv[e], r);
+        dv[q * CE + e] = yv[e];
+      }
     }
+#pragma unroll
+    for (int e = 0; e < E; ++e) p = fmaf(dv[e] * s[e], xh[e], p);
     p = warp_sum(p);
     if ((t & 31) == 0) red[st][t >> 5] = p;
     __syncthreads();
     float tot = 0.f;
     for (int w = 0; w < (tpb >> 5); ++w) tot += red[st][w];
-    if (on) {
-      const float mean = tot / a.d;
+    const float mean = tot / a.d;
 #pragma unroll
-      for (int q = 0; q < NC; ++q) {
-        Vec<T, CE> o;
+    for (int q = 0; q < NC; ++q) {
+      if (!live[q]) continue;
+      Vec<T, CE> o;
 #pragma unroll
-        for (int e = 0; e < CE; ++e) {
-          const int i = q * CE + e;
-          o.v[e] = from_f<T>(r * (dv[i] * s[i] - xh[i] * mean));
-          acc[i] += __fmul_rn(dv[i], xh[i]);
-        }
-        *reinterpret_cast<Vec<T, CE>*>(dx + row * a.d + c + q * CE) = o;
+      for (int e = 0; e < CE; ++e) {
+        const int i = q * CE + e;
+        o.v[e] = from_f<T>(r * (dv[i] * s[i] - xh[i] * mean));
+        acc[i] += __fmul_rn(dv[i], xh[i]);
       }
+      *reinterpret_cast<Vec<T, CE>*>(dx + row * a.d + c + q * CE) = o;
     }
     st = st == NS - 1 ? 0 : st + 1;
   }
   cp_async_wait<0>();
-  if (on) {
-    float* P = a.part + (int64_t)blockIdx.x * a.d + c;
+  float* P = a.part + (int64_t)blockIdx.x * a.d + c;
 #pragma unroll
-    for (int e = 0; e < E; e += 4)
+  for (int e = 0; e < E; e += 4)
+    if (live[e / CE])
       *reinterpret_cast<float4*>(P + e) =
           make_float4(acc[e], acc[e + 1], acc[e + 2], acc[e + 3]);
-  }
   combine(a);
 }
 
@@ -482,11 +497,16 @@ template <typename T>
 bool route_of(int route, int d, Route<T>& r) {
   if (route == ROUTE_NARROW && d <= NARROW_D && d % 4 == 0) {
     r = {rmsnorm_bwd_narrow_kernel<T>, NARROW_WARPS * 32, narrow_smem<T>()};
-  } else if (route == ROUTE_WIDE && d <= WIDE_MAX_D && d % WIDE_E == 0) {
+  } else if (route == ROUTE_WIDE && d <= WIDE_E_MAX_D && d % WIDE_E == 0) {
     const int threads = (d / WIDE_E + 31) / 32 * 32;
-    r = {rmsnorm_bwd_wide_kernel<T>, threads,
+    r = {rmsnorm_bwd_wide_kernel<T, WIDE_E, WIDE_STAGES>, threads,
          (size_t)WIDE_STAGES * threads *
              (2 * WIDE_E * sizeof(T) + sizeof(float))};
+  } else if (route == ROUTE_WIDE && d <= WIDE_MAX_D && d % WIDE_E == 0) {
+    constexpr int NS = sizeof(T) == 4 ? WIDE_STAGES_F32_HI : WIDE_STAGES;
+    const int threads = ((d + WIDE_E_HI - 1) / WIDE_E_HI + 31) / 32 * 32;
+    r = {rmsnorm_bwd_wide_kernel<T, WIDE_E_HI, NS>, threads,
+         (size_t)NS * threads * (2 * WIDE_E_HI * sizeof(T) + sizeof(float))};
   } else if (route == ROUTE_GENERAL) {
     r = {rmsnorm_bwd_general_kernel<T>, GENERAL_THREADS, 0};
   } else {
@@ -526,7 +546,6 @@ int resident(int route, int d, int* blocks) {
 // ---------------------------------------------------------------------
 constexpr int FWD_MAX_THREADS = 256;  // threads of a narrow or wide block
 constexpr int FWD_LANE_VALUES = 64;   // wide route: most values a lane
-constexpr int FWD_WIDE_WARP_D = 32 * FWD_LANE_VALUES;  // 2048: one warp
 
 struct FwdArgs {
   const void* x;
@@ -714,7 +733,8 @@ __global__ void __launch_bounds__(FWD_MAX_THREADS, 1)
   }
 }
 
-// Wide rows: a row per group of W warps (L = 32 W lanes), in 16-byte
+// Wide rows: a row per group of W warps (L = 32 W lanes; W 1, 2 or 4:
+// wide_lanes), in 16-byte
 // chunks of CE elements: chunk j of the row at lane j % L, at most K a
 // lane (FWD_LANE_VALUES values), every chunk's load and its scale's (in
 // scale's type S, 16- or 8-byte pieces) issued before the sum, all held
@@ -820,8 +840,21 @@ __global__ void __launch_bounds__(GENERAL_THREADS)
 
 template <typename T, typename S>
 void (*wide_kernel(int w))(FwdArgs) {
-  return w == 1 ? rmsnorm_fwd_wide_kernel<T, S, 1>
-                : rmsnorm_fwd_wide_kernel<T, S, 2>;
+  switch (w) {
+    case 1: return rmsnorm_fwd_wide_kernel<T, S, 1>;
+    case 2: return rmsnorm_fwd_wide_kernel<T, S, 2>;
+    case 4: return rmsnorm_fwd_wide_kernel<T, S, 4>;
+    default: return nullptr;
+  }
+}
+
+// Lanes of a wide row: the fewest warps, a power of two, that hold it at
+// FWD_LANE_VALUES values a lane (32 up to 2048, 64 up to 4096, 128 up to
+// 8192)
+__host__ int wide_lanes(int d) {
+  int lanes = 32;
+  while (lanes * FWD_LANE_VALUES < d) lanes *= 2;
+  return lanes;
 }
 
 template <typename T, typename S, int E>
@@ -865,8 +898,8 @@ __host__ FwdPlan unpack_fwd(int64_t w) {
 // lanes a row), or null when the plan does not fit its route or the
 // width: a narrow block of W warps, 32 or (16-bit rows) 16 lanes a row,
 // rows * lanes / threads (1, 2 or 4) steps of rows a warp; a wide
-// block of rows groups of 32 (d <= 2048) or 64 lanes; a general block
-// of one row.
+// block of rows groups of wide_lanes(d) lanes (32, 64 or 128); a general
+// block of one row.
 template <typename T>
 void (*fwd_kernel(const FwdPlan& p))(FwdArgs) {
   if (p.threads <= 0 || p.threads % 32 || p.threads > FWD_MAX_THREADS ||
@@ -887,8 +920,7 @@ void (*fwd_kernel(const FwdPlan& p))(FwdArgs) {
   }
   if (p.route == ROUTE_WIDE) {
     if (p.d <= NARROW_D || p.d > WIDE_MAX_D || p.d % WIDE_E ||
-        p.threads != p.rows * p.lanes ||
-        p.lanes != (p.d > FWD_WIDE_WARP_D ? 64 : 32))
+        p.threads != p.rows * p.lanes || p.lanes != wide_lanes(p.d))
       return nullptr;
     const int w = p.lanes / 32;
     if (p.s_dt == DT_BF16) return wide_kernel<T, __nv_bfloat16>(w);

@@ -16,13 +16,14 @@ no other path: a tensor on any other device raises.
 
 What bounds them on the H100: bytes, and on the serving paths' decode
 rows the launch. Both directions share one route function
-(``row_route``: narrow rows of at most 128, wide rows up to 4096, a
-general route for any other width or alignment); each operand is read in
-its own dtype and converted in registers, the math is f32. The forward
-writes the f32 ``rstd`` per row only when a backward will need it. The
-backward recomputes xhat from x and rstd, writes dx, and sums dscale
-over the rows inside the same launch in a fixed order: no float
-atomics, so the gradient is deterministic.
+(``row_route``: narrow rows of at most 128, wide rows up to 8192, a
+general route for any other width or alignment: rows past 8192 up to
+16384, widths that are not a multiple of 8, misaligned rows); each
+operand is read in its own dtype and converted in registers, the math is
+f32. The forward writes the f32 ``rstd`` per row only when a backward
+will need it. The backward recomputes xhat from x and rstd, writes dx,
+and sums dscale over the rows inside the same launch in a fixed order:
+no float atomics, so the gradient is deterministic.
 
 The host's part of a call is kept small, since a decode tick makes 65 to
 113 of them: a call's plan (route, grid) is looked up in a dict keyed by
@@ -44,7 +45,7 @@ from repro_torch.kernels import build, ref
 MAX_D = 16384          # widest row the kernels take
 ROUTES = {"general": 0, "narrow": 1, "wide": 2}   # the C side's codes
 NARROW_D = 128         # widest narrow row
-WIDE_MAX_D = 4096      # widest wide row
+WIDE_MAX_D = 8192      # widest wide row
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _SIGNATURES = {
     "rmsnorm_fwd": [build.PTR] * 4 + [ctypes.c_int64, ctypes.c_int64,
@@ -63,7 +64,7 @@ def row_route(d: int, itemsize: int, addresses) -> str:
     """The route of rows of width d whose operands start at byte
     ``addresses`` (base pointers and row strides in bytes), for either
     direction: ``narrow`` for rows of at most 128 elements, a multiple of
-    4, aligned to 4 elements; ``wide`` for 128 < d <= 4096, a multiple of
+    4, aligned to 4 elements; ``wide`` for 128 < d <= 8192, a multiple of
     8, 16-byte aligned; ``general`` otherwise."""
     if d <= NARROW_D and d % 4 == 0 and _aligned(d, itemsize, addresses,
                                                  4 * itemsize):
@@ -163,6 +164,17 @@ def _lib():
 FWD_ROWS = {"narrow": 16, "wide": 2, "general": 1}
 FWD_NARROW_WARPS = 4   # most warps of a narrow block
 FWD_WIDE_WARP_D = 2048  # widest row one warp holds (64 values a lane)
+
+
+def wide_lanes(d: int) -> int:
+    """Lanes of a wide forward row: the fewest warps, a power of two,
+    that hold d at 64 values a lane (``csrc/rmsnorm.cu``: wide_lanes)."""
+    lanes = 32
+    while lanes * (FWD_WIDE_WARP_D // 32) < d:
+        lanes *= 2
+    return lanes
+
+
 GENERAL_THREADS = 256
 
 
@@ -195,8 +207,9 @@ def fwd_plan(n: int, d: int, itemsize: int, addresses, sms: int,
     narrow row takes 32 lanes of 4 elements, or 16 lanes of 8 (one
     16-byte load) when its 16-bit rows are 16-byte aligned, and a block
     up to ``FWD_NARROW_WARPS`` warps of 1, 2 or 4 steps of rows; a
-    wide row takes a warp (d <= 2048) or two, at most 256 threads a
-    block; a general block one row of 256 lanes."""
+    wide row takes ``wide_lanes``: a warp (d <= 2048), two (<= 4096) or
+    four, at most 256 threads a block; a general block one row of 256
+    lanes."""
     if d > MAX_D:
         raise ValueError(f"rmsnorm kernel: row width {d} > {MAX_D}")
     route = row_route(d, itemsize, addresses)
@@ -216,7 +229,7 @@ def fwd_plan(n: int, d: int, itemsize: int, addresses, sms: int,
         rows = min(max(rows, step), 4 * step * FWD_NARROW_WARPS)
         threads = 32 * min(rows // step, FWD_NARROW_WARPS)
     else:
-        lanes = 32 if d <= FWD_WIDE_WARP_D else 64
+        lanes = wide_lanes(d)
         rows = min(rows, 256 // lanes)
         threads = lanes * rows
     return FwdPlan(route, rows, max(1, -(-n // rows)), threads, lanes)
@@ -311,7 +324,8 @@ def bwd_plan(n: int, d: int, itemsize: int, addresses, sms: int,
              blocks_per_sm: Optional[int] = None) -> BwdPlan:
     """The backward's plan for n rows of width d whose operands start at
     byte ``addresses`` (the x and dy base pointers and row strides in
-    bytes): ``row_route``'s route, a persistent grid of
+    bytes): ``row_route``'s route (a wide row is a block of d / 8
+    threads up to 4096, d / 16 above), a persistent grid of
     ``blocks_per_sm`` (default ``BLOCKS_PER_SM``; the timing sweep)
     blocks an SM, fewer when the rows run out."""
     route = row_route(d, itemsize, addresses)

@@ -20,15 +20,18 @@ tensor-core kernels, also on a fused projection's strided views and on
 misaligned views, which take the wrapper's counted copy, and twice for
 bit-identical gradients): ragged and unequal Sq/Skv around the 128-row
 and 64-key tiles, one query row, GQA G = 1 and 2, causal and not, every
-head_dim the kernel takes: out and lse within 1e-4 (float32)
-or 2e-2 (bfloat16); dq, dk, dv within 2e-4 (float32) or 3e-2 (bfloat16)
-of the plain gradient's largest magnitude, and within 1e-5 where every
-gradient is zero in exact arithmetic (dq and dk of a single key). Silent compare: counts equal
+head_dim the kernel takes; the forward's few-row route (G * Sq <= 16)
+over 1, 2, 4 and 16 key splits, two calls bit-identical:
+out and lse within 1e-4 (float32) or 2e-2 (bfloat16); dq, dk, dv within
+2e-4 (float32) or 3e-2 (bfloat16) of the plain gradient's largest
+magnitude, and within 1e-5 where every gradient is zero in exact
+arithmetic (dq and dk of a single key). Silent compare: counts equal
 exactly, on ragged sizes with NaN, +-0, infinities and subnormals.
 
-RMSNorm (CUDA forward and backward): widths 64, 128, 1000, 1536, 2048
-and 4096 and every route of both (narrow 64 and 128; wide 1000 to 4096;
-general 999, 4104, 10000 and misaligned strided rows), ragged row
+RMSNorm (CUDA forward and backward): widths 64, 128, 1000, 1536, 2048,
+4096, 4104, 8184 and 8192 and every route of both (narrow 64 and 128;
+wide 1000 to 8192; general 999, 8200, 10000 and misaligned strided
+rows), ragged row
 counts, rows read by stride, the main paths' x/scale dtype pairs and
 float16: out within 1e-5 relative (float32) or 2e-2 (16-bit, one
 rounding of the output), rstd within 1e-5 relative (another summation
@@ -460,6 +463,10 @@ FLASH_TOL = {"float32": (1e-4, 2e-4), "bfloat16": (2e-2, 3e-2)}
     # tokens
     (1024, 1024, 64, 8, 128, True), (1024, 1024, 64, 8, 128, False),
     (1, 1024, 64, 8, 128, False),
+    # the forward's few-row route at its limit (G * Sq = 16 stacked rows,
+    # causal: only the first split sees a key) and below it (12), over
+    # several key splits with a ragged last one
+    (2, 130, 8, 1, 32, True), (3, 200, 8, 2, 64, False),
 ])
 def test_flash_kernels_match_plain(cuda, dtype, sq, skv, hq, hkv, d, causal):
     g = torch.Generator(device=cuda).manual_seed(sq * 1000 + skv)
@@ -486,6 +493,42 @@ def test_flash_kernels_match_plain(cuda, dtype, sq, skv, hq, hkv, d, causal):
     for got, exp in zip(grads, want):
         atol = max(tol_g * float(exp.float().abs().max()), 1e-5)
         assert float((got.float() - exp.float()).abs().max()) <= atol
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,sq,skv,hq,hkv,d,causal,splits", [
+    (8, 1, 1024, 64, 8, 128, False, 4),   # llama-3.2-vision-90b decode
+    (2, 1, 200, 8, 2, 32, True, 1),       # under 4 tiles: one split
+    (2, 2, 600, 4, 4, 32, False, 2),      # 10 tiles: two splits
+    (1, 1, 128, 20, 20, 64, False, 1),    # whisper's one-query tier 1
+    # 64 tiles over 2 kv heads: 16 splits, the last ragged; causal, only
+    # the first sees a key
+    (1, 4, 4090, 8, 2, 16, True, 16), (1, 1, 4090, 16, 2, 64, False, 16)])
+def test_flash_few_rows_over_key_splits(cuda, dtype, b, sq, skv, hq, hkv, d,
+                                        causal, splits):
+    """The forward's few-row route (``fwd_route``: G * Sq <= 16) at the
+    key splits ``few_splits`` gives these shapes (1, 2, 4 and 16): one
+    launch a call, out and lse within the flash tolerance of the plain
+    version, two calls bit-identical (the splits' fixed-order merge and
+    its ticket, left at zero, reused)."""
+    from repro_torch.kernels import flash_attention as fa
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert fa.fwd_route(sq, hq, hkv) == "few"
+    assert fa.few_splits(b, skv, hkv, sms)[0] == splits
+    g = torch.Generator(device=cuda).manual_seed(sq * 100 + skv)
+    dt = getattr(torch, dtype)
+    q, k, v = (torch.randn((b, s, h, d), generator=g, device=cuda).to(dt)
+               for s, h in ((sq, hq), (skv, hkv), (skv, hkv)))
+    want_out, want_lse = ref.flash_attention_ref(q, k, v, causal)
+    tol = FLASH_TOL[dtype][0]
+    before = flash_attention_forward.launches
+    out, lse = flash_attention_forward(q, k, v, causal)
+    again = flash_attention_forward(q, k, v, causal)
+    torch.cuda.synchronize()
+    assert flash_attention_forward.launches == before + 2
+    assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
+    assert float((out.float() - want_out.float()).abs().max()) <= tol
+    assert float((lse - want_lse).abs().max()) <= tol
 
 
 def test_flash_autograd_and_strided_inputs(cuda):
@@ -626,17 +669,22 @@ RMS_PAIRS = [("float32", "float32"), ("bfloat16", "float32"),
     (77, 64, True), (29, 999, False), (3, 10000, False),
     (1024, 1536, False), (40, 1536, True), (1024, 2048, False),
     (8192, 128, False),
-    # zamba2-1.2b's gate norm: 4096 is the widest wide-route width
-    # (WIDE_MAX_D, two warps a row in the forward), 4104 the next width
-    # of 8, on the general route
-    (64, 4096, False), (131, 4096, True), (33, 4104, False),
+    # zamba2-1.2b's gate norm (two warps a row in the forward, 8
+    # elements a thread backward), and 8200, the next width of 8 past
+    # the wide route's widest (WIDE_MAX_D 8192), on the general route
+    (64, 4096, False), (131, 4096, True), (33, 8200, False),
     # whisper-large-v3's width (decode, serving encoder, training rows),
     # xlstm-1.3b's mLSTM out_norm at its decode rows
     (8, 1280, False), (1024, 1280, False), (4096, 1280, False),
     (131, 1280, True), (8, 4096, False),
-    # llama-3.2-vision-90b's width 8192 (the general route): decode and
+    # llama-3.2-vision-90b's width 8192 (the wide route's widest: four
+    # warps a row forward, 16 elements a thread backward): decode and
     # training rows
-    (8, 8192, False), (4096, 8192, False), (131, 8192, True)])
+    (8, 8192, False), (4096, 8192, False), (131, 8192, True),
+    # wide widths past 4096 that are a multiple of 8 but not of 16: the
+    # backward's last thread holds live and dead 16-byte chunks (bf16
+    # strided 8184 rows are not 16-byte aligned: the general route)
+    (33, 4104, False), (64, 8184, False), (131, 8184, True)])
 def test_rmsnorm_kernels_match_plain(cuda, x_dtype, s_dtype, rows, width,
                                      strided):
     g = torch.Generator(device=cuda).manual_seed(rows * 7 + width)

@@ -230,6 +230,139 @@ def test_tc_rounding_matches_pallas_interpret(shape, causal):
                                atol=TOL["bfloat16"], rtol=TOL["bfloat16"])
 
 
+# ----------------------------------------------------------------------
+# The forward's few-row route (G * Sq <= 16 query rows a kv head),
+# emulated on the CPU
+# ----------------------------------------------------------------------
+def _few_forward(q, k, v, causal, splits, split_keys, tc):
+    """The few-row route's arithmetic: a kv head's G query heads x Sq rows
+    stacked (row i = r G + g); its keys cut into ``splits`` splits of
+    ``split_keys`` (none past the last query row under the causal mask);
+    in a split, four warps each keep an online softmax in log2 units over
+    their keys (tensor cores, ``tc``: 16 keys of every 64-key tile, P
+    rounded to bf16 before P.V; CUDA cores: every 4th key, one at a
+    time), merged in warp order into the split's partial (m, l, acc);
+    the partials merged in split order. Returns (out in q's dtype, lse
+    f32 (B, Hq, Sq))."""
+    B, Sq, Hq, D = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    G, R = Hq // Hkv, Hq // Hkv * Sq
+    qs = q.float().reshape(B, Sq, Hkv, G, D).permute(0, 2, 1, 3, 4)
+    qs = qs.reshape(B, Hkv, R, D)
+    kf, vf = (x.float().transpose(1, 2) for x in (k, v))  # (B, Hkv, Skv, D)
+    row = torch.arange(R) // G                            # each row's query
+    scale_log2 = torch.tensor(1.0 / np.sqrt(D) * np.log2(np.e),
+                              dtype=torch.float32)
+    kend = min(Skv, Sq) if causal else Skv
+    neg = torch.tensor(-torch.inf)
+
+    def merge(states):
+        """(m, l, acc) states merged in order (log2 units)."""
+        mx = torch.stack([m for m, _, _ in states]).amax(0)
+        L, A = torch.zeros_like(mx), torch.zeros(mx.shape + (D,))
+        for m, l, acc in states:
+            w = torch.where(l > 0, torch.exp2(m - mx), 0.0)
+            L, A = L + l * w, A + acc * w[..., None]
+        return mx, L, A
+
+    parts = []
+    for sp in range(splits):
+        lo, hi = sp * split_keys, min((sp + 1) * split_keys, kend)
+        warps = []
+        for w in range(4):
+            if tc:
+                chunks = [list(range(t + 16 * w, min(t + 16 * w + 16, hi)))
+                          for t in range(lo, hi, 64)]
+            else:
+                chunks = [[j] for j in range(lo + w, hi, 4)]
+            m = torch.full((B, Hkv, R), -torch.inf)
+            l, acc = torch.zeros((B, Hkv, R)), torch.zeros((B, Hkv, R, D))
+            for keys in (c for c in chunks if c):
+                s = qs @ kf[:, :, keys].transpose(-1, -2)
+                if causal:
+                    s = torch.where(torch.tensor(keys)[None, :]
+                                    <= row[:, None], s, neg)
+                mn = torch.maximum(m, s.amax(-1) * scale_log2)
+                mu = torch.where(mn == -torch.inf, 0.0, mn)
+                alpha = torch.exp2(m - mu)
+                p = torch.exp2(s * scale_log2 - mu[..., None])
+                pv = p.to(torch.bfloat16).float() if tc else p
+                l = l * alpha + p.sum(-1)
+                acc = acc * alpha[..., None] + pv @ vf[:, :, keys]
+                m = mn
+            warps.append((m, l, acc))
+        parts.append(merge(warps))
+    mx, L, A = merge(parts)
+    out = torch.where(L[..., None] > 0, A / L[..., None], 0.0)
+    lse = torch.where(L > 0, (mx + torch.log2(L)) * np.log(2), ref.NEG_INF)
+    out = out.reshape(B, Hkv, Sq, G, D).permute(0, 2, 1, 3, 4)
+    lse = lse.reshape(B, Hkv, Sq, G).permute(0, 1, 3, 2)
+    return (out.reshape(B, Sq, Hq, D).to(q.dtype),
+            lse.reshape(B, Hq, Sq))
+
+
+# (Sq, Skv, Hq, Hkv): one query of 4 heads a kv head over 4 splits of 64
+# keys, the last ragged (causal: every split after the first is empty),
+# and two queries of one head a kv head over 3 splits
+FEW_SHAPES = [(1, 200, 8, 2), (2, 130, 4, 4)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("shape", FEW_SHAPES)
+def test_few_row_route_matches_pallas_interpret(shape, causal, dtype):
+    """The few-row route's emulated arithmetic (tensor cores for bf16, CUDA
+    cores for f32, a key split a 64-key tile) against the reference's Pallas
+    kernel in interpret mode and the plain version, within the file's TOL;
+    lse against the plain version."""
+    from repro_torch.kernels import flash_attention as fa
+    sq, skv, hq, hkv = shape
+    (q, k, v), (tq, tk, tv) = _qkv(sq, skv, hq, hkv, 32, dtype,
+                                   seed=5 * sq + skv)
+    assert fa.fwd_route(sq, hq, hkv) == "few"
+    # a split a tile (the most there are), to hold the merge of several
+    splits, split_keys = -(-skv // fa.FEW_KEYS), fa.FEW_KEYS
+    out, lse = _few_forward(tq, tk, tv, causal, splits, split_keys,
+                            tc=dtype == "bfloat16")
+    want = ref_fa.flash_attention(q, k, v, causal=causal, interpret=True)
+    want_out, want_lse = ref.flash_attention_ref(tq, tk, tv, causal)
+    for w in (np.asarray(want.astype(jnp.float32)), want_out.float().numpy()):
+        np.testing.assert_allclose(out.float().numpy(), w,
+                                   atol=TOL[dtype], rtol=TOL[dtype])
+    np.testing.assert_allclose(lse.numpy(), want_lse.numpy(),
+                               atol=TOL[dtype], rtol=TOL[dtype])
+
+
+@pytest.mark.parametrize("Sq,Hq,Hkv,route", [
+    (1, 64, 8, "few"),       # llama-3.2-vision-90b decode
+    (1, 20, 20, "few"),      # whisper's one-query tier 1
+    (1024, 16, 8, "tile"),   # the training shape (4, 1024, 16, 8, 128)
+    (2, 16, 2, "few"),       # G * Sq = 16: the limit
+    (3, 12, 2, "tile"),      # 18
+    (16, 4, 4, "few"),       # G 1, 16 rows
+    (17, 4, 4, "tile")])
+def test_fwd_route_by_stacked_rows(Sq, Hq, Hkv, route):
+    from repro_torch.kernels import flash_attention as fa
+    assert fa.fwd_route(Sq, Hq, Hkv) == route
+
+
+@pytest.mark.parametrize("B,Skv,Hkv,splits", [
+    (8, 1024, 8, (4, 256)),    # the vlm decode: 256 blocks
+    (1, 128, 20, (1, 128)),    # whisper: no split under 4 tiles
+    (2, 520, 2, (2, 320)),     # 9 tiles: 2 splits, the last ragged
+    (64, 1024, 8, (1, 1024)),  # enough (kv head, batch) blocks
+    (2, 1100, 2, (4, 320)),    # balanced: 4 splits of 5 tiles, the last 3
+    (1, 4090, 2, (16, 256)),   # 64 tiles: 16 splits, the last ragged
+    (1, 8192, 2, (16, 512))])  # at most FEW_MAX_SPLITS
+def test_few_splits_cover_the_keys(B, Skv, Hkv, splits):
+    """``few_splits``: the C entry's conditions (keys a split a multiple
+    of FEW_KEYS, the last split holding the last key) at every case."""
+    from repro_torch.kernels import flash_attention as fa
+    ns, sk = fa.few_splits(B, Skv, Hkv, 132)
+    assert (ns, sk) == splits
+    assert sk % fa.FEW_KEYS == 0 and (ns - 1) * sk < Skv <= ns * sk
+
+
 def test_bf16_alignment_copy_rule():
     """The wrapper's rule for the bf16 kernels' 16-byte copies: a view of a
     fused projection is read in place; a view one element into a wider

@@ -217,11 +217,16 @@ PLAN_CASES = [
     (5, 12, (0, 0, 24, 24), "narrow"),
     (5, 12, (0, 0, 24, 26), "general"),
     (3, 10000, (0, 0, 20000, 20000), "general"),
-    # zamba2-1.2b's gate norm (4096: the widest wide row), granite's
-    # training norm, and the next width of 8 past the wide route
+    # zamba2-1.2b's gate norm (4096), granite's training norm, and the
+    # next width of 8 past the wide route
     (4096, 4096, (0, 0, 8192, 8192), "wide"),
     (4096, 1536, (0, 0, 3072, 3072), "wide"),
-    (33, 4104, (0, 0, 8208, 8208), "general"),
+    (33, 8200, (0, 0, 16400, 16400), "general"),
+    # llama-3.2-vision-90b's width (8192: the widest wide row) at its
+    # training and decode rows, and misaligned
+    (4096, 8192, (0, 0, 16384, 16384), "wide"),
+    (8, 8192, (0, 0, 16384, 16384), "wide"),
+    (8, 8192, (0, 2, 16384, 16384), "general"),
 ]
 
 
@@ -273,7 +278,10 @@ FWD_PLAN_CASES = [
     (3, 10000, (0, 20000, 0), "general", 1, 256),
     (4096, 4096, (0, 8192, 0), "wide", None, 64),
     (8, 4096, (0, 8192, 0), "wide", 1, 64),
-    (33, 4104, (0, 8208, 0), "general", 1, 256),
+    (33, 8200, (0, 16400, 0), "general", 1, 256),
+    (4096, 8192, (0, 16384, 0), "wide", None, 128),
+    (8, 8192, (0, 16384, 0), "wide", 1, 128),
+    (8, 8192, (2, 16384, 0), "general", 1, 256),
 ]
 
 
@@ -286,9 +294,9 @@ def test_rmsnorm_fwd_plan_routes(n, d, addresses, route, rows, lanes):
     SMs, else the power of two that does (decode rows spread); a grid of
     ceil(n / rows) blocks whose threads fit the route: a narrow block of
     up to ``FWD_NARROW_WARPS`` warps of 1, 2 or 4 steps of rows, a
-    wide block of a warp a row (two above 2048), a general block of one
-    row. Every rows-a-block override keeps the route and the grid
-    covering the rows."""
+    wide block of a warp a row (two above 2048, four above 4096), a
+    general block of one row. Every rows-a-block override keeps the route
+    and the grid covering the rows."""
     sms = 132
     plan = rn.fwd_plan(n, d, 2, addresses, sms)
     assert plan.route == route == rn.row_route(d, 2, addresses)
@@ -315,8 +323,11 @@ def test_rmsnorm_fwd_plan_routes(n, d, addresses, route, rows, lanes):
 @pytest.mark.parametrize("plan,d", [
     (rn.FwdPlan("narrow", 64, 128, 256, 16), 128),
     (rn.FwdPlan("wide", 4, 1024, 256, 64), 4096),
+    (rn.FwdPlan("wide", 2, 2048, 256, 128), 8192),
+    (rn.FwdPlan("wide", 1, 8, 128, 128), 8192),
     (rn.FwdPlan("general", 1, 3, 256, 256), rn.MAX_D),
     (rn.BwdPlan("wide", (1 << 24) - 1, 1, 4095), 4096),
+    (rn.BwdPlan("wide", 132, 1, 12), 8192),
     (rn.BwdPlan("narrow", 264, 16, 17), 128)])
 def test_rmsnorm_plan_words_keep_every_field(plan, d):
     """The one integer a plan reaches the C entry as holds each field in
